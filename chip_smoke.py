@@ -5,18 +5,23 @@
 
 Phases:
   1. device  — the card's name and power limit;
-  2. build   — nvcc builds the conv kernels from ``src/repro_torch/csrc``
+  2. build   — nvcc builds every kernel from ``src/repro_torch/csrc``
                (build seconds, ptxas registers / shared memory);
   3. kernels — each CUDA kernel at its AlexNet layer shapes (batch 8) held
                against its plain PyTorch version on the card, and timed
-               beside it, beside the F.conv2d-based ``conv2d_ref`` of the
-               same layer (TF32 off; timed only, the port never calls it)
-               and beside its roofline bound;
-  4. serve   — full-width AlexNet (random weights from a seed) on route
-               ``pallas`` through ``CnnEngine(max_batch=8)``: 32 requests in
-               mixed group sizes, with launch counts, bit-equality to
-               ``apply`` at the served bucket, and agreement with the
-               ``direct`` route.
+               beside it and beside its roofline bound: the conv kernels
+               beside the F.conv2d-based ``conv2d_ref`` of the same layer,
+               on f32 slabs and again on the ``conv_bfp`` slabs,
+               the BFP matmul (fc6-fc8, bit-equal to its plain version)
+               beside the f32 ``x @ w`` that ``fc_bfp`` replaces (TF32
+               off; timed only, the port never calls either);
+  4. serve   — full-width AlexNet (random weights from a seed) through
+               ``CnnEngine(max_batch=8)``, 32 requests in mixed group sizes,
+               twice: on route ``pallas`` in f32 (agreement with the
+               ``direct`` route), then with ``fc_bfp`` and ``conv_bfp``
+               (agreement with the f32 model within the BFP error); each
+               with launch counts and bit-equality to ``apply`` at the
+               served bucket.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -34,11 +39,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES_PER_S = 3.35e12
 # kernel vs its plain version: both FP32 with different summation orders;
 # a TF32 or other lower-precision body would miss this by far
 TOL_KERNEL = 1e-5           # max|diff| <= TOL_KERNEL * max|plain|
 TOL_ROUTE = 1e-3            # served vs direct route: <= TOL_ROUTE * max|logit|
+# BFP served vs the f32 model: the JAX package's own bound for fc_bfp and
+# conv_bfp (tests/test_fused_pipeline.py), <= TOL_BFP * max|logit|
+TOL_BFP = 5e-2
 BATCH = 8
 ARRIVALS = (1, 3, 8, 5, 2, 7, 6)   # 32 requests in mixed group sizes
 TIMING_ITERS = 20
@@ -66,11 +75,13 @@ def time_ms(torch, fn, iters=TIMING_ITERS):
 
     Device: CUDA events around each call, with the 50 MB L2 flushed before
     each (a serving forward finds every layer's weights evicted by the
-    others).  A spin kernel queued ahead of the start event keeps the card
-    busy while the host enqueues the call, so the events bracket the
-    call's device work and not the Python that launches it.  Host: the
+    others) by reading 64 MB: a read leaves clean lines, so the timed call
+    does not pay for writing a flush buffer back to memory.  A spin kernel
+    queued ahead of the start event keeps the card busy while the host
+    enqueues the call, so the events bracket the call's device work and
+    not the Python that launches it.  Host: the
     time the call takes to return, i.e. to enqueue its work."""
-    flush = torch.empty(64 * 2 ** 20 // 4, device="cuda")
+    flush = torch.zeros(64 * 2 ** 20 // 4, device="cuda")
     enqueue = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -84,7 +95,7 @@ def time_ms(torch, fn, iters=TIMING_ITERS):
     cycles = int(max(3 * max(enqueue[1:]), 5e-3) * 2e9)
     total = host = 0.0
     for _ in range(iters):
-        flush.zero_()
+        flush.sum()
         torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -148,8 +159,11 @@ def flops_bytes(kname, x, out, plan):
 
 
 def phase_kernels(torch, np, cfg, params):
+    """The conv kernels on ``cfg``'s serving slabs (BFP-quantized under
+    ``cfg.conv_bfp``)."""
     from repro_torch.kernels.conv import direct, winograd
     from repro_torch.kernels.conv.ref import conv2d_ref
+    slab_kind = "conv_bfp" if cfg.conv_bfp else "f32"
     rows = {}
     for kname, layer, spec, x, w, b, slab, plan in layer_cases(
             torch, np, cfg, params):
@@ -199,7 +213,8 @@ def phase_kernels(torch, np, cfg, params):
         bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
         bound_by = ("operations" if flops / PEAK_FP32_FLOPS
                     >= nbytes / PEAK_BYTES_PER_S else "bytes")
-        print(f"kernel {kname} {layer}: in {tuple(x.shape)} out "
+        print(f"kernel {kname} {layer} ({slab_kind} slab): in "
+              f"{tuple(x.shape)} out "
               f"{tuple(got.shape)} slab {tuple(slab.shape)} | max_abs_err "
               f"{err:.3e} (max|plain| {scale:.3e}, rel {err / scale:.3e}, "
               f"tol {TOL_KERNEL:g} rel; "
@@ -232,8 +247,106 @@ def phase_kernels(torch, np, cfg, params):
     return rows
 
 
-def phase_serve(torch, np, cfg, params):
+def phase_bfp(torch, np, cfg, params):
+    """Kernel 4 at fc6, fc7 and fc8 with M = 8 rows: each layer's input as
+    the served BFP forward gives it (conv features of the BFP config on the
+    ``direct`` route, then the plain fc chain)."""
+    from repro_torch.core import bfp as core_bfp
+    from repro_torch.kernels.bfp_matmul import bfp_matmul as bfp
+    from repro_torch.kernels.bfp_matmul.ops import fc_block, \
+        quantize_weights
+    from repro_torch.kernels.bfp_matmul.ref import exact_matmul
+    from repro_torch.models import alexnet
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal(
+        (BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)),
+        dtype=torch.float32, device="cuda")
+    cfg_d = dataclasses.replace(cfg, use_winograd=False, use_pallas=False)
+    x = alexnet.features(params, cfg_d, x)
+    row = {"name": "bfp_matmul", "layers": [], "max_abs_err": 0.0,
+           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "flop": 0, "bytes": 0, "per_layer": []}
+    for j in range(len(cfg.fc_dims)):
+        layer = f"fc{j + 6}"
+        w, b = params[layer]["w"], params[layer]["b"]
+        K, N = w.shape
+        block = fc_block(K)
+        wq, we = quantize_weights(w, block=block)
+        w_deq = core_bfp.dequantize(bfp.reference_layout(wq, block), we,
+                                    axis=0)
+
+        def kern():
+            return bfp.bfp_matmul(x, wq, we, block=block)
+
+        def plain():
+            return bfp.bfp_matmul_plain(x, wq, we, block=block)
+
+        def library():
+            return exact_matmul(x, w_deq)
+
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        check(got.shape == ref.shape == (BATCH, N),
+              f"{layer}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{layer}: non-finite output")
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        lib_err = float((got - library()).abs().max())
+        (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
+            time_ms(torch, kern), time_ms(torch, plain),
+            time_ms(torch, library))
+        flops = 2 * BATCH * K * N
+        nbytes = (4 * x.numel() + wq.numel() + we.numel()
+                  + 4 * got.numel())
+        bound = max(flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        bound_by = ("operations" if flops / PEAK_INT8_OPS
+                    >= nbytes / PEAK_BYTES_PER_S else "bytes")
+        print(f"kernel bfp_matmul {layer}: x {tuple(x.shape)} w ({K}, {N}) "
+              f"block {block} | max_abs_err {err:.3e} (max|plain| "
+              f"{scale:.3e}, gate: bit-equal; vs f32 x @ w_deq {lib_err:.3e})"
+              f" | kernel_ms {ms:.4f} (host enqueue {host_ms:.4f} ms) "
+              f"plain_ms {plain_ms:.4f} library_ms(the f32 FC that fc_bfp "
+              f"replaces, x @ w TF32 off; not the same function) "
+              f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}: "
+              f"{flops:.3e} int8 op, {nbytes:.3e} B)")
+        check(torch.equal(got, ref), f"{layer}: kernel is not bit-equal to "
+              f"its plain version (max|diff| {err})")
+        row["layers"].append(layer)
+        row["per_layer"].append({
+            "layer": layer, "in": list(x.shape), "w": [K, N],
+            "block": block, "max_abs_err": err, "max_abs_plain": scale,
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+            "flop": flops, "bytes": nbytes})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound), ("library_ms", lib_ms),
+                         ("flop", flops), ("bytes", nbytes)):
+            row[key] += val
+        x = ref + b
+        if j < len(cfg.fc_dims) - 1:
+            x = torch.relu(x)
+    return row
+
+
+def launch_counts():
+    from repro_torch.kernels.bfp_matmul import ops as bfp_ops
     from repro_torch.kernels.conv import ops
+    return {**ops.launch_counts(), **bfp_ops.launch_counts()}
+
+
+def reset_launch_counts():
+    from repro_torch.kernels.bfp_matmul import ops as bfp_ops
+    from repro_torch.kernels.conv import ops
+    ops.reset_launch_counts()
+    bfp_ops.reset_launch_counts()
+
+
+def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
+    """Serve 32 requests; with ``cfg_f32`` (a BFP config's f32 twin) the
+    logits are held against that model within the BFP error, else against
+    the ``direct`` route."""
     from repro_torch.models import alexnet
     from repro_torch.serving import CnnEngine, CnnServeConfig, ImageRequest
     rng = np.random.default_rng(1)
@@ -243,7 +356,8 @@ def phase_serve(torch, np, cfg, params):
             (cfg.image_size, cfg.image_size, cfg.in_channels))
             .astype(np.float32)) for _ in range(n)]
 
-    eng = CnnEngine(cfg, CnnServeConfig(max_batch=BATCH), params=params)
+    eng = CnnEngine(cfg, CnnServeConfig(max_batch=BATCH), params=params,
+                    device="cuda")
     # warm-up: pack every bucket's slabs and launch each shape once
     warm = requests(sum(eng.buckets))
     for size in eng.buckets:
@@ -256,7 +370,7 @@ def phase_serve(torch, np, cfg, params):
     torch.cuda.reset_peak_memory_stats()
 
     reqs = requests(sum(ARRIVALS))
-    ops.reset_launch_counts()
+    reset_launch_counts()
     i = 0
     for size in ARRIVALS:
         for r in reqs[i:i + size]:
@@ -264,7 +378,7 @@ def phase_serve(torch, np, cfg, params):
         i += size
         eng.step()
     eng.run_until_done()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     s = eng.stats()
 
@@ -278,7 +392,8 @@ def phase_serve(torch, np, cfg, params):
     nb = s["batches_run"]
     check(nb > 0, "no batch ran")
     per_forward = {"conv_direct": 2, "conv_winograd": 2,
-                   "conv_winograd_fused": 1}
+                   "conv_winograd_fused": 1,
+                   "bfp_matmul": len(cfg.fc_dims) if cfg.fc_bfp else 0}
     for k, n in per_forward.items():
         check(counts[k] == n * nb, f"{k}: {counts[k]} launches for {nb} "
               f"batches, expected {n} per forward")
@@ -300,22 +415,33 @@ def phase_serve(torch, np, cfg, params):
             check(np.array_equal(by_uid[uid].logits, ref[row]),
                   f"served logits of request {uid} are not bit-equal to "
                   f"apply at bucket {first.served_bucket}")
-    cfg_d = dataclasses.replace(cfg, use_winograd=False, use_pallas=False)
-    direct = alexnet.apply(params, cfg_d, torch.as_tensor(
-        np.stack([r.image for r in reqs]), device="cuda")).cpu().numpy()
-    dmax = float(np.abs(served - direct).max())
-    lmax = float(np.abs(direct).max())
-    print(f"serve: served vs direct route max|d| {dmax:.3e} "
-          f"(max|logit| {lmax:.3e}, rel {dmax / lmax:.3e})")
-    check(dmax <= TOL_ROUTE * lmax, f"served logits off the direct route: "
-          f"{dmax} > {TOL_ROUTE} * {lmax}")
+    images = torch.as_tensor(np.stack([r.image for r in reqs]),
+                             device="cuda")
+    if cfg_f32 is None:
+        what, tol = "the direct route", TOL_ROUTE
+        other = alexnet.apply(params, dataclasses.replace(
+            cfg, use_winograd=False, use_pallas=False), images)
+    else:
+        what, tol = "the f32 model", TOL_BFP
+        other = alexnet.apply(params, cfg_f32, images)
+    other = other.cpu().numpy()
+    dmax = float(np.abs(served - other).max())
+    lmax = float(np.abs(other).max())
+    print(f"serve {'bfp' if cfg.fc_bfp else 'f32'}: served vs {what} max|d| "
+          f"{dmax:.3e} "
+          f"(max|logit| {lmax:.3e}, rel {dmax / lmax:.3e}, tol {tol:g})")
+    check(dmax <= tol * lmax, f"served logits off {what}: {dmax} > {tol} * "
+          f"{lmax}")
+    if cfg_f32 is not None:
+        check(dmax > 0, "BFP logits equal the f32 model's: the quantized "
+              "path did not run")
     lat = s["latency_ms"]
     return {"completed": acc["completed"], "batches": nb,
             "bucket_counts": s["bucket_counts"],
             "imgs_per_s": s["imgs_per_s"], "p50_ms": lat["p50"],
             "p99_ms": lat["p99"], "peak_mem_bytes": peak,
-            "launches": counts, "served_vs_direct_max_abs": dmax,
-            "max_abs_logit": lmax}
+            "launches": counts, "served_vs_reference": what,
+            "served_vs_reference_max_abs": dmax, "max_abs_logit": lmax}
 
 
 def main(argv=None) -> int:
@@ -356,42 +482,64 @@ def main(argv=None) -> int:
             print("ptxas:", line.strip())
 
     cfg = dataclasses.replace(get_config("alexnet"), use_pallas=True)
+    cfg_bfp = dataclasses.replace(cfg, fc_bfp=True, conv_bfp=True)
     params = alexnet.init(0, cfg, device="cuda")
     rows = phase_kernels(torch, np, cfg, params)
-    serve = phase_serve(torch, np, cfg, params)
+    rows_bfp_slabs = phase_kernels(torch, np, cfg_bfp, params)
+    rows["bfp_matmul"] = phase_bfp(torch, np, cfg_bfp, params)
+    serves = {"f32": phase_serve(torch, np, cfg, params),
+              "bfp": phase_serve(torch, np, cfg_bfp, params, cfg_f32=cfg)}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
                 "conv_winograd_fused":
-                    "src/repro/kernels/conv/winograd.py:344"}
+                    "src/repro/kernels/conv/winograd.py:344",
+                "bfp_matmul":
+                    "src/repro/kernels/bfp_matmul/bfp_matmul.py:29"}
     sources = {"conv_direct": "src/repro_torch/csrc/conv_direct.cu",
                "conv_winograd": "src/repro_torch/csrc/conv_winograd.cu",
-               "conv_winograd_fused": "src/repro_torch/csrc/conv_winograd.cu"}
+               "conv_winograd_fused": "src/repro_torch/csrc/conv_winograd.cu",
+               "bfp_matmul": "src/repro_torch/csrc/bfp_matmul.cu"}
     kernels = []
     for kname, row in rows.items():
-        bound_by = ("operations" if row["flop"] / PEAK_FP32_FLOPS
+        peak = PEAK_INT8_OPS if kname == "bfp_matmul" else PEAK_FP32_FLOPS
+        bound_by = ("operations" if row["flop"] / peak
                     >= row["bytes"] / PEAK_BYTES_PER_S else "bytes")
-        kernels.append({
+        # launches: the serve run of the slice that ported the kernel (the
+        # conv kernels f32, kernel 4 BFP); launches_by_path: both runs
+        serve = serves["bfp" if kname == "bfp_matmul" else "f32"]
+        entry = {
             "name": kname, "route": "cuda", "source": sources[kname],
             "replaces": replaces[kname],
             "launches": serve["launches"][kname],
+            "launches_by_path": {path: sv["launches"][kname]
+                                 for path, sv in serves.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": bound_by, "library_ms": row["library_ms"],
-            "layers": row["layers"]})
-    print(f"serve: {serve['completed']}/{sum(ARRIVALS)} over "
-          f"{serve['batches']} batches {serve['bucket_counts']} | "
-          f"{serve['imgs_per_s']:.2f} img/s p50 {serve['p50_ms']:.3f} ms "
-          f"p99 {serve['p99_ms']:.3f} ms peak mem "
-          f"{serve['peak_mem_bytes'] / 2 ** 20:.1f} MiB | launches "
-          f"{serve['launches']} | on {card}")
+            "layers": row["layers"]}
+        if kname in rows_bfp_slabs:
+            entry["max_abs_err_bfp_slabs"] = \
+                rows_bfp_slabs[kname]["max_abs_err"]
+            entry["ms_bfp_slabs"] = rows_bfp_slabs[kname]["ms"]
+        kernels.append(entry)
+    for name, serve in serves.items():
+        print(f"serve {name}: {serve['completed']}/{sum(ARRIVALS)} over "
+              f"{serve['batches']} batches {serve['bucket_counts']} | "
+              f"{serve['imgs_per_s']:.2f} img/s p50 {serve['p50_ms']:.3f} ms"
+              f" p99 {serve['p99_ms']:.3f} ms peak mem "
+              f"{serve['peak_mem_bytes'] / 2 ** 20:.1f} MiB | launches "
+              f"{serve['launches']} | on {card}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "kernels": kernels, "serve": serve,
+            json.dump({"card": card, "kernels": kernels, "serve": serves,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()},
+                       "per_layer_bfp_slabs": {
+                           k: r["per_layer"]
+                           for k, r in rows_bfp_slabs.items()},
                        "build_seconds": lib.build_seconds}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,92 @@
+"""Shared-exponent block floating point (paper §3.6; the reference's
+``repro/core/bfp.py``).
+
+Per block of ``block`` values along the chosen axis:
+  e      = exponent of max|x| (frexp: max|x| = f * 2^e, f in [0.5, 1))
+  q      = clip(round(x * 2^(bits-1-e)), -(2^(bits-1)-1), 2^(bits-1)-1)
+  dequant= q * 2^(e-(bits-1))
+``round`` is half-to-even and the clip comes before the cast, so a scaled
+127.5 becomes 127, not a wrapped -128.  Blocks of zeros get e = 0, q = 0.
+Max absolute error per element is 3*2^(e-bits) (:func:`error_bound`).
+
+Every power of two is built from its exponent bits (:func:`pow2`), never
+with ``exp2``/``pow``, so the scales are exact on the CPU and on the card
+alike and quantization gives the same bits on both.  Normal-range blocks
+match the reference bit for bit; the reference's CPU backend flushes
+subnormals to zero, so a block whose max lies below 2^-119 may not.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def pow2(n):
+    """2^n as float32 for an integer tensor ``n``, exactly as C's
+    ``ldexpf(1.0f, n)``: normal and subnormal powers from their bits, 0
+    below 2^-149, inf above 2^127."""
+    n = n.to(torch.int32)
+    normal = (n.clamp(-126, 127) + 127) << 23
+    sub = torch.ones_like(n) << (n.clamp(-149, -127) + 149)
+    bits = torch.where(n >= -126, normal,
+                       torch.where(n >= -149, sub, torch.zeros_like(n)))
+    bits = torch.where(n > 127, torch.full_like(n, 0x7F800000), bits)
+    return bits.view(torch.float32)
+
+
+def _block_reshape(x, block: int, axis: int):
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    assert n % block == 0, f"axis size {n} not divisible by block {block}"
+    shape = x.shape[:axis] + (n // block, block) + x.shape[axis + 1:]
+    return x.reshape(shape), axis
+
+
+def quantize(x, *, block: int = 32, bits: int = 8, axis: int = -1):
+    """-> (mantissa int8/int16, exponent int8 per block, blocked axis)."""
+    xb, axis = _block_reshape(x.to(torch.float32), block, axis)
+    amax = xb.abs().amax(dim=axis + 1, keepdim=True)
+    _, e = torch.frexp(torch.where(amax > 0, amax, torch.ones_like(amax)))
+    e = torch.where(amax > 0, e, torch.zeros_like(e))
+    qmax = 2 ** (bits - 1) - 1
+    m = torch.clamp(torch.round(xb * pow2((bits - 1) - e)), -qmax, qmax)
+    mdtype = torch.int8 if bits <= 8 else torch.int16
+    return m.to(mdtype), e.squeeze(axis + 1).to(torch.int8), axis
+
+
+def dequantize(m, e, *, bits: int = 8, axis: int | None = None):
+    """Inverse of :func:`quantize`; ``axis`` is the blocked axis (of the
+    block pair)."""
+    if axis is None:
+        axis = m.ndim - 2
+    scale = pow2(e.to(torch.int32) - (bits - 1)).unsqueeze(axis + 1)
+    x = m.to(torch.float32) * scale
+    return x.reshape(x.shape[:axis] + (x.shape[axis] * x.shape[axis + 1],)
+                     + x.shape[axis + 2:])
+
+
+def quantize_dequantize(x, *, block: int = 32, bits: int = 8,
+                        axis: int = -1):
+    m, e, ax = quantize(x, block=block, bits=bits, axis=axis)
+    return dequantize(m, e, bits=bits, axis=ax)
+
+
+def bfp_matmul(x, w, *, block: int = 32, bits: int = 8):
+    """(M,K) @ (K,N) with both operands quantized per K-block: the plain
+    oracle of the shared-exponent dot product.  Integer mantissa products
+    summed exactly within a block (in float64, which holds every such sum
+    of 8- and 16-bit mantissas exactly), rescaled by 2^(e_x + e_w -
+    2(bits-1)), then summed over the blocks in float32."""
+    mx, ex, _ = quantize(x, block=block, bits=bits, axis=1)     # (M,KB,B)
+    mw, ew, _ = quantize(w, block=block, bits=bits, axis=0)     # (KB,B,N)
+    acc = torch.einsum("mkb,kbn->mkn", mx.double(),
+                       mw.double()).to(torch.float32)
+    scale = pow2(ex.to(torch.int32)[:, :, None]
+                 + ew.to(torch.int32)[None, :, :] - 2 * (bits - 1))
+    return (acc * scale).sum(dim=1)
+
+
+def error_bound(e, *, bits: int = 8):
+    """Per-element max abs quantization error given block exponents: half
+    a step from rounding plus up to one step from clipping the block max,
+    1.5 * 2^(e-(bits-1)) = 3 * 2^(e-bits)."""
+    return 3.0 * pow2(e.to(torch.int32) - bits)

@@ -1,0 +1,142 @@
+"""Shared-exponent block-FP matmul (paper §3.6): the port of the reference's
+``_bfp_kernel`` (``repro/kernels/bfp_matmul/bfp_matmul.py``), AlexNet's
+fc6-fc8 under ``fc_bfp``.
+
+x (M, K) f32 is quantized per (row, K-block) to int8 mantissas with a
+shared exponent; each K-block's integer dot with the pre-quantized weight
+mantissas is rescaled by 2^(e_x + e_w - 14) into one f32 sum per
+output, over the K-blocks in ascending order.
+
+The staged weight stream has the port's own layout: ``wq`` (K/G, N, G) int8
+holds G = gcd(block, 4) consecutive k of one column together (4 for every
+block the kernel takes: one 32-bit word, coalesced across a warp's
+columns), ``we`` (KB, N) int8 the exponents.  :func:`reference_layout`
+gives the reference's (KB, block, N) mantissas back.
+
+:func:`bfp_matmul` runs ``csrc/bfp_matmul.cu`` on a CUDA tensor and its
+plain PyTorch version, :func:`bfp_matmul_plain`, on a CPU tensor; the
+plain version takes the kernel's exact arguments and gives its bits.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...core import bfp
+from .. import build
+
+# launches of the CUDA kernel (the plain version does not count)
+launches = 0
+
+# exponent-block sizes the kernel is built for; mantissas are int8
+KERNEL_BLOCKS = (16, 32)
+BITS = 8
+
+
+def quantize_weights(w, *, block: int = 32):
+    """(K, N) weights -> (wq (K/G, N, G) mantissas, we (KB, N) int8
+    exponents), quantized per K-block along K as the reference's
+    ``quantize_weights`` does; plain tensor code, done once per layer."""
+    m, e, _ = bfp.quantize(w, block=block, bits=BITS, axis=0)  # (KB,blk,N)
+    K, N = w.shape
+    g = math.gcd(block, 4)
+    wq = m.reshape(K // g, g, N).permute(0, 2, 1).contiguous()
+    return wq, e
+
+
+def reference_layout(wq, block: int):
+    """The reference's (KB, block, N) mantissas of a staged ``wq``."""
+    kg, N, g = wq.shape
+    return wq.permute(0, 2, 1).reshape(kg * g // block, block, N)
+
+
+def _quantize_rows(x, block: int):
+    """Activation quantization exactly as the kernel does it: (mantissas
+    (M, KB, block) f32 of integer values, exponents (M, KB) int32, and the
+    (M, KB) mask of blocks holding a NaN or an infinity)."""
+    M, K = x.shape
+    xb = x.reshape(M, K // block, block)
+    bad = ~torch.isfinite(xb).all(dim=-1)
+    amax = xb.abs().amax(dim=-1)
+    pos = (amax > 0) & ~bad
+    _, e = torch.frexp(torch.where(pos, amax, torch.ones_like(amax)))
+    e = torch.where(pos, e, torch.zeros_like(e))
+    qmax = float(2 ** (BITS - 1) - 1)
+    v = torch.round(xb * bfp.pow2((BITS - 1) - e)[..., None])
+    # fmin/fmax as the kernel's fminf/fmaxf: a NaN product clips to qmax
+    q = torch.fmax(torch.fmin(v, v.new_tensor(qmax)), v.new_tensor(-qmax))
+    return q, e, bad
+
+
+def bfp_matmul_plain(x, wq, we, *, block: int):
+    """The kernel's function in plain PyTorch, from its exact arguments.
+
+    Each K-block's mantissa dot is taken exactly (float64 holds every such
+    sum of integers exactly, with no TF32 on the card), scaled by an exact
+    power of two, and the K-blocks are summed in ascending order in f32 with
+    separate multiply and add, as the kernel does — so the two agree bit
+    for bit."""
+    x = x.to(torch.float32)
+    M, K = x.shape
+    wm = reference_layout(wq, block)                        # (KB, blk, N)
+    q, ex, bad = _quantize_rows(x, block)
+    dots = torch.einsum("mkb,kbn->mkn", q.double(),
+                        wm.double()).to(torch.float32)      # (M, KB, N)
+    scale = bfp.pow2(ex[:, :, None] + we.to(torch.int32)[None]
+                     - 2 * (BITS - 1))
+    prods = torch.where(bad[:, :, None], float("nan"), dots * scale)
+    acc = torch.zeros((M, wm.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for kb in range(K // block):
+        acc = acc + prods[:, kb]
+    return acc
+
+
+def _check_cuda_args(x, wq, we, block: int):
+    if block not in KERNEL_BLOCKS:
+        raise ValueError(f"bfp_matmul: the kernel takes blocks "
+                         f"{KERNEL_BLOCKS}; got block={block}")
+    for t, dtype in ((x, torch.float32), (wq, torch.int8), (we, torch.int8)):
+        if t.device != x.device or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"bfp_matmul: expected a contiguous {dtype} "
+                             f"tensor on {x.device}; got {t.dtype} on "
+                             f"{t.device}, contiguous={t.is_contiguous()}")
+    if wq.shape[-1] != 4:
+        raise ValueError(f"bfp_matmul: weight stream layout {tuple(wq.shape)}"
+                         " is not (K/4, N, 4)")
+
+
+def _bfp_matmul_cuda(x, wq, we, *, block: int):
+    global launches
+    _check_cuda_args(x, wq, we, block)
+    if x.data_ptr() % 16:           # the kernel reads x as float4
+        x = x.clone()
+    M, K = x.shape
+    N = wq.shape[1]
+    out = torch.empty((M, N), device=x.device, dtype=torch.float32)
+    err = build.library().lib.repro_bfp_matmul(
+        x.data_ptr(), wq.data_ptr(), we.data_ptr(), out.data_ptr(), M, K, N,
+        block, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "bfp_matmul")
+    launches += 1
+    return out
+
+
+def bfp_matmul(x, wq, we, *, block: int = 32):
+    """x (M, K) f32; ``wq``/``we`` from :func:`quantize_weights` with the
+    same ``block``.  -> (M, N) f32."""
+    M, K = x.shape
+    kg, N, g = wq.shape
+    if kg * g != K or K % block or tuple(we.shape) != (K // block, N):
+        raise ValueError(f"bfp_matmul: x {tuple(x.shape)}, wq "
+                         f"{tuple(wq.shape)}, we {tuple(we.shape)} do not "
+                         f"fit block {block}")
+    if x.device.type == "cpu":
+        return bfp_matmul_plain(x, wq, we, block=block)
+    if x.device.type != "cuda":
+        raise ValueError(f"bfp_matmul: unsupported device {x.device}")
+    if M == 0 or N == 0:
+        return torch.zeros((M, N), device=x.device, dtype=torch.float32)
+    return _bfp_matmul_cuda(x.contiguous(), wq, we, block=block)

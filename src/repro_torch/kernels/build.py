@@ -7,11 +7,13 @@ use into ``build/repro_torch_kernels/<hash of the sources and flags>/`` at
 the root of the checkout, so an edited source rebuilds and an unchanged one
 is reused.  A failed build raises with the compiler's output.
 
-The C interface takes one :class:`ConvArgs` (mirror of ``csrc/conv_args.cuh``)
-by pointer, raw device pointers, and the CUDA stream; each function returns
-the ``cudaError_t`` of its launch (0 on success).  A failed build and a
-nonzero ``cudaError_t`` both raise :class:`KernelError`, which the serving
-engine never retries or degrades around.
+The conv launchers take one :class:`ConvArgs` (mirror of
+``csrc/conv_args.cuh``) by pointer, raw device pointers, and the CUDA
+stream; the BFP matmul launcher takes its pointers, its extents as ints and
+the stream.  Each function returns the ``cudaError_t`` of its launch (0 on
+success).  A failed build and a nonzero ``cudaError_t`` both raise
+:class:`KernelError`, which the serving engine never retries or degrades
+around.
 """
 from __future__ import annotations
 
@@ -119,6 +121,10 @@ def _declare(lib: ctypes.CDLL):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p, p, p]
         fn.restype = ctypes.c_int
+    i = ctypes.c_int
+    # (x, wq, we, out, M, K, N, block, stream)
+    lib.repro_bfp_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.repro_bfp_matmul.restype = ctypes.c_int
 
 
 def library() -> KernelLibrary:

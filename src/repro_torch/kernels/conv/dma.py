@@ -92,3 +92,11 @@ class WeightStager:
         if key is not None:
             self._cache[key] = val
         return val
+
+    def get(self, key, default=None):
+        """The value staged under ``key``, else ``default`` (the classifier
+        takes fc6's staged stream this way)."""
+        if key in self._cache:
+            self.hits += 1
+            return self._cache[key]
+        return default

@@ -189,12 +189,19 @@ def conv2d_winograd_plain(x, w_tiles, bias, p: WinogradPlan, *, relu: bool,
 def fused_block_tile(p: WinogradPlan, lrn, pool) -> int:
     """Pooled outputs per side of one fused-kernel block: the largest tile
     (at most 8) whose conv region needs at most MAX_TILES Winograd tiles
-    and whose conv tile fits the shared-memory budget."""
+    and whose conv tile fits the shared-memory budget.
+
+    Every block's conv region must start on the m-grid of Winograd tiles
+    (ps * PT a multiple of m, unless one block covers the map), as the
+    reference's fused kernel requires: a Winograd-domain slab that is not
+    G w G^T (``conv_bfp`` quantizes it) gives each pixel of a tile its own
+    effective filter, so another tiling computes another function."""
     pwin, ps = pool if pool is not None else (1, 1)
     for PT in range(8, 0, -1):
         ct = ps * (PT - 1) + pwin
         nt = (-(-ct // p.m)) ** 2
-        if nt > MAX_TILES:
+        one_block = PT >= max(p.ph_out, p.pw_out)
+        if nt > MAX_TILES or (ps * PT % p.m and not one_block):
             continue
         kt = (p.Kfull if lrn is not None
               else min(p.K, 32 * (MAX_TILES // nt)))

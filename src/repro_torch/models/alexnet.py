@@ -6,6 +6,11 @@ Each conv layer, LRN and pool included, is one :class:`ConvSpec` through
 kernel and conv3-conv5 the CUDA Winograd kernels.  Activations are NHWC and
 filters HWIO at every public function, as in the reference, and the conv5
 output is flattened in NHWC order before fc6.
+
+§3.6 block floating point: ``conv_bfp`` quantizes the staged conv slabs
+(the kernels then read BFP-quantized filters), and ``fc_bfp`` runs fc6-fc8
+through the BFP matmul kernel (``csrc/bfp_matmul.cu``) on int8 weight
+streams, whatever the conv route.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..kernels.bfp_matmul.ops import bfp_linear, fc_block, quantize_weights
 from ..kernels.conv.dma import WeightStager
 from ..nn.conv import ConvSpec, dispatch_conv, pack_conv_weights, \
     resolve_kernel
@@ -62,9 +68,6 @@ def check_supported(cfg: AlexNetConfig):
     if cfg.arch != "alexnet":
         raise NotImplementedError("arch='vgg' is not ported yet (ROADMAP "
                                   "Queue 1, item 3: VGG-16 and the registry)")
-    if cfg.fc_bfp or cfg.conv_bfp:
-        raise NotImplementedError("fc_bfp/conv_bfp are not ported yet "
-                                  "(ROADMAP Queue 1, item 2: kernel 4)")
     if cfg.sdc_abft:
         raise NotImplementedError("sdc_abft is not ported yet (ROADMAP "
                                   "Queue 1, item 1: ABFT/SDC in kernels 1-3)")
@@ -170,6 +173,13 @@ def fc_input_dim(cfg: AlexNetConfig) -> int:
     return _feature_hw(cfg) ** 2 * cfg.conv_channels[-1]
 
 
+def _stage_fc(params, name: str):
+    """The §3.6 quantized weight stream of one FC layer (``"fc6"``..), as
+    :func:`bfp_linear` resolves its exponent block."""
+    w = params[name]["w"]
+    return quantize_weights(w, block=fc_block(w.shape[0]))
+
+
 def load_tuned_plans(cfg: AlexNetConfig, batch: int, *, path=None) -> dict:
     """Tuned per-layer plans: none yet, so every layer runs the default
     :class:`~repro_torch.nn.conv.ConvPlan` (``{}``).  Plans tuned for the
@@ -183,9 +193,17 @@ def load_tuned_plans(cfg: AlexNetConfig, batch: int, *, path=None) -> dict:
 
 
 def pack_serving_slabs(params, cfg: AlexNetConfig, batch: int, *,
-                       plans=None, fingerprint: bool = False) -> dict:
+                       plans=None, fingerprint: bool = False,
+                       stager=None) -> dict:
     """Pack-once serving slabs for one batch shape: every conv layer's
-    :class:`~repro_torch.nn.conv.PackedConvWeights`."""
+    :class:`~repro_torch.nn.conv.PackedConvWeights` (BFP-quantized under
+    ``cfg.conv_bfp``), plus, under ``cfg.fc_bfp``, the quantized streams of
+    fc6, fc7 and fc8.  The reference stages fc6 only and quantizes fc7/fc8
+    inside its compiled forward; the eager port stages all three so no
+    batch repeats that pass (same values either way).  The FC streams do
+    not depend on the batch, so they come from ``stager`` (a
+    :class:`WeightStager` bound to ``params``) under ``"fc6"``..: one copy
+    for every batch shape packed with the same stager."""
     check_supported(cfg)
     plans = plans or {}
     route = _route(cfg)
@@ -196,8 +214,14 @@ def pack_serving_slabs(params, cfg: AlexNetConfig, batch: int, *,
         name = f"conv{i + 1}"
         packed[name] = pack_conv_weights(
             spec, (batch, h, h, c_in), params[name]["w"],
-            fingerprint=fingerprint, plan=plans.get(name))
+            bfp_pack=cfg.conv_bfp, fingerprint=fingerprint,
+            plan=plans.get(name))
         h, c_in = spec.out_hw(h), c_out
+    if cfg.fc_bfp:
+        stager = WeightStager() if stager is None else stager
+        for j in range(len(cfg.fc_dims)):
+            name = f"fc{j + 6}"
+            packed[name] = stager.stage(name, _stage_fc, params, name)
     return packed
 
 
@@ -206,7 +230,8 @@ def features(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
     """images (B, H, W, 3) NHWC -> flattened conv features (B, d), NHWC
     order.  One ``dispatch_conv`` per layer; each layer's
     ``prefetch_next`` hook packs layer N+1's slab right after layer N is
-    issued (queued behind it on the stream).  ``packed`` is a
+    issued (queued behind it on the stream), and conv5's hook stages fc6's
+    quantized stream under ``cfg.fc_bfp``.  ``packed`` is a
     :func:`pack_serving_slabs` dict: layers use it and skip the staging."""
     check_supported(cfg)
     x = images.to(torch.float32)
@@ -233,30 +258,48 @@ def features(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
         h, c_in = spec.out_hw(h), c_out
 
     def stage(i):
-        # the slab depends on the layer's input shape and its plan
+        # the slab depends on the layer's input shape, its quantization and
+        # its plan, so a stager shared by configs never serves a slab of
+        # another quantization
         plan = plans.get(f"conv{i + 1}")
-        key = (f"conv{i + 1}:{shapes[i]}:{x.device}"
+        key = (f"conv{i + 1}:{shapes[i]}:{x.device}:bfp{int(cfg.conv_bfp)}"
                + (f":plan{plan}" if plan is not None else ""))
         return stager.stage(key, pack_conv_weights, specs[i], shapes[i],
-                            params[f"conv{i + 1}"]["w"], plan=plan)
+                            params[f"conv{i + 1}"]["w"],
+                            bfp_pack=cfg.conv_bfp, plan=plan)
+
+    def stage_fc():
+        stager.stage("fc6", _stage_fc, params, "fc6")
 
     for i, spec in enumerate(specs):
         p = params[f"conv{i + 1}"]
-        nxt = (lambda i=i: stage(i + 1)) if i + 1 < len(specs) else None
+        nxt = ((lambda i=i: stage(i + 1)) if i + 1 < len(specs)
+               else (stage_fc if cfg.fc_bfp else None))
         x = dispatch_conv(spec, x, p["w"], p["b"], w_packed=stage(i),
                           prefetch_next=nxt, **kw(i))
     return x.reshape(x.shape[0], -1)
 
 
-def classifier(params, cfg: AlexNetConfig, feats):
-    """FC layers fc6-fc8: plain ``x @ w + b`` with ReLU between (the
-    reference leaves them to XLA when ``fc_bfp`` is off)."""
+def classifier(params, cfg: AlexNetConfig, feats, *, stager=None,
+               packed=None):
+    """FC layers fc6-fc8 with ReLU between: plain ``x @ w + b`` (the
+    reference leaves them to XLA), or under ``cfg.fc_bfp`` the BFP matmul
+    kernel on each layer's int8 weight stream (§3.6), plus the bias.  A
+    layer's stream comes from ``packed`` (:func:`pack_serving_slabs`), else
+    from the ``stager`` (fc6, staged by conv5's hook), else is quantized
+    now — the same values each way."""
     check_supported(cfg)
     x = feats
     n_fc = len(cfg.fc_dims)
     for j in range(n_fc):
-        p = params[f"fc{j+6}"]
-        x = x @ p["w"] + p["b"]
+        name = f"fc{j + 6}"
+        p = params[name]
+        if cfg.fc_bfp:
+            source = packed if packed is not None else stager
+            q = source.get(name) if source is not None else None
+            x = bfp_linear(x, p["w"], quantized=q) + p["b"]
+        else:
+            x = x @ p["w"] + p["b"]
         if j < n_fc - 1:
             x = torch.relu(x)
     return x
@@ -265,10 +308,12 @@ def classifier(params, cfg: AlexNetConfig, feats):
 @torch.no_grad()
 def apply(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
           packed=None):
-    """Full forward: images (B, H, W, C) -> logits (B, num_classes)."""
+    """Full forward: images (B, H, W, C) -> logits (B, num_classes).  One
+    stager spans conv and FC, so conv5's hook can stage fc6's stream."""
+    stager = WeightStager() if stager is None else stager
     feats = features(params, cfg, images, stager=stager, plans=plans,
                      packed=packed)
-    return classifier(params, cfg, feats)
+    return classifier(params, cfg, feats, stager=stager, packed=packed)
 
 
 def loss_fn(params, cfg: AlexNetConfig, batch):

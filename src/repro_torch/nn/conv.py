@@ -13,10 +13,12 @@ packages)
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 
 import torch
 
+from ..core import bfp
 from ..core.winograd import conv2d_winograd
 from ..kernels.conv import direct as _direct_k
 from ..kernels.conv import winograd as _winograd_k
@@ -143,10 +145,13 @@ def resolve_kernel(spec: ConvSpec, in_hw=None) -> str:
 
 @dataclass(frozen=True)
 class PackedConvWeights:
-    """A staged weight slab: the resolved datapath it was packed for plus
-    the packed tensor (None when the route has no packed form)."""
+    """A staged weight slab: the resolved datapath it was packed for, the
+    packed tensor (None when the route has no packed form), and whether it
+    is §3.6 BFP-quantized (a ``bfp`` slab that misses the plan is
+    repacked quantized, never dropped)."""
     kernel: str
     data: object
+    bfp: bool = False
 
 
 def _spec_fusion(spec: ConvSpec):
@@ -173,10 +178,23 @@ def _kernel_weight_plan(spec: ConvSpec, kernel: str, in_shape, w_shape, *,
                           batch_block=knobs.batch_block)
 
 
-def _pack_for_plan(kernel: str, w, p):
+def _pack_for_plan(kernel: str, w, p, bfp_pack: bool):
+    """Pack (and, under ``bfp_pack``, §3.6-quantize) the slab for a derived
+    plan: shared by staging and the in-dispatch repack, so the two quantize
+    alike.  Shared exponents run along each tile's Cb contraction axis."""
     pack = (_winograd_k.pack_weights if kernel == "cuda-winograd"
             else _direct_k.pack_weights)
-    return pack(w, p)
+    tiles = pack(w, p)
+    if bfp_pack:
+        tiles = bfp.quantize_dequantize(
+            tiles, block=math.gcd(p.weights.Cb, 32), axis=-2)
+    return tiles
+
+
+def _quantize_filters(w):
+    """§3.6 BFP on raw (k, k, C/g, K) filters, for the routes without a
+    packed slab: shared exponents along C/g."""
+    return bfp.quantize_dequantize(w, block=math.gcd(w.shape[2], 32), axis=2)
 
 
 def pack_context(spec: ConvSpec, kernel: str, *, bfp_pack: bool,
@@ -191,10 +209,7 @@ def pack_context(spec: ConvSpec, kernel: str, *, bfp_pack: bool,
             f":kb{knobs.k_block}:bb{knobs.batch_block}")
 
 
-def _check_unported(*, bfp_pack=False, abft=False, fingerprint=False):
-    if bfp_pack:
-        _not_ported("conv_bfp (BFP-quantized conv slabs)",
-                    "ROADMAP Queue 1, item 2: conv_bfp/fc_bfp with kernel 4")
+def _check_unported(*, abft=False, fingerprint=False):
     if abft:
         _not_ported("ABFT (abft=True / sdc_abft)",
                     "ROADMAP Queue 1, item 1: ABFT/SDC in kernels 1-3")
@@ -209,20 +224,23 @@ def pack_conv_weights(spec: ConvSpec, in_shape, w, *, bfp_pack: bool = False,
                       batch_block=UNSET) -> PackedConvWeights:
     """Build the weight slab for one conv layer ahead of its input: a pure
     function of the spec, the input *shape* (B, H, W, C) and the filters
-    (Winograd transform, group/channel blocking, tile layout)."""
-    _check_unported(bfp_pack=bfp_pack, abft=abft, fingerprint=fingerprint)
+    (Winograd transform, group/channel blocking, tile layout).  Under
+    ``bfp_pack`` the slab is §3.6 BFP-quantized: the packed tiles on the
+    kernel routes, the raw filters on the others."""
+    _check_unported(abft=abft, fingerprint=fingerprint)
     knobs = plan_knobs(plan, k_block=k_block, batch_block=batch_block)
     if plan is not None and plan.route is not None:
         spec = spec.with_route(plan.route)
     kernel = resolve_kernel(spec, in_hw=(in_shape[1], in_shape[2]))
-    data = None
     if kernel.startswith("cuda"):
         lrn_p, pool = _spec_fusion(spec)
         p = _kernel_weight_plan(spec, kernel, tuple(in_shape),
                                 tuple(w.shape), lrn=lrn_p, pool=pool,
                                 knobs=knobs)
-        data = _pack_for_plan(kernel, w, p)
-    return PackedConvWeights(kernel=kernel, data=data)
+        data = _pack_for_plan(kernel, w, p, bfp_pack)
+    else:
+        data = _quantize_filters(w) if bfp_pack else None
+    return PackedConvWeights(kernel=kernel, data=data, bfp=bfp_pack)
 
 
 def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
@@ -234,8 +252,11 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     """Run one conv layer per its spec.  x (B,H,W,C), w (k,k,C//g,K), b (K,).
 
     ``w_packed`` is a slab staged by :func:`pack_conv_weights`, used when it
-    matches the datapath and plan this call resolves to (otherwise the
-    kernel packs now — identical values).  ``prefetch_next`` is a zero-arg
+    matches the datapath and plan this call resolves to.  On a mismatch
+    (another input shape or plan, a deferred bias, a route fallback) a
+    ``bfp`` slab is repacked quantized for the actual call, so §3.6
+    quantization is never dropped, and a plain slab is ignored (the kernel
+    packs now — identical values).  ``prefetch_next`` is a zero-arg
     callable invoked right after the conv is issued: work it enqueues
     (packing layer N+1's slab) queues behind this layer on the stream.
     """
@@ -266,6 +287,13 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
         if (w_packed.kernel == kernel and w_packed.data is not None
                 and tuple(w_packed.data.shape) == want):
             slab = w_packed.data
+        elif w_packed.bfp:
+            slab = _pack_for_plan(kernel, w, p, True)
+    elif w_packed is not None:
+        if w_packed.kernel == kernel and w_packed.data is not None:
+            w = w_packed.data       # BFP-quantized raw filters
+        elif w_packed.bfp:          # route fell back with a stale slab
+            w = _quantize_filters(w)
 
     kw = dict(c_block=knobs.c_block, pool_row_block=knobs.pool_row_block,
               k_block=knobs.k_block, batch_block=knobs.batch_block,

@@ -30,8 +30,10 @@ failures.  A kernel that fails to build or launch (``KernelError``), and
 an asynchronous device error surfacing at the logits fetch, propagate out
 of :meth:`CnnEngine.step`: retrying cannot mend them, and degrading would
 serve the ``direct`` route's library convolutions under the ``pallas``
-route's name.  On the card, ``use_pallas`` builds the kernels when the
-engine is made.
+route's name.  On the card, ``use_pallas`` or ``fc_bfp`` builds the
+kernels when the engine is made.  The ``direct``-route twin a degraded
+bucket falls back to keeps ``fc_bfp`` and ``conv_bfp``: its FC layers still
+run the BFP matmul kernel, and its convolutions quantized raw filters.
 
 Not ported yet (they raise ``NotImplementedError``): ``data_parallel``,
 ``verify_slabs``, the model's ``sdc_abft``, and the ``slab.bitflip`` /
@@ -50,6 +52,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..kernels import build
+from ..kernels.conv.dma import WeightStager
 from ..models import model_for
 from .clock import MONOTONIC, Clock
 from .faults import EngineCrash, FaultInjector, TransientLaunchError
@@ -148,7 +151,7 @@ class CnnEngine:
                                       "(ROADMAP Queue 1, item 1)")
         _check_faults(faults)
         self.device = resolve_device(device)
-        if cfg.use_pallas and self.device.type == "cuda":
+        if (cfg.use_pallas or cfg.fc_bfp) and self.device.type == "cuda":
             build.library()     # a kernel that cannot build fails here
         self.cfg, self.scfg = cfg, scfg
         self.clock = clock or MONOTONIC
@@ -190,6 +193,9 @@ class CnnEngine:
             cfg, scfg.max_batch)
         self._packed: Dict[int, dict] = {}
         self._packed_direct: Dict[int, dict] = {}
+        # batch-independent staging (the BFP FC streams), shared by every
+        # bucket and by the degrade twin
+        self._stager = WeightStager()
         self._launched: set = set()
         self._launched_direct: set = set()
         self.screen_nonfinite = 0
@@ -281,13 +287,14 @@ class CnnEngine:
         """Pack-once weight slabs for one bucket shape."""
         if bucket not in self._packed:
             self._packed[bucket] = self.mod.pack_serving_slabs(
-                self.params, self.cfg, bucket, plans=self.plans)
+                self.params, self.cfg, bucket, plans=self.plans,
+                stager=self._stager)
         return self._packed[bucket]
 
     def _slabs_direct(self, bucket: int):
         if bucket not in self._packed_direct:
             self._packed_direct[bucket] = self.mod.pack_serving_slabs(
-                self.params, self._cfg_direct, bucket)
+                self.params, self._cfg_direct, bucket, stager=self._stager)
         return self._packed_direct[bucket]
 
     # -- fault-tolerance internals -------------------------------------

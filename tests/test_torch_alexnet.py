@@ -146,7 +146,6 @@ def test_packed_and_staged_forwards_are_bit_equal(reduced):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(fc_bfp=True), "kernel 4"), (dict(conv_bfp=True), "kernel 4"),
     (dict(sdc_abft=True), "ABFT"), (dict(arch="vgg"), "VGG")])
 def test_unported_config_features_raise(change, match):
     cfg = dataclasses.replace(get_config("alexnet").reduced(), **change)

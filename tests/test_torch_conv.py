@@ -103,6 +103,27 @@ def test_packed_slabs_match_jax(name, kw, H, c_in, c_out):
         np.testing.assert_allclose(have, want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("x_shape,w_shape,kw", [
+    ((8, 13, 13, 384), (3, 3, 192, 256), dict(groups=2, pool=(3, 2))),
+    ((2, 13, 13, 48), (3, 3, 24, 32), dict(groups=2, pool=(3, 2))),
+    ((2, 10, 10, 12), (3, 3, 12, 8), dict(lrn=True)),
+    ((2, 17, 17, 24), (3, 3, 12, 16), dict(groups=2, lrn=True, pool=(3, 2))),
+    ((2, 8, 8, 5), (3, 3, 5, 40), dict(pool=(2, 2))),
+])
+def test_fused_winograd_blocks_start_on_the_tile_grid(x_shape, w_shape, kw):
+    """Every block of the fused CUDA kernel starts its conv region on the
+    m-grid of Winograd tiles the plain version (and the JAX kernel) uses:
+    a BFP-quantized Winograd slab gives each pixel of a tile its own
+    effective filter, so the tiling is part of the function."""
+    kw = dict(kw)
+    lrn = t_pool.LrnParams(*LRN) if kw.pop("lrn", False) else None
+    pool = kw.get("pool")
+    p = t_winograd.plan(x_shape, w_shape, lrn=lrn, **kw)
+    PT = t_winograd.fused_block_tile(p, lrn, pool)
+    ps = pool[1] if pool else 1
+    assert all(pi0 * ps % p.m == 0 for pi0 in range(0, p.ph_out, PT))
+
+
 def test_conv4_slab_pads_k_to_the_block():
     """conv4's 192 output channels a group pad to Kp = 256 on the unfused
     Winograd plan; the pad columns are zeros the kernel never reads."""
@@ -252,8 +273,11 @@ def test_unported_options_raise():
     spec = t_conv.ConvSpec(kernel=3, route="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_conv.dispatch_conv(spec, x, w, b, abft=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_conv.pack_conv_weights(spec, tuple(x.shape), w, bfp_pack=True)
+    # conv_bfp is ported: the slab packs BFP-quantized and is marked so
+    slab = t_conv.pack_conv_weights(spec, tuple(x.shape), w, bfp_pack=True)
+    assert slab.bfp and slab.kernel == "cuda-winograd"
+    assert not torch.equal(
+        slab.data, t_conv.pack_conv_weights(spec, tuple(x.shape), w).data)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_conv.pack_conv_weights(spec, tuple(x.shape), w, fingerprint=True)
 

@@ -1,4 +1,4 @@
-"""The port's CUDA conv kernels against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions.
 
 Marked ``cuda``: they need the card and skip without one.  Each case runs
 the kernel wrapper on a CUDA tensor and the same wrapper on a CPU tensor
@@ -7,6 +7,8 @@ geometries (reduced and full width) and off-AlexNet blockings: several
 channel blocks with channel padding, several K blocks, strides, VALID /
 SAME, groups, LRN without pool, pool without LRN.  Tolerance: max|diff| <=
 1e-4 * max(1, max|plain|) — both sides FP32, summed in different orders.
+The BFP matmul kernel and its plain version sum exact terms in the same
+order, so they must agree bit for bit.
 """
 import dataclasses
 
@@ -17,6 +19,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.bfp_matmul import bfp_matmul as bfp  # noqa: E402
+from repro_torch.kernels.bfp_matmul import ops as bfp_ops  # noqa: E402
 from repro_torch.kernels.conv import direct, ops, winograd  # noqa: E402
 from repro_torch.models import alexnet  # noqa: E402
 from repro_torch.nn.pooling import LrnParams  # noqa: E402
@@ -107,6 +111,25 @@ def test_winograd_kernels_match_plain(card, name, kw, B, H, c_in, c_out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,B,H,c_in,c_out",
+                         [c for c in WINO_CASES
+                          if "lrn" in c[1] or "pool" in c[1]])
+def test_fused_kernel_matches_plain_on_any_winograd_slab(card, name, kw, B,
+                                                         H, c_in, c_out):
+    """A Winograd-domain slab that is not G w G^T (``conv_bfp`` quantizes
+    it) gives each pixel of a tile its own effective filter: the fused
+    kernel must tile the map as the plain version does to agree."""
+    x, w, b = _inputs(5, B, H, c_in, c_out, 3, kw.get("groups", 1))
+    p = winograd.plan(x.shape, w.shape, **kw)
+    slab = winograd.pack_weights(torch.from_numpy(w), p)
+    slab = slab + 0.05 * torch.randn(
+        slab.shape, generator=torch.Generator().manual_seed(0))
+    got, ref = _both(lambda x, w, b: winograd.conv2d_winograd(
+        x, w, b, slab.to(x.device), relu=True, **kw), card, x, w, b)
+    _close(got, ref)
+
+
+@pytest.mark.cuda
 def test_nan_input_stays_visible(card):
     """A poisoned image must reach the logits screen as NaN: ReLU and the
     pool keep NaN on the kernel path, as they do in the plain version."""
@@ -180,3 +203,91 @@ def test_engine_builds_the_kernels_up_front(card, monkeypatch):
     monkeypatch.setattr(build, "library", broken)
     with pytest.raises(build.KernelError, match="nvcc failed"):
         CnnEngine(cfg, CnnServeConfig(), params=params, device=card)
+
+
+# (K, N, block): fc6, fc8 and the reduced fc8 at their fc_block
+BFP_SHAPES = [(9216, 4096, 32), (4096, 1000, 32), (48, 10, 16)]
+
+
+def _bfp_inputs(seed, M, K, N, block):
+    """ReLU-like activations with all-zero K-blocks (and, for M > 1, an
+    all-zero row), and fan-in-scaled weights."""
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.standard_normal((M, K)), 0).astype(np.float32)
+    x[:, block:2 * block] = 0.0
+    if M > 1:
+        x[M - 1] = 0.0
+    w = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,block", BFP_SHAPES)
+@pytest.mark.parametrize("M", [1, 3, 8, 13])
+def test_bfp_kernel_is_bit_equal_to_plain(card, M, K, N, block):
+    x, w = _bfp_inputs(M + K, M, K, N, block)
+    wq, we = bfp_ops.quantize_weights(torch.from_numpy(w).to(card),
+                                      block=block)
+    xc = torch.from_numpy(x).to(card)
+    n0 = bfp_ops.launch_counts()["bfp_matmul"]
+    got = bfp.bfp_matmul(xc, wq, we, block=block)
+    torch.cuda.synchronize()
+    assert bfp_ops.launch_counts()["bfp_matmul"] == n0 + 1
+    plain = bfp.bfp_matmul_plain(xc, wq, we, block=block)
+    assert bfp_ops.launch_counts()["bfp_matmul"] == n0 + 1
+    assert torch.equal(got, plain)
+    cpu = bfp.bfp_matmul(torch.from_numpy(x), wq.cpu(), we.cpu(),
+                         block=block)
+    assert torch.equal(got.cpu(), cpu)
+    if M > 1:
+        assert not got[M - 1].any()
+
+
+@pytest.mark.cuda
+def test_bfp_kernel_poisons_nonfinite_rows(card):
+    x, w = _bfp_inputs(7, 4, 256, 64, 32)
+    x[0, 3], x[2, 200] = np.nan, np.inf
+    wq, we = bfp_ops.quantize_weights(torch.from_numpy(w).to(card), block=32)
+    got = bfp.bfp_matmul(torch.from_numpy(x).to(card), wq, we, block=32)
+    torch.cuda.synchronize()
+    plain = bfp.bfp_matmul_plain(torch.from_numpy(x).to(card), wq, we,
+                                 block=32)
+    assert torch.isnan(got[0]).all() and torch.isnan(got[2]).all()
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[3], plain[3])
+
+
+class _FailingBfp:
+    """The loaded kernel library with only the BFP matmul launcher
+    reporting ``cudaErrorLaunchFailure`` (719)."""
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        if name == "repro_bfp_matmul":
+            return lambda *args: 719
+        return getattr(self._real, name)
+
+
+@pytest.mark.cuda
+def test_bfp_launch_error_raises_out_of_the_engine(card, monkeypatch):
+    """With fc_bfp and conv_bfp, a failed BFP matmul launch raises
+    ``KernelError`` out of the engine after the conv kernels ran; nothing
+    degrades."""
+    cfg = dataclasses.replace(get_config("alexnet").reduced(),
+                              use_pallas=True, fc_bfp=True, conv_bfp=True)
+    real = build.library()
+    monkeypatch.setattr(build, "library", lambda: dataclasses.replace(
+        real, lib=_FailingBfp(real.lib)))
+    eng = CnnEngine(cfg, CnnServeConfig(max_batch=2, degrade_threshold=1),
+                    params=alexnet.init(0, cfg, device=card), device=card)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        eng.submit(ImageRequest(image=rng.standard_normal(
+            (cfg.image_size, cfg.image_size, cfg.in_channels))
+            .astype(np.float32)))
+    before = ops.launch_counts()["conv_direct"]
+    with pytest.raises(build.KernelError, match="bfp_matmul.*719"):
+        eng.run_until_done()
+    assert ops.launch_counts()["conv_direct"] == before + 2
+    s = eng.stats()
+    assert s["degradations"] == [] and s["batches_failed"] == 0

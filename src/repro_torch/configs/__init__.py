@@ -1,15 +1,33 @@
-"""Config registry: ``get_config("alexnet")``.
+"""Config registry: ``get_config("smollm-360m")`` etc.
 
-The port serves the paper's own AlexNet; the reference's other configs
-(VGG-16 and the LM architectures) come with later slices of the port.
+The port serves the paper's own AlexNet and the dense GQA language models;
+the reference's other configs come with later slices of the port, and
+naming one raises with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
 from importlib import import_module
 
-_MODULES = {"alexnet": "alexnet"}
+_MODULES = {
+    "alexnet": "alexnet",
+    "smollm-360m": "smollm_360m",
+    "llama3.2-3b": "llama3p2_3b",
+    "starcoder2-15b": "starcoder2_15b",
+}
+
+# the reference's LM configs that later slices port (ROADMAP Queue 1)
+_NOT_PORTED = {
+    "phi4-mini-3.8b": "item 7a (dense GQA: its config file only)",
+    "mamba2-2.7b": "item 7b (Mamba-2/SSM serving)",
+    "jamba-v0.1-52b": "items 7b and 7c (hybrid SSM + MoE)",
+    "granite-moe-1b-a400m": "item 7c (MoE)",
+    "deepseek-v2-lite-16b": "item 7c (MoE, MLA)",
+    "phi-3-vision-4.2b": "item 7c (VLM)",
+    "whisper-tiny": "item 7c (encoder-decoder)",
+}
 
 CNN_ARCHS = ["alexnet"]
+LM_ARCHS = [n for n in _MODULES if n not in CNN_ARCHS]
 
 
 def list_configs():
@@ -17,6 +35,9 @@ def list_configs():
 
 
 def get_config(name: str):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"arch {name!r} is not ported yet "
+                                  f"(ROADMAP Queue 1, {_NOT_PORTED[name]})")
     if name not in _MODULES:
         raise KeyError(f"unknown or not yet ported arch {name!r}; ported: "
                        f"{list(_MODULES)} (see ROADMAP.md for the rest)")

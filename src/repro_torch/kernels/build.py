@@ -9,11 +9,11 @@ is reused.  A failed build raises with the compiler's output.
 
 The conv launchers take one :class:`ConvArgs` (mirror of
 ``csrc/conv_args.cuh``) by pointer, raw device pointers, and the CUDA
-stream; the BFP matmul launcher takes its pointers, its extents as ints and
-the stream.  Each function returns the ``cudaError_t`` of its launch (0 on
-success).  A failed build and a nonzero ``cudaError_t`` both raise
-:class:`KernelError`, which the serving engine never retries or degrades
-around.
+stream; the BFP matmul and decode-attention launchers take their pointers,
+their extents as ints and the stream.  Each function returns the
+``cudaError_t`` of its launch (0 on success).  A failed build and a nonzero
+``cudaError_t`` both raise :class:`KernelError`, which the serving engines
+never retry or degrade around.
 """
 from __future__ import annotations
 
@@ -125,6 +125,9 @@ def _declare(lib: ctypes.CDLL):
     # (x, wq, we, out, M, K, N, block, stream)
     lib.repro_bfp_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.repro_bfp_matmul.restype = ctypes.c_int
+    # (q, k, v, lengths, out, B, S, H, KV, D, dtype, stream)
+    lib.repro_decode_attn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_decode_attn.restype = ctypes.c_int
 
 
 def library() -> KernelLibrary:

@@ -1,10 +1,16 @@
-"""Image-serving launcher: :class:`CnnEngine` over synthetic requests.
+"""Serving launcher over synthetic requests.
 
 ``python -m repro_torch.launch.serve --arch alexnet --full --route pallas``
+serves images through :class:`CnnEngine` and reports the per-layer
+resolved datapaths, img/s and latency percentiles, and every bucket the
+engine degraded to the ``direct`` route.
 
-Reports the per-layer resolved datapaths, img/s and latency percentiles,
-and every bucket the engine degraded to the ``direct`` route.
-Runs on the card unless ``--device cpu`` is given.
+``python -m repro_torch.launch.serve --arch smollm-360m --full --requests 16
+--max-len 512`` serves random prompts through the token :class:`Engine`
+(kernel 5 on every decode step) and reports tokens/s and latency.
+
+Runs on the card unless ``--device cpu`` is given (the plain versions of
+the kernels then run).
 """
 from __future__ import annotations
 
@@ -13,10 +19,11 @@ import dataclasses
 
 import numpy as np
 
-from ..configs import CNN_ARCHS, get_config
+from ..configs import CNN_ARCHS, LM_ARCHS, get_config
 from ..models.alexnet import layer_routes
-from ..serving import (CnnEngine, CnnServeConfig, FaultInjector, FaultSpec,
-                       ImageRequest, derive_seed)
+from ..serving import (CnnEngine, CnnServeConfig, Engine, FaultInjector,
+                       FaultSpec, ImageRequest, Request, ServeConfig,
+                       derive_seed)
 
 CNN_ROUTES = ("auto", "direct", "winograd", "pallas")
 
@@ -94,13 +101,42 @@ def serve_images(cfg, args) -> int:
     return done
 
 
+def serve_tokens(cfg, args) -> int:
+    """Serve ``args.requests`` random prompts; returns the completed
+    count."""
+    scfg = ServeConfig(max_batch=args.max_batch, max_len=args.max_len)
+    eng = Engine(cfg, scfg, seed=args.seed, device=args.device)
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    for _ in range(args.requests):
+        plen = int(rng.integers(4, min(64, args.max_len - args.max_new)))
+        reqs.append(Request(
+            prompt=rng.integers(1, cfg.vocab_size, size=plen).tolist(),
+            max_new=args.max_new))
+        eng.submit(reqs[-1])
+    eng.run_until_done()
+    done = sum(r.done for r in reqs)
+    lat = eng.latency.percentiles_ms()
+    print(f"finished {done}/{len(reqs)} requests; {eng.tokens_generated} "
+          f"tokens; decode throughput {eng.decode_tokens_per_s:.1f} tok/s "
+          f"({eng.decode_steps} batched decode steps) on {eng.device}")
+    print(f"latency p50={lat['p50']:.1f}ms p90={lat['p90']:.1f}ms "
+          f"p99={lat['p99']:.1f}ms")
+    return done
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="alexnet", choices=CNN_ARCHS)
+    ap.add_argument("--arch", default="alexnet",
+                    choices=CNN_ARCHS + LM_ARCHS)
     ap.add_argument("--full", action="store_true",
                     help="full-width config (default: the reduced one)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256,
+                    help="LM path: cache positions per slot")
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="LM path: tokens generated per request")
     ap.add_argument("--route", default="auto", choices=CNN_ROUTES,
                     help="conv route (pallas = the hand-written CUDA "
                          "kernels)")
@@ -125,7 +161,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    serve_images(cfg, args)
+    if args.arch in CNN_ARCHS:
+        serve_images(cfg, args)
+    else:
+        serve_tokens(cfg, args)
 
 
 if __name__ == "__main__":

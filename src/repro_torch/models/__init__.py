@@ -1,4 +1,7 @@
-"""Model families of the port (the CNN path only, so far)."""
+"""Model families of the port: the CNN path and the dense LM family."""
+
+_NOT_PORTED = {"ssm": "7b", "hybrid": "7b and 7c", "moe": "7c",
+               "audio": "7c", "vlm": "7c"}
 
 
 def model_for(cfg):
@@ -6,6 +9,9 @@ def model_for(cfg):
     if cfg.family == "cnn":
         from . import alexnet
         return alexnet
+    if cfg.family == "dense":
+        from . import lm
+        return lm
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (ROADMAP Queue 1, "
-        "item 7: the LM, SSM and VLM stack)")
+        f"item {_NOT_PORTED.get(cfg.family, '7')})")

@@ -25,6 +25,7 @@ from ..kernels.bfp_matmul.ops import bfp_linear, fc_block, quantize_weights
 from ..kernels.conv.dma import WeightStager
 from ..nn.conv import ConvSpec, dispatch_conv, pack_conv_weights, \
     resolve_kernel
+from ..nn.module import truncated_normal
 from ..nn.pooling import LrnParams
 
 
@@ -110,13 +111,6 @@ def layer_routes(cfg: AlexNetConfig) -> List[Tuple[str, str]]:
     return routes
 
 
-def _truncated_normal(gen, shape, scale):
-    # 2-sigma truncation, as the reference's nn/module.py:truncated_normal
-    t = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t * scale
-
-
 def init(seed_or_generator, cfg: AlexNetConfig, *, device="cuda") -> dict:
     """Random parameters: truncated normal, std (k*k*C/g)^-0.5 for convs
     and fan_in^-0.5 for FC layers, zero biases (the reference's scheme; the
@@ -132,7 +126,7 @@ def init(seed_or_generator, cfg: AlexNetConfig, *, device="cuda") -> dict:
                                           cfg.conv_channels)):
         k, g = spec.kernel, spec.groups
         p[f"conv{i+1}"] = {
-            "w": _truncated_normal(gen, (k, k, c_in // g, c_out),
+            "w": truncated_normal(gen, (k, k, c_in // g, c_out),
                                    (k * k * c_in // g) ** -0.5).to(dev),
             "b": torch.zeros((c_out,), device=dev),
         }
@@ -140,7 +134,7 @@ def init(seed_or_generator, cfg: AlexNetConfig, *, device="cuda") -> dict:
     d_in = fc_input_dim(cfg)
     for j, d_out in enumerate(cfg.fc_dims):
         p[f"fc{j+6}"] = {
-            "w": _truncated_normal(gen, (d_in, d_out), d_in ** -0.5).to(dev),
+            "w": truncated_normal(gen, (d_in, d_out), d_in ** -0.5).to(dev),
             "b": torch.zeros((d_out,), device=dev),
         }
         d_in = d_out

@@ -1,0 +1,122 @@
+"""Decoder-only language model, the dense family (the reference's
+``repro/models/lm.py``).
+
+tokens (B, S) -> logits (B, S, V) f32 through embed, the layer stack, the
+final norm and the readout: tied (``embed_attend``), an untied
+``lm_head``, or, under ``fc_bfp``, the untied head streamed as int8 BFP
+through kernel 4 (``kernels/bfp_matmul``), the paper's §3.6 FC regime.
+Parameters are nested dicts of tensors with ``stack`` a list of per-layer
+dicts; :func:`params_from_reference` carries the reference's parameters
+(with its scan-stacked layers) over.  ``loss_fn`` comes with the training
+slice (ROADMAP Queue 1, item 7d).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ArchConfig
+from ..core.device import resolve_device
+from ..kernels.bfp_matmul.ops import bfp_linear
+from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
+from ..nn.layers import (embed, embed_attend, embed_init, linear,
+                         linear_init, norm, norm_init)
+from ..nn.module import torch_dtype
+
+
+def _map(fn, tree):
+    """``fn`` on every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
+    """Random parameters, the reference's scheme (truncated normal, std
+    fan_in^-0.5, embedding std 1, zero biases, unit norm scales) drawn on
+    the host from a ``torch.Generator`` (or an int seed), then moved to
+    ``device``."""
+    dev = resolve_device(device)
+    gen = seed_or_generator
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(int(seed_or_generator))
+    dtype = torch_dtype(cfg.param_dtype)
+    p = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+         "stack": stack_init(gen, cfg),
+         "final_norm": norm_init(cfg.norm_type, cfg.d_model, dtype)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    return to_device(p, dev)
+
+
+def to_device(tree, device):
+    """A params (or cache) tree with every tensor on ``device``."""
+    dev = resolve_device(device)
+    return _map(lambda t: t.to(dev), tree)
+
+
+def _reference_layers(stack, cfg: ArchConfig):
+    """The reference's {"prefix": [...], "scan": {"b<j>": stacked}} as a
+    list in layer order: group m's block j is layer prefix + m * period +
+    j."""
+    period = cfg.pattern_period()
+    n_groups = (cfg.num_layers - len(stack["prefix"])) // period
+    return list(stack["prefix"]) + [
+        _map(lambda a: a[m], stack["scan"][f"b{j}"])
+        for m in range(n_groups) for j in range(period)]
+
+
+def _tensors(tree, device):
+    dev = resolve_device(device)
+    return _map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+
+
+def params_from_reference(np_params, cfg: ArchConfig, *, device="cuda"):
+    """Carry the reference's LM parameters (``repro.models.lm.init``'s
+    pytree, as numpy arrays) into the port's params on ``device``."""
+    p = dict(np_params, stack=_reference_layers(np_params["stack"], cfg))
+    return _tensors(p, device)
+
+
+def cache_shape(cfg: ArchConfig, batch: int, max_len: int):
+    """Per-layer cache structure: [{"attn": {"k": (shape, dtype), ...}}]."""
+    return stack_cache_shape(cfg, batch, max_len)
+
+
+def cache_init(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
+    """Zero caches for ``batch`` slots of ``max_len`` positions."""
+    dev = resolve_device(device)
+    return [{"attn": {name: torch.zeros(shape, dtype=dt, device=dev)
+                      for name, (shape, dt) in c["attn"].items()}}
+            for c in cache_shape(cfg, batch, max_len)]
+
+
+def _readout(params, cfg: ArchConfig, x):
+    x = x.to(torch_dtype(cfg.dtype))
+    if cfg.tie_embeddings:
+        return embed_attend(params["embed"], x)
+    if cfg.fc_bfp:
+        # paper §3.6 on the decode engine's FC path: every decode step
+        # streams the full (d_model, vocab) head, so move it as
+        # shared-exponent int8 BFP through kernel 4
+        return bfp_linear(x, params["lm_head"]["w"])
+    return linear(params["lm_head"], x, dtype=torch.float32)
+
+
+def apply(params, cfg: ArchConfig, tokens, *, mode: str = "train",
+          length=None, caches=None):
+    """tokens (B, S) int -> (logits (B, S, V) f32, caches, aux).
+
+    train: no caches.  prefill: ``caches`` (zeroed, one row per sequence)
+    filled from position 0.  decode: S new tokens (one, in serving)
+    appended at ``length``, a scalar or a (B,) tensor; the caches are
+    updated in place."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
+    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x, new_caches, aux = stack_apply(params["stack"], cfg, x, mode=mode,
+                                     length=length, caches=caches)
+    x = norm(cfg.norm_type, params["final_norm"], x)
+    return _readout(params, cfg, x), new_caches, aux

@@ -1,1 +1,2 @@
-"""Layer-level building blocks: pooling/LRN epilogues and conv dispatch."""
+"""Layer-level building blocks: pooling/LRN epilogues, conv dispatch, and
+the LM layers (norms, RoPE, MLPs, attention, the block stack)."""

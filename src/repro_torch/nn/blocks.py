@@ -1,0 +1,83 @@
+"""Residual blocks and the layer stack (the reference's
+``repro/nn/blocks.py``).
+
+The reference scans one compiled block body over stacked parameters; the
+port runs eagerly, so the stack is a Python loop over a list of per-layer
+parameter dicts.  Dense models have pattern period 1 and no prefix, so
+layer ``i`` here is group ``i`` of the reference's scan
+(``models.lm.params_from_reference`` unstacks it).  The MoE and SSM kinds
+come with ROADMAP Queue 1, items 7b and 7c.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import ArchConfig
+from .attention import attn_cache_shape, attn_init, gqa_apply
+from .layers import norm, norm_init
+from .mlp import mlp_apply, mlp_init
+from .module import torch_dtype
+
+
+def _check_kind(mixer: str, ffn: str):
+    if mixer != "attn":
+        raise NotImplementedError(f"mixer {mixer!r} is not ported yet "
+                                  "(ROADMAP Queue 1, item 7b: SSM)")
+    if ffn not in ("mlp", "none"):
+        raise NotImplementedError(f"ffn {ffn!r} is not ported yet (ROADMAP "
+                                  "Queue 1, item 7c: MoE)")
+
+
+def block_init(gen, cfg: ArchConfig, mixer: str, ffn: str):
+    dtype = torch_dtype(cfg.param_dtype)
+    p = {"norm1": norm_init(cfg.norm_type, cfg.d_model, dtype),
+         "attn": attn_init(gen, cfg)}
+    if ffn == "mlp":
+        p["norm2"] = norm_init(cfg.norm_type, cfg.d_model, dtype)
+        p["mlp"] = mlp_init(gen, cfg)
+    return p
+
+
+def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
+                length=None, cache=None):
+    """x (B, S, d_model) -> (x, cache); ``stack_kinds`` has checked the
+    kind."""
+    h = norm(cfg.norm_type, p["norm1"], x)
+    h, c = gqa_apply(p["attn"], cfg, h, mode=mode, length=length,
+                     cache=None if cache is None else cache["attn"])
+    x = x + h
+    if ffn == "mlp":
+        x = x + mlp_apply(p["mlp"], cfg, norm(cfg.norm_type, p["norm2"], x))
+    return x, (None if cache is None else {"attn": c})
+
+
+def stack_kinds(cfg: ArchConfig):
+    """(mixer, ffn) of every layer, in order."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    for kind in kinds:
+        _check_kind(*kind)
+    return kinds
+
+
+def stack_init(gen, cfg: ArchConfig):
+    return [block_init(gen, cfg, *kind) for kind in stack_kinds(cfg)]
+
+
+def stack_cache_shape(cfg: ArchConfig, batch: int, max_len: int):
+    return [{"attn": attn_cache_shape(cfg, batch, max_len)}
+            for _ in stack_kinds(cfg)]
+
+
+def stack_apply(params, cfg: ArchConfig, x, *, mode: str, length=None,
+                caches=None):
+    """Every layer in order -> (x, caches, aux); aux (the MoE router loss)
+    is 0 for the dense kinds."""
+    new_caches = None if caches is None else []
+    for i, ((mixer, ffn), bp) in enumerate(zip(stack_kinds(cfg), params)):
+        x, c = block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode=mode,
+                           length=length,
+                           cache=None if caches is None else caches[i])
+        if new_caches is not None:
+            new_caches.append(c)
+    return x, new_caches, torch.zeros((), dtype=torch.float32,
+                                      device=x.device)

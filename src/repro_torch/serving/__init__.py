@@ -1,7 +1,9 @@
-"""Image-serving stack of the port: the slot scheduler, SLO policy,
-health monitor, fault injection and :class:`CnnEngine`."""
+"""Serving stack of the port: the slot scheduler, SLO policy, health
+monitor, fault injection, the image :class:`CnnEngine` and the token
+:class:`Engine`."""
 from .clock import MONOTONIC, Clock, MonotonicClock, VirtualClock
 from .cnn import CnnEngine, CnnServeConfig, ImageRequest
+from .engine import Engine, Request, ServeConfig
 from .faults import (FAULT_POINTS, EngineCrash, FaultInjector, FaultSpec,
                      TransientLaunchError, derive_seed)
 from .health import DEGRADED, HEALTHY, QUARANTINED, HealthMonitor
@@ -9,7 +11,8 @@ from .policy import AdmissionController, DynamicBucketPolicy, bucket_sizes
 from .scheduler import DrainTimeout, LatencyTracker, SlotScheduler
 
 __all__ = ["MONOTONIC", "Clock", "MonotonicClock", "VirtualClock",
-           "CnnEngine", "CnnServeConfig", "ImageRequest", "FAULT_POINTS",
+           "CnnEngine", "CnnServeConfig", "ImageRequest", "Engine",
+           "Request", "ServeConfig", "FAULT_POINTS",
            "EngineCrash", "FaultInjector", "FaultSpec",
            "TransientLaunchError", "derive_seed", "DEGRADED", "HEALTHY",
            "QUARANTINED", "HealthMonitor", "AdmissionController",

@@ -8,7 +8,13 @@ channel blocks with channel padding, several K blocks, strides, VALID /
 SAME, groups, LRN without pool, pool without LRN.  Tolerance: max|diff| <=
 1e-4 * max(1, max|plain|) — both sides FP32, summed in different orders.
 The BFP matmul kernel and its plain version sum exact terms in the same
-order, so they must agree bit for bit.
+order, so they must agree bit for bit.  Kernel 5 (decode attention) keeps
+its probabilities in f32, as the JAX package's TPU kernel does; it is held
+against the plain version that does the same within one step of its output
+dtype: atol 1e-5, rtol 1e-5 in f32; atol 1e-4, rtol 1e-2 in bf16 (a bf16
+step is at most 2**-7 relative).  Against the plain version the models
+call, which rounds its probabilities to bf16, it is held to the JAX
+package's bound for its decode kernel, rtol = atol = 5e-2 in bf16.
 """
 import dataclasses
 
@@ -22,10 +28,14 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bfp_matmul import bfp_matmul as bfp  # noqa: E402
 from repro_torch.kernels.bfp_matmul import ops as bfp_ops  # noqa: E402
 from repro_torch.kernels.conv import direct, ops, winograd  # noqa: E402
-from repro_torch.models import alexnet  # noqa: E402
+from repro_torch.kernels.decode_attn import decode_attn  # noqa: E402
+from repro_torch.kernels.decode_attn import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attn.ref import \
+    decode_attention_f32_ref  # noqa: E402
+from repro_torch.models import alexnet, lm  # noqa: E402
 from repro_torch.nn.pooling import LrnParams  # noqa: E402
 from repro_torch.serving import (CnnEngine, CnnServeConfig,  # noqa: E402
-                                 ImageRequest)
+                                 Engine, ImageRequest, Request, ServeConfig)
 
 LRN = LrnParams()
 POOL = (3, 2)
@@ -291,3 +301,127 @@ def test_bfp_launch_error_raises_out_of_the_engine(card, monkeypatch):
     assert ops.launch_counts()["conv_direct"] == before + 2
     s = eng.stats()
     assert s["degradations"] == [] and s["batches_failed"] == 0
+
+
+# kernel 5 -------------------------------------------------------------------
+# (atol, rtol) against the plain version with f32 probabilities
+DECODE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 1e-2)}
+# rtol = atol against the plain version the models call
+DECODE_TOL_MODELS = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _decode_inputs(seed, B, S, H, KV, D, dtype, card):
+    """q, caches and ragged lengths in [1, S] that include S and 1."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype)
+        for shape in ((B, 1, H, D), (B, S, KV, D), (B, S, KV, D)))
+    lens = rng.integers(1, S + 1, B)
+    lens[0], lens[-1] = S, 1
+    return q, k, v, torch.from_numpy(lens.astype(np.int32)).to(card)
+
+
+def _decode_close(got, ref, dtype, tol=None):
+    atol, rtol = DECODE_TOL[dtype] if tol is None else (tol, tol)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("S", [77, 512])
+def test_decode_attn_kernel_matches_plain(card, dtype, D, G, S):
+    """Ragged lengths including S itself; S = 77 is no multiple of the rows
+    a block reads per step."""
+    q, k, v, lens = _decode_inputs(D + G + S, 4, S, 2 * G, 2, D, dtype,
+                                   card)
+    n0 = decode_attn.launches
+    got = decode_attn.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attn.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _decode_close(got, decode_attention_f32_ref(q, k, v, lens), dtype)
+    _decode_close(got, decode_attn.decode_attention_ref(q, k, v, lens),
+                  dtype, DECODE_TOL_MODELS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", [(3, 64, 4, 2, 16), (2, 100, 8, 8, 32),
+                                        (1, 33, 6, 3, 8), (2, 40, 12, 2, 64),
+                                        (8, 512, 15, 5, 64),
+                                        (2, 2048, 24, 8, 128)])
+def test_decode_attn_kernel_geometries(card, dtype, B, S, H, KV, D):
+    """The JAX package's sweep, a group of 6 (two blocks of query heads per
+    KV head), and the smollm-360m and llama3.2-3b decode geometries."""
+    q, k, v, lens = _decode_inputs(B * S, B, S, H, KV, D, dtype, card)
+    got = dec_ops.decode_attention(q, k, v, lens)
+    _decode_close(got, decode_attention_f32_ref(q, k, v, lens), dtype)
+    _decode_close(got, decode_attention_f32_ref(
+        q.cpu(), k.cpu(), v.cpu(), lens.cpu()), dtype)
+    _decode_close(got, dec_ops.decode_attention(q, k, v, lens, pallas=False),
+                  dtype, DECODE_TOL_MODELS[dtype])
+    _decode_close(got, dec_ops.decode_attention(
+        q.cpu(), k.cpu(), v.cpu(), lens.cpu()), dtype,
+        DECODE_TOL_MODELS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_length_zero_and_scalar(card, dtype):
+    """Length 0 attends uniformly (the mean of v over S), as the reference
+    does; a scalar length broadcasts to every slot."""
+    q, k, v, _ = _decode_inputs(5, 3, 50, 6, 2, 64, dtype, card)
+    lens = torch.tensor([0, 7, 50], dtype=torch.int32, device=card)
+    got = dec_ops.decode_attention(q, k, v, lens)
+    _decode_close(got, decode_attention_f32_ref(q, k, v, lens), dtype)
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(3, dim=0)
+    _decode_close(got[0, 0], mean_v, dtype)
+    _decode_close(dec_ops.decode_attention(q, k, v, 9),
+                  decode_attention_f32_ref(q, k, v, 9), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_attn_launch_error_raises(card, monkeypatch):
+    class Failing:
+        def __init__(self, real):
+            self._real = real
+
+        def __getattr__(self, name):
+            if name == "repro_decode_attn":
+                return lambda *args: 719
+            return getattr(self._real, name)
+
+    real = build.library()
+    monkeypatch.setattr(build, "library", lambda: dataclasses.replace(
+        real, lib=Failing(real.lib)))
+    q, k, v, lens = _decode_inputs(0, 2, 16, 4, 2, 16, torch.float32, card)
+    with pytest.raises(build.KernelError, match="decode_attn.*719"):
+        decode_attn.decode_attention(q, k, v, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-3b"])
+def test_engine_decodes_through_kernel5(card, arch):
+    """The reduced model served on the card launches kernel 5 once per
+    layer per decode step and emits the CPU engine's greedy tokens."""
+    cfg = get_config(arch).reduced()
+    params = lm.init(0, cfg, device="cpu")
+    scfg = ServeConfig(max_batch=3, max_len=64, prefill_bucket=16)
+    out = {}
+    for dev in ("cpu", card):
+        eng = Engine(cfg, scfg, params=lm.to_device(params, dev), device=dev)
+        reqs = [Request(prompt=list(range(1, n + 1)), max_new=5)
+                for n in (5, 12, 3, 20)]
+        for r in reqs:
+            eng.submit(r)
+        n0 = decode_attn.launches
+        eng.run_until_done()
+        out[str(dev)] = [r.generated for r in reqs]
+        if dev == card:
+            assert decode_attn.launches - n0 == \
+                cfg.num_layers * eng.decode_steps
+    assert out["cpu"] == out[str(card)]

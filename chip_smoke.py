@@ -34,6 +34,22 @@ Phases:
                of 8-200 prompt tokens, 32 new tokens each, kernel 5 counted
                on every decode step, the logits of one mid-run step held
                against the plain decode attention on the same cache, and a
+               reduced model's tokens against the CPU engine's;
+  7. ssm     — kernel 6 (the chunked SSD scan) at mamba2-2.7b's served
+               prefill geometry (L=200, one chunk) in bf16 and f32 and at
+               L=2048 (8 chunks) in bf16, and kernel 7 (the depthwise
+               causal Winograd conv) on its x stream (C=5120, L=200 and
+               2048, bf16 and f32), each held against its plain version and
+               timed beside its bound (kernel 7 also beside ``F.conv1d``;
+               no single PyTorch call computes an SSD scan);
+  8. mamba   — full-width mamba2-2.7b (64 layers, random weights drawn on
+               the card from a seed) through ``Engine(max_batch=8,
+               max_len=512)``: 24 requests of 8-480 prompt tokens, 32 new
+               tokens each; kernels 6 and 7 counted on every layer of every
+               prefill; one prefill re-run with the kernels and on the
+               plain route (``pallas=False``), with f32 activations (the
+               same function) and with the served bf16 ones (the kernels
+               no further from the f32 model than the plain route); and a
                reduced model's tokens against the CPU engine's.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
@@ -41,7 +57,9 @@ nonzero, and so does a run without a card or without the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -80,6 +98,37 @@ LM_ARCH = "smollm-360m"
 LM_REQUESTS = 24
 LM_MAX_NEW = 32
 LM_PROBE_STEP = 40          # the decode step whose logits are re-checked
+# kernels 6 and 7 vs their plain versions: both f32 inside, with the same
+# prefix sum of dt * A; in f32 max|diff| <= TOL_KERNEL * max|plain|; in
+# bf16 the outputs round f32 values that differ by f32 noise, so they may
+# differ by one bf16 step: |diff| <= BF16_STEP * |plain| + TOL_KERNEL *
+# max|plain|; the SSD state is f32 in both (TOL_KERNEL)
+BF16_STEP = 2.0 ** -7
+# (name, B, L, H, P, G, N, chunk, dtype): mamba2-2.7b's heads at a served
+# prefill length of one chunk (200 rows), at a served one of two chunks
+# with a ragged last chunk (472 = 256 + 216, the state carried), and over
+# 8 chunks (a long prompt, past the served max_len)
+SSD_GEOMETRIES = (("served", 1, 200, 80, 64, 1, 128, 256, "bfloat16"),
+                  ("served", 1, 200, 80, 64, 1, 128, 256, "float32"),
+                  ("served 2 chunks", 1, 472, 80, 64, 1, 128, 256,
+                   "bfloat16"),
+                  ("8 chunks", 1, 2048, 80, 64, 1, 128, 256, "bfloat16"))
+# (name, B, L, C, dtype): mamba2-2.7b's x stream (C = d_inner)
+DW1D_GEOMETRIES = (("served", 1, 200, 5120, "bfloat16"),
+                   ("served", 1, 200, 5120, "float32"),
+                   ("long", 1, 2048, 5120, "bfloat16"),
+                   ("long", 1, 2048, 5120, "float32"))
+# the mamba probe: with f32 activations the kernels' route and the plain
+# route (pallas=False: the pure-torch Winograd and chunked twins) are one
+# function summed in other orders, <= TOL_SSM_F32 * max|logit| (the CPU
+# tests' bound for the model); with the served bf16 activations the plain
+# route rounds inside its conv and scan (its Winograd transform in bf16)
+# while the kernels stay f32 inside, so the two differ by more than the
+# kernels' own error: the kernels' logits must be no further from the f32
+# model than the plain route's are
+TOL_SSM_F32 = 1e-4
+SSM_ARCH = "mamba2-2.7b"
+SSM_PROMPTS = (8, 480)      # prompt lengths: some prefills span 2 chunks
 BATCH = 8
 ARRIVALS = (1, 3, 8, 5, 2, 7, 6)   # 32 requests in mixed group sizes
 TIMING_ITERS = 20
@@ -366,7 +415,8 @@ def _count_modules():
     from repro_torch.kernels.bfp_matmul import ops as bfp_ops
     from repro_torch.kernels.conv import ops
     from repro_torch.kernels.decode_attn import ops as dec_ops
-    return ops, bfp_ops, dec_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return ops, bfp_ops, dec_ops, ssd_ops
 
 
 def launch_counts():
@@ -581,13 +631,13 @@ def _requests(rng, vocab, n, lo, hi, max_new):
         for _ in range(n)]
 
 
-def profile_decode(torch, decode, steps=3):
+def profile_decode(torch, decode, steps=3, marks=("decode_attn",)):
     """Where ``decode()``'s time goes: (wall ms per call, untraced, with a
     host sync after each call as a served step has; then from a
     ``torch.profiler`` trace of ``steps`` calls: device busy ms per call,
-    device events per call, kernel 5's ms per call and the 6 largest
-    kernels by time).  The trace's entries are None when it holds no
-    device events."""
+    device events per call, the ms per call of the kernels whose names
+    hold each of ``marks``, and the 6 largest kernels by time).  The
+    trace's entries are None when it holds no device events."""
     from torch.profiler import ProfilerActivity, profile
     decode()
     torch.cuda.synchronize()
@@ -609,10 +659,10 @@ def profile_decode(torch, decode, steps=3):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    kernel5 = sum(us for name, us in by_name.items() if "decode_attn" in name)
+    by_mark = {m: sum(us for name, us in by_name.items() if m in name)
+               / steps / 1e3 for m in marks}
     return (wall_ms, sum(by_name.values()) / steps / 1e3, len(dev) / steps,
-            kernel5 / steps / 1e3,
-            [(name[:60], us / steps / 1e3) for name, us in top])
+            by_mark, [(name[:60], us / steps / 1e3) for name, us in top])
 
 
 def _copy_cache(cache):
@@ -727,8 +777,9 @@ def phase_lm(torch, np):
     # copy, its wall time untraced and its device busy time traced; the
     # served steps' mean host time beside it
     step_ms = eng.decode_seconds / steps * 1e3
-    probe_ms, busy_ms, events, kernel5_ms, top = profile_decode(
+    probe_ms, busy_ms, events, marks, top = profile_decode(
         torch, lambda: logits_of(probe["cache"]))
+    kernel5_ms = None if marks is None else marks["decode_attn"]
     if busy_ms is None:
         idle = None
         print(f"lm decode step: {step_ms:.3f} ms host time a served step, "
@@ -777,6 +828,380 @@ def phase_lm(torch, np):
             "prompt_lengths": [len(r.prompt) for r in reqs]}
 
 
+def _excess(got, ref, rel_step):
+    """(worst excess of |got - ref| over its bound, max|diff|, max|ref|):
+    the bound is TOL_KERNEL * max|ref|, plus one bf16 step of |ref| where
+    the output was rounded to bf16 (``rel_step``); the check is excess <=
+    0."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    scale = float(ref.abs().max())
+    bound = TOL_KERNEL * scale
+    if rel_step:
+        bound = bound + BF16_STEP * ref.abs()
+    return float((diff - bound).max()), float(diff.max()), scale
+
+
+def _bound(flops, nbytes):
+    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    return bound, ("operations" if flops / PEAK_FP32_FLOPS
+                   >= nbytes / PEAK_BYTES_PER_S else "bytes")
+
+
+def ssd_work(B, L, H, P, G, N, Q, itemsize):
+    """(operations, bytes) one SSD scan needs, 2 operations a multiply-add:
+    per batch row and chunk of q real rows (the last chunk may be short;
+    padded rows are not counted), C.B^T once per group over the causal
+    triangle (q(q+1)/2 x N), and per head the causal M @ x (q(q+1)/2 x P),
+    the carried state's term (C e) @ S (q x N x P, from the second chunk
+    on: the first starts from a zero state) and the state update
+    B_dec^T @ x (q x N x P); the exponentials and the mask are not
+    counted.  Bytes: x, B, C and y in x's dtype, dt, A and the final
+    state in f32, once each."""
+    rows = [min(Q, L - c * Q) for c in range(-(-L // Q))]
+    tri = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2 * B * (G * tri * N + H * (tri * P + (2 * L - rows[0]) * N * P))
+    nbytes = (itemsize * (2 * B * L * H * P + 2 * B * L * G * N)
+              + 4 * (B * L * H + H + B * H * N * P))
+    return flops, nbytes
+
+
+def dw1d_work(B, L, C, itemsize):
+    """(operations, bytes) of one F(3,4) depthwise conv: per tile of 3
+    outputs 36 multiply-adds for B^T d, 6 products, 18 multiply-adds for
+    A^T, and 3 bias adds; bytes: x and out in x's dtype, w (4, C) and b in
+    f32."""
+    nt = -(-L // 3)
+    flops = B * C * nt * (2 * 36 + 6 + 2 * 18 + 3)
+    nbytes = 2 * itemsize * B * L * C + 4 * 5 * C
+    return flops, nbytes
+
+
+def phase_ssm(torch, np):
+    """Kernels 6 and 7 at mamba2-2.7b's prefill shapes, on inputs in the
+    model's ranges (dt after softplus in [1e-3, 1e-1], A = -exp(A_log) on
+    mamba's [-16, -1] grid): held against their plain versions, timed
+    beside them and beside their bounds (kernel 7 also beside F.conv1d)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv import winograd as wino
+    from repro_torch.kernels.ssd import ssd
+    rng = np.random.default_rng(5)
+
+    def dev(a, dtype):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device="cuda").to(dtype)
+
+    row6 = {"name": "ssd", "geometries": [], "max_abs_err": 0.0,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes an SSD scan"}
+    for name, B, L, H, P, G, N, chunk, dtype_name in SSD_GEOMETRIES:
+        dtype = getattr(torch, dtype_name)
+        x = dev(rng.standard_normal((B, L, H, P)), dtype)
+        dt = dev(rng.uniform(1e-3, 1e-1, (B, L, H)), torch.float32)
+        A = dev(-np.linspace(1.0, 16.0, H), torch.float32)
+        Bm = dev(rng.standard_normal((B, L, G, N)), dtype)
+        Cm = dev(rng.standard_normal((B, L, G, N)), dtype)
+
+        def kern():
+            return ssd.ssd_chunked_pallas(x, dt, A, Bm, Cm, chunk=chunk)
+
+        def plain():
+            return ssd.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=chunk)
+
+        y, st = kern()
+        torch.cuda.synchronize()
+        y_ref, st_ref = plain()
+        check(y.shape == y_ref.shape and y.dtype == dtype
+              and st.shape == st_ref.shape and st.dtype == torch.float32,
+              f"ssd {name} {dtype_name}: {tuple(y.shape)} {y.dtype} "
+              f"{tuple(st.shape)} {st.dtype}")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+              f"ssd {name} {dtype_name}: non-finite output")
+        ex_y, err_y, max_y = _excess(y, y_ref, dtype == torch.bfloat16)
+        ex_s, err_s, max_s = _excess(st, st_ref, False)
+        Q = min(chunk, L)
+        (ms, host_ms), (plain_ms, _) = (time_ms(torch, kern),
+                                        time_ms(torch, plain))
+        flops, nbytes = ssd_work(B, L, H, P, G, N, Q, x.element_size())
+        bound, bound_by = _bound(flops, nbytes)
+        print(f"kernel ssd {name} {dtype_name}: x {tuple(x.shape)} B/C "
+              f"{tuple(Bm.shape)} Q {Q} chunks {-(-L // Q)} | y max_abs_err "
+              f"{err_y:.3e} (max|plain| {max_y:.3e}, worst excess "
+              f"{ex_y:.3e}) state {err_s:.3e} (max|plain| {max_s:.3e}, "
+              f"worst excess {ex_s:.3e}; gate excess <= 0) | kernel_ms "
+              f"{ms:.4f} (host enqueue {host_ms:.4f} ms) plain_ms "
+              f"{plain_ms:.4f} library_ms none bound_ms {bound:.4f} "
+              f"({bound_by}: {flops:.3e} flop, {nbytes:.3e} B)")
+        check(ex_y <= 0 and ex_s <= 0, f"ssd {name} {dtype_name}: kernel "
+              f"disagrees with its plain version (y excess {ex_y}, state "
+              f"excess {ex_s})")
+        row6["geometries"].append({
+            "geometry": name, "dtype": dtype_name, "B": B, "L": L, "H": H,
+            "P": P, "G": G, "N": N, "Q": Q, "max_abs_err_y": err_y,
+            "max_abs_err_state": err_s, "max_abs_plain_y": max_y, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "flop": flops, "bytes": nbytes})
+        row6["max_abs_err"] = max(row6["max_abs_err"], err_y, err_s)
+
+    row7 = {"name": "dw1d", "geometries": [], "max_abs_err": 0.0}
+    for name, B, L, C, dtype_name in DW1D_GEOMETRIES:
+        dtype = getattr(torch, dtype_name)
+        x = dev(rng.standard_normal((B, L, C)), dtype)
+        w = dev(rng.standard_normal((4, C)) * 0.1, torch.float32)
+        b = dev(rng.standard_normal((C,)) * 0.1, torch.float32)
+        xt, wl, bl = x.transpose(1, 2), w.T[:, None, :].to(dtype), b.to(dtype)
+
+        def kern():
+            return wino.conv1d_depthwise_causal(x, w, b)
+
+        def plain():
+            return wino.conv1d_depthwise_causal_plain(x, w, b)
+
+        def library():
+            # full f32 (cuDNN runs an f32 conv in TF32 by default)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return F.conv1d(xt, wl, bl, padding=3, groups=C)[..., :L]
+
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        check(got.shape == ref.shape and got.dtype == dtype,
+              f"dw1d {name} {dtype_name}: {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()),
+              f"dw1d {name} {dtype_name}: non-finite output")
+        ex, err, scale = _excess(got, ref, dtype == torch.bfloat16)
+        lib_err = float((got.float() - library().transpose(1, 2).float())
+                        .abs().max())
+        (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
+            time_ms(torch, kern), time_ms(torch, plain),
+            time_ms(torch, library))
+        flops, nbytes = dw1d_work(B, L, C, x.element_size())
+        bound, bound_by = _bound(flops, nbytes)
+        print(f"kernel dw1d {name} {dtype_name}: x {tuple(x.shape)} | "
+              f"max_abs_err {err:.3e} (max|plain| {scale:.3e}, worst excess "
+              f"{ex:.3e}, gate excess <= 0; vs F.conv1d {lib_err:.3e}) | "
+              f"kernel_ms {ms:.4f} (host enqueue {host_ms:.4f} ms) plain_ms "
+              f"{plain_ms:.4f} library_ms(F.conv1d, groups=C, TF32 off) "
+              f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}: "
+              f"{flops:.3e} flop, {nbytes:.3e} B)")
+        check(ex <= 0, f"dw1d {name} {dtype_name}: kernel disagrees with its"
+              f" plain version (excess {ex})")
+        row7["geometries"].append({
+            "geometry": name, "dtype": dtype_name, "B": B, "L": L, "C": C,
+            "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_vs_kernel": lib_err, "bound_ms": bound,
+            "bound_by": bound_by, "flop": flops, "bytes": nbytes})
+        row7["max_abs_err"] = max(row7["max_abs_err"], err)
+    # the entries' numbers: the served geometry in bf16 (the served dtype)
+    for row, keys in ((row6, ("ms", "plain_ms", "bound_ms", "bound_by")),
+                      (row7, ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by"))):
+        for key in keys:
+            row[key] = row["geometries"][0][key]
+    return {"ssd": row6, "dw1d": row7}
+
+
+@contextlib.contextmanager
+def plain_ssm_route():
+    """The SSM mixer's conv and scan on the plain route (``pallas=False``:
+    the pure-torch Winograd and chunked twins) while inside."""
+    from repro_torch.kernels.conv import ops as conv_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    real = ssd_ops.ssd_chunked, conv_ops.conv1d_depthwise_causal
+    ssd_ops.ssd_chunked = functools.partial(real[0], pallas=False)
+    conv_ops.conv1d_depthwise_causal = functools.partial(real[1],
+                                                         pallas=False)
+    try:
+        yield
+    finally:
+        ssd_ops.ssd_chunked, conv_ops.conv1d_depthwise_causal = real
+
+
+def _host_ms(torch, fn, iters=3):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_mamba(torch, np):
+    """Full-width mamba2-2.7b through the token Engine; kernels 6 and 7
+    counted on every layer of every prefill; the longest prompt's prefill
+    re-run with the kernels and on the plain route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine, Request, ServeConfig
+    cfg = get_config(SSM_ARCH)
+    scfg = ServeConfig(max_batch=BATCH, max_len=512)
+    rng = np.random.default_rng(6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # drawn on the card: 2.7 B truncated-normal draws on the host take long
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    warm = Engine(cfg, scfg, params=params, device="cuda")
+    for r in _requests(rng, cfg.vocab_size, 2, 8, 70, 2):
+        warm.submit(r)
+    warm.run_until_done()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    eng = Engine(cfg, scfg, params=params, device="cuda")
+    reqs = _requests(rng, cfg.vocab_size, LM_REQUESTS, *SSM_PROMPTS,
+                     LM_MAX_NEW)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    check(all(r.done and len(r.generated) == LM_MAX_NEW for r in reqs),
+          f"mamba serve: {sum(r.done for r in reqs)}/{len(reqs)} done, "
+          f"tokens {sorted({len(r.generated) for r in reqs})}")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "mamba serve: a token outside the vocabulary")
+    prefills = len(reqs)
+    for k in ("ssd", "dw1d"):
+        check(counts[k] == cfg.num_layers * prefills,
+              f"{k}: {counts[k]} launches for {prefills} prefills, expected "
+              f"{cfg.num_layers} per prefill")
+    others = {k: n for k, n in counts.items() if k not in ("ssd", "dw1d")}
+    check(not any(others.values()), f"mamba serve launched {others}")
+
+    # the longest prompt's prefill again: kernels, then the plain route,
+    # with the served bf16 activations and with f32 ones; the launch counts
+    # show which route each re-run took
+    probe_req = max(reqs, key=lambda r: len(r.prompt))
+    toks = torch.tensor([probe_req.prompt], device="cuda")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def prefill(c=cfg):
+        return lm.apply(params, c, toks, mode="prefill",
+                        caches=lm.cache_init(c, 1, scfg.max_len,
+                                             device="cuda"))[0]
+
+    n0 = launch_counts()
+    kern = prefill()
+    n1 = launch_counts()
+    with plain_ssm_route():
+        plain = prefill()
+        plain32 = prefill(cfg32)
+    n2 = launch_counts()
+    kern32 = prefill(cfg32)
+    ran = {k: (n1[k] - n0[k], n2[k] - n1[k]) for k in ("ssd", "dw1d")}
+    check(all(r == (cfg.num_layers, 0) for r in ran.values()),
+          f"mamba probe: kernel launches (kernel re-run, plain re-runs) "
+          f"{ran}; expected ({cfg.num_layers}, 0) each")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(kern).all() and torch.isfinite(kern32).all())
+          and kern.shape == (1, len(probe_req.prompt), cfg.vocab_size),
+          "mamba probe: logits malformed")
+    lmax = float(plain32.abs().max())
+    d32 = float((kern32 - plain32).abs().max())
+    dmax = float((kern - plain).abs().max())
+    err_k = float((kern - plain32).abs().max())
+    err_p = float((plain - plain32).abs().max())
+    first = int(kern[0, -1].argmax())
+    print(f"mamba probe prefill ({len(probe_req.prompt)} tokens, "
+          f"{-(-len(probe_req.prompt) // cfg.ssm.chunk)} chunks; max|logit| "
+          f"of the f32 model {lmax:.3e}): f32 activations, kernels vs plain "
+          f"route max|d| {d32:.3e} (rel {d32 / lmax:.3e}, tol "
+          f"{TOL_SSM_F32:g}) | bf16 activations, kernels vs plain route "
+          f"{dmax:.3e} (rel {dmax / lmax:.3e}); off the f32 model: kernels "
+          f"{err_k:.3e} (rel {err_k / lmax:.3e}), plain route {err_p:.3e} "
+          f"(rel {err_p / lmax:.3e}), gate kernels <= plain | argmax "
+          f"{first}, served first token {probe_req.generated[0]}")
+    check(d32 <= TOL_SSM_F32 * lmax, f"mamba probe: with f32 activations "
+          f"the kernels' logits are off the plain route's: {d32} > "
+          f"{TOL_SSM_F32} * {lmax}")
+    check(err_k <= err_p, f"mamba probe: in bf16 the kernels' logits are "
+          f"further from the f32 model ({err_k}) than the plain route's "
+          f"({err_p})")
+    check(first == probe_req.generated[0], "mamba probe: the re-run "
+          "prefill's argmax is not the engine's first token")
+    del kern, plain, kern32, plain32
+
+    # where the time goes: the probe's prefill (kernels, then the plain
+    # route) on the host clock, its device time traced; one batched decode
+    # step of all slots likewise
+    prefill_ms = _host_ms(torch, prefill)
+    with plain_ssm_route():
+        prefill_plain_ms = _host_ms(torch, prefill)
+    pre_wall, pre_busy, pre_events, pre_marks, pre_top = profile_decode(
+        torch, prefill, marks=("ssd_kernel", "dw1d_kernel"))
+    step_ms = eng.decode_seconds / eng.decode_steps * 1e3
+    dec_wall, dec_busy, dec_events, _, dec_top = profile_decode(
+        torch, lambda: eng.decode(eng.last_tokens, eng.lengths, eng.cache))
+    print(f"mamba prefill ({len(probe_req.prompt)} tokens): {prefill_ms:.3f}"
+          f" ms wall with the kernels, {prefill_plain_ms:.3f} ms on the plain"
+          f" route | traced: device busy "
+          + ("not measured (no device events)" if pre_busy is None else
+             f"{pre_busy:.3f} ms in {pre_events:.0f} events, kernel 6 "
+             f"{pre_marks['ssd_kernel']:.4f} ms, kernel 7 "
+             f"{pre_marks['dw1d_kernel']:.4f} ms | top: "
+             + "; ".join(f"{n} {ms:.4f} ms" for n, ms in pre_top)))
+    print(f"mamba decode step: {step_ms:.3f} ms host time a served step "
+          f"(mean) | re-run {dec_wall:.3f} ms wall, device busy "
+          + ("not measured" if dec_busy is None else
+             f"{dec_busy:.3f} ms in {dec_events:.0f} events, idle share "
+             f"{1.0 - dec_busy / dec_wall:.4f} | top: "
+             + "; ".join(f"{n} {ms:.4f} ms" for n, ms in dec_top)))
+
+    # a reduced model: the card's greedy tokens are the CPU engine's,
+    # prompts of 1 and 2 tokens (shorter than the conv window) included
+    small = get_config(SSM_ARCH).reduced()
+    sp = lm.init(1, small, device="cpu")
+    prompts = [r.prompt[:20] for r in reqs[:4]] + [[5], [9, 2]]
+    toks_by = {}
+    for dev in ("cpu", "cuda"):
+        e = Engine(small, ServeConfig(max_batch=3, max_len=64),
+                   params=lm.to_device(sp, dev), device=dev)
+        rs = [Request(prompt=[t % small.vocab_size for t in p], max_new=6)
+              for p in prompts]
+        for r in rs:
+            e.submit(r)
+        e.run_until_done()
+        toks_by[dev] = [r.generated for r in rs]
+    check(toks_by["cpu"] == toks_by["cuda"], "reduced mamba2-2.7b: the "
+          "card's greedy tokens differ from the CPU engine's")
+
+    lat = eng.latency.percentiles_ms()
+    return {"arch": SSM_ARCH, "completed": sum(r.done for r in reqs),
+            "tokens": eng.tokens_generated, "decode_steps": eng.decode_steps,
+            "prefills": prefills,
+            "decode_tokens_per_s": eng.decode_tokens_per_s,
+            "wall_tokens_per_s": eng.tokens_generated / wall,
+            "wall_s": wall, "decode_s": eng.decode_seconds,
+            "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+            "peak_mem_bytes": peak, "launches": counts, "init_s": init_s,
+            "probe_tokens": len(probe_req.prompt), "probe_max_logit": lmax,
+            "probe_f32_kernel_vs_plain": d32,
+            "probe_bf16_kernel_vs_plain": dmax,
+            "probe_bf16_kernel_vs_f32": err_k,
+            "probe_bf16_plain_vs_f32": err_p, "prefill_ms": prefill_ms,
+            "prefill_plain_ms": prefill_plain_ms,
+            "prefill_device_busy_ms": pre_busy,
+            "prefill_device_events": pre_events,
+            "prefill_kernel_ms": pre_marks, "prefill_top": pre_top,
+            "step_ms": step_ms, "decode_rerun_ms": dec_wall,
+            "decode_device_busy_ms": dec_busy,
+            "decode_device_events": dec_events, "decode_top": dec_top,
+            "prompt_lengths": [len(r.prompt) for r in reqs]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke run of the "
                                  "PyTorch/CUDA port.")
@@ -800,6 +1225,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__}"
@@ -826,9 +1252,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows["decode_attn"] = phase_decode(torch, np)
     lm_serve = phase_lm(torch, np)
+    torch.cuda.empty_cache()
+    rows.update(phase_ssm(torch, np))
+    mamba = phase_mamba(torch, np)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
-             "lm": lm_serve["launches"]}
+             "lm": lm_serve["launches"], "mamba": mamba["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
@@ -837,19 +1266,24 @@ def main(argv=None) -> int:
                 "bfp_matmul":
                     "src/repro/kernels/bfp_matmul/bfp_matmul.py:29",
                 "decode_attn":
-                    "src/repro/kernels/decode_attn/decode_attn.py:26"}
+                    "src/repro/kernels/decode_attn/decode_attn.py:26",
+                "ssd": "src/repro/kernels/ssd/ssd.py:25",
+                "dw1d": "src/repro/kernels/conv/winograd.py:61"}
     sources = {"conv_direct": "src/repro_torch/csrc/conv_direct.cu",
                "conv_winograd": "src/repro_torch/csrc/conv_winograd.cu",
                "conv_winograd_fused": "src/repro_torch/csrc/conv_winograd.cu",
                "bfp_matmul": "src/repro_torch/csrc/bfp_matmul.cu",
-               "decode_attn": "src/repro_torch/csrc/decode_attn.cu"}
+               "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
+               "ssd": "src/repro_torch/csrc/ssd.cu",
+               "dw1d": "src/repro_torch/csrc/dw1d.cu"}
     # launches: the serve run of the slice that ported the kernel (the conv
-    # kernels f32 AlexNet, kernel 4 BFP AlexNet, kernel 5 the LM);
-    # launches_by_path: every run
-    home = {"bfp_matmul": "bfp", "decode_attn": "lm"}
+    # kernels f32 AlexNet, kernel 4 BFP AlexNet, kernel 5 the LM, kernels
+    # 6 and 7 mamba); launches_by_path: every run
+    home = {"bfp_matmul": "bfp", "decode_attn": "lm", "ssd": "mamba",
+            "dw1d": "mamba"}
     kernels = []
     for kname, row in rows.items():
-        if kname == "decode_attn":
+        if "geometries" in row:
             bound_by, extra = row["bound_by"], {
                 "geometries": row["geometries"]}
         else:
@@ -887,12 +1321,22 @@ def main(argv=None) -> int:
           f"{lm_serve['p50_ms']:.3f} ms p99 {lm_serve['p99_ms']:.3f} ms | "
           f"peak mem {lm_serve['peak_mem_bytes'] / 2 ** 20:.1f} MiB | "
           f"launches {lm_serve['launches']} | on {card}")
+    print(f"serve mamba {SSM_ARCH}: {mamba['completed']}/{LM_REQUESTS} "
+          f"requests ({mamba['prefills']} prefills), {mamba['tokens']} "
+          f"tokens over {mamba['decode_steps']} decode steps | "
+          f"{mamba['decode_tokens_per_s']:.2f} tok/s in decode, "
+          f"{mamba['wall_tokens_per_s']:.2f} tok/s wall | p50 "
+          f"{mamba['p50_ms']:.3f} ms p99 {mamba['p99_ms']:.3f} ms | peak mem "
+          f"{mamba['peak_mem_bytes'] / 2 ** 20:.1f} MiB | init "
+          f"{mamba['init_s']:.2f} s | launches ssd {mamba['launches']['ssd']}"
+          f" dw1d {mamba['launches']['dw1d']} | on {card}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "serve": serves,
-                       "lm_serve": lm_serve,
+                       "lm_serve": lm_serve, "mamba_serve": mamba,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()
                                      if "per_layer" in r},

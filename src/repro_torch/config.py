@@ -96,6 +96,14 @@ class ArchConfig:
     def d_head(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm.expand * self.d_model if self.ssm else 0
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm.head_dim if self.ssm else 0
+
     def pattern_period(self) -> int:
         """Length of the repeating layer pattern."""
         p = self.attn_period

@@ -1,8 +1,8 @@
 """Config registry: ``get_config("smollm-360m")`` etc.
 
-The port serves the paper's own AlexNet and the dense GQA language models;
-the reference's other configs come with later slices of the port, and
-naming one raises with the ROADMAP item that ports it.
+The port serves the paper's own AlexNet, the dense GQA language models and
+the Mamba-2 SSM; the reference's other configs come with later slices of
+the port, and naming one raises with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -13,12 +13,12 @@ _MODULES = {
     "smollm-360m": "smollm_360m",
     "llama3.2-3b": "llama3p2_3b",
     "starcoder2-15b": "starcoder2_15b",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 # the reference's LM configs that later slices port (ROADMAP Queue 1)
 _NOT_PORTED = {
     "phi4-mini-3.8b": "item 7a (dense GQA: its config file only)",
-    "mamba2-2.7b": "item 7b (Mamba-2/SSM serving)",
     "jamba-v0.1-52b": "items 7b and 7c (hybrid SSM + MoE)",
     "granite-moe-1b-a400m": "item 7c (MoE)",
     "deepseek-v2-lite-16b": "item 7c (MoE, MLA)",

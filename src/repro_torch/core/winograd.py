@@ -1,5 +1,6 @@
-"""General Cook–Toom Winograd transforms F(m, r) and the pure-torch
-F(m, 3) x F(m, 3) convolution (the port's ``winograd`` route).
+"""General Cook–Toom Winograd transforms F(m, r), the pure-torch
+F(m, 3) x F(m, 3) convolution (the port's ``winograd`` route) and the
+pure-torch F(3, 4) depthwise causal 1-D convolution (Mamba-2's conv).
 
 ``WinogradTransform``/``winograd_transform`` are numpy and identical to the
 reference (``repro/core/winograd.py``), so both packages use the same
@@ -85,6 +86,36 @@ def _transform_tensors(m: int, r: int, device: str) -> tuple:
     t = winograd_transform(m, r)
     return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                  for a in (t.BT, t.G, t.AT))
+
+
+def tiles_1d(x, m: int, n: int, r: int):
+    """x (B, L, C) -> causal overlapping tiles (B, nt, n, C), nt =
+    ceil(L/m): left pad r - 1, right pad to nt * m + r - 1 rows."""
+    L = x.shape[1]
+    nt = -(-L // m)
+    xp = torch.nn.functional.pad(x, (0, 0, r - 1, nt * m - L))
+    return xp.unfold(1, n, m).permute(0, 1, 3, 2)
+
+
+def conv1d_depthwise_causal(x, w, b=None):
+    """Winograd depthwise causal conv in x's dtype (the reference's pure-jnp
+    twin of its kernel).  x (B,L,C); w (r,C); returns (B,L,C).
+
+    Output o[t, c] = sum_k w[k, c] * x[t - r + 1 + k, c]  (left-padded).
+    """
+    r = w.shape[0]
+    m = {3: 4, 4: 3}.get(r, 2)
+    t = winograd_transform(m, r)
+    B, L, C = x.shape
+    tiles = tiles_1d(x, t.m, t.n, r)
+    BT, G, AT = (a.to(x.dtype) for a in transform_tensors(m, r, x.device))
+    U = torch.einsum("tn,bjnc->bjtc", BT, tiles)
+    V = torch.einsum("tr,rc->tc", G, w.to(x.dtype))
+    Y = torch.einsum("mt,bjtc->bjmc", AT, U * V[None, None])
+    y = Y.reshape(B, -1, C)[:, :L]
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
 
 
 def tiles_2d(x, m: int, n: int):

@@ -9,11 +9,13 @@ is reused.  A failed build raises with the compiler's output.
 
 The conv launchers take one :class:`ConvArgs` (mirror of
 ``csrc/conv_args.cuh``) by pointer, raw device pointers, and the CUDA
-stream; the BFP matmul and decode-attention launchers take their pointers,
-their extents as ints and the stream.  Each function returns the
-``cudaError_t`` of its launch (0 on success).  A failed build and a nonzero
-``cudaError_t`` both raise :class:`KernelError`, which the serving engines
-never retry or degrade around.
+stream; the BFP matmul, decode-attention, SSD and depthwise-conv
+launchers take their pointers, their extents as ints and the stream (the
+depthwise conv also a host pointer to its transform matrices).  Each
+function returns the ``cudaError_t`` of its launch (0 on success).  A
+failed build and a nonzero ``cudaError_t`` both raise
+:class:`KernelError`, which the serving engines never retry or degrade
+around.
 """
 from __future__ import annotations
 
@@ -128,6 +130,12 @@ def _declare(lib: ctypes.CDLL):
     # (q, k, v, lengths, out, B, S, H, KV, D, dtype, stream)
     lib.repro_decode_attn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_decode_attn.restype = ctypes.c_int
+    # (x, dt, A, B, C, y, state, Bb, L, H, P, G, N, Q, dtype, stream)
+    lib.repro_ssd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.repro_ssd.restype = ctypes.c_int
+    # (x, w, bias, mats, out, B, L, C, dtype, stream)
+    lib.repro_dw1d.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.repro_dw1d.restype = ctypes.c_int
 
 
 def library() -> KernelLibrary:

@@ -1,7 +1,9 @@
-"""Public entry points for the 2-D conv kernel family (the reference's
-``repro/kernels/conv/ops.py``; the depthwise 1-D op waits for its kernel,
-ROADMAP Queue 1, item 7).
+"""Public entry points for the conv kernel family (the reference's
+``repro/kernels/conv/ops.py``).
 
+* :func:`conv1d_depthwise_causal` — kernel 7, Mamba-2's depthwise causal
+  conv, forward only; ``pallas=False`` runs the pure-torch Winograd twin.
+  Kernel 7's backward comes with training (ROADMAP Queue 1, item 7d).
 * :func:`conv2d` — the Winograd kernels for stride-1 layers;
   ``pallas=False`` runs the pure-torch Winograd route.
 * :func:`conv2d_direct` — the strided direct kernel for any geometry;
@@ -12,10 +14,30 @@ datapath (CUDA here).
 """
 from __future__ import annotations
 
+import torch
+
 from ...core import winograd as wg
 from . import direct as _d
 from . import winograd as _k
 from .ref import conv2d_ref
+
+
+def conv1d_depthwise_causal(x, w, b=None, *, pallas: bool = True):
+    """x (B,L,C); w (r,C); b (C,) or None -> (B,L,C), left-padded causal.
+
+    ``pallas=True`` runs kernel 7 (its plain version on a CPU tensor), f32
+    inside; ``pallas=False`` the pure-torch Winograd in x's dtype, which
+    autograd differentiates.  The kernel has no backward yet, so an input
+    that requires grad raises instead of leaving the graph."""
+    if pallas:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, w, b)):
+            raise NotImplementedError(
+                "kernel 7 (conv1d_depthwise_causal, pallas=True) has no "
+                "backward yet (ROADMAP Queue 1, item 7d); run it under "
+                "torch.no_grad() or pass pallas=False")
+        return _k.conv1d_depthwise_causal(x, w, b)
+    return wg.conv1d_depthwise_causal(x, w, b)
 
 
 def conv2d(x, w, b=None, w_packed=None, *, m: int = 4, padding: str = "SAME",
@@ -65,10 +87,12 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
 def launch_counts() -> dict:
     """CUDA-kernel launches so far, by kernel."""
     return {"conv_direct": _d.launches, "conv_winograd": _k.launches,
-            "conv_winograd_fused": _k.fused_launches}
+            "conv_winograd_fused": _k.fused_launches,
+            "dw1d": _k.dw1d_launches}
 
 
 def reset_launch_counts():
     _d.launches = 0
     _k.launches = 0
     _k.fused_launches = 0
+    _k.dw1d_launches = 0

@@ -1,5 +1,6 @@
-"""``F.conv2d`` oracle with the fused-layer signature: the port's ``direct``
-route and the reference every kernel is held against."""
+"""Direct-convolution oracles: ``F.conv2d`` with the fused-layer signature
+(the port's ``direct`` route and the reference every 2-D kernel is held
+against) and the shift-multiply depthwise causal 1-D conv."""
 from __future__ import annotations
 
 import contextlib
@@ -51,3 +52,14 @@ def conv2d_ref(x, w, b=None, *, stride: int = 1, padding: str = "SAME",
         from ...nn.pooling import apply_epilogue
         y = apply_epilogue(y, lrn, pool)
     return y.to(x.dtype).contiguous()
+
+
+def conv1d_depthwise_causal_ref(x, w, b=None):
+    """Direct (shift-multiply) causal depthwise conv in x's dtype; x (B,L,C),
+    w (r,C)."""
+    r = w.shape[0]
+    xp = F.pad(x, (0, 0, r - 1, 0))
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype) for i in range(r))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y

@@ -1,7 +1,11 @@
-"""F(m,3) x F(m,3) Winograd conv layers: the port of the reference's
+"""Winograd conv kernels: the port of the reference's ``_dw1d_kernel``,
 ``_conv2d_kernel`` and ``_conv2d_fused_kernel``
-(``repro/kernels/conv/winograd.py``), AlexNet conv3-conv5 on the
-``pallas`` route.
+(``repro/kernels/conv/winograd.py``).
+
+:func:`conv1d_depthwise_causal` is kernel 7, Mamba-2's depthwise causal
+1-D conv by F(3,4) (``csrc/dw1d.cu`` on a CUDA tensor, the plain version
+:func:`conv1d_depthwise_causal_plain` on a CPU tensor).  The rest is the
+F(m,3) x F(m,3) conv layers, AlexNet conv3-conv5 on the ``pallas`` route.
 
 ``plan``/``pack_weights`` mirror the reference, so the packed slab (the
 G w G^T-transformed filters in the tile layout) matches it.
@@ -22,6 +26,8 @@ import torch.nn.functional as F
 
 from ...core.winograd import auto_pool_rows, tiles_2d, transform_tensors, \
     winograd_transform
+from ...core.winograd import conv1d_depthwise_causal as \
+    conv1d_depthwise_causal_f32
 from ...nn.pooling import apply_epilogue
 from .. import build
 from . import dma
@@ -29,9 +35,10 @@ from .direct import check_cuda_inputs, conv_args
 from .epilogue import batch_blocks, channel_blocks, grouped_channel_pad, \
     k_blocks
 
-# launches of the two CUDA kernels (the plain version does not count)
+# launches of the CUDA kernels (the plain versions do not count)
 launches = 0          # unfused: conv + bias + ReLU
 fused_launches = 0    # fused: + LRN and/or max-pool
+dw1d_launches = 0     # kernel 7: depthwise causal 1-D
 
 # Winograd tiles one fused-kernel block may hold (the kernel's tile slots),
 # and the shared memory its transformed-input chunk takes (kCc * kUStride)
@@ -40,6 +47,78 @@ U_FLOATS = 32 * (36 * MAX_TILES + 1)
 SMEM_BUDGET = 220 * 1024
 
 
+# ---------------------------------------------------------------------------
+# 1D depthwise causal (Mamba conv, k=4 -> F(3,4))
+# ---------------------------------------------------------------------------
+_DW1D_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def conv1d_depthwise_causal_plain(x, w, b):
+    """Kernel 7's function in PyTorch: the pure-torch Winograd on f32
+    copies (tiles, transforms, products and the bias in f32), then one
+    rounding to x's dtype.  x (B,L,C); w (r,C); b (C,)."""
+    return conv1d_depthwise_causal_f32(x.float(), w.float(),
+                                       b.float()).to(x.dtype)
+
+
+def _dw1d_mats() -> np.ndarray:
+    t = winograd_transform(3, 4)
+    return np.ascontiguousarray(np.concatenate(
+        [t.BT.reshape(-1), t.G.reshape(-1), t.AT.reshape(-1)]).astype(
+            np.float32))
+
+
+def _conv1d_depthwise_causal_cuda(x, w, b):
+    global dw1d_launches
+    if w.shape[0] != 4:
+        raise NotImplementedError(
+            f"the CUDA depthwise kernel implements F(3,4) (4 taps) only, "
+            f"not {w.shape[0]} taps")
+    if x.dtype not in _DW1D_DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(f"conv1d_depthwise_causal: the kernel takes a "
+                         f"contiguous {list(_DW1D_DTYPE_CODE)} x; got "
+                         f"{x.dtype}, contiguous={x.is_contiguous()}")
+    w = w.to(torch.float32).contiguous()
+    b = b.to(torch.float32).contiguous()
+    for t in (w, b):
+        if t.device != x.device:
+            raise ValueError(f"conv1d_depthwise_causal: weights on "
+                             f"{t.device}, x on {x.device}")
+    B, L, C = x.shape
+    out = torch.empty_like(x)
+    mats = _dw1d_mats()
+    err = build.library().lib.repro_dw1d(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), mats.ctypes.data,
+        out.data_ptr(), B, L, C, _DW1D_DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dw1d")
+    dw1d_launches += 1
+    return out
+
+
+def conv1d_depthwise_causal(x, w, b=None):
+    """x (B,L,C); w (r,C); b (C,) or None -> (B,L,C) in x's dtype: the
+    left-padded causal depthwise conv by F(m, r) Winograd (F(3,4) for
+    Mamba-2's 4 taps), f32 inside."""
+    if x.ndim != 3 or w.ndim != 2 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"conv1d_depthwise_causal: x {tuple(x.shape)} is "
+                         f"not (B, L, C) or w {tuple(w.shape)} not (r, C)")
+    if b is None:
+        b = torch.zeros((w.shape[1],), dtype=w.dtype, device=w.device)
+    if tuple(b.shape) != (w.shape[1],):
+        raise ValueError(f"conv1d_depthwise_causal: bias {tuple(b.shape)} "
+                         f"is not ({w.shape[1]},)")
+    if x.device.type == "cpu":
+        return conv1d_depthwise_causal_plain(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv1d_depthwise_causal: unsupported device "
+                         f"{x.device}")
+    return _conv1d_depthwise_causal_cuda(x, w, b)
+
+
+# ---------------------------------------------------------------------------
+# 2D conv (AlexNet 3x3 -> F(4,3) x F(4,3))
+# ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class WinogradPlan:
     """Every derived extent of one call; pure function of shapes.  ``fused``

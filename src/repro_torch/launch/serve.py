@@ -7,7 +7,9 @@ engine degraded to the ``direct`` route.
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --full --requests 16
 --max-len 512`` serves random prompts through the token :class:`Engine`
-(kernel 5 on every decode step) and reports tokens/s and latency.
+(kernel 5 on every decode step) and reports tokens/s and latency;
+``--arch mamba2-2.7b`` serves the Mamba-2 SSM the same way (kernels 7 and
+6 in every layer of each prefill, the one-token recurrence in decode).
 
 Runs on the card unless ``--device cpu`` is given (the plain versions of
 the kernels then run).

@@ -1,5 +1,5 @@
-"""Decoder-only language model, the dense family (the reference's
-``repro/models/lm.py``).
+"""Decoder-only language model, the dense and SSM families (the
+reference's ``repro/models/lm.py``).
 
 tokens (B, S) -> logits (B, S, V) f32 through embed, the layer stack, the
 final norm and the readout: tied (``embed_attend``), an untied
@@ -35,9 +35,10 @@ def _map(fn, tree):
 
 def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
     """Random parameters, the reference's scheme (truncated normal, std
-    fan_in^-0.5, embedding std 1, zero biases, unit norm scales) drawn on
-    the host from a ``torch.Generator`` (or an int seed), then moved to
-    ``device``."""
+    fan_in^-0.5, embedding std 1, zero biases, unit norm scales) drawn from
+    a ``torch.Generator`` (an int seed: the host's), then moved to
+    ``device``.  A generator on the card draws a full-width model there,
+    with other numbers than the host's."""
     dev = resolve_device(device)
     gen = seed_or_generator
     if not isinstance(gen, torch.Generator):
@@ -81,15 +82,18 @@ def params_from_reference(np_params, cfg: ArchConfig, *, device="cuda"):
 
 
 def cache_shape(cfg: ArchConfig, batch: int, max_len: int):
-    """Per-layer cache structure: [{"attn": {"k": (shape, dtype), ...}}]."""
+    """Per-layer cache structure: [{"attn": {"k": (shape, dtype), ...}}] or
+    [{"ssm": {"conv_x": ..., "state": ...}}], by each layer's mixer."""
     return stack_cache_shape(cfg, batch, max_len)
 
 
 def cache_init(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
-    """Zero caches for ``batch`` slots of ``max_len`` positions."""
+    """Zero caches for ``batch`` slots (of ``max_len`` positions for the
+    attention layers; an SSM layer's is its conv window and state)."""
     dev = resolve_device(device)
-    return [{"attn": {name: torch.zeros(shape, dtype=dt, device=dev)
-                      for name, (shape, dt) in c["attn"].items()}}
+    return [{kind: {name: torch.zeros(shape, dtype=dt, device=dev)
+                    for name, (shape, dt) in bufs.items()}
+             for kind, bufs in c.items()}
             for c in cache_shape(cfg, batch, max_len)]
 
 

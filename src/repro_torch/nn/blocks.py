@@ -5,8 +5,9 @@ The reference scans one compiled block body over stacked parameters; the
 port runs eagerly, so the stack is a Python loop over a list of per-layer
 parameter dicts.  Dense models have pattern period 1 and no prefix, so
 layer ``i`` here is group ``i`` of the reference's scan
-(``models.lm.params_from_reference`` unstacks it).  The MoE and SSM kinds
-come with ROADMAP Queue 1, items 7b and 7c.
+(``models.lm.params_from_reference`` unstacks it).  A layer's mixer is
+attention or the Mamba-2 SSM; the MoE kind comes with ROADMAP Queue 1,
+item 7c.
 """
 from __future__ import annotations
 
@@ -17,12 +18,10 @@ from .attention import attn_cache_shape, attn_init, gqa_apply
 from .layers import norm, norm_init
 from .mlp import mlp_apply, mlp_init
 from .module import torch_dtype
+from .ssd import mamba_apply, mamba_init, ssm_cache_shape
 
 
-def _check_kind(mixer: str, ffn: str):
-    if mixer != "attn":
-        raise NotImplementedError(f"mixer {mixer!r} is not ported yet "
-                                  "(ROADMAP Queue 1, item 7b: SSM)")
+def _check_kind(ffn: str):
     if ffn not in ("mlp", "none"):
         raise NotImplementedError(f"ffn {ffn!r} is not ported yet (ROADMAP "
                                   "Queue 1, item 7c: MoE)")
@@ -30,8 +29,11 @@ def _check_kind(mixer: str, ffn: str):
 
 def block_init(gen, cfg: ArchConfig, mixer: str, ffn: str):
     dtype = torch_dtype(cfg.param_dtype)
-    p = {"norm1": norm_init(cfg.norm_type, cfg.d_model, dtype),
-         "attn": attn_init(gen, cfg)}
+    p = {"norm1": norm_init(cfg.norm_type, cfg.d_model, dtype)}
+    if mixer == "attn":
+        p["attn"] = attn_init(gen, cfg)
+    else:
+        p["ssm"] = mamba_init(gen, cfg)
     if ffn == "mlp":
         p["norm2"] = norm_init(cfg.norm_type, cfg.d_model, dtype)
         p["mlp"] = mlp_init(gen, cfg)
@@ -43,19 +45,23 @@ def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
     """x (B, S, d_model) -> (x, cache); ``stack_kinds`` has checked the
     kind."""
     h = norm(cfg.norm_type, p["norm1"], x)
-    h, c = gqa_apply(p["attn"], cfg, h, mode=mode, length=length,
-                     cache=None if cache is None else cache["attn"])
+    if mixer == "attn":
+        h, c = gqa_apply(p["attn"], cfg, h, mode=mode, length=length,
+                         cache=None if cache is None else cache["attn"])
+    else:       # the SSM carries its own position in its state
+        h, c = mamba_apply(p["ssm"], cfg, h, mode=mode,
+                           cache=None if cache is None else cache["ssm"])
     x = x + h
     if ffn == "mlp":
         x = x + mlp_apply(p["mlp"], cfg, norm(cfg.norm_type, p["norm2"], x))
-    return x, (None if cache is None else {"attn": c})
+    return x, (None if cache is None else {mixer: c})
 
 
 def stack_kinds(cfg: ArchConfig):
     """(mixer, ffn) of every layer, in order."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
-    for kind in kinds:
-        _check_kind(*kind)
+    for _, ffn in kinds:
+        _check_kind(ffn)
     return kinds
 
 
@@ -63,9 +69,16 @@ def stack_init(gen, cfg: ArchConfig):
     return [block_init(gen, cfg, *kind) for kind in stack_kinds(cfg)]
 
 
+def block_cache_shape(cfg: ArchConfig, mixer: str, batch: int,
+                      max_len: int):
+    if mixer == "attn":
+        return {"attn": attn_cache_shape(cfg, batch, max_len)}
+    return {"ssm": ssm_cache_shape(cfg, batch)}
+
+
 def stack_cache_shape(cfg: ArchConfig, batch: int, max_len: int):
-    return [{"attn": attn_cache_shape(cfg, batch, max_len)}
-            for _ in stack_kinds(cfg)]
+    return [block_cache_shape(cfg, mixer, batch, max_len)
+            for mixer, _ in stack_kinds(cfg)]
 
 
 def stack_apply(params, cfg: ArchConfig, x, *, mode: str, length=None,

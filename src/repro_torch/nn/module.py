@@ -2,7 +2,8 @@
 
 Parameters are plain nested dicts of tensors.  Every layer is a pair of
 functions ``<layer>_init(gen, ...) -> params`` and ``<layer>(params, x,
-...)``.  Draws come from an explicit ``torch.Generator`` on the host; the
+...)``.  Draws come from an explicit ``torch.Generator`` (the host's, or the
+card's for a full-width model); the
 numbers differ from the reference's ``jax.random`` draw, so tests carry the
 reference's params over instead (``models.lm.params_from_reference``).
 There is no ``vmap`` stacking: a layer stack is a list of per-layer dicts.
@@ -22,8 +23,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
                      dtype=torch.float32):
-    """2-sigma truncated normal, as the reference's initializers."""
-    t = torch.empty(shape, dtype=torch.float32)
+    """2-sigma truncated normal, as the reference's initializers, drawn on
+    the generator's device."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * stddev).to(dtype)
 

@@ -6,14 +6,17 @@ bound by the weight stream: each streamed weight must be reused S_batch
 times.  LM decode is the same regime, so the engine keeps a fixed pool of
 ``max_batch`` cache slots and decodes all of them in one batched step, whose
 attention is kernel 5 (``csrc/decode_attn.cu``) on the card.  Prefill runs
-per request at admission, padded to a multiple of ``prefill_bucket``, and
-its one-row cache is copied into the request's slot.
+per request at admission, padded to a multiple of ``prefill_bucket`` (an
+SSM model's at exact length: its state would absorb pad tokens; its
+prefill runs kernels 7 and 6 in every layer), and its one-row cache is
+copied into the request's slot.
 
 Slot and queue bookkeeping is the shared :class:`SlotScheduler`, as for
-:class:`CnnEngine`; this module owns the decode state: per-layer
-(max_batch, max_len, KV, D) caches in ``cfg.dtype``, preallocated and
-updated in place, the slots' lengths (on the host, uploaded with the active
-mask once a step) and their last tokens (on the device).  The engine runs
+:class:`CnnEngine`; this module owns the decode state: per-layer caches
+(attention: (max_batch, max_len, KV, D) in ``cfg.dtype``; SSM: the conv
+windows and the f32 state), preallocated and updated in place, the slots'
+lengths (on the host, uploaded with the active mask once a step) and their
+last tokens (on the device).  The engine runs
 eagerly; each step ends in one host sync, the fetch of the new tokens.
 
 Request lifecycle: submit() -> queued -> admitted (prefill) -> decoding ->
@@ -97,6 +100,10 @@ class Engine:
         self.sched.submit(req)
 
     def _pad_len(self, n: int) -> int:
+        # an SSM's state would absorb the pad tokens, so the SSM family
+        # prefills at exact length, as in the reference
+        if self.cfg.family == "ssm":
+            return n
         b = self.scfg.prefill_bucket
         return min(-(-n // b) * b, self.scfg.max_len)
 
@@ -111,11 +118,13 @@ class Engine:
             logits, one, _ = self.mod.apply(
                 self.params, self.cfg, torch.from_numpy(toks).to(self.device),
                 mode="prefill", caches=one)
-            # insert: the one-row cache into the slot; prefill over the
-            # padded tail also wrote entries past plen, which lengths masks
+            # insert: every cache of the one-row prefill into the slot;
+            # prefill over the padded tail also wrote attention entries
+            # past plen, which lengths masks
             for full, row in zip(self.cache, one):
-                for name, buf in full["attn"].items():
-                    buf[slot] = row["attn"][name][0]
+                for kind, bufs in full.items():
+                    for name, buf in bufs.items():
+                        buf[slot] = row[kind][name][0]
             self.lengths[slot] = plen
             first_tok = int(logits[0, plen - 1].argmax())
             self.last_tokens[slot, 0] = first_tok
@@ -136,8 +145,8 @@ class Engine:
 
     def decode(self, tokens, lengths: np.ndarray, caches):
         """One batched decode of ``tokens`` (max_batch, 1) at the slots'
-        ``lengths`` -> logits (max_batch, V) f32; writes the new K/V into
-        ``caches`` in place."""
+        ``lengths`` -> logits (max_batch, V) f32; advances ``caches`` in
+        place (an SSM layer reads no length: its state is its position)."""
         logits, _, _ = self.mod.apply(
             self.params, self.cfg, tokens, mode="decode",
             length=torch.from_numpy(lengths).to(self.device,

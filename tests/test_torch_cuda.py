@@ -15,6 +15,11 @@ dtype: atol 1e-5, rtol 1e-5 in f32; atol 1e-4, rtol 1e-2 in bf16 (a bf16
 step is at most 2**-7 relative).  Against the plain version the models
 call, which rounds its probabilities to bf16, it is held to the JAX
 package's bound for its decode kernel, rtol = atol = 5e-2 in bf16.
+Kernels 6 (the SSD scan) and 7 (the depthwise causal conv) compute in f32
+like their plain versions, with the same prefix sum of dt * A: in f32
+max|diff| <= 1e-5 * max|plain|; in bf16 the outputs round f32 values that
+differ by f32 noise, so they agree within one bf16 step (rtol 2**-7, atol
+1e-5 * max|plain|), and the SSD's f32 state within 1e-5 * max|plain|.
 """
 import dataclasses
 
@@ -32,6 +37,8 @@ from repro_torch.kernels.decode_attn import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attn.ref import \
     decode_attention_f32_ref  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.models import alexnet, lm  # noqa: E402
 from repro_torch.nn.pooling import LrnParams  # noqa: E402
 from repro_torch.serving import (CnnEngine, CnnServeConfig,  # noqa: E402
@@ -424,4 +431,163 @@ def test_engine_decodes_through_kernel5(card, arch):
         if dev == card:
             assert decode_attn.launches - n0 == \
                 cfg.num_layers * eng.decode_steps
+    assert out["cpu"] == out[str(card)]
+
+
+# kernels 6 and 7 ------------------------------------------------------------
+BF16_STEP = 2.0 ** -7
+
+
+def _f32_close(got, ref, dtype, rel_step=False):
+    """max|diff| <= 1e-5 * max|ref|, plus one bf16 step of |ref| where the
+    output was rounded to bf16 (``rel_step``)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert got.shape == ref.shape
+    bound = 1e-5 * float(ref.abs().max())
+    if rel_step and dtype == torch.bfloat16:
+        bound = bound + BF16_STEP * ref.abs()
+    excess = float(((got - ref).abs() - bound).max())
+    assert excess <= 0, excess
+
+
+def _ssd_card_inputs(seed, B, L, H, P, G, N, dtype, card):
+    """The model's ranges: dt after softplus in [1e-3, 1e-1], A in
+    [-16, -1] (mamba's init), so the prefix sums reach the -60 clip."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(card, dt)
+    return (t(rng.standard_normal((B, L, H, P))),
+            t(rng.uniform(1e-3, 1e-1, (B, L, H)), torch.float32),
+            t(-rng.uniform(1.0, 16.0, (H,)), torch.float32),
+            t(rng.standard_normal((B, L, G, N))),
+            t(rng.standard_normal((B, L, G, N))))
+
+
+# (B, L, H, P, G, N, chunk): mamba2-2.7b's served geometry (one ragged
+# chunk of 200) and three chunks with a ragged tail; groups > 1; L = 1;
+# N = 256 (the kernel's largest); the JAX package's sweep
+SSD_CARD_CASES = [(1, 200, 80, 64, 1, 128, 256), (1, 600, 8, 64, 1, 128, 256),
+                  (2, 100, 4, 8, 2, 16, 32), (2, 37, 6, 16, 3, 32, 16),
+                  (1, 1, 4, 64, 1, 128, 256), (2, 300, 4, 64, 2, 256, 128),
+                  (2, 64, 4, 8, 2, 16, 16), (2, 16, 8, 16, 1, 4, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SSD_CARD_CASES)
+def test_ssd_kernel_matches_plain(card, dtype, B, L, H, P, G, N, chunk):
+    args = _ssd_card_inputs(L + N, B, L, H, P, G, N, dtype, card)
+    n0 = ssd.launches
+    y, st = ssd_ops.ssd_chunked(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == n0 + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    y_ref, st_ref = ssd.ssd_chunked_plain(*args, chunk=chunk)
+    _f32_close(y, y_ref, dtype, rel_step=True)
+    _f32_close(st, st_ref, dtype)
+    # the plain version on the CPU too
+    y_cpu, st_cpu = ssd_ops.ssd_chunked(*(a.cpu() for a in args),
+                                        chunk=chunk)
+    _f32_close(y, y_cpu, dtype, rel_step=True)
+    _f32_close(st, st_cpu, dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_is_deterministic_and_padding_free(card):
+    """Two runs are bit-equal; rows past L (here a second call on the
+    same rows padded with zeros and dt = 0) leave the state unchanged."""
+    x, dt, A, Bm, Cm = _ssd_card_inputs(3, 1, 300, 8, 64, 1, 128,
+                                        torch.bfloat16, card)
+    y1, s1 = ssd.ssd_chunked_pallas(x, dt, A, Bm, Cm, chunk=128)
+    y2, s2 = ssd.ssd_chunked_pallas(x, dt, A, Bm, Cm, chunk=128)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    pad = [torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, 84))
+           for t in (x, dt, Bm, Cm)]
+    y3, s3 = ssd.ssd_chunked_pallas(pad[0], pad[1], A, pad[2], pad[3],
+                                    chunk=128)
+    assert torch.equal(s3, s1) and torch.equal(y3[:, :300], y1)
+
+
+DW1D_CARD_CASES = [(1, 200, 5120), (1, 2048, 5120), (2, 7, 128), (2, 33, 5),
+                   (3, 100, 96), (1, 1, 8), (1, 2, 130), (2, 64, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C", DW1D_CARD_CASES)
+def test_dw1d_kernel_matches_plain(card, dtype, B, L, C):
+    """mamba2-2.7b's x stream (C = d_inner = 5120) at the served and a
+    long prompt length, L not a multiple of 3, C not a multiple of a
+    block, with and without bias."""
+    rng = np.random.default_rng(L + C)
+    x = torch.from_numpy(rng.standard_normal((B, L, C)).astype(
+        np.float32)).to(card, dtype)
+    w = torch.from_numpy((rng.standard_normal((4, C)) * 0.5).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy(rng.standard_normal((C,)).astype(np.float32)).to(
+        card)
+    for bias in (b, None):
+        n0 = winograd.dw1d_launches
+        got = ops.conv1d_depthwise_causal(x, w, bias)
+        torch.cuda.synchronize()
+        assert winograd.dw1d_launches == n0 + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        bb = torch.zeros_like(w[0]) if bias is None else bias
+        _f32_close(got, winograd.conv1d_depthwise_causal_plain(x, w, bb),
+                   dtype, rel_step=True)
+        _f32_close(got, ops.conv1d_depthwise_causal(
+            x.cpu(), w.cpu(), None if bias is None else bias.cpu()), dtype,
+            rel_step=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["ssd", "dw1d"])
+def test_ssd_and_dw1d_launch_errors_raise(card, monkeypatch, which):
+    class Failing:
+        def __init__(self, real):
+            self._real = real
+
+        def __getattr__(self, name):
+            if name == f"repro_{which}":
+                return lambda *args: 719
+            return getattr(self._real, name)
+
+    real = build.library()
+    monkeypatch.setattr(build, "library", lambda: dataclasses.replace(
+        real, lib=Failing(real.lib)))
+    if which == "ssd":
+        args = _ssd_card_inputs(0, 1, 20, 2, 8, 1, 16, torch.float32, card)
+        call = lambda: ssd.ssd_chunked_pallas(*args)  # noqa: E731
+    else:
+        x = torch.ones((1, 9, 4), device=card)
+        call = lambda: winograd.conv1d_depthwise_causal(  # noqa: E731
+            x, torch.ones((4, 4), device=card))
+    with pytest.raises(build.KernelError, match=f"{which}.*719"):
+        call()
+
+
+@pytest.mark.cuda
+def test_engine_prefills_mamba_through_kernels_6_and_7(card):
+    """The reduced mamba2-2.7b served on the card launches kernels 6 and 7
+    once per layer per prefill and emits the CPU engine's greedy tokens;
+    prompts of 1-2 tokens (shorter than the conv window) and one over two
+    chunks included."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = lm.init(0, cfg, device="cpu")
+    scfg = ServeConfig(max_batch=3, max_len=64)
+    prompts = [list(range(1, n + 1)) for n in (5, 1, 20, 2, 9)]
+    out = {}
+    for dev in ("cpu", card):
+        eng = Engine(cfg, scfg, params=lm.to_device(params, dev), device=dev)
+        reqs = [Request(prompt=p, max_new=5) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        n6, n7 = ssd.launches, winograd.dw1d_launches
+        eng.run_until_done()
+        out[str(dev)] = [r.generated for r in reqs]
+        if dev == card:
+            assert ssd.launches - n6 == cfg.num_layers * len(prompts)
+            assert winograd.dw1d_launches - n7 == \
+                cfg.num_layers * len(prompts)
     assert out["cpu"] == out[str(card)]

@@ -21,7 +21,9 @@ Phases:
                ``direct`` route), then with ``fc_bfp`` and ``conv_bfp``
                (agreement with the f32 model within the BFP error); each
                with launch counts and bit-equality to ``apply`` at the
-               served bucket;
+               served bucket; then one more f32 batch of 8 traced with
+               ``torch.profiler`` (device busy ms, the conv kernels' device
+               ms, the device idle share);
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
                (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), f32 and bf16, held against its plain
@@ -289,7 +291,7 @@ def phase_kernels(torch, np, cfg, params):
             time_ms(torch, kern), time_ms(torch, plain),
             time_ms(torch, library))
         flops, nbytes = flops_bytes(kname, x, got, plan)
-        smem = (direct.smem_bytes(plan, pool) if kname == "conv_direct"
+        smem = (direct.smem_bytes(plan) if kname == "conv_direct"
                 else winograd.smem_bytes(plan, lrn, pool))
         bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
         bound_by = ("operations" if flops / PEAK_FP32_FLOPS
@@ -303,8 +305,9 @@ def phase_kernels(torch, np, cfg, params):
               f"enqueue {host_ms:.4f} ms) plain_ms "
               f"{plain_ms:.4f} library_ms(conv2d_ref, F.conv2d TF32 off) "
               f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}: "
-              f"{flops:.3e} flop, {nbytes:.3e} B) | dynamic smem/block "
-              f"{smem} B")
+              f"{flops:.3e} flop, {nbytes:.3e} B) | kernel_ms/library_ms "
+              f"{ms / lib_ms:.3f} bound_ms/kernel_ms {bound / ms:.4f} | "
+              f"dynamic smem/block {smem} B")
         check(err <= TOL_KERNEL * scale,
               f"{layer}: kernel disagrees with its plain version: {err} > "
               f"{TOL_KERNEL} * {scale}")
@@ -319,7 +322,8 @@ def phase_kernels(torch, np, cfg, params):
             "max_abs_plain": scale, "ms": ms, "host_ms": host_ms,
             "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
-            "flop": flops, "bytes": nbytes, "smem_bytes": smem})
+            "kernel_over_library": ms / lib_ms, "bound_over_kernel":
+            bound / ms, "flop": flops, "bytes": nbytes, "smem_bytes": smem})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("bound_ms", bound), ("library_ms", lib_ms),
@@ -523,13 +527,46 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
     if cfg_f32 is not None:
         check(dmax > 0, "BFP logits equal the f32 model's: the quantized "
               "path did not run")
+        trace = {}
+    else:
+        trace = profile_batch(torch, eng, requests)
     lat = s["latency_ms"]
-    return {"completed": acc["completed"], "batches": nb,
+    return {**trace, "completed": acc["completed"], "batches": nb,
             "bucket_counts": s["bucket_counts"],
             "imgs_per_s": s["imgs_per_s"], "p50_ms": lat["p50"],
             "p99_ms": lat["p99"], "peak_mem_bytes": peak,
             "launches": counts, "served_vs_reference": what,
             "served_vs_reference_max_abs": dmax, "max_abs_logit": lmax}
+
+
+def profile_batch(torch, eng, requests):
+    """Where one served batch of BATCH images goes (submit to the last
+    retire, the engine's own H2D copy and host sync included): its wall
+    time untraced, and from a ``torch.profiler`` trace its device busy
+    time, the conv kernels' device time and the device idle share."""
+    def serve_batch():
+        for r in requests(BATCH):
+            eng.submit(r)
+        eng.run_until_done()
+
+    wall, busy, events, marks, top = profile_decode(
+        torch, serve_batch, marks=("conv_direct", "conv_winograd"))
+    if busy is None:
+        print(f"serve f32 batch of {BATCH}: {wall:.3f} ms wall | the "
+              "profiler trace holds no device events; device busy time not "
+              "measured")
+        return {"batch_wall_ms": wall, "batch_device_busy_ms": None}
+    idle = 1.0 - busy / wall
+    print(f"serve f32 batch of {BATCH}: {wall:.3f} ms wall (untraced) | "
+          f"traced: device busy {busy:.3f} ms in {events:.0f} events, "
+          f"conv_direct {marks['conv_direct']:.4f} ms, conv_winograd "
+          f"{marks['conv_winograd']:.4f} ms | device idle share {idle:.4f} "
+          "| top: " + "; ".join(f"{n} {ms:.4f} ms" for n, ms in top))
+    return {"batch_wall_ms": wall, "batch_device_busy_ms": busy,
+            "batch_device_events": events,
+            "batch_conv_direct_ms": marks["conv_direct"],
+            "batch_conv_winograd_ms": marks["conv_winograd"],
+            "batch_device_idle_share": idle, "batch_top": top}
 
 
 def phase_decode(torch, np):
@@ -632,7 +669,8 @@ def _requests(rng, vocab, n, lo, hi, max_new):
 
 
 def profile_decode(torch, decode, steps=3, marks=("decode_attn",)):
-    """Where ``decode()``'s time goes: (wall ms per call, untraced, with a
+    """Where ``decode()``'s time goes (any call: a decode step, a
+    prefill, a served batch): (wall ms per call, untraced, with a
     host sync after each call as a served step has; then from a
     ``torch.profiler`` trace of ``steps`` calls: device busy ms per call,
     device events per call, the ms per call of the kernels whose names

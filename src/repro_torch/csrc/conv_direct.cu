@@ -1,5 +1,5 @@
-// Strided direct conv layer: conv + bias + ReLU + cross-channel LRN + VALID
-// max-pool in one kernel, for any filter size, stride, groups and padding.
+// Strided direct conv layer: conv + bias + ReLU, then cross-channel LRN and
+// VALID max-pool, for any filter size, stride, groups and padding.
 //
 // Replaces the TPU kernel _direct_kernel (src/repro/kernels/conv/direct.py,
 // launched by conv2d_direct): AlexNet conv1 (11x11 stride 4, 3 -> 96) and
@@ -7,160 +7,369 @@
 //
 // What bounds it on an H100: operations.  conv2 at batch 8 is 1.8 G
 // multiply-adds against 5 MB of input, weights and output; conv1 is
-// 0.84 G against 7 MB.  There is no FP32 tensor-core path, so the roof is
-// the 67 TFLOP/s of the FMA pipes.
+// 0.84 G against 7 MB.  The results are plain FP32 (no TF32), so the roof
+// is the 67 TFLOP/s of the FMA pipes, and the design is a register-tiled
+// FP32 GEMM that keeps those pipes fed from shared memory.
 //
-// Design.  The TPU walked a sequential grid and carried partial sums in
-// scratch across channel blocks (acc_ref) and K blocks (y_ref).  GPU blocks
-// run in no order, so one thread block owns one image and one tile of
-// PT x PT pooled outputs, and loops over every group, K chunk and channel
-// block itself.  Cross-channel LRN needs all g*K channels of a pixel
-// (across the group seam) and the pool needs a spatial halo, so the block
-// computes its whole conv tile, (ps*(PT-1)+pwin)^2 pixels x g*K channels,
-// into shared memory (conv1: 9x9x96 floats = 31 KB, conv2: 9x9x256 = 83 KB,
-// dynamic shared memory), recomputing the pool halo its neighbours also
-// compute, then runs the epilogue (epilogue.cuh) and writes only the pooled
-// map.  Each thread accumulates a 4-pixel x 4-channel register tile in
-// plain FP32 FMA (no TF32, no atomics: every output is one thread's fixed
-// sum order, so results are deterministic); lanes of a warp take
-// neighbouring output channels, so slab reads are coalesced along Kb and
-// the input value is a broadcast.  Weights are read in the packed slab
-// layout (tile lin = k * ncb + c of (r, r, Cb, Kb)) through L1/L2; only the
-// C real channels of each group are read, so channel padding in the slab
-// is never touched, and out-of-range input pixels (SAME padding, the rows
-// and columns a strided VALID conv never reaches) read as zeros.
+// Design.  Two launches.
+// 1. The conv stage is an implicit GEMM per group: rows M are the conv
+//    pixels (b, oy, ox), columns N the group's K output channels, and the
+//    reduction runs over the r*r*C taps in the order (di, dj, c), c
+//    fastest.  A block of 256 threads owns a 64 x BN tile of one group
+//    (BN = 64 or 96, whichever pads K less: conv1 379 blocks of 64 x 96,
+//    conv2 368 of 64 x 64; three blocks an SM, so either is one wave of
+//    the 132 SMs), and walks the reduction in chunks of 16
+//    through a 3-stage cp.async ring in shared memory: A is an im2col
+//    gather from NHWC x (4-byte copies, or 16-byte ones where C is a
+//    multiple of 4; taps outside the input are zero-filled by the copy),
+//    B the packed slab's rows (tile lin = k * ncb + c of (r, r, Cb, Kb);
+//    16-byte copies where Kb is a multiple of 4).  A per-block table in
+//    shared memory maps each reduction index to its (di, dj, c) and slab
+//    offset, so the gather does no division.  Each thread holds a
+//    4 x (BN / 16) register tile and reads shared memory as float4 (float2
+//    for 96 columns); a warp's reads take one wavefront each, and per 4
+//    reduction steps 8 loads feed 64 (BN = 64) or 96 FMAs.  Bias
+//    and ReLU (epilogue.cuh) are applied in registers and y (B, out_h,
+//    out_w, g*K) is written once; it stays in the 50 MB L2 for the second
+//    launch, as the TPU kernel kept y in VMEM.  Where one tile holds all
+//    of a pixel's channels (one group, K <= BN: conv1), the block first
+//    puts its tile in shared memory and applies the LRN there, once per
+//    pixel and channel.
+// 2. The epilogue stage runs LRN across all g*K channels (the group seam
+//    included; conv2) where the conv stage did not, and the max-pool, from
+//    y (epilogue.cuh's fused_epilogue with the image's row stride), and
+//    writes only the pooled map.  With no pool and no LRN left to apply
+//    the conv stage writes the output and this launch is skipped.
+// Numerics: each output is one thread's fmaf chain from +0 over (di, dj,
+// c) in ascending order; zero-filled taps (padding, the ragged reduction
+// tail) are FMA'd, not skipped, so a NaN weight poisons as in the plain
+// version.  No TF32, no atomics, no split-K: the result is deterministic
+// and does not depend on the tiling or the slab's blocking.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "conv_args.cuh"
 #include "epilogue.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPix = 4;     // conv pixels per thread
-constexpr int kChan = 4;    // output channels per thread (strided by 32)
+constexpr int kThreads = 256;    // 16 x 16 threads over a block tile
+constexpr int kTM = 4;           // rows per thread
+constexpr int kBM = 16 * kTM;    // conv pixels (rows) of a block tile
+constexpr int kBK = 16;          // reduction chunk
+constexpr int kStages = 3;       // cp.async ring depth
+constexpr int kApad = kBK + 4;   // A row stride in shared memory (floats)
 
-__global__ void __launch_bounds__(kThreads)
-conv_direct_kernel(ConvArgs a, const float* __restrict__ x,
-                   const float* __restrict__ slab,
-                   const float* __restrict__ bias, float* __restrict__ out) {
-  extern __shared__ float ytile[];            // ct * ct * kf
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared memory of one conv-stage block of BN = 16 tn columns: the A and B
+// rings (which also hold the kBM x BN conv tile for an LRN in this stage)
+// and the two per-reduction-index tables.
+size_t gemm_smem_bytes(int tn, int R) {
+  return ((size_t)kStages * (kBM * kApad + kBK * 16 * tn) + 2 * (size_t)R)
+         * sizeof(float);
+}
+
+// Whether the conv stage applies the LRN itself: one block tile holds all
+// of a pixel's channels (one group, K <= BN).
+__host__ __device__ __forceinline__ bool lrn_in_gemm(const ConvArgs& a,
+                                                     int bn) {
+  return a.lrn_n && a.g == 1 && a.K <= bn;
+}
+
+// Grid (ceil(M / kBM), ceil(K / BN), g), BN = 16 TN.  VA / VB: 16-byte
+// copies of A / B.  Held to 80 registers, so three blocks share an SM and
+// a grid of up to 396 blocks fills one wave.
+template <int TN, bool VA, bool VB>
+__global__ void __launch_bounds__(kThreads, 3)
+conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
+                 const float* __restrict__ slab,
+                 const float* __restrict__ bias, float* __restrict__ y) {
+  constexpr int BN = 16 * TN;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                               // kStages x kBM x kApad
+  float* Bs = As + kStages * kBM * kApad;         // kStages x kBK x BN
+  const int R = a.r * a.r * a.C;
+  int* xtap = (int*)(Bs + kStages * kBK * BN);    // (di << 24 | dj << 16 | c)
+  int* wrow = xtap + R;                           // slab offset of row k
+  const int M = a.B * a.out_h * a.out_w;
+  const int grp = blockIdx.z;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int t = threadIdx.x;
+  const size_t tile_elems = (size_t)a.r * a.r * a.Cb * a.Kb;
+
+  for (int k = t; k < R; k += kThreads) {
+    const int c = k % a.C, tap = k / a.C;
+    xtap[k] = ((tap / a.r) << 24) | ((tap % a.r) << 16) | c;
+    wrow[k] = (int)((c / a.Cb) * tile_elems
+                    + ((size_t)tap * a.Cb + c % a.Cb) * a.Kb);
+  }
+
+  // the A row this thread gathers: one conv pixel for the whole reduction
+  const int arow = t % kBM;
+  const int m = m0 + arow;
+  const bool mvalid = m < M;
+  const int hw = a.out_h * a.out_w;
+  const int mb = mvalid ? m / hw : 0, mr = mvalid ? m % hw : 0;
+  const int iy0 = (mr / a.out_w) * a.s - a.pad_h;
+  const int ix0 = (mr % a.out_w) * a.s - a.pad_w;
+  const float* xb = x + (size_t)mb * a.H * a.W * a.Ct + grp * a.C;
+  // the B copies this thread makes each chunk: row kk, column col of the
+  // tile, from slab + wcol + wrow[k] (wcol < 0: a column past K)
+  constexpr int kRow = VB ? BN / 4 : BN;          // copies a B row takes
+  constexpr int kBPer = (kBK * kRow + kThreads - 1) / kThreads;
+  int bkk[kBPer], bcol[kBPer];
+  long long wcol[kBPer];
+#pragma unroll
+  for (int j = 0; j < kBPer; ++j) {
+    const int q = t + kThreads * j;
+    bkk[j] = q < kBK * kRow ? q / kRow : kBK;     // kBK: no copy
+    bcol[j] = (VB ? 4 : 1) * (q % kRow);
+    const int n = n0 + bcol[j];
+    wcol[j] = n < a.K ? (long long)(((size_t)grp * a.nkb + n / a.Kb) * a.ncb
+                                    * tile_elems + n % a.Kb)
+                      : -1;
+  }
+  __syncthreads();
+
+  auto load_chunk = [&](int stage, int k0) {
+    float* as = As + stage * kBM * kApad + arow * kApad;
+    constexpr int kAPer = kBM * kBK / (VA ? 4 : 1) / kThreads;
+#pragma unroll
+    for (int j = 0; j < kAPer; ++j) {
+      const int kk = (VA ? 4 : 1) * (t / kBM + (kThreads / kBM) * j);
+      const int k = k0 + kk;
+      const int v = k < R ? xtap[k] : 0;
+      const int iy = iy0 + (v >> 24), ix = ix0 + ((v >> 16) & 255);
+      const bool ok = mvalid && k < R && iy >= 0 && iy < a.H && ix >= 0
+                      && ix < a.W;
+      const float* src =
+          ok ? xb + ((size_t)iy * a.W + ix) * a.Ct + (v & 0xffff) : x;
+      if (VA) cp_async16(as + kk, src, ok);
+      else cp_async4(as + kk, src, ok);
+    }
+    float* bs = Bs + stage * kBK * BN;
+#pragma unroll
+    for (int j = 0; j < kBPer; ++j) {
+      if (bkk[j] == kBK) continue;
+      const int k = k0 + bkk[j];
+      const bool ok = k < R && wcol[j] >= 0;
+      const float* src = ok ? slab + wcol[j] + wrow[k] : slab;
+      if (VB) cp_async16(bs + bkk[j] * BN + bcol[j], src, ok);
+      else cp_async4(bs + bkk[j] * BN + bcol[j], src, ok);
+    }
+  };
+
+  const int nchunks = (R + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) load_chunk(s, s * kBK);
+    cp_async_commit();
+  }
+
+  // thread (tm, tn) of the 16 x 16 owns rows tm + 16 i and columns
+  // tn * TN + j of the tile; a warp spans 4 tm x 8 tn, so its float4 reads
+  // of A (4 rows, 80 bytes apart) and of B (8 neighbours) each take one
+  // shared-memory wavefront
+  const int tm = (t / 64) * 4 + (t % 32) / 8;
+  const int tn = ((t / 32) % 2) * 8 + t % 8;
+  float acc[kTM][TN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int kc = 0; kc < nchunks; ++kc) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nxt = kc + kStages - 1;
+    if (nxt < nchunks) load_chunk(nxt % kStages, nxt * kBK);
+    cp_async_commit();
+    const float* as = As + (kc % kStages) * kBM * kApad + tm * kApad;
+    const float* bs = Bs + (kc % kStages) * kBK * BN + tn * TN;
+#pragma unroll
+    for (int kq = 0; kq < kBK; kq += 4) {
+      float b[4][TN];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* bp = bs + (kq + kk) * BN;
+        if constexpr (TN % 4 == 0) {
+#pragma unroll
+          for (int j = 0; j < TN; j += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(bp + j);
+            b[kk][j] = v.x, b[kk][j + 1] = v.y, b[kk][j + 2] = v.z,
+            b[kk][j + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < TN; j += 2) {
+            const float2 v = *reinterpret_cast<const float2*>(bp + j);
+            b[kk][j] = v.x, b[kk][j + 1] = v.y;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float4 av =
+            *reinterpret_cast<const float4*>(as + 16 * i * kApad + kq);
+        const float ak[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(ak[kk], b[kk][j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
   const int kf = a.g * a.K;
-  const int ct = a.ps * (a.PT - 1) + a.pwin;
+  const int nt0 = n0 + tn * TN;
+  if (lrn_in_gemm(a, BN)) {
+    // the block's conv tile (kBM pixels x K channels) in the rings' place,
+    // then LRN across its channels, once per pixel and channel
+    __syncthreads();
+    float* yt = smem;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        if (nt0 + j < a.K)
+          yt[(tm + 16 * i) * BN + tn * TN + j] =
+              bias_relu(acc[i][j], bias[nt0 + j], a.relu);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int mo = m0 + tm + 16 * i;
+      if (mo >= M) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        if (nt0 + j < a.K)
+          y[(size_t)mo * kf + nt0 + j] =
+              lrn_at(yt + (tm + 16 * i) * BN, nt0 + j, a.K, a);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int mo = m0 + tm + 16 * i;
+    if (mo >= M) continue;
+    float* yp = y + (size_t)mo * kf + grp * a.K + nt0;
+    const float* bp = bias + grp * a.K + nt0;
+    if constexpr (TN % 4 == 0) {
+      if (a.K % 4 == 0) {                   // whole float4s, all in range
+#pragma unroll
+        for (int j = 0; j < TN; j += 4)
+          if (nt0 + j < a.K)
+            *reinterpret_cast<float4*>(yp + j) = make_float4(
+                bias_relu(acc[i][j], bp[j], a.relu),
+                bias_relu(acc[i][j + 1], bp[j + 1], a.relu),
+                bias_relu(acc[i][j + 2], bp[j + 2], a.relu),
+                bias_relu(acc[i][j + 3], bp[j + 3], a.relu));
+        continue;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      if (nt0 + j < a.K) yp[j] = bias_relu(acc[i][j], bp[j], a.relu);
+  }
+}
+
+// Grid (pooled tiles of PT x PT, B): LRN + max-pool from y in global memory.
+__global__ void __launch_bounds__(kThreads)
+conv_direct_epilogue(ConvArgs a, const float* __restrict__ y,
+                     float* __restrict__ out) {
+  const int kf = a.g * a.K;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;
   const int pi0 = (blockIdx.x / npw) * a.PT;
   const int pj0 = (blockIdx.x % npw) * a.PT;
   const int b = blockIdx.y;
-  const int cy0 = pi0 * a.ps, cx0 = pj0 * a.ps;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int npix = ct * ct;
-  const int npg = (npix + kPix - 1) / kPix;
-  const int nkc = (a.K + 32 * kChan - 1) / (32 * kChan);
-  const int items = a.g * nkc * npg;
-  const size_t tile_elems = (size_t)a.r * a.r * a.Cb * a.Kb;
+  const float* yb =
+      y + (((size_t)b * a.out_h + pi0 * a.ps) * a.out_w + pj0 * a.ps) * kf;
+  fused_epilogue(yb, a.out_w, kf, 0, b, pi0, pj0, a, out);
+}
 
-  for (int it = warp; it < items; it += kThreads / 32) {
-    const int pg = it % npg;
-    const int kc = (it / npg) % nkc;
-    const int grp = it / (npg * nkc);
+template <int TN, bool VA, bool VB>
+cudaError_t launch_gemm(const ConvArgs& a, size_t smem, cudaStream_t stream,
+                        const float* x, const float* slab, const float* bias,
+                        float* y) {
+  auto kernel = conv_direct_gemm<TN, VA, VB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int M = a.B * a.out_h * a.out_w;
+  dim3 grid((M + kBM - 1) / kBM, (a.K + 16 * TN - 1) / (16 * TN), a.g);
+  kernel<<<grid, kThreads, smem, stream>>>(a, x, slab, bias, y);
+  return cudaGetLastError();
+}
 
-    int py[kPix], px[kPix];
-    bool pv[kPix];
-#pragma unroll
-    for (int p = 0; p < kPix; ++p) {
-      const int pix = pg * kPix + p;
-      py[p] = cy0 + pix / ct;
-      px[p] = cx0 + pix % ct;
-      pv[p] = pix < npix && py[p] < a.out_h && px[p] < a.out_w;
-    }
-    int kin[kChan];
-    bool kv[kChan];
-    size_t wbase[kChan];
-#pragma unroll
-    for (int q = 0; q < kChan; ++q) {
-      kin[q] = kc * 32 * kChan + q * 32 + lane;
-      kv[q] = kin[q] < a.K;
-      const int kb = kv[q] ? kin[q] / a.Kb : 0;
-      wbase[q] = kv[q] ? (size_t)((grp * a.nkb + kb) * a.ncb) * tile_elems
-                             + kin[q] % a.Kb
-                       : 0;
-    }
-
-    float acc[kPix][kChan];
-#pragma unroll
-    for (int p = 0; p < kPix; ++p)
-#pragma unroll
-      for (int q = 0; q < kChan; ++q) acc[p][q] = 0.f;
-
-    for (int di = 0; di < a.r; ++di) {
-      for (int dj = 0; dj < a.r; ++dj) {
-        const float* xp[kPix];
-        bool ok[kPix];
-#pragma unroll
-        for (int p = 0; p < kPix; ++p) {
-          const int iy = py[p] * a.s - a.pad_h + di;
-          const int ix = px[p] * a.s - a.pad_w + dj;
-          ok[p] = pv[p] && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W;
-          xp[p] = ok[p] ? x + (((size_t)b * a.H + iy) * a.W + ix) * a.Ct
-                              + grp * a.C
-                        : x;
-        }
-        const size_t tap_off = (size_t)(di * a.r + dj) * a.Cb * a.Kb;
-        for (int cb = 0; cb < a.ncb; ++cb) {
-          const int c0 = cb * a.Cb;
-          const int cend = min(a.Cb, a.C - c0);
-          const float* wt = slab + (size_t)cb * tile_elems + tap_off;
-          for (int cc = 0; cc < cend; ++cc) {
-            float xv[kPix];
-#pragma unroll
-            for (int p = 0; p < kPix; ++p)
-              xv[p] = ok[p] ? __ldg(xp[p] + c0 + cc) : 0.f;
-#pragma unroll
-            for (int q = 0; q < kChan; ++q) {
-              const float wv =
-                  kv[q] ? __ldg(wt + wbase[q] + (size_t)cc * a.Kb) : 0.f;
-#pragma unroll
-              for (int p = 0; p < kPix; ++p)
-                acc[p][q] = fmaf(xv[p], wv, acc[p][q]);
-            }
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int p = 0; p < kPix; ++p) {
-      if (!pv[p]) continue;
-      const int pix = pg * kPix + p;
-#pragma unroll
-      for (int q = 0; q < kChan; ++q) {
-        if (!kv[q]) continue;
-        const int k = grp * a.K + kin[q];
-        ytile[pix * kf + k] = bias_relu(acc[p][q], bias[k], a.relu);
-      }
-    }
-  }
-  __syncthreads();
-  fused_epilogue(ytile, ct, kf, 0, b, pi0, pj0, a, out);
+template <int TN>
+cudaError_t launch_tile(const ConvArgs& a, size_t smem, bool va, bool vb,
+                        cudaStream_t stream, const float* x,
+                        const float* slab, const float* bias, float* y) {
+  if (va && vb)
+    return launch_gemm<TN, true, true>(a, smem, stream, x, slab, bias, y);
+  if (va)
+    return launch_gemm<TN, true, false>(a, smem, stream, x, slab, bias, y);
+  if (vb)
+    return launch_gemm<TN, false, true>(a, smem, stream, x, slab, bias, y);
+  return launch_gemm<TN, false, false>(a, smem, stream, x, slab, bias, y);
 }
 
 }  // namespace
 
+// y: (B, out_h, out_w, g*K) scratch for the epilogue stage (unused, and
+// may equal out, when there is no pool and no LRN left to apply); tn:
+// columns per thread of the conv stage's block tile (4 or 6).
 extern "C" int repro_conv_direct(const ConvArgs* args, const float* x,
                                  const float* slab, const float* bias,
-                                 float* out, cudaStream_t stream) {
+                                 float* y, float* out, int tn,
+                                 cudaStream_t stream) {
   const ConvArgs a = *args;
-  const int ct = a.ps * (a.PT - 1) + a.pwin;
-  const size_t smem = (size_t)ct * ct * a.g * a.K * sizeof(float);
-  if (a.PT < 1 || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_direct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int R = a.r * a.r * a.C;
+  const size_t smem = gemm_smem_bytes(tn, R);
+  const size_t slab_elems =
+      (size_t)a.g * a.nkb * a.ncb * a.r * a.r * a.Cb * a.Kb;
+  if ((tn != 4 && tn != 6) || a.r > 127
+      || a.C > 0xffff || slab_elems >= (1u << 31) || smem > 227 * 1024
+      || a.PT < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool va = a.C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
+  // the epilogue stage: the pool, and the LRN where the conv stage cannot
+  // apply it (it then pools the LRN'd map)
+  ConvArgs ea = a;
+  if (lrn_in_gemm(a, 16 * tn)) ea.lrn_n = 0;
+  const bool epilogue = ea.lrn_n || a.pwin != 1 || a.ps != 1;
+  float* dst = epilogue ? y : out;
+  const cudaError_t err =
+      tn == 4 ? launch_tile<4>(a, smem, va, vb, stream, x, slab, bias, dst)
+              : launch_tile<6>(a, smem, va, vb, stream, x, slab, bias, dst);
+  if (err != cudaSuccess || !epilogue) return (int)err;
   const int nph = (a.ph_out + a.PT - 1) / a.PT;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;
-  dim3 grid(nph * npw, a.B);
-  conv_direct_kernel<<<grid, kThreads, smem, stream>>>(a, x, slab, bias,
-                                                       out);
+  conv_direct_epilogue<<<dim3(nph * npw, a.B), kThreads, 0, stream>>>(
+      ea, y, out);
   return (int)cudaGetLastError();
 }

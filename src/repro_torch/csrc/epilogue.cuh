@@ -1,7 +1,7 @@
 // Fused layer epilogue shared by the direct kernel (conv_direct.cu) and the
 // fused Winograd kernel (conv_winograd.cu): cross-channel LRN, then VALID
-// max-pool, read from the block's conv tile in shared memory; only the
-// pooled map is written to device memory.
+// max-pool, read from the fused kernel's conv tile in shared memory or from
+// the direct kernel's conv map in L2; only the pooled map is written.
 //
 // Replaces the in-kernel half of the TPU epilogue
 // (src/repro/kernels/conv/epilogue.py: lrn_banded, maxpool_strided,
@@ -41,11 +41,13 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v > m || isnan(v)) ? v : m;
 }
 
-// y: the block's conv tile in shared memory, ct x ct pixels (row-major)
-// of kt channels, whose origin is conv pixel (pi0 * ps, pj0 * ps).  Writes
-// the block's PT x PT pooled outputs of image b, channels [kofs, kofs + kt)
-// of out (B, ph_out, pw_out, g * K).  Call after __syncthreads().
-__device__ __forceinline__ void fused_epilogue(const float* y, int ct, int kt,
+// y: conv pixel (pi0 * ps, pj0 * ps) of image b, row-major pixels of kt
+// channels, ld pixels a row: the fused Winograd kernel's ct x ct tile in
+// shared memory (ld = ct), or a whole conv map in global memory (ld =
+// out_w, the direct kernel's epilogue stage).  Writes the block's PT x PT
+// pooled outputs of image b, channels [kofs, kofs + kt) of out (B, ph_out,
+// pw_out, g * K).  Call after y is complete (__syncthreads() for a tile).
+__device__ __forceinline__ void fused_epilogue(const float* y, int ld, int kt,
                                                int kofs, int b, int pi0,
                                                int pj0, const ConvArgs& a,
                                                float* __restrict__ out) {
@@ -60,7 +62,8 @@ __device__ __forceinline__ void fused_epilogue(const float* y, int ct, int kt,
     float m = -INFINITY;
     for (int wi = 0; wi < a.pwin; ++wi) {
       for (int wj = 0; wj < a.pwin; ++wj) {
-        const float* yp = y + ((i * a.ps + wi) * ct + (j * a.ps + wj)) * kt;
+        const float* yp =
+            y + ((size_t)(i * a.ps + wi) * ld + (j * a.ps + wj)) * kt;
         m = nan_max(m, a.lrn_n ? lrn_at(yp, k, kt, a) : yp[k]);
       }
     }

@@ -9,13 +9,13 @@ is reused.  A failed build raises with the compiler's output.
 
 The conv launchers take one :class:`ConvArgs` (mirror of
 ``csrc/conv_args.cuh``) by pointer, raw device pointers, and the CUDA
-stream; the BFP matmul, decode-attention, SSD and depthwise-conv
-launchers take their pointers, their extents as ints and the stream (the
-depthwise conv also a host pointer to its transform matrices).  Each
-function returns the ``cudaError_t`` of its launch (0 on success).  A
-failed build and a nonzero ``cudaError_t`` both raise
-:class:`KernelError`, which the serving engines never retry or degrade
-around.
+stream (the direct launcher also its block tile's columns per thread);
+the BFP matmul, decode-attention, SSD and depthwise-conv launchers take
+their pointers, their extents as ints and the stream (the depthwise conv
+also a host pointer to its transform matrices).  Each function returns
+the ``cudaError_t`` of its launches (0 on success).  A failed build and a
+nonzero ``cudaError_t`` both raise :class:`KernelError`, which the serving
+engines never retry or degrade around.
 """
 from __future__ import annotations
 
@@ -117,13 +117,15 @@ def _compile(out_dir: Path) -> str:
 
 def _declare(lib: ctypes.CDLL):
     p = ctypes.c_void_p
-    lib.repro_conv_direct.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p, p]
+    i = ctypes.c_int
+    # (args, x, slab, bias, y, out, columns per thread, stream)
+    lib.repro_conv_direct.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p,
+                                      p, i, p]
     lib.repro_conv_direct.restype = ctypes.c_int
     for name in ("repro_conv_winograd", "repro_conv_winograd_fused"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p, p, p]
         fn.restype = ctypes.c_int
-    i = ctypes.c_int
     # (x, wq, we, out, M, K, N, block, stream)
     lib.repro_bfp_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.repro_bfp_matmul.restype = ctypes.c_int

@@ -7,6 +7,10 @@ reference's slab bit for bit.  :func:`conv2d_direct` runs the CUDA kernel
 (``csrc/conv_direct.cu``) on a CUDA tensor and its plain PyTorch version,
 :func:`conv2d_direct_plain`, on a CPU tensor; the plain version takes the
 kernel's exact arguments (input, packed slab, bias, plan, flags).
+
+The launch geometry is pure Python here (:func:`tile_cols`,
+:func:`conv_grid`, :func:`smem_bytes`, :func:`scratch_shape`,
+:func:`block_tile`), mirrored by the launcher, so the CPU tests check it.
 """
 from __future__ import annotations
 
@@ -24,12 +28,17 @@ from .epilogue import batch_blocks, channel_blocks, grouped_channel_pad, \
     k_blocks
 from .ref import same_pad
 
-# launches of the CUDA kernel (the plain version does not count)
+# wrapper calls that launched the CUDA kernel (the plain version does not
+# count; a call is one or two launches, conv stage then epilogue stage)
 launches = 0
 
-# shared memory one block may use for its conv tile (of the 227 KB an H100
-# block can have; the rest is headroom for the compiler's own use)
-SMEM_BUDGET = 200 * 1024
+# the conv stage's implicit-GEMM tiling, as csrc/conv_direct.cu has it
+BM = 64                     # conv pixels (GEMM rows) of a block tile
+TILE_COLS = (64, 96)        # output channels (columns) of a block tile
+BK = 16                     # reduction chunk
+STAGES = 3                  # cp.async ring depth
+# pooled outputs x channels one epilogue-stage block aims for
+EPILOGUE_OUTPUTS = 2048
 
 
 @dataclass(frozen=True)
@@ -154,26 +163,51 @@ def conv2d_direct_plain(x, w_tiles, bias, p: DirectPlan, *, relu: bool,
     return apply_epilogue(y, lrn, pool).contiguous()
 
 
-def block_tile(Kfull: int, pool) -> int:
-    """Pooled outputs per side of one thread block: 4 (8 conv outputs with
-    no pool), shrunk until the block's conv tile (all Kfull channels, f32)
-    fits its shared-memory budget."""
-    pwin, ps = pool if pool is not None else (1, 1)
-    PT = 4 if pool is not None else 8
-    while PT > 1 and (ps * (PT - 1) + pwin) ** 2 * Kfull * 4 > SMEM_BUDGET:
-        PT -= 1
-    if (ps * (PT - 1) + pwin) ** 2 * Kfull * 4 > SMEM_BUDGET:
-        raise ValueError(f"conv tile of {Kfull} channels exceeds the "
-                         "shared-memory budget")
+def tile_cols(p: DirectPlan) -> int:
+    """Output channels (GEMM columns) of one conv-stage block tile: 64 or
+    96, whichever pads K less (64 on a tie)."""
+    return min(TILE_COLS, key=lambda bn: (-(-p.K // bn) * bn, bn))
+
+
+def conv_grid(p: DirectPlan, B: int) -> tuple[int, int, int]:
+    """The conv stage's grid: (M tiles, N tiles, groups), M = B * out_h *
+    out_w conv pixels in tiles of BM."""
+    return (-(-(B * p.out_h * p.out_w) // BM), -(-p.K // tile_cols(p)),
+            p.g)
+
+
+def smem_bytes(p: DirectPlan) -> int:
+    """Dynamic shared memory of one conv-stage block (as
+    ``repro_conv_direct`` sizes it): the A ring (BM x (BK + 4) floats a
+    stage), the B ring (BK x BN) and two ints per reduction index."""
+    R = p.r * p.r * p.C
+    return (STAGES * (BM * (BK + 4) + BK * tile_cols(p)) + 2 * R) * 4
+
+
+def lrn_in_conv_stage(p: DirectPlan, lrn) -> bool:
+    """Whether the conv stage applies the LRN itself: one block tile holds
+    all of a pixel's channels (one group, K <= BN)."""
+    return lrn is not None and p.g == 1 and p.K <= tile_cols(p)
+
+
+def scratch_shape(p: DirectPlan, B: int, lrn, pool) -> tuple | None:
+    """The conv map y (LRN'd where the conv stage applies the LRN) that the
+    conv stage writes for the second launch to pool, or to LRN and pool,
+    (B, out_h, out_w, g*K) f32; None when there is no pool and no LRN
+    left, and the conv stage writes the output itself."""
+    pooled = pool is not None and tuple(pool) != (1, 1)
+    if not pooled and (lrn is None or lrn_in_conv_stage(p, lrn)):
+        return None
+    return (B, p.out_h, p.out_w, p.Kfull)
+
+
+def block_tile(Kfull: int) -> int:
+    """Pooled outputs per side of one epilogue-stage block: about
+    ``EPILOGUE_OUTPUTS`` outputs (pixels x channels) a block."""
+    PT = 1
+    while (PT + 1) ** 2 * Kfull <= EPILOGUE_OUTPUTS:
+        PT += 1
     return PT
-
-
-def smem_bytes(p: DirectPlan, pool) -> int:
-    """Dynamic shared memory one block of the kernel takes: its conv tile
-    of all Kfull channels (as ``repro_conv_direct`` sizes it)."""
-    pwin, ps = pool if pool is not None else (1, 1)
-    ct = ps * (block_tile(p.Kfull, pool) - 1) + pwin
-    return ct * ct * p.Kfull * 4
 
 
 def conv_args(x, p, *, relu: bool, lrn, pool, PT: int, pad: tuple,
@@ -211,14 +245,19 @@ def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
                         pool):
     global launches
     check_cuda_inputs("conv_direct", x, w_tiles, bias, p.Kfull)
-    out = torch.empty((x.shape[0], p.ph_out, p.pw_out, p.Kfull),
-                      device=x.device, dtype=torch.float32)
+    B = x.shape[0]
+    out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
+                      dtype=torch.float32)
+    shape = scratch_shape(p, B, lrn, pool)
+    y = out if shape is None else torch.empty(shape, device=x.device,
+                                              dtype=torch.float32)
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool,
-                     PT=block_tile(p.Kfull, pool), pad=(p.ph_lo, p.pw_lo),
+                     PT=block_tile(p.Kfull), pad=(p.ph_lo, p.pw_lo),
                      out_hw=(p.ph_out, p.pw_out))
     err = build.library().lib.repro_conv_direct(
         ctypes.byref(args), x.data_ptr(), w_tiles.data_ptr(),
-        bias.data_ptr(), out.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), out.data_ptr(),
+        tile_cols(p) // 16,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "conv_direct")
     launches += 1
@@ -238,7 +277,8 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
     ``w_packed`` is a slab staged by ``nn.conv.pack_conv_weights``.  The
     reference's TPU knobs (``row_block``, ``pool_row_block``,
     ``batch_block``) shape only the slab plan; both ``weight_prefetch``
-    values launch the same kernel.
+    values launch the same kernel, whose cp.async ring always stages the
+    weights ahead of their use.
     """
     if checksum:
         raise NotImplementedError(

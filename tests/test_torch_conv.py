@@ -338,3 +338,111 @@ def test_plan_knobs_reblock_the_slab_not_the_result(name, kw, H, c_in,
     direct = t_conv.dispatch_conv(spec, x, w, b,
                                   plan=t_conv.ConvPlan(route="direct"))
     torch.testing.assert_close(direct, base, **TOL)
+
+
+# the direct kernel's launch geometry at full conv1 / conv2 (batch 8) and
+# at every direct-kernel geometry of tests/test_torch_cuda.py:
+# (name, plan kwargs, r, B, H, c_in, c_out, lrn)
+DIRECT_GEOMETRIES = [
+    ("conv1_full", dict(stride=4, padding="VALID", pool=(3, 2)),
+     11, 8, 227, 3, 96, True),
+    ("conv2_full", dict(groups=2, pool=(3, 2)), 5, 8, 27, 96, 256, True),
+    ("conv1_reduced", dict(stride=4, padding="VALID", pool=(3, 2)),
+     11, 2, 35, 3, 16, True),
+    ("conv2_reduced", dict(groups=2, pool=(3, 2)), 5, 2, 13, 16, 32, True),
+    ("s2_same_plain", dict(stride=2), 3, 2, 9, 5, 7, False),
+    ("cblocks_pool2", dict(pool=(2, 2), c_block=2), 1, 2, 8, 5, 40, False),
+    ("kblocks_lrn_g2", dict(groups=2, k_block=4), 3, 2, 7, 6, 16, True),
+    ("m_ragged_k40_c5", dict(pool=(3, 2)), 3, 3, 11, 5, 40, True),
+    ("s4_valid_k96_c3", dict(stride=4, padding="VALID", pool=(3, 2)),
+     11, 1, 47, 3, 96, False),
+    ("same_r5_corners_c5", dict(), 5, 2, 7, 5, 12, False),
+    ("g2_c4_lrn_pool", dict(groups=2, pool=(3, 2)), 5, 2, 12, 8, 24, True),
+    ("big_m_c8_k64", dict(), 3, 8, 66, 8, 64, False),
+    ("lrn_in_conv_k40", dict(), 3, 2, 10, 4, 40, True),
+    ("big_m_k96_lrn_in_conv", dict(), 3, 8, 66, 4, 96, True),
+    ("lrn_k130_epilogue", dict(), 3, 1, 8, 3, 130, True),
+]
+
+
+def _direct_geometry(kw, r, B, H, c_in, c_out):
+    g = kw.get("groups", 1)
+    return t_direct.plan((B, H, H, c_in), (r, r, c_in // g, c_out), **kw)
+
+
+@pytest.mark.parametrize("name,kw,r,B,H,c_in,c_out,lrn", DIRECT_GEOMETRIES)
+def test_direct_grid_covers_each_conv_output_once(name, kw, r, B, H, c_in,
+                                                  c_out, lrn):
+    """The conv stage's blocks, (M tile, N tile, group) of BM conv pixels
+    and BN channels, cover every conv pixel and channel of each group
+    exactly once."""
+    p = _direct_geometry(kw, r, B, H, c_in, c_out)
+    M, BM, BN = B * p.out_h * p.out_w, t_direct.BM, t_direct.tile_cols(p)
+    nm, nn, g = t_direct.conv_grid(p, B)
+    assert g == p.g and (nm - 1) * BM < M <= nm * BM
+    hits = np.zeros((p.g, M, p.K), np.int32)
+    for grp in range(g):
+        for bn in range(nn):
+            for bm in range(nm):
+                hits[grp, bm * BM:(bm + 1) * BM, bn * BN:(bn + 1) * BN] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("name,kw,r,B,H,c_in,c_out,lrn", DIRECT_GEOMETRIES)
+def test_direct_scratch_shape(name, kw, r, B, H, c_in, c_out, lrn):
+    """The conv stage writes y (B, out_h, out_w, g*K), the conv map the
+    plain version pools, when there is a pool or an LRN across more
+    channels than one block tile holds; otherwise no scratch: the conv
+    stage writes the output."""
+    p = _direct_geometry(kw, r, B, H, c_in, c_out)
+    lrn_p = t_pool.LrnParams(*LRN) if lrn else None
+    pool = kw.get("pool")
+    in_conv = t_direct.lrn_in_conv_stage(p, lrn_p)
+    assert in_conv == (lrn and p.g == 1 and p.K <= t_direct.tile_cols(p))
+    shape = t_direct.scratch_shape(p, B, lrn_p, pool)
+    if pool is None and (lrn_p is None or in_conv):
+        assert shape is None
+        return
+    assert shape == (B, p.out_h, p.out_w, c_out)
+    if p.s == 1 or kw.get("padding") == "VALID":
+        conv = torch.nn.functional.conv2d(
+            torch.zeros(1, c_in, H, H),
+            torch.zeros(c_out, c_in // p.g, r, r), stride=p.s, groups=p.g,
+            padding="same" if p.s == 1 and kw.get("padding") != "VALID"
+            else 0)
+        assert shape[1:3] == tuple(conv.shape[2:])
+    # the scratch for full conv1 / conv2 is 9.3 / 6.0 MB: L2-resident
+    if name in ("conv1_full", "conv2_full"):
+        assert np.prod(shape) * 4 < 10e6
+
+
+@pytest.mark.parametrize("name,kw,r,B,H,c_in,c_out,lrn", DIRECT_GEOMETRIES)
+def test_direct_shared_memory_fits_a_block(name, kw, r, B, H, c_in, c_out,
+                                           lrn):
+    """Each conv-stage block's shared memory (the A and B rings and the tap
+    tables) fits the 227 KB an H100 block may have; an epilogue block
+    stays near its output target."""
+    p = _direct_geometry(kw, r, B, H, c_in, c_out)
+    BN = t_direct.tile_cols(p)
+    assert BN in (64, 96)
+    smem = t_direct.smem_bytes(p)
+    assert smem == (t_direct.STAGES * (t_direct.BM * (t_direct.BK + 4)
+                                       + t_direct.BK * BN)
+                    + 2 * p.r * p.r * p.C) * 4
+    assert smem <= 227 * 1024
+    PT = t_direct.block_tile(p.Kfull)
+    assert PT >= 1 and (PT * PT * p.Kfull <= t_direct.EPILOGUE_OUTPUTS
+                        or PT == 1)
+
+
+@pytest.mark.parametrize("name,BN,blocks", [("conv1_full", 96, 379),
+                                            ("conv2_full", 64, 368)])
+def test_direct_grid_fills_the_card(name, BN, blocks):
+    """Full conv1 and conv2 launch 180-380 conv-stage blocks, at least
+    one block on each of the H100's 132 SMs and at most one wave of three
+    an SM, with no padded channels (K = 96 and 128 a group)."""
+    geo = next(g for g in DIRECT_GEOMETRIES if g[0] == name)
+    p = _direct_geometry(*geo[1:7])
+    assert t_direct.tile_cols(p) == BN and p.K % BN == 0
+    nm, nn, g = t_direct.conv_grid(p, geo[3])
+    assert nm * nn * g == blocks and 132 <= blocks <= 3 * 132

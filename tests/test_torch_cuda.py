@@ -58,6 +58,25 @@ DIRECT_CASES = [
     ("s2_same_plain", dict(stride=2), 3, 2, 9, 5, 7),
     ("cblocks_pool2", dict(pool=(2, 2), c_block=2), 1, 2, 8, 5, 40),
     ("kblocks_lrn_g2", dict(groups=2, lrn=LRN, k_block=4), 3, 2, 7, 6, 16),
+    # the conv stage's tiling edges: M = 363 pixels (no multiple of a block
+    # tile), K = 40 (under one 64-channel tile), C = 5 (4-byte copies)
+    ("m_ragged_k40_c5", dict(lrn=LRN, pool=POOL), 3, 3, 11, 5, 40),
+    # K = 96 (a full and a half N tile), C = 3, stride 4 VALID
+    ("s4_valid_k96_c3", dict(stride=4, padding="VALID", pool=POOL),
+     11, 1, 47, 3, 96),
+    # SAME r = 5 s = 1: every corner reads padding; no LRN, no pool (the
+    # conv stage writes the output, one launch)
+    ("same_r5_corners_c5", dict(), 5, 2, 7, 5, 12),
+    # 16-byte copies in both groups (C = 4), LRN across the group seam
+    ("g2_c4_lrn_pool", dict(groups=2, lrn=LRN, pool=POOL), 5, 2, 12, 8, 24),
+    # 16-byte copies over more than one wave (545 blocks of 64 pixels)
+    ("big_m_c8_k64", dict(), 3, 8, 66, 8, 64),
+    # LRN in the conv stage (one group, K <= the tile's columns), no pool:
+    # one launch; with 64 x 96 tiles, as conv1 has them
+    ("lrn_in_conv_k40", dict(lrn=LRN), 3, 2, 10, 4, 40),
+    ("big_m_k96_lrn_in_conv", dict(lrn=LRN), 3, 8, 66, 4, 96),
+    # one group, K = 130 over three column tiles: LRN in the second launch
+    ("lrn_k130_epilogue", dict(lrn=LRN), 3, 1, 8, 3, 130),
 ]
 
 WINO_CASES = [
@@ -159,11 +178,29 @@ def test_nan_input_stays_visible(card):
 
 
 @pytest.mark.cuda
+def test_nan_weight_on_a_padded_tap_stays_visible(card):
+    """A NaN weight of tap (0, 0) meets only SAME padding at output pixel
+    (0, 0): the kernel FMAs padded taps as zeros (0 * NaN = NaN) instead
+    of skipping them, so its NaN pattern is the plain version's."""
+    x, w, b = _inputs(6, 1, 9, 5, 8, 5, 1)
+    w[0, 0, 2, 3] = np.nan
+    got, ref = _both(lambda x, w, b: direct.conv2d_direct(
+        x, w, b, relu=True), card, x, w, b)
+    assert np.isnan(ref[0, 0, 0, 3]) and np.isnan(ref[..., 3]).all()
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    fin = ~np.isnan(ref)
+    assert np.abs(got[fin] - ref[fin]).max() <= 1e-4 * max(
+        1.0, np.abs(ref[fin]).max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["direct", "winograd", "winograd_fused"])
 def test_kernel_blocking_is_bit_equal(card, kind):
     """The slab's channel and K blocking changes only addressing: each
     kernel sums the real channels in one fixed order, so any blocking
-    gives the default's bits."""
+    gives the default's bits.  Both ``weight_prefetch`` values launch the
+    same kernel (the direct kernel's cp.async ring stages its weights
+    either way), so they give the same bits too."""
     if kind == "direct":
         x, w, b = _inputs(3, 2, 27, 96, 256, 5, 2)
         fn = direct.conv2d_direct
@@ -175,8 +212,10 @@ def test_kernel_blocking_is_bit_equal(card, kind):
     x, w, b = (torch.from_numpy(a).to(card) for a in (x, w, b))
     base = fn(x, w, b, relu=True, **kw)
     other = fn(x, w, b, relu=True, c_block=40, k_block=32, **kw)
+    no_prefetch = fn(x, w, b, relu=True, weight_prefetch=False, **kw)
     torch.cuda.synchronize()
     assert torch.equal(base, other)
+    assert torch.equal(base, no_prefetch)
 
 
 class _FailingLib:

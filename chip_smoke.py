@@ -23,7 +23,7 @@ Phases:
                with launch counts and bit-equality to ``apply`` at the
                served bucket; then one more f32 batch of 8 traced with
                ``torch.profiler`` (device busy ms, the conv kernels' device
-               ms, the device idle share);
+               ms, the Winograd kernels' by stage, the device idle share);
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
                (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), f32 and bf16, held against its plain
@@ -291,8 +291,8 @@ def phase_kernels(torch, np, cfg, params):
             time_ms(torch, kern), time_ms(torch, plain),
             time_ms(torch, library))
         flops, nbytes = flops_bytes(kname, x, got, plan)
-        smem = (direct.smem_bytes(plan) if kname == "conv_direct"
-                else winograd.smem_bytes(plan, lrn, pool))
+        smem = (direct.smem_bytes if kname == "conv_direct"
+                else winograd.smem_bytes)(plan)
         bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
         bound_by = ("operations" if flops / PEAK_FP32_FLOPS
                     >= nbytes / PEAK_BYTES_PER_S else "bytes")
@@ -549,8 +549,10 @@ def profile_batch(torch, eng, requests):
             eng.submit(r)
         eng.run_until_done()
 
+    stages = tuple(f"conv_winograd_{s}"
+                   for s in ("input", "gemm", "inverse", "epilogue"))
     wall, busy, events, marks, top = profile_decode(
-        torch, serve_batch, marks=("conv_direct", "conv_winograd"))
+        torch, serve_batch, marks=("conv_direct", "conv_winograd", *stages))
     if busy is None:
         print(f"serve f32 batch of {BATCH}: {wall:.3f} ms wall | the "
               "profiler trace holds no device events; device busy time not "
@@ -560,12 +562,15 @@ def profile_batch(torch, eng, requests):
     print(f"serve f32 batch of {BATCH}: {wall:.3f} ms wall (untraced) | "
           f"traced: device busy {busy:.3f} ms in {events:.0f} events, "
           f"conv_direct {marks['conv_direct']:.4f} ms, conv_winograd "
-          f"{marks['conv_winograd']:.4f} ms | device idle share {idle:.4f} "
+          f"{marks['conv_winograd']:.4f} ms ("
+          + ", ".join(f"{m[14:]} {marks[m]:.4f}" for m in stages)
+          + f") | device idle share {idle:.4f} "
           "| top: " + "; ".join(f"{n} {ms:.4f} ms" for n, ms in top))
     return {"batch_wall_ms": wall, "batch_device_busy_ms": busy,
             "batch_device_events": events,
             "batch_conv_direct_ms": marks["conv_direct"],
             "batch_conv_winograd_ms": marks["conv_winograd"],
+            "batch_conv_winograd_stages_ms": {m: marks[m] for m in stages},
             "batch_device_idle_share": idle, "batch_top": top}
 
 

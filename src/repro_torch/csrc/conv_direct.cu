@@ -37,9 +37,9 @@
 //    pixel and channel.
 // 2. The epilogue stage runs LRN across all g*K channels (the group seam
 //    included; conv2) where the conv stage did not, and the max-pool, from
-//    y (epilogue.cuh's fused_epilogue with the image's row stride), and
-//    writes only the pooled map.  With no pool and no LRN left to apply
-//    the conv stage writes the output and this launch is skipped.
+//    y (epilogue.cuh's fused_epilogue), and writes only the pooled map.
+//    With no pool and no LRN left to apply the conv stage writes the
+//    output and this launch is skipped.
 // Numerics: each output is one thread's fmaf chain from +0 over (di, dj,
 // c) in ascending order; zero-filled taps (padding, the ragged reduction
 // tail) are FMA'd, not skipped, so a NaN weight poisons as in the plain
@@ -49,6 +49,7 @@
 #include <stdint.h>
 
 #include "conv_args.cuh"
+#include "cp_async.cuh"
 #include "epilogue.cuh"
 
 namespace {
@@ -59,29 +60,6 @@ constexpr int kBM = 16 * kTM;    // conv pixels (rows) of a block tile
 constexpr int kBK = 16;          // reduction chunk
 constexpr int kStages = 3;       // cp.async ring depth
 constexpr int kApad = kBK + 4;   // A row stride in shared memory (floats)
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Shared memory of one conv-stage block of BN = 16 tn columns: the A and B
 // rings (which also hold the kBM x BN conv tile for an LRN in this stage)
@@ -300,14 +278,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
 __global__ void __launch_bounds__(kThreads)
 conv_direct_epilogue(ConvArgs a, const float* __restrict__ y,
                      float* __restrict__ out) {
-  const int kf = a.g * a.K;
-  const int npw = (a.pw_out + a.PT - 1) / a.PT;
-  const int pi0 = (blockIdx.x / npw) * a.PT;
-  const int pj0 = (blockIdx.x % npw) * a.PT;
-  const int b = blockIdx.y;
-  const float* yb =
-      y + (((size_t)b * a.out_h + pi0 * a.ps) * a.out_w + pj0 * a.ps) * kf;
-  fused_epilogue(yb, a.out_w, kf, 0, b, pi0, pj0, a, out);
+  fused_epilogue(a, y, out);
 }
 
 template <int TN, bool VA, bool VB>

@@ -1,9 +1,8 @@
-// F(4,3) x F(4,3) Winograd conv layers, stride 1, SAME or VALID, groups:
-//   repro_conv_winograd        conv + bias + ReLU
-//   repro_conv_winograd_fused  the same, then cross-channel LRN and/or
-//                              VALID max-pool (epilogue.cuh)
+// F(4,3) x F(4,3) Winograd conv layer, stride 1, SAME or VALID, groups:
+// conv + bias + ReLU, then (when asked) cross-channel LRN and/or VALID
+// max-pool (epilogue.cuh).  One C entry, repro_conv_winograd, a layer.
 //
-// Replace the TPU kernels _conv2d_kernel (unfused branch of
+// Replaces the TPU kernels _conv2d_kernel (unfused branch of
 // conv2d_winograd) and _conv2d_fused_kernel (_conv2d_fused_call) in
 // src/repro/kernels/conv/winograd.py: AlexNet conv3 (13x13, 256 -> 384),
 // conv4 (384 -> 384, groups 2) and conv5 (384 -> 256, groups 2, 3/2 pool).
@@ -13,114 +12,255 @@
 // input, transformed weights and output, about 50 multiply-adds a byte;
 // FP32 FMA without tensor cores peaks at 67 TFLOP/s.
 //
-// Design.  The TPU kernels cut 6x6 tiles from a VMEM-resident plane and ran
-// 36 (tiles x Cb) @ (Cb x Kb) GEMMs per grid step, carrying the sums over
-// channel blocks in scratch across sequential grid steps.  Here a thread
-// block owns up to 8 Winograd tiles of one image and loops over all input
-// channels itself, in chunks of 32: the chunk's tiles are loaded (zeros
-// outside the image) and transformed (B^T d B) into shared memory, then
-// each thread -- one tile x one output channel, lanes on neighbouring
-// channels so reads of the transformed slab are coalesced along Kb --
-// accumulates its 36 Winograd-domain sums in registers.  After the last
-// chunk it applies A^T m A, the bias and ReLU.  The unfused kernel writes
-// the 4x4 outputs; the fused kernel owns one image x PT x PT pooled outputs,
-// covers their conv tile (ps*(PT-1)+pwin square, conv5: 7x7) with tiles,
-// keeps it in shared memory, and runs the shared LRN/pool epilogue.  With
-// LRN the block keeps all g*K channels (the window crosses group seams);
-// with pool only it keeps one 32*(8/NT)-channel slice, so more blocks run.
-// Plain FP32 FMA throughout (no TF32, no atomics): deterministic.  The slab
-// is read in the packed layout (tile lin = k * ncb + c of (6, 6, Cb, Kb));
-// only the C real channels and K real outputs of a group are read, so the
-// channel pad and conv4's K pad (192 -> 256) are never touched.  The
+// Design.  The TPU kernels ran 36 (tiles x Cb) @ (Cb x Kb) GEMMs per grid
+// step on a VMEM-resident plane.  Here a layer is three launches on the
+// caller's stream, four with an LRN or a pool, each stage's output an
+// L2-resident scratch the wrapper allocates:
+// 1. conv_winograd_input: U = B^T d B once for every Winograd tile of the
+//    4-grid (T = B * ceil(out_h/4) * ceil(out_w/4) tiles), group and input
+//    channel, zeros outside the image; U is (36, g, T, Cu) with the
+//    channels contiguous and padded to Cu, a multiple of the GEMM's chunk,
+//    with -0.0 (see Numerics).
+// 2. conv_winograd_gemm: the 36 x g GEMMs M[pos, grp] = U[pos, grp] (T x Cu)
+//    @ V[pos, grp] (Cu x K), V read in place from the packed slab (tile
+//    lin = k * ncb + c of (6, 6, Cb, Kb), Kb contiguous; channels >= C and
+//    columns >= K are never read).  A block of 256 threads owns a 64 x 64
+//    tile of one (position, group) and walks the channels in chunks of 16
+//    through a 3-stage cp.async ring (16-byte copies; 4-byte ones for the
+//    slab when Kb is not a multiple of 4; a per-block table of each
+//    channel's slab row offset, so a copy needs no division); each thread
+//    holds a 4 x 4 register tile read from shared memory as float4, one
+//    wavefront per warp read, as conv_direct.cu's conv stage does.  AlexNet conv3-5 at
+//    batch 8 launch 432 / 432 / 288 blocks: one wave at four an SM.
+//    M is (36, g, T, K).
+// 3. conv_winograd_inverse: A^T m A, bias and ReLU per (tile, output
+//    channel), into the output, or with an LRN or a pool into the conv
+//    map (B, out_h, out_w, g*K).
+// 4. conv_winograd_epilogue (LRN and/or pool only): the LRN across all g*K
+//    channels and the max-pool from the conv map (epilogue.cuh's
+//    fused_epilogue); writes the pooled map.
+// Every tile lies on the 4-grid of the plain version, so a Winograd slab
+// that is not G w G^T (conv_bfp quantizes it) gives the plain version's
+// function.  Every kernel's name holds "conv_winograd": profiles add
+// their device time up by that name.
+// Numerics: each stage keeps the roundings of the one-kernel design it
+// replaced.  U is B^T d as an fmaf chain from +0 in index order, then
+// times B the same way; each Winograd-domain sum is one thread's fmaf
+// chain over the group's C real channels in ascending order from +0 (no
+// split-K, no TF32, no atomics); the pad channels multiply U's -0.0 by a
+// zero-filled weight, and acc + -0.0 is acc bit for bit (+0.0 would turn
+// a -0.0 sum into +0.0); the inverse and the bias/ReLU as before.  So the
+// result does not depend on the tiling or the slab's blocking.  The
 // transform matrices are the reference's (winograd_transform(4, 3)),
 // passed in by the host.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "conv_args.cuh"
+#include "cp_async.cuh"
 #include "epilogue.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSlots = kThreads / 32;   // tile slots: one per warp
-constexpr int kCc = 32;                 // input channels per chunk
 constexpr int kN = 6, kM = 4, kNP = kN * kN;
-// Floats of transformed input per channel in U: kNP positions x kSlots
-// tiles, plus one so the 32 channels a warp stores land in 32 banks.
-constexpr int kUStride = kNP * kSlots + 1;
+constexpr int kThreads = 256;    // GEMM: 16 x 16 threads over a block tile
+constexpr int kTM = 4, kTN = 4;  // register tile of a GEMM thread
+constexpr int kBM = 16 * kTM;    // Winograd tiles (rows) of a block tile
+constexpr int kBN = 16 * kTN;    // output channels (columns) of a block tile
+constexpr int kBK = 16;          // input channels a chunk; U's channel pad
+constexpr int kStages = 3;       // cp.async ring depth
+constexpr int kApad = kBK + 4;   // A row stride in shared memory (floats)
+constexpr int kPointThreads = 128;   // the two transform launches
 
 struct WinoMats {
   float bt[kN * kN];                    // B^T (6, 6)
   float at[kM * kN];                    // A^T (4, 6)
 };
 
-// One pass: the block's nt tiles (conv-output origins oy[t], ox[t]) x one
-// output channel per thread.  Thread slot = warp: tile slot % nt, channel
-// kin = kbase + (slot / nt) * 32 + lane; active threads return their 36
-// Winograd-domain sums in acc.  U is kCc * kUStride floats of shared
-// memory.  Every thread of the block must call this.
-__device__ __forceinline__ void wino_pass(const ConvArgs& a, const WinoMats& mt,
-                          const float* __restrict__ x,
-                          const float* __restrict__ slab, int b, int grp,
-                          int nt, const int* oy, const int* ox, int kin,
-                          bool active, float* U, float acc[kNP]) {
+__host__ __device__ __forceinline__ int tiles_w(const ConvArgs& a) {
+  return (a.out_w + kM - 1) / kM;
+}
+
+__host__ __device__ __forceinline__ int tiles_per_image(const ConvArgs& a) {
+  return ((a.out_h + kM - 1) / kM) * tiles_w(a);
+}
+
+__host__ __device__ __forceinline__ int u_channels(const ConvArgs& a) {
+  return (a.C + kBK - 1) / kBK * kBK;
+}
+
+// Grid ceil(T * g * Cu / kPointThreads): one thread a (tile, group,
+// channel), channels fastest so loads of x and stores of U coalesce.
+__global__ void __launch_bounds__(kPointThreads)
+conv_winograd_input(ConvArgs a, WinoMats mt, const float* __restrict__ x,
+                    float* __restrict__ u) {
+  const int cu = u_channels(a);
+  const int T = a.B * tiles_per_image(a);
+  const long long idx = (long long)blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= (long long)T * a.g * cu) return;
+  const int c = (int)(idx % cu);
+  const int grp = (int)(idx / cu % a.g);
+  const int t = (int)(idx / ((long long)cu * a.g));
+  const size_t pos_stride = (size_t)a.g * T * cu;
+  float* up = u + ((size_t)grp * T + t) * cu + c;
+  if (c >= a.C) {
 #pragma unroll
-  for (int i = 0; i < kNP; ++i) acc[i] = 0.f;
-  const int t = (threadIdx.x >> 5) % nt;
-  const int kb = active ? kin / a.Kb : 0;
-  const size_t kofs = active ? kin % a.Kb : 0;
-  const size_t tile_elems = (size_t)kNP * a.Cb * a.Kb;
-  for (int c0 = 0; c0 < a.C; c0 += kCc) {
-    __syncthreads();                    // U is free
-    for (int idx = threadIdx.x; idx < nt * kCc; idx += blockDim.x) {
-      const int tt = idx / kCc, c = idx % kCc, cabs = c0 + c;
-      const int iy0 = oy[tt] - a.pad_h, ix0 = ox[tt] - a.pad_w;
-      float d[kN][kN];
+    for (int pos = 0; pos < kNP; ++pos) up[pos * pos_stride] = -0.f;
+    return;
+  }
+  const int b = t / tiles_per_image(a), r = t % tiles_per_image(a);
+  const int iy0 = (r / tiles_w(a)) * kM - a.pad_h;
+  const int ix0 = (r % tiles_w(a)) * kM - a.pad_w;
+  const float* xb = x + (size_t)b * a.H * a.W * a.Ct + grp * a.C + c;
+  float d[kN][kN];
 #pragma unroll
-      for (int u = 0; u < kN; ++u)
+  for (int i = 0; i < kN; ++i)
 #pragma unroll
-        for (int v = 0; v < kN; ++v) {
-          const int iy = iy0 + u, ix = ix0 + v;
-          d[u][v] = (cabs < a.C && iy >= 0 && iy < a.H && ix >= 0 &&
-                     ix < a.W)
-                        ? __ldg(x + (((size_t)b * a.H + iy) * a.W + ix) * a.Ct
-                                + grp * a.C + cabs)
-                        : 0.f;
-        }
-      float tmp[kN][kN];
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-#pragma unroll
-        for (int v = 0; v < kN; ++v) {
-          float s = 0.f;
-#pragma unroll
-          for (int u = 0; u < kN; ++u) s = fmaf(mt.bt[i * kN + u], d[u][v], s);
-          tmp[i][v] = s;
-        }
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-#pragma unroll
-        for (int j = 0; j < kN; ++j) {
-          float s = 0.f;
-#pragma unroll
-          for (int v = 0; v < kN; ++v) s = fmaf(tmp[i][v], mt.bt[j * kN + v], s);
-          U[c * kUStride + (i * kN + j) * kSlots + tt] = s;
-        }
+    for (int j = 0; j < kN; ++j) {
+      const int iy = iy0 + i, ix = ix0 + j;
+      d[i][j] = (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
+                    ? __ldg(xb + ((size_t)iy * a.W + ix) * a.Ct)
+                    : 0.f;
     }
+  float tmp[kN][kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int v = 0; v < kN; ++v) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kN; ++w) s = fmaf(mt.bt[i * kN + w], d[w][v], s);
+      tmp[i][v] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < kN; ++v) s = fmaf(tmp[i][v], mt.bt[j * kN + v], s);
+      up[(i * kN + j) * pos_stride] = s;
+    }
+}
+
+// Grid (ceil(T / kBM), ceil(K / kBN), 36 * g).  VB: 16-byte copies of the
+// slab (Kb a multiple of 4).  Held to 64 registers, so four blocks share
+// an SM and AlexNet's grids of up to 432 blocks fill one wave.
+template <bool VB>
+__global__ void __launch_bounds__(kThreads, 4)
+conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
+                   const float* __restrict__ slab, float* __restrict__ m) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                               // kStages x kBM x kApad
+  float* Bs = As + kStages * kBM * kApad;         // kStages x kBK x kBN
+  int* crow = (int*)(Bs + kStages * kBK * kBN);   // slab offset of channel c
+  const int cu = u_channels(a);
+  const int T = a.B * tiles_per_image(a);
+  const int pos = blockIdx.z / a.g, grp = blockIdx.z % a.g;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int t = threadIdx.x;
+  const int tile_elems = kNP * a.Cb * a.Kb;
+
+  for (int c = t; c < cu; c += kThreads)           // -1: a pad channel
+    crow[c] = c < a.C ? (c / a.Cb) * tile_elems + (c % a.Cb) * a.Kb : -1;
+
+  // the A copy this thread makes each chunk: 4 channels of one tile's row
+  const int arow = t / (kBK / 4), acol = 4 * (t % (kBK / 4));
+  const bool avalid = m0 + arow < T;
+  const float* ap =
+      u + (((size_t)pos * a.g + grp) * T + (avalid ? m0 + arow : 0)) * cu
+      + acol;
+  // the B copies: rows brow + j kRows of the chunk, column bcol of the
+  // tile, from slab + wcol + crow[channel] (wcol < 0: a column past K)
+  constexpr int kRow = VB ? kBN / 4 : kBN;        // copies a B row takes
+  constexpr int kRows = kThreads / kRow;          // rows a pass of copies
+  const int brow = t / kRow, bcol = (VB ? 4 : 1) * (t % kRow);
+  const int n = n0 + bcol;
+  const int wcol = n < a.K ? ((grp * a.nkb + n / a.Kb) * a.ncb) * tile_elems
+                                 + pos * a.Cb * a.Kb + n % a.Kb
+                           : -1;
+  __syncthreads();
+
+  auto load_chunk = [&](int stage, int k0) {
+    cp_async16(As + stage * kBM * kApad + arow * kApad + acol, ap + k0,
+               avalid);
+    float* bs = Bs + stage * kBK * kBN + bcol;
+#pragma unroll
+    for (int j = 0; j < kBK / kRows; ++j) {
+      const int kk = brow + j * kRows;
+      const int off = crow[k0 + kk];
+      const bool ok = off >= 0 && wcol >= 0;
+      const float* src = ok ? slab + wcol + off : slab;
+      if (VB) cp_async16(bs + kk * kBN, src, ok);
+      else cp_async4(bs + kk * kBN, src, ok);
+    }
+  };
+
+  const int nchunks = cu / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) load_chunk(s, s * kBK);
+    cp_async_commit();
+  }
+
+  // thread (tm, tn) of the 16 x 16 owns rows tm + 16 i and columns
+  // tn * kTN + j of the tile; a warp spans 4 tm x 8 tn, so its float4
+  // reads of A (4 rows, 80 bytes apart) and of B (8 neighbours) each take
+  // one shared-memory wavefront
+  const int tm = (t / 64) * 4 + (t % 32) / 8;
+  const int tn = ((t / 32) % 2) * 8 + t % 8;
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  for (int kc = 0; kc < nchunks; ++kc) {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    if (!active) continue;
-    const int ccount = min(kCc, a.C - c0);
-    for (int c = 0; c < ccount; ++c) {
-      const int cabs = c0 + c, cb = cabs / a.Cb;
-      const float* vp = slab
-          + (size_t)((grp * a.nkb + kb) * a.ncb + cb) * tile_elems
-          + (size_t)(cabs - cb * a.Cb) * a.Kb + kofs;
-      const float* up = U + c * kUStride + t;
+    const int nxt = kc + kStages - 1;
+    if (nxt < nchunks) load_chunk(nxt % kStages, nxt * kBK);
+    cp_async_commit();
+    const float* as = As + (kc % kStages) * kBM * kApad + tm * kApad;
+    const float* bs = Bs + (kc % kStages) * kBK * kBN + tn * kTN;
 #pragma unroll
-      for (int pos = 0; pos < kNP; ++pos)
-        acc[pos] = fmaf(up[pos * kSlots],
-                        __ldg(vp + (size_t)pos * a.Cb * a.Kb), acc[pos]);
+    for (int kq = 0; kq < kBK; kq += 4) {
+      float b[4][kTN];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + (kq + kk) * kBN);
+        b[kk][0] = v.x, b[kk][1] = v.y, b[kk][2] = v.z, b[kk][3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float4 av =
+            *reinterpret_cast<const float4*>(as + 16 * i * kApad + kq);
+        const float ak[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j)
+            acc[i][j] = fmaf(ak[kk], b[kk][j], acc[i][j]);
+      }
     }
+  }
+  cp_async_wait<0>();
+
+  const int nt0 = n0 + tn * kTN;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = m0 + tm + 16 * i;
+    if (row >= T) continue;
+    float* mp = m + (((size_t)pos * a.g + grp) * T + row) * a.K + nt0;
+    if (a.K % 4 == 0) {                 // a whole float4, in range or not
+      if (nt0 < a.K)
+        *reinterpret_cast<float4*>(mp) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < kTN; ++j)
+      if (nt0 + j < a.K) mp[j] = acc[i][j];
   }
 }
 
@@ -149,110 +289,43 @@ __device__ __forceinline__ void wino_inverse(const WinoMats& mt,
     }
 }
 
-// Grid (tile groups of kSlots tiles, B, g * ceil(K / 32)).
-__global__ void __launch_bounds__(kThreads)
-conv_winograd_kernel(ConvArgs a, WinoMats mt, const float* __restrict__ x,
-                     const float* __restrict__ slab,
-                     const float* __restrict__ bias,
-                     float* __restrict__ out) {
-  extern __shared__ float U[];
-  __shared__ int oy[kSlots], ox[kSlots];
-  const int tw = (a.out_w + kM - 1) / kM;
-  const int ntiles = ((a.out_h + kM - 1) / kM) * tw;
-  const int t0 = blockIdx.x * kSlots;
-  const int nt = min(kSlots, ntiles - t0);
-  const int b = blockIdx.y;
-  const int nkc = (a.K + 31) / 32;
-  const int grp = blockIdx.z / nkc;
-  const int warp = threadIdx.x >> 5;
-  const int kin = (blockIdx.z % nkc) * 32 + (threadIdx.x & 31);
-  if (threadIdx.x < nt) {
-    oy[threadIdx.x] = ((t0 + threadIdx.x) / tw) * kM;
-    ox[threadIdx.x] = ((t0 + threadIdx.x) % tw) * kM;
-  }
-  __syncthreads();
-  const bool active = warp < nt && kin < a.K;
-  float acc[kNP];
-  wino_pass(a, mt, x, slab, b, grp, nt, oy, ox, kin, active, U, acc);
-  if (!active) return;
-  float y[kM][kM];
-  wino_inverse(mt, acc, y);
-  const int kf = a.g * a.K, k = grp * a.K + kin;
-  const float bk = bias[k];
+// Grid ceil(T * g * K / kPointThreads): one thread a (tile, group, output
+// channel), channels fastest.  y: (B, out_h, out_w, g*K).
+__global__ void __launch_bounds__(kPointThreads)
+conv_winograd_inverse(ConvArgs a, WinoMats mt, const float* __restrict__ m,
+                      const float* __restrict__ bias,
+                      float* __restrict__ y) {
+  const int T = a.B * tiles_per_image(a);
+  const long long idx = (long long)blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= (long long)T * a.g * a.K) return;
+  const int k = (int)(idx % a.K);
+  const int grp = (int)(idx / a.K % a.g);
+  const int t = (int)(idx / ((long long)a.K * a.g));
+  const size_t pos_stride = (size_t)a.g * T * a.K;
+  const float* mp = m + ((size_t)grp * T + t) * a.K + k;
+  float mm[kNP];
+#pragma unroll
+  for (int pos = 0; pos < kNP; ++pos) mm[pos] = mp[pos * pos_stride];
+  float out[kM][kM];
+  wino_inverse(mt, mm, out);
+  const int b = t / tiles_per_image(a), r = t % tiles_per_image(a);
+  const int oy = (r / tiles_w(a)) * kM, ox = (r % tiles_w(a)) * kM;
+  const int kf = a.g * a.K, kk = grp * a.K + k;
+  const float bk = bias[kk];
 #pragma unroll
   for (int p = 0; p < kM; ++p)
 #pragma unroll
-    for (int q = 0; q < kM; ++q) {
-      const int yy = oy[warp] + p, xx = ox[warp] + q;
-      if (yy < a.out_h && xx < a.out_w)
-        out[(((size_t)b * a.out_h + yy) * a.out_w + xx) * kf + k] =
-            bias_relu(y[p][q], bk, a.relu);
-    }
+    for (int q = 0; q < kM; ++q)
+      if (oy + p < a.out_h && ox + q < a.out_w)
+        y[(((size_t)b * a.out_h + oy + p) * a.out_w + ox + q) * kf + kk] =
+            bias_relu(out[p][q], bk, a.relu);
 }
 
-// Grid (pooled tiles, B, 1 with LRN else g * ceil(K / pass)).
+// Grid (pooled tiles of PT x PT, B): LRN + max-pool from the conv map y.
 __global__ void __launch_bounds__(kThreads)
-conv_winograd_fused_kernel(ConvArgs a, WinoMats mt,
-                           const float* __restrict__ x,
-                           const float* __restrict__ slab,
-                           const float* __restrict__ bias,
-                           float* __restrict__ out) {
-  extern __shared__ float smem[];
-  __shared__ int oy[kSlots], ox[kSlots];
-  const int ct = a.ps * (a.PT - 1) + a.pwin;
-  const int ntw = (ct + kM - 1) / kM;
-  const int nt = ntw * ntw;
-  const int cps = kSlots / nt;          // channel slices per pass
-  const int pass = 32 * cps;
-  const int npw = (a.pw_out + a.PT - 1) / a.PT;
-  const int pi0 = (blockIdx.x / npw) * a.PT;
-  const int pj0 = (blockIdx.x % npw) * a.PT;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int kf = a.g * a.K;
-  // channel range of this block: all g*K with LRN, else one pass slice
-  int g0 = 0, g1 = a.g, kb0 = 0, kb1 = a.K, kofs = 0, kt = kf;
-  if (!a.lrn_n) {
-    const int npass = (a.K + pass - 1) / pass;
-    g0 = blockIdx.z / npass;
-    g1 = g0 + 1;
-    kb0 = (blockIdx.z % npass) * pass;
-    kb1 = min(kb0 + pass, a.K);
-    kofs = g0 * a.K + kb0;
-    kt = kb1 - kb0;
-  }
-  float* ytile = smem;                                   // ct * ct * kt
-  float* U = smem + ((ct * ct * kt + 3) & ~3);
-  if (threadIdx.x < nt) {
-    oy[threadIdx.x] = pi0 * a.ps + (threadIdx.x / ntw) * kM;
-    ox[threadIdx.x] = pj0 * a.ps + (threadIdx.x % ntw) * kM;
-  }
-  __syncthreads();
-  const int t = warp % nt;
-  for (int grp = g0; grp < g1; ++grp) {
-    for (int kbase = kb0; kbase < kb1; kbase += pass) {
-      const int kin = kbase + (warp / nt) * 32 + (threadIdx.x & 31);
-      const bool active = warp < cps * nt && kin < kb1;
-      float acc[kNP];
-      wino_pass(a, mt, x, slab, b, grp, nt, oy, ox, kin, active, U, acc);
-      if (!active) continue;
-      float y[kM][kM];
-      wino_inverse(mt, acc, y);
-      const int k = grp * a.K + kin;
-      const float bk = bias[k];
-#pragma unroll
-      for (int p = 0; p < kM; ++p)
-#pragma unroll
-        for (int q = 0; q < kM; ++q) {
-          const int ly = (t / ntw) * kM + p, lx = (t % ntw) * kM + q;
-          if (ly < ct && lx < ct)
-            ytile[(ly * ct + lx) * kt + (k - kofs)] =
-                bias_relu(y[p][q], bk, a.relu);
-        }
-    }
-  }
-  __syncthreads();
-  fused_epilogue(ytile, ct, kt, kofs, b, pi0, pj0, a, out);
+conv_winograd_epilogue(ConvArgs a, const float* __restrict__ y,
+                       float* __restrict__ out) {
+  fused_epilogue(a, y, out);
 }
 
 int load_mats(const float* host, WinoMats* mt) {
@@ -262,52 +335,56 @@ int load_mats(const float* host, WinoMats* mt) {
   return 0;
 }
 
+unsigned blocks_for(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
 }  // namespace
 
-// mats: host array of B^T (6x6) then A^T (4x6), row-major.
+// mats: host array of B^T (6x6) then A^T (4x6), row-major.  u: (36, g, T,
+// Cu) and m: (36, g, T, K) scratch; y: (B, out_h, out_w, g*K) scratch for
+// the epilogue launch (unused, and may equal out, with no LRN and no pool).
 extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
                                    const float* x, const float* slab,
-                                   const float* bias, float* out,
+                                   const float* bias, float* u, float* m,
+                                   float* y, float* out,
                                    cudaStream_t stream) {
   const ConvArgs a = *args;
   WinoMats mt;
-  if (a.r != 3 || a.s != 1 || load_mats(mats, &mt))
+  const size_t slab_elems = (size_t)a.g * a.nkb * a.ncb * kNP * a.Cb * a.Kb;
+  // the GEMM's rings and channel table, within the 48 KB a launch gets
+  // without opting in (C up to 5,376 channels a group)
+  const size_t smem =
+      ((size_t)kStages * (kBM * kApad + kBK * kBN) + u_channels(a))
+      * sizeof(float);
+  if (a.r != 3 || a.s != 1 || a.PT < 1 || slab_elems >= (1u << 31)
+      || smem > 48 * 1024 || (uintptr_t)u % 16 || (uintptr_t)m % 16
+      || load_mats(mats, &mt))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kCc * kUStride * sizeof(float);
-  const int ntiles = ((a.out_h + kM - 1) / kM) * ((a.out_w + kM - 1) / kM);
-  dim3 grid((ntiles + kSlots - 1) / kSlots, a.B, a.g * ((a.K + 31) / 32));
-  conv_winograd_kernel<<<grid, kThreads, smem, stream>>>(a, mt, x, slab,
-                                                         bias, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int repro_conv_winograd_fused(const ConvArgs* args,
-                                         const float* mats, const float* x,
-                                         const float* slab, const float* bias,
-                                         float* out, cudaStream_t stream) {
-  const ConvArgs a = *args;
-  WinoMats mt;
-  if (a.r != 3 || a.s != 1 || a.PT < 1 || load_mats(mats, &mt))
-    return (int)cudaErrorInvalidValue;
-  const int ct = a.ps * (a.PT - 1) + a.pwin;
-  const int ntw = (ct + kM - 1) / kM;
-  const int nt = ntw * ntw;
-  if (nt > kSlots) return (int)cudaErrorInvalidValue;
-  const int pass = 32 * (kSlots / nt);
-  const int npass = (a.K + pass - 1) / pass;
-  const int kt = a.lrn_n ? a.g * a.K : (a.K < pass ? a.K : pass);
-  const size_t smem = (((size_t)ct * ct * kt + 3) / 4 * 4
-                       + (size_t)kCc * kUStride) * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_winograd_fused_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long long T = (long long)a.B * tiles_per_image(a);
+  conv_winograd_input<<<blocks_for(T * a.g * u_channels(a), kPointThreads),
+                        kPointThreads, 0, stream>>>(a, mt, x, u);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+
+  const dim3 grid(blocks_for(T, kBM), blocks_for(a.K, kBN), kNP * a.g);
+  if (a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0)
+    conv_winograd_gemm<true><<<grid, kThreads, smem, stream>>>(a, u, slab, m);
+  else
+    conv_winograd_gemm<false><<<grid, kThreads, smem, stream>>>(a, u, slab, m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const bool epilogue = a.lrn_n || a.pwin != 1 || a.ps != 1;
+  conv_winograd_inverse<<<blocks_for(T * a.g * a.K, kPointThreads),
+                          kPointThreads, 0, stream>>>(a, mt, m, bias,
+                                                      epilogue ? y : out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !epilogue) return (int)err;
+
   const int nph = (a.ph_out + a.PT - 1) / a.PT;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;
-  dim3 grid(nph * npw, a.B, a.lrn_n ? 1 : a.g * npass);
-  conv_winograd_fused_kernel<<<grid, kThreads, smem, stream>>>(a, mt, x,
-                                                               slab, bias,
-                                                               out);
+  conv_winograd_epilogue<<<dim3(nph * npw, a.B), kThreads, 0, stream>>>(
+      a, y, out);
   return (int)cudaGetLastError();
 }

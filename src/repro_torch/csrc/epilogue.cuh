@@ -1,13 +1,13 @@
 // Fused layer epilogue shared by the direct kernel (conv_direct.cu) and the
-// fused Winograd kernel (conv_winograd.cu): cross-channel LRN, then VALID
-// max-pool, read from the fused kernel's conv tile in shared memory or from
-// the direct kernel's conv map in L2; only the pooled map is written.
+// Winograd kernels (conv_winograd.cu): cross-channel LRN, then VALID
+// max-pool, read from the conv map their conv stage left in L2; only the
+// pooled map is written.
 //
 // Replaces the in-kernel half of the TPU epilogue
 // (src/repro/kernels/conv/epilogue.py: lrn_banded, maxpool_strided,
 // fused_epilogue).  The TPU phrased the LRN window sum as a banded matmul
 // for its matrix unit; here each thread sums its n neighbours directly from
-// shared memory, and LRN is evaluated per pool-window element (a pixel
+// the conv map, and LRN is evaluated per pool-window element (a pixel
 // shared by overlapping windows is recomputed, with the same result), so no
 // second full-channel buffer is needed.  The plain form of this math is
 // repro_torch/nn/pooling.py.
@@ -41,33 +41,36 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v > m || isnan(v)) ? v : m;
 }
 
-// y: conv pixel (pi0 * ps, pj0 * ps) of image b, row-major pixels of kt
-// channels, ld pixels a row: the fused Winograd kernel's ct x ct tile in
-// shared memory (ld = ct), or a whole conv map in global memory (ld =
-// out_w, the direct kernel's epilogue stage).  Writes the block's PT x PT
-// pooled outputs of image b, channels [kofs, kofs + kt) of out (B, ph_out,
-// pw_out, g * K).  Call after y is complete (__syncthreads() for a tile).
-__device__ __forceinline__ void fused_epilogue(const float* y, int ld, int kt,
-                                               int kofs, int b, int pi0,
-                                               int pj0, const ConvArgs& a,
+// One block of an epilogue launch with grid (pooled tiles of PT x PT, B):
+// the block's PT x PT pooled outputs of image blockIdx.y, all g * K
+// channels, from the conv map y (B, out_h, out_w, g * K) into out (B,
+// ph_out, pw_out, g * K).
+__device__ __forceinline__ void fused_epilogue(const ConvArgs& a,
+                                               const float* __restrict__ y,
                                                float* __restrict__ out) {
-  const int kout = a.g * a.K;
+  const int kf = a.g * a.K;
+  const int npw = (a.pw_out + a.PT - 1) / a.PT;
+  const int pi0 = (blockIdx.x / npw) * a.PT;
+  const int pj0 = (blockIdx.x % npw) * a.PT;
+  const int b = blockIdx.y;
+  const float* yb =
+      y + (((size_t)b * a.out_h + pi0 * a.ps) * a.out_w + pj0 * a.ps) * kf;
   const int pr = min(a.PT, a.ph_out - pi0);
   const int pc = min(a.PT, a.pw_out - pj0);
-  const int total = pr * pc * kt;
+  const int total = pr * pc * kf;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int k = idx % kt;
-    const int pix = idx / kt;
+    const int k = idx % kf;
+    const int pix = idx / kf;
     const int i = pix / pc, j = pix % pc;
     float m = -INFINITY;
     for (int wi = 0; wi < a.pwin; ++wi) {
       for (int wj = 0; wj < a.pwin; ++wj) {
         const float* yp =
-            y + ((size_t)(i * a.ps + wi) * ld + (j * a.ps + wj)) * kt;
-        m = nan_max(m, a.lrn_n ? lrn_at(yp, k, kt, a) : yp[k]);
+            yb + ((size_t)(i * a.ps + wi) * a.out_w + (j * a.ps + wj)) * kf;
+        m = nan_max(m, a.lrn_n ? lrn_at(yp, k, kf, a) : yp[k]);
       }
     }
-    out[((size_t)(b * a.ph_out + pi0 + i) * a.pw_out + pj0 + j) * kout
-        + kofs + k] = m;
+    out[((size_t)(b * a.ph_out + pi0 + i) * a.pw_out + pj0 + j) * kf + k] =
+        m;
   }
 }

@@ -8,8 +8,10 @@ the root of the checkout, so an edited source rebuilds and an unchanged one
 is reused.  A failed build raises with the compiler's output.
 
 The conv launchers take one :class:`ConvArgs` (mirror of
-``csrc/conv_args.cuh``) by pointer, raw device pointers, and the CUDA
-stream (the direct launcher also its block tile's columns per thread);
+``csrc/conv_args.cuh``) by pointer, raw device pointers (the wrapper's
+scratches among them), and the CUDA stream (the direct launcher also its
+block tile's columns per thread, the Winograd launcher a host pointer to
+its transform matrices);
 the BFP matmul, decode-attention, SSD and depthwise-conv launchers take
 their pointers, their extents as ints and the stream (the depthwise conv
 also a host pointer to its transform matrices).  Each function returns
@@ -122,10 +124,10 @@ def _declare(lib: ctypes.CDLL):
     lib.repro_conv_direct.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p,
                                       p, i, p]
     lib.repro_conv_direct.restype = ctypes.c_int
-    for name in ("repro_conv_winograd", "repro_conv_winograd_fused"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
+    # (args, mats, x, slab, bias, u, m, y, out, stream)
+    lib.repro_conv_winograd.argtypes = [ctypes.POINTER(ConvArgs), p, p, p,
+                                        p, p, p, p, p, p]
+    lib.repro_conv_winograd.restype = ctypes.c_int
     # (x, wq, we, out, M, K, N, block, stream)
     lib.repro_bfp_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.repro_bfp_matmul.restype = ctypes.c_int

@@ -35,16 +35,17 @@ from .direct import check_cuda_inputs, conv_args
 from .epilogue import batch_blocks, channel_blocks, grouped_channel_pad, \
     k_blocks
 
-# launches of the CUDA kernels (the plain versions do not count)
+# wrapper calls that launched the CUDA kernels (the plain versions do not
+# count; a 2-D call is three or four launches, one of the counts below)
 launches = 0          # unfused: conv + bias + ReLU
 fused_launches = 0    # fused: + LRN and/or max-pool
 dw1d_launches = 0     # kernel 7: depthwise causal 1-D
 
-# Winograd tiles one fused-kernel block may hold (the kernel's tile slots),
-# and the shared memory its transformed-input chunk takes (kCc * kUStride)
-MAX_TILES = 8
-U_FLOATS = 32 * (36 * MAX_TILES + 1)
-SMEM_BUDGET = 220 * 1024
+# the batched GEMM's tiling, as csrc/conv_winograd.cu has it
+BM = 64                     # Winograd tiles (GEMM rows) of a block tile
+BN = 64                     # output channels (GEMM columns) of a block tile
+BK = 16                     # input channels a chunk (U's channel pad)
+STAGES = 3                  # cp.async ring depth
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +74,7 @@ def _conv1d_depthwise_causal_cuda(x, w, b):
     if w.shape[0] != 4:
         raise NotImplementedError(
             f"the CUDA depthwise kernel implements F(3,4) (4 taps) only, "
-            f"not {w.shape[0]} taps")
+            f"not {w.shape[0]} taps (ROADMAP Queue 2, part d)")
     if x.dtype not in _DW1D_DTYPE_CODE or not x.is_contiguous():
         raise ValueError(f"conv1d_depthwise_causal: the kernel takes a "
                          f"contiguous {list(_DW1D_DTYPE_CODE)} x; got "
@@ -265,42 +266,47 @@ def conv2d_winograd_plain(x, w_tiles, bias, p: WinogradPlan, *, relu: bool,
     return apply_epilogue(y, lrn, pool).contiguous()
 
 
-def fused_block_tile(p: WinogradPlan, lrn, pool) -> int:
-    """Pooled outputs per side of one fused-kernel block: the largest tile
-    (at most 8) whose conv region needs at most MAX_TILES Winograd tiles
-    and whose conv tile fits the shared-memory budget.
-
-    Every block's conv region must start on the m-grid of Winograd tiles
-    (ps * PT a multiple of m, unless one block covers the map), as the
-    reference's fused kernel requires: a Winograd-domain slab that is not
-    G w G^T (``conv_bfp`` quantizes it) gives each pixel of a tile its own
-    effective filter, so another tiling computes another function."""
-    pwin, ps = pool if pool is not None else (1, 1)
-    for PT in range(8, 0, -1):
-        ct = ps * (PT - 1) + pwin
-        nt = (-(-ct // p.m)) ** 2
-        one_block = PT >= max(p.ph_out, p.pw_out)
-        if nt > MAX_TILES or (ps * PT % p.m and not one_block):
-            continue
-        kt = (p.Kfull if lrn is not None
-              else min(p.K, 32 * (MAX_TILES // nt)))
-        if (ct * ct * kt + U_FLOATS) * 4 <= SMEM_BUDGET:
-            return PT
-    raise ValueError(f"no fused Winograd block tile fits pool {pool} with "
-                     f"{p.Kfull} channels")
+def num_tiles(p: WinogradPlan, B: int) -> int:
+    """Winograd tiles of the 4-grid over B images: the GEMM's rows T."""
+    return B * -(-p.out_h // p.m) * p.tw
 
 
-def smem_bytes(p: WinogradPlan, lrn, pool) -> int:
-    """Dynamic shared memory one block takes (as the C launchers size it):
-    the transformed-input chunk, plus the fused kernel's conv tile."""
-    if not p.fused:
-        return U_FLOATS * 4
-    pwin, ps = pool if pool is not None else (1, 1)
-    PT = fused_block_tile(p, lrn, pool)
-    ct = ps * (PT - 1) + pwin
-    nt = (-(-ct // p.m)) ** 2
-    kt = p.Kfull if lrn is not None else min(p.K, 32 * (MAX_TILES // nt))
-    return (-(-ct * ct * kt // 4) * 4 + U_FLOATS) * 4
+def tile_origin(p: WinogradPlan, t: int) -> tuple[int, int, int]:
+    """(image, first conv row, first conv column) of tile t, as the input
+    and inverse transforms decode it."""
+    per_image = -(-p.out_h // p.m) * p.tw
+    b, r = divmod(t, per_image)
+    return b, (r // p.tw) * p.m, (r % p.tw) * p.m
+
+
+def u_channels(p: WinogradPlan) -> int:
+    """U's channel extent: C padded to a multiple of the GEMM's chunk."""
+    return -(-p.C // BK) * BK
+
+
+def gemm_grid(p: WinogradPlan, B: int) -> tuple[int, int, int]:
+    """The batched GEMM's grid: (T tiles, K tiles, 36 positions x g)."""
+    return -(-num_tiles(p, B) // BM), -(-p.K // BN), p.n * p.n * p.g
+
+
+def smem_bytes(p: WinogradPlan) -> int:
+    """Dynamic shared memory of one GEMM block (as ``repro_conv_winograd``
+    sizes it): the A ring (BM x (BK + 4) floats a stage), the B ring
+    (BK x BN) and one int a channel of U (its slab row offset); the other
+    launches take none."""
+    return (STAGES * (BM * (BK + 4) + BK * BN) + u_channels(p)) * 4
+
+
+def scratch_shapes(p: WinogradPlan, B: int, lrn, pool) -> dict:
+    """The f32 scratches a call allocates: U (36, g, T, Cu) from the input
+    transform, M (36, g, T, K) from the GEMMs and, when an LRN or a pool
+    follows, the conv map (B, out_h, out_w, g*K) the inverse transform
+    writes for the epilogue launch (else None: it writes the output)."""
+    nn, T = p.n * p.n, num_tiles(p, B)
+    pooled = pool is not None and tuple(pool) != (1, 1)
+    return {"u": (nn, p.g, T, u_channels(p)), "m": (nn, p.g, T, p.K),
+            "conv": ((B, p.out_h, p.out_w, p.Kfull)
+                     if pooled or lrn is not None else None)}
 
 
 def _mats(p: WinogradPlan) -> np.ndarray:
@@ -315,33 +321,32 @@ def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
     if (p.m, p.r) != (4, 3):
         raise NotImplementedError(
             f"the CUDA Winograd kernels implement F(4,3) only, not "
-            f"F({p.m},{p.r})")
+            f"F({p.m},{p.r}) (ROADMAP Queue 2, part d)")
     check_cuda_inputs("conv_winograd", x, w_tiles, bias, p.Kfull)
-    mats = _mats(p)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = build.library().lib
-    pad = (p.ph_pad, p.ph_pad)
-    if p.fused:
-        out = torch.empty((x.shape[0], p.ph_out, p.pw_out, p.Kfull),
-                          device=x.device, dtype=torch.float32)
-        args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool,
-                         PT=fused_block_tile(p, lrn, pool), pad=pad,
-                         out_hw=(p.ph_out, p.pw_out))
-        err = lib.repro_conv_winograd_fused(
-            ctypes.byref(args), mats.ctypes.data, x.data_ptr(),
-            w_tiles.data_ptr(), bias.data_ptr(), out.data_ptr(), stream)
-        build.check(err, "conv_winograd_fused")
-        fused_launches += 1
-        return out
-    out = torch.empty((x.shape[0], p.out_h, p.out_w, p.Kfull),
-                      device=x.device, dtype=torch.float32)
-    args = conv_args(x, p, relu=relu, lrn=None, pool=None, PT=1, pad=pad,
-                     out_hw=(p.out_h, p.out_w))
-    err = lib.repro_conv_winograd(
-        ctypes.byref(args), mats.ctypes.data, x.data_ptr(),
-        w_tiles.data_ptr(), bias.data_ptr(), out.data_ptr(), stream)
+    B = x.shape[0]
+    out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
+                      dtype=torch.float32)
+    # one allocation holds U, M and the conv map, in that order (U's rows
+    # of Cu floats keep M 16-byte aligned)
+    sizes = [math.prod(s) for s in scratch_shapes(p, B, lrn, pool).values()
+             if s is not None]
+    scratch = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
+    u = scratch.data_ptr()
+    m = u + 4 * sizes[0]
+    y = m + 4 * sizes[1] if len(sizes) == 3 else out.data_ptr()
+    # PT = 1: an epilogue-launch block pools one output pixel's g*K
+    # channels, so each thread reads one pool window
+    args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool, PT=1,
+                     pad=(p.ph_pad, p.ph_pad), out_hw=(p.ph_out, p.pw_out))
+    err = build.library().lib.repro_conv_winograd(
+        ctypes.byref(args), _mats(p).ctypes.data, x.data_ptr(),
+        w_tiles.data_ptr(), bias.data_ptr(), u, m, y, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "conv_winograd")
-    launches += 1
+    if p.fused:
+        fused_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -357,7 +362,8 @@ def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
 
     ``w_packed`` is a slab staged by ``nn.conv.pack_conv_weights``.  The
     reference's TPU knobs shape only the slab plan; both
-    ``weight_prefetch`` values launch the same kernel.
+    ``weight_prefetch`` values launch the same kernels, whose cp.async
+    ring always stages the weights ahead of their use.
     """
     if checksum:
         raise NotImplementedError(

@@ -73,7 +73,9 @@ def check_supported(cfg: AlexNetConfig):
         raise NotImplementedError("sdc_abft is not ported yet (ROADMAP "
                                   "Queue 1, item 1: ABFT/SDC in kernels 1-3)")
     if cfg.dtype != "float32":
-        raise NotImplementedError("the port serves float32 only")
+        raise NotImplementedError(
+            "the port serves float32 only; bf16 image models are ROADMAP "
+            "Queue 1, item 3")
 
 
 def layer_specs(cfg: AlexNetConfig) -> List[ConvSpec]:

@@ -9,6 +9,8 @@ float32, summed in different orders, Winograd transforms included); the
 direct slab is a pure re-layout and must match exactly; the Winograd slab
 (G w G^T, an f32 product) to atol 1e-6.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,17 +113,24 @@ def test_packed_slabs_match_jax(name, kw, H, c_in, c_out):
     ((2, 8, 8, 5), (3, 3, 5, 40), dict(pool=(2, 2))),
 ])
 def test_fused_winograd_blocks_start_on_the_tile_grid(x_shape, w_shape, kw):
-    """Every block of the fused CUDA kernel starts its conv region on the
-    m-grid of Winograd tiles the plain version (and the JAX kernel) uses:
-    a BFP-quantized Winograd slab gives each pixel of a tile its own
-    effective filter, so the tiling is part of the function."""
+    """Every Winograd tile of a fused layer (LRN and/or pool) starts on the
+    m-grid the plain version (and the JAX kernel) uses, and the tiles
+    cover each conv pixel once: a BFP-quantized Winograd slab gives each
+    pixel of a tile its own effective filter, so the tiling is part of the
+    function.  The CUDA kernels transform every tile of the grid once and
+    pool from the whole conv map."""
     kw = dict(kw)
     lrn = t_pool.LrnParams(*LRN) if kw.pop("lrn", False) else None
-    pool = kw.get("pool")
     p = t_winograd.plan(x_shape, w_shape, lrn=lrn, **kw)
-    PT = t_winograd.fused_block_tile(p, lrn, pool)
-    ps = pool[1] if pool else 1
-    assert all(pi0 * ps % p.m == 0 for pi0 in range(0, p.ph_out, PT))
+    assert p.fused
+    B = x_shape[0]
+    hits = np.zeros((B, p.out_h + p.m, p.out_w + p.m), np.int32)
+    for t in range(t_winograd.num_tiles(p, B)):
+        b, oy, ox = t_winograd.tile_origin(p, t)
+        assert oy % p.m == 0 and ox % p.m == 0
+        assert oy < p.out_h and ox < p.out_w
+        hits[b, oy:oy + p.m, ox:ox + p.m] += 1
+    assert (hits[:, :p.out_h, :p.out_w] == 1).all()
 
 
 def test_conv4_slab_pads_k_to_the_block():
@@ -446,3 +455,128 @@ def test_direct_grid_fills_the_card(name, BN, blocks):
     assert t_direct.tile_cols(p) == BN and p.K % BN == 0
     nm, nn, g = t_direct.conv_grid(p, geo[3])
     assert nm * nn * g == blocks and 132 <= blocks <= 3 * 132
+
+
+# the Winograd kernels' launch geometry at full conv3-conv5 (batch 8) and
+# at every Winograd geometry of tests/test_torch_cuda.py:
+# (name, plan kwargs, B, H, c_in, c_out, lrn)
+WINO_GEOMETRIES = [
+    ("conv3_full", dict(), 8, 13, 256, 384, False),
+    ("conv4_full", dict(groups=2), 8, 13, 384, 384, False),
+    ("conv5_full", dict(groups=2, pool=(3, 2)), 8, 13, 384, 256, False),
+    ("conv3_reduced", dict(), 2, 13, 32, 48, False),
+    ("conv4_reduced", dict(groups=2), 2, 13, 48, 48, False),
+    ("conv5_reduced", dict(groups=2, pool=(3, 2)), 2, 13, 48, 32, False),
+    ("valid_kpad", dict(padding="VALID", k_block=32), 2, 11, 8, 40, False),
+    ("lrn_only_cblocks", dict(c_block=4), 2, 10, 12, 8, True),
+    ("lrn_pool_kblocks_g2", dict(groups=2, pool=(3, 2), k_block=4),
+     2, 17, 24, 16, True),
+    ("ragged_c5_k40_pool", dict(pool=(3, 2)), 3, 11, 5, 40, False),
+    ("ragged_k130", dict(), 1, 9, 5, 130, False),
+    ("valid11_c5_k130_lrn", dict(padding="VALID"), 2, 11, 5, 130, True),
+    ("kb_not_x4_g2", dict(groups=2), 2, 9, 6, 20, False),
+]
+
+
+def _wino_geometry(kw, B, H, c_in, c_out, lrn):
+    g = kw.get("groups", 1)
+    lrn_p = t_pool.LrnParams(*LRN) if lrn else None
+    p = t_winograd.plan((B, H, H, c_in), (3, 3, c_in // g, c_out),
+                        lrn=lrn_p, **kw)
+    return p, lrn_p
+
+
+@pytest.mark.parametrize("name,kw,B,H,c_in,c_out,lrn", WINO_GEOMETRIES)
+def test_winograd_gemm_grid_covers_each_product_once(name, kw, B, H, c_in,
+                                                     c_out, lrn):
+    """The batched GEMM's blocks, (T tile, K tile, position x group) of BM
+    Winograd tiles and BN output channels, cover every (position, group,
+    tile, output channel) exactly once, and its T rows are the tiles of
+    the 4-grid over every image."""
+    p, _ = _wino_geometry(kw, B, H, c_in, c_out, lrn)
+    T, BM, BN = t_winograd.num_tiles(p, B), t_winograd.BM, t_winograd.BN
+    assert T == B * -(-p.out_h // 4) * -(-p.out_w // 4)
+    nt, nn, npg = t_winograd.gemm_grid(p, B)
+    assert npg == 36 * p.g and (nt - 1) * BM < T <= nt * BM
+    hits = np.zeros((npg, T, p.K), np.int32)
+    for z in range(npg):
+        for bn in range(nn):
+            for bt in range(nt):
+                hits[z, bt * BM:(bt + 1) * BM, bn * BN:(bn + 1) * BN] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("name,kw,B,H,c_in,c_out,lrn", WINO_GEOMETRIES)
+def test_winograd_scratch_shapes(name, kw, B, H, c_in, c_out, lrn):
+    """U (36, g, T, Cu) with C padded to the GEMM's chunk, M (36, g, T,
+    K), and the conv map (B, out_h, out_w, g*K) only when an LRN or a pool
+    follows; at full conv3-conv5 each fits the 50 MB L2 with room (under
+    10 MB)."""
+    p, lrn_p = _wino_geometry(kw, B, H, c_in, c_out, lrn)
+    T = t_winograd.num_tiles(p, B)
+    cu = t_winograd.u_channels(p)
+    assert cu % t_winograd.BK == 0 and p.C <= cu < p.C + t_winograd.BK
+    shapes = t_winograd.scratch_shapes(p, B, lrn_p, kw.get("pool"))
+    assert shapes["u"] == (36, p.g, T, cu)
+    assert shapes["m"] == (36, p.g, T, c_out // p.g)
+    if kw.get("pool") is None and not lrn:
+        assert shapes["conv"] is None
+    else:
+        assert shapes["conv"] == (B, p.out_h, p.out_w, c_out)
+    if name.endswith("_full"):
+        for shape in shapes.values():
+            assert shape is None or np.prod(shape) * 4 < 10e6
+
+
+@pytest.mark.parametrize("name,kw,B,H,c_in,c_out,lrn", WINO_GEOMETRIES)
+def test_winograd_shared_memory_fits_a_block(name, kw, B, H, c_in, c_out,
+                                             lrn):
+    """A GEMM block's shared memory (the A and B rings and the channel
+    table) fits the 48 KB a launch gets without opting in (of the 227 KB
+    an H100 block may have)."""
+    p, _ = _wino_geometry(kw, B, H, c_in, c_out, lrn)
+    smem = t_winograd.smem_bytes(p)
+    assert smem == (t_winograd.STAGES * (
+        t_winograd.BM * (t_winograd.BK + 4)
+        + t_winograd.BK * t_winograd.BN) + t_winograd.u_channels(p)) * 4
+    assert smem <= 48 * 1024 <= 227 * 1024
+
+
+@pytest.mark.parametrize("name,blocks", [("conv3_full", 432),
+                                         ("conv4_full", 432),
+                                         ("conv5_full", 288)])
+def test_winograd_grid_fills_the_card(name, blocks):
+    """Full conv3, conv4 and conv5 launch 288-432 GEMM blocks: at least one
+    on each of the H100's 132 SMs and at most one wave of four an SM."""
+    geo = next(g for g in WINO_GEOMETRIES if g[0] == name)
+    p, _ = _wino_geometry(*geo[1:])
+    nt, nn, npg = t_winograd.gemm_grid(p, geo[2])
+    assert nt * nn * npg == blocks and 132 <= blocks <= 4 * 132
+
+
+@pytest.mark.parametrize("which", ["winograd_m", "dw1d_taps",
+                                   "alexnet_dtype"])
+def test_refusals_name_their_roadmap_items(which):
+    """Each refusal of a feature the port does not have yet names the
+    ROADMAP item that brings it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import alexnet
+    if which == "winograd_m":
+        x, w, b = _t(*_layer_inputs(dict(kernel=3), 9, 6, 8))
+        p = t_winograd.plan(tuple(x.shape), tuple(w.shape), m=2)
+        slab = t_winograd.pack_weights(w, p)
+        with pytest.raises(NotImplementedError,
+                           match=r"F\(2,3\).*ROADMAP Queue 2, part d"):
+            t_winograd._conv2d_winograd_cuda(x, slab, b, p, relu=True,
+                                             lrn=None, pool=None)
+    elif which == "dw1d_taps":
+        x = torch.zeros((1, 8, 4))
+        with pytest.raises(NotImplementedError,
+                           match=r"3 taps.*ROADMAP Queue 2, part d"):
+            t_winograd._conv1d_depthwise_causal_cuda(
+                x, torch.zeros((3, 4)), torch.zeros((4,)))
+    else:
+        cfg = dataclasses.replace(get_config("alexnet"), dtype="bfloat16")
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1, item 3"):
+            alexnet.check_supported(cfg)

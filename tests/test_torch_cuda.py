@@ -90,6 +90,15 @@ WINO_CASES = [
     ("lrn_only_cblocks", dict(lrn=LRN, c_block=4), 2, 10, 12, 8),
     ("lrn_pool_kblocks_g2", dict(groups=2, lrn=LRN, pool=POOL, k_block=4),
      2, 17, 24, 16),
+    # the batched GEMM's tiling edges: T = 27 Winograd tiles (under one
+    # 64-row tile), C = 5 (U padded to 16 channels with -0.0), K = 40
+    # (under one 64-column tile) and K = 130 (three column tiles, scalar
+    # stores of M), VALID 11 x 11 with the LRN over all 130 channels, and
+    # Kb = 10 (4-byte copies of the slab)
+    ("ragged_c5_k40_pool", dict(pool=POOL), 3, 11, 5, 40),
+    ("ragged_k130", dict(), 1, 9, 5, 130),
+    ("valid11_c5_k130_lrn", dict(padding="VALID", lrn=LRN), 2, 11, 5, 130),
+    ("kb_not_x4_g2", dict(groups=2), 2, 9, 6, 20),
 ]
 
 
@@ -191,6 +200,68 @@ def test_nan_weight_on_a_padded_tap_stays_visible(card):
     fin = ~np.isnan(ref)
     assert np.abs(got[fin] - ref[fin]).max() <= 1e-4 * max(
         1.0, np.abs(ref[fin]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,B,H,c_in,c_out", [
+    ("conv5_full", dict(groups=2), 8, 13, 384, 256),
+    ("pool2_g2", dict(groups=2), 2, 12, 20, 12)])
+@pytest.mark.parametrize("pool", [POOL, (2, 2)])
+def test_fused_pool_is_max_pool_of_the_conv_map(card, name, kw, B, H, c_in,
+                                                c_out, pool):
+    """With a pool and no LRN, kernel 3's output is F.max_pool2d of kernel
+    2's conv map bit for bit: the same transforms and GEMM bits feed both,
+    and a max rounds nothing."""
+    x, w, b = (torch.from_numpy(a).to(card) for a in _inputs(
+        7, B, H, c_in, c_out, 3, kw["groups"]))
+    conv = winograd.conv2d_winograd(x, w, b, relu=True, **kw)
+    pooled = winograd.conv2d_winograd(x, w, b, relu=True, pool=pool, **kw)
+    torch.cuda.synchronize()
+    want = torch.nn.functional.max_pool2d(conv.permute(0, 3, 1, 2), pool[0],
+                                          pool[1]).permute(0, 2, 3, 1)
+    assert torch.equal(pooled, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [None, POOL])
+@pytest.mark.parametrize("where", ["input", "weight"])
+def test_winograd_nan_stays_visible(card, where, pool):
+    """A NaN input pixel poisons every output of the Winograd tiles that
+    read it; a NaN weight of tap (0, 0), which meets only SAME padding at
+    output pixel (0, 0), is spread by G w G^T over its channel's 36
+    Winograd positions, and the kernels multiply padded inputs' zeros by
+    it instead of skipping them.  Through ReLU and the pool, the NaN
+    pattern is the plain version's."""
+    x, w, b = _inputs(8, 2, 9, 5, 8, 3, 1)
+    if where == "input":
+        x[1, 5, 6, 3] = np.nan
+    else:
+        w[0, 0, 2, 3] = np.nan
+    got, ref = _both(lambda x, w, b: winograd.conv2d_winograd(
+        x, w, b, relu=True, pool=pool), card, x, w, b)
+    if where == "input":
+        assert np.isnan(ref[1]).any() and not np.isnan(ref[0]).any()
+    else:
+        assert np.isnan(ref[..., 3]).all() and not np.isnan(ref[..., 2]).any()
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    fin = ~np.isnan(ref)
+    assert np.abs(got[fin] - ref[fin]).max() <= 1e-4 * max(
+        1.0, np.abs(ref[fin]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,B,H,c_in,c_out",
+                         [c for c in WINO_CASES if c[0].endswith("_full")])
+def test_winograd_kernels_are_deterministic(card, name, kw, B, H, c_in,
+                                            c_out):
+    """Two calls on the same inputs give the same bits: every sum has one
+    fixed order (no atomics, no split-K)."""
+    x, w, b = (torch.from_numpy(a).to(card) for a in _inputs(
+        10, B, H, c_in, c_out, 3, kw.get("groups", 1)))
+    first = winograd.conv2d_winograd(x, w, b, relu=True, **kw)
+    second = winograd.conv2d_winograd(x, w, b, relu=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

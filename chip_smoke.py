@@ -12,7 +12,8 @@ Phases:
                beside it and beside its roofline bound: the conv kernels
                beside the F.conv2d-based ``conv2d_ref`` of the same layer,
                on f32 slabs and again on the ``conv_bfp`` slabs,
-               the BFP matmul (fc6-fc8, bit-equal to its plain version)
+               the BFP matmul (fc6-fc8, bit-equal to its plain version,
+               its pre-pass's bytes equal to ``quantize_activations``)
                beside the f32 ``x @ w`` that ``fc_bfp`` replaces (TF32
                off; timed only, the port never calls either);
   4. serve   — full-width AlexNet (random weights from a seed) through
@@ -26,11 +27,12 @@ Phases:
                ms, the Winograd kernels' by stage, the device idle share);
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
                (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
-               KV=8, D=128, S=2048), f32 and bf16, held against its plain
-               version (and, within one bf16 step, against the plain
-               version with f32 probabilities, the kernel's arithmetic) and
-               timed in bf16 beside its bytes bound and
-               ``scaled_dot_product_attention`` (timed only);
+               KV=8, D=128, S=2048), the latter also with skewed lengths
+               (one slot at S, seven at 1), f32 and bf16, held against its
+               plain version (and, within one bf16 step, against the plain
+               version with f32 probabilities, the kernel's arithmetic),
+               two calls bit-equal, and timed in bf16 beside its bytes
+               bound and ``scaled_dot_product_attention`` (timed only);
   6. lm      — full-width smollm-360m (random weights from a seed) through
                the token ``Engine(max_batch=8, max_len=512)``: 24 requests
                of 8-200 prompt tokens, 32 new tokens each, kernel 5 counted
@@ -93,9 +95,13 @@ TOL_DECODE_F32P = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 1e-2)}
 # same cache: <= TOL_LM * max|logit| (bf16 activations through 32 layers)
 TOL_LM = 2e-2
 PEAK_BF16_FLOPS = 989e12
-# (name, B, S, H, KV, D): smollm-360m's and llama3.2-3b's decode geometry
-DECODE_GEOMETRIES = (("smollm-360m", 8, 512, 15, 5, 64),
-                     ("llama3.2-3b", 8, 2048, 24, 8, 128))
+# (name, B, S, H, KV, D, lengths): smollm-360m's and llama3.2-3b's decode
+# geometry with random lengths in [1, S], and llama3.2-3b's with one slot
+# at S and the rest at 1 (the longest slot sets the time unless it is split)
+DECODE_GEOMETRIES = (("smollm-360m", 8, 512, 15, 5, 64, None),
+                     ("llama3.2-3b", 8, 2048, 24, 8, 128, None),
+                     ("llama3.2-3b skewed", 8, 2048, 24, 8, 128,
+                      (2048, 1, 1, 1, 1, 1, 1, 1)))
 LM_ARCH = "smollm-360m"
 LM_REQUESTS = 24
 LM_MAX_NEW = 32
@@ -369,9 +375,14 @@ def phase_bfp(torch, np, cfg, params):
         def library():
             return exact_matmul(x, w_deq)
 
-        got = kern()
+        got, scratch = bfp._bfp_matmul_cuda(x, wq, we, block=block)
         torch.cuda.synchronize()
         ref = plain()
+        words, exps = bfp.quantize_activations(x, block)
+        check(torch.equal(scratch[:words.numel()].view(words.shape), words)
+              and torch.equal(scratch[words.numel():].view(exps.shape), exps),
+              f"{layer}: the pre-pass's bytes differ from "
+              "quantize_activations")
         check(got.shape == ref.shape == (BATCH, N),
               f"{layer}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
         check(bool(torch.isfinite(got).all()), f"{layer}: non-finite output")
@@ -388,7 +399,8 @@ def phase_bfp(torch, np, cfg, params):
         bound_by = ("operations" if flops / PEAK_INT8_OPS
                     >= nbytes / PEAK_BYTES_PER_S else "bytes")
         print(f"kernel bfp_matmul {layer}: x {tuple(x.shape)} w ({K}, {N}) "
-              f"block {block} | max_abs_err {err:.3e} (max|plain| "
+              f"block {block} grid {bfp.bfp_grid(BATCH, N)} (pre-pass bytes "
+              f"= quantize_activations) | max_abs_err {err:.3e} (max|plain| "
               f"{scale:.3e}, gate: bit-equal; vs f32 x @ w_deq {lib_err:.3e})"
               f" | kernel_ms {ms:.4f} (host enqueue {host_ms:.4f} ms) "
               f"plain_ms {plain_ms:.4f} library_ms(the f32 FC that fc_bfp "
@@ -400,7 +412,8 @@ def phase_bfp(torch, np, cfg, params):
         row["layers"].append(layer)
         row["per_layer"].append({
             "layer": layer, "in": list(x.shape), "w": [K, N],
-            "block": block, "max_abs_err": err, "max_abs_plain": scale,
+            "block": block, "grid": list(bfp.bfp_grid(BATCH, N)),
+            "max_abs_err": err, "max_abs_plain": scale,
             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
             "flop": flops, "bytes": nbytes})
@@ -584,14 +597,16 @@ def phase_decode(torch, np):
     from repro_torch.kernels.decode_attn.ref import decode_attention_f32_ref
     rng = np.random.default_rng(3)
     row = {"name": "decode_attn", "geometries": [], "max_abs_err": 0.0}
-    for name, B, S, H, KV, D in DECODE_GEOMETRIES:
-        lens = torch.as_tensor(rng.integers(1, S + 1, B), dtype=torch.int32,
-                               device="cuda")
+    for name, B, S, H, KV, D, fixed in DECODE_GEOMETRIES:
+        lens = torch.as_tensor(rng.integers(1, S + 1, B) if fixed is None
+                               else fixed, dtype=torch.int32, device="cuda")
         base = [torch.as_tensor(rng.standard_normal(shape),
                                 dtype=torch.float32, device="cuda")
                 for shape in ((B, 1, H, D), (B, S, KV, D), (B, S, KV, D))]
         geo = {"arch": name, "B": B, "S": S, "H": H, "KV": KV, "D": D,
-               "lengths": lens.tolist()}
+               "lengths": lens.tolist(),
+               "split_rows": dec.split_rows(B, S, KV, H // KV, D),
+               "grid": list(dec.decode_grid(B, S, KV, H // KV, D))}
         for dtype_name in ("float32", "bfloat16"):
             q, k, v = (t.to(getattr(torch, dtype_name)) for t in base)
             got = dec.decode_attention(q, k, v, lens)
@@ -611,7 +626,9 @@ def phase_decode(torch, np):
             excess32 = float((diff32 - rtol * ref32.float().abs()).max())
             err32 = float(diff32.max())
             print(f"kernel decode_attn {name} {dtype_name}: q {tuple(q.shape)}"
-                  f" cache {tuple(k.shape)} | max_abs_err {err:.3e} "
+                  f" cache {tuple(k.shape)} split rows {geo['split_rows']} "
+                  f"grid {tuple(geo['grid'])} (two calls bit-equal) | "
+                  f"max_abs_err {err:.3e} "
                   f"(max|plain| {float(ref.float().abs().max()):.3e}, gate "
                   f"rtol = atol = {tol:g}, worst excess {excess:.3e}) | vs "
                   f"f32-probability plain {err32:.3e} (gate atol {atol:g} "
@@ -622,6 +639,9 @@ def phase_decode(torch, np):
             check(excess32 <= atol, f"decode_attn {name} {dtype_name}: "
                   f"kernel disagrees with the f32-probability plain version:"
                   f" |diff| exceeds {atol} + {rtol} * |plain| by {excess32}")
+            again = dec.decode_attention(q, k, v, lens)
+            check(torch.equal(got.view(torch.int8), again.view(torch.int8)),
+                  f"decode_attn {name} {dtype_name}: two calls differ")
             geo[f"max_abs_err_{dtype_name}"] = err
             geo[f"max_abs_err_f32p_{dtype_name}"] = err32
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -1278,10 +1298,12 @@ def main(argv=None) -> int:
     lib = build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{lib.build_seconds:.2f} s) -> {lib.path}")
+    ptxas = []
     for line in lib.ptxas_log.splitlines():
         if "Compiling entry function" in line or "Used" in line \
                 or "spill" in line:
             print("ptxas:", line.strip())
+            ptxas.append(line.strip())
 
     cfg = dataclasses.replace(get_config("alexnet"), use_pallas=True)
     cfg_bfp = dataclasses.replace(cfg, fc_bfp=True, conv_bfp=True)
@@ -1386,7 +1408,8 @@ def main(argv=None) -> int:
                        "per_layer_bfp_slabs": {
                            k: r["per_layer"]
                            for k, r in rows_bfp_slabs.items()},
-                       "build_seconds": lib.build_seconds}, f, indent=1)
+                       "build_seconds": lib.build_seconds,
+                       "ptxas": ptxas}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

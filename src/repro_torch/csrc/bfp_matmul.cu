@@ -4,51 +4,64 @@
 //
 // Replaces the TPU kernel _bfp_kernel (src/repro/kernels/bfp_matmul/
 // bfp_matmul.py:29): AlexNet's fc6 (9216 -> 4096), fc7 (4096 -> 4096) and
-// fc8 (4096 -> 1000) under fc_bfp, at M = 1..8 rows (the bucket ladder).
+// fc8 (4096 -> 1000) under fc_bfp at M = 1..8 rows (the bucket ladder), and
+// the LM fc_bfp head.
 //
 // What bounds it on an H100: bytes.  Each weight is one byte read once and
 // takes 2*M operations, so at M <= 8 the int8 weight stream (fc6: 37.7 MB,
 // 11 us at 3.35 TB/s) is the roof, far above the tensor cores' int8 rate.
-// The design reads that stream coalesced and keeps many loads in flight:
-// the stream's layout packs 4 consecutive k of one column into one 32-bit
-// word ((K/4, N, 4) int8), so the 32 lanes of a warp, one column each, read
-// 128 contiguous bytes per load; each warp owns 2 K-blocks of every
-// 16-K-block round, and the next round's words are loaded into registers
-// while the current round computes.  Tensor cores, TMA and a deeper
-// pipeline are later work.
+// Two launches from one entry:
+//   1. a pre-pass quantizes x once a call into int8 mantissas, packed 4 k a
+//      word as (ceil(M / 8), K / 4, 8) int32 (8 rows of one k-word side by
+//      side), and exponents (ceil(M / 8), K / BLOCK, 8) int32, zeros for
+//      the rows past M; kernels/bfp_matmul/bfp_matmul.py
+//      quantize_activations is its plain twin;
+//   2. a GEMM, launched programmatically dependent on the pre-pass so it
+//      loads its first weights before it waits for x.  A block owns 8 rows
+//      by C = 8 or 16 columns (bfp_matmul.tile_cols: the wider if its grid
+//      still covers the SMs) over all of K, with 8 warps: in each
+//      round warp w takes K-block 8 r + w.  A lane loads its weight words
+//      straight into registers, V = C / 8 consecutive columns of a k-word
+//      row in one 4V-byte load (the (K/4, N, 4) stream: C columns of one
+//      k-word are 4C contiguous bytes), and keeps 8-12 rounds of loads in
+//      flight.  Each K-block's exact integer dot is V s8 tensor-core
+//      mma.sync (m16n8k32 for BLOCK 32, m16n8k16 for BLOCK 16; A rows 8-15
+//      are zero), mma i taking columns V j + i, so a lane ends up with 2V
+//      consecutive columns of one row.  The warps write their products to
+//      shared memory and one thread per output adds a round's 8 products
+//      to its sum in K-block order.
 //
 // Function (bit-equal to bfp_matmul_plain in kernels/bfp_matmul/
 // bfp_matmul.py).  Per (row, K-block) of x: amax = max|x|, e = frexp
 // exponent of amax (0 for a block of zeros), q = clip(rint(x * 2^(7-e)),
 // -127, 127), rint being half-to-even.  Per K-block the integer dot of the
-// mantissas is exact (__dp4a, |dot| <= BLOCK * 127^2 < 2^24, so its float
-// is exact too); it is scaled by 2^(e_x + e_w - 14), built from the
-// exponent bits, and added into one f32 sum per output in ascending K-block
-// order with separate IEEE multiply and add (__fmul_rn, __fadd_rn: never
-// contracted to an FMA, no atomics, no split-K).  A K-block of a row that
-// holds a NaN or an infinity makes that row's outputs NaN, so a poisoned
-// input stays visible downstream.  Build without --use_fast_math: it would
-// flush the subnormal scales of near-zero blocks to zero.
+// mantissas is exact (|dot| <= BLOCK * 127^2 < 2^24, so its float is exact
+// too); it is scaled by 2^(e_x + e_w - 14), built from the exponent bits,
+// and added into one f32 sum per output in ascending K-block order with
+// separate IEEE multiply and add (__fmul_rn, __fadd_rn: never contracted
+// to an FMA, no atomics, no split-K).  A K-block of a row that holds a NaN
+// or an infinity makes that row's outputs NaN, so a poisoned input stays
+// visible downstream.  Build without --use_fast_math: it would flush the
+// subnormal scales of near-zero blocks to zero.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kCols = 32;                  // output columns per block (lanes)
-constexpr int kRows = 8;                   // output rows per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKbw = 2;                    // K-blocks per warp per round
-constexpr int kRoundKb = kWarps * kKbw;    // K-blocks per round
+constexpr int kRows = 8;                   // x rows a block (A rows 0-7)
+constexpr int kGemmWarps = 8;              // K-blocks a round, one a warp
+constexpr int kGemmThreads = 32 * kGemmWarps;
 constexpr int kBad = 1 << 20;              // exponent of a non-finite block
+constexpr int kPrepThreads = 256;
 
 // 2^n exactly, as ldexpf(1.0f, n): from the exponent bits (subnormal below
-// 2^-126, 0 below 2^-149, inf above 2^127); core/bfp.py pow2 is its twin
+// 2^-126, 0 below 2^-149, inf above 2^127), with selects and no branch;
+// core/bfp.py pow2 is its twin
 __device__ __forceinline__ float pow2f(int n) {
-  if (n > 127) return __int_as_float(0x7f800000);
-  if (n >= -126) return __int_as_float((n + 127) << 23);
-  if (n >= -149) return __int_as_float(1 << (n + 149));
-  return 0.0f;
+  n = min(max(n, -150), 128);
+  const unsigned normal = static_cast<unsigned>(n + 127) << 23;  // 128: inf
+  const unsigned sub = n >= -149 ? 1u << ((n + 149) & 31) : 0u;
+  return __uint_as_float(n >= -126 ? normal : sub);
 }
 
 __device__ __forceinline__ int finite4(float4 v) {
@@ -65,153 +78,291 @@ __device__ __forceinline__ unsigned quant8(float v, float scale) {
   return static_cast<unsigned>(static_cast<int>(q)) & 0xffu;
 }
 
-// one round's operands of one lane, in registers
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+}
+
+// 1. one thread per (row of the padded 8-row tiles, K-block)
 template <int BLOCK>
-struct Stage {
-  float4 x[kKbw][BLOCK / 16];   // a quarter of one row's K-block
-  int w[kKbw][BLOCK / 4];       // the lane's column: mantissa words
-  int e[kKbw];                  // the lane's column: exponent
+__global__ void __launch_bounds__(kPrepThreads)
+    bfp_quantize_kernel(const float* __restrict__ x, int* __restrict__ xq,
+                        int* __restrict__ xe, int M, int K) {
+  pdl_trigger();   // the GEMM may start streaming weights; it waits for x
+  constexpr int kWords = BLOCK / 4;
+  const int KB = K / BLOCK, KW = K / 4;
+  const int t = blockIdx.x * kPrepThreads + threadIdx.x;
+  const int r = t & (kRows - 1), kb = (t / kRows) % KB,
+            mt = t / (kRows * KB);
+  if (mt >= (M + kRows - 1) / kRows) return;
+  const int m = mt * kRows + r;
+  float4 v[kWords];
+  const float4* xp =
+      reinterpret_cast<const float4*>(x + (size_t)m * K + (size_t)kb * BLOCK);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j)
+    v[j] = m < M ? xp[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  float amax = 0.0f;
+  int finite = 1;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[j].x), fabsf(v[j].y)),
+                             fmaxf(fabsf(v[j].z), fabsf(v[j].w))));
+    finite &= finite4(v[j]);
+  }
+  int e = 0;
+  if (amax > 0.0f && finite) frexpf(amax, &e);
+  const float scale = pow2f(7 - e);
+  int* out = xq + ((size_t)mt * KW + (size_t)kb * kWords) * kRows + r;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j)
+    out[j * kRows] = static_cast<int>(
+        quant8(v[j].x, scale) | (quant8(v[j].y, scale) << 8) |
+        (quant8(v[j].z, scale) << 16) | (quant8(v[j].w, scale) << 24));
+  xe[((size_t)mt * KB + kb) * kRows + r] = finite ? e : kBad;
+}
+
+// exact s8 dots of rows 0-7 (A rows 8-15 are zero) with 8 columns: lane
+// (g = lane / 4, c = lane % 4) gets rows g, columns 2c and 2c + 1
+__device__ __forceinline__ void mma_k32(int a0, int a2, int b0, int b1,
+                                        int& d0, int& d1) {
+  int d2, d3;
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=r"(d0), "=r"(d1), "=r"(d2), "=r"(d3)
+      : "r"(a0), "r"(0), "r"(a2), "r"(0), "r"(b0), "r"(b1), "r"(0));
+}
+
+__device__ __forceinline__ void mma_k16(int a0, int b0, int& d0, int& d1) {
+  int d2, d3;
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=r"(d0), "=r"(d1), "=r"(d2), "=r"(d3)
+      : "r"(a0), "r"(0), "r"(b0), "r"(0));
+}
+
+template <int C>
+struct Tile {
+  static_assert(C == 8 || C == 16, "column tiles of 8 or 16");
+  static constexpr int kV = C / 8;         // words a lane loads a W row
+  static constexpr int kU = C == 8 ? 12 : 8;   // rounds of loads ahead
+  static constexpr int kPart = C + 4;      // floats a row of products
 };
 
-template <int BLOCK>
-__device__ __forceinline__ void load_stage(
-    Stage<BLOCK>& s, int round, const float* __restrict__ x,
-    const int* __restrict__ wq, const int8_t* __restrict__ we, int M, int K,
-    int N, int KB, int m0, int n, int warp, int lane) {
-  const int row = m0 + (lane >> 2), quarter = lane & 3;
+// one warp's operands of one K-block, in registers: lane (g, c) holds the W
+// words of k-word rows c (and c + 4) at columns n0 + V g .. + V - 1, the x
+// words of row g at the same k-words, row g's exponent and the exponents of
+// the lane's output columns n0 + 2 V c .. + 2 V - 1
+template <int BLOCK, int C>
+struct Stage {
+  static constexpr int kR = BLOCK / 16;    // k-word rows a lane loads
+  static constexpr int kV = Tile<C>::kV;
+  unsigned w[kR][kV];
+  int x[kR];
+  int ex;
+  unsigned ew;   // 2V exponent bytes
+};
+
+template <int BLOCK, int C>
+__device__ __forceinline__ void load_w(Stage<BLOCK, C>& st,
+                                       const int* __restrict__ wq,
+                                       const int8_t* __restrict__ we, int kb,
+                                       int KB, int N, int n0, int g, int c) {
+  constexpr int kV = Tile<C>::kV;
+  const bool kv = kb < KB;
 #pragma unroll
-  for (int i = 0; i < kKbw; ++i) {
-    const int kb = round * kRoundKb + warp * kKbw + i;
-    const bool kv = kb < KB;
-    const bool xv = kv && row < M, wv = kv && n < N;
-    const float4* xp = reinterpret_cast<const float4*>(
-        x + (size_t)row * K + (size_t)kb * BLOCK + quarter * (BLOCK / 4));
+  for (int r = 0; r < Stage<BLOCK, C>::kR; ++r) {
+    const int n = n0 + kV * g;
+    const int* src = wq + (size_t)(kb * (BLOCK / 4) + c + 4 * r) * N + n;
+    if (kv && n + kV <= N && (N % kV) == 0) {
+      if constexpr (kV == 2) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+        st.w[r][0] = u.x, st.w[r][1] = u.y;
+      } else {
+        st.w[r][0] = __ldg(reinterpret_cast<const unsigned*>(src));
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < BLOCK / 16; ++j)
-      s.x[i][j] = xv ? xp[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = 0; i < kV; ++i)
+        st.w[r][i] = kv && n + i < N
+                         ? __ldg(reinterpret_cast<const unsigned*>(src + i))
+                         : 0u;
+    }
+  }
+  const int n = n0 + 2 * kV * c;
+  const int8_t* src = we + (size_t)kb * N + n;
+  if (kv && n + 2 * kV <= N && (N % (2 * kV)) == 0) {
+    if constexpr (kV == 2)
+      st.ew = __ldg(reinterpret_cast<const unsigned*>(src));
+    else
+      st.ew = __ldg(reinterpret_cast<const unsigned short*>(src));
+  } else {
+    st.ew = 0u;
 #pragma unroll
-    for (int j = 0; j < BLOCK / 4; ++j)
-      s.w[i][j] = wv ? wq[((size_t)kb * (BLOCK / 4) + j) * N + n] : 0;
-    s.e[i] = wv ? static_cast<int>(we[(size_t)kb * N + n]) : 0;
+    for (int i = 0; i < 2 * kV; ++i)
+      if (kv && n + i < N)
+        st.ew |= (static_cast<unsigned>(src[i]) & 0xffu) << (8 * i);
   }
 }
 
-// grid (ceil(N / 32), ceil(M / 8)); thread (warp, lane) sums output
-// (m0 + warp, n0 + lane)
-template <int BLOCK>
-__global__ void __launch_bounds__(kThreads)
-bfp_matmul_kernel(const float* __restrict__ x, const int* __restrict__ wq,
-                  const int8_t* __restrict__ we, float* __restrict__ out,
-                  int M, int K, int N) {
-  constexpr int kWords = BLOCK / 4;        // mantissa words per K-block
-  __shared__ __align__(16) int xs[kWarps][kKbw][kWords][kRows];
-  __shared__ int xe[kWarps][kKbw][kRows];
-  __shared__ float part[kRoundKb][kRows][kCols];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kCols, m0 = blockIdx.y * kRows;
-  const int n = n0 + lane;
-  const int KB = K / BLOCK;
-  const int rounds = (KB + kRoundKb - 1) / kRoundKb;
-  const int row = lane >> 2, quarter = lane & 3;
+template <int BLOCK, int C>
+__device__ __forceinline__ void load_x(Stage<BLOCK, C>& st,
+                                       const int* __restrict__ xq,
+                                       const int* __restrict__ xe, int kb,
+                                       int KB, int KW, int mt, int g, int c) {
+  const bool kv = kb < KB;
+#pragma unroll
+  for (int r = 0; r < Stage<BLOCK, C>::kR; ++r)
+    st.x[r] = kv ? __ldg(xq + ((size_t)mt * KW + kb * (BLOCK / 4) + c + 4 * r)
+                                  * kRows + g)
+                 : 0;
+  st.ex = kv ? __ldg(xe + ((size_t)mt * KB + kb) * kRows + g) : 0;
+}
+
+// the exponent byte i of the lane's columns
+template <int BLOCK, int C>
+__device__ __forceinline__ int ew_of(const Stage<BLOCK, C>& st, int i) {
+  return static_cast<int>(static_cast<int8_t>(st.ew >> (8 * i)));
+}
+
+// 2. grid (ceil(N / C), ceil(M / 8)), 8 warps: in round r warp w takes
+// K-block 8 r + w, writes its 8 x C products to shared memory, and thread
+// (m, n) adds the round's 8 products to its sum in K-block order
+template <int BLOCK, int C>
+__global__ void __launch_bounds__(kGemmThreads)
+    bfp_gemm_kernel(const int* __restrict__ xq, const int* __restrict__ xe,
+                    const int* __restrict__ wq, const int8_t* __restrict__ we,
+                    float* __restrict__ out, int M, int K, int N) {
+  using TL = Tile<C>;
+  constexpr int kV = TL::kV, kU = TL::kU;
+  __shared__ __align__(16) float part[2][kGemmWarps][kRows][TL::kPart];
+  const int KW = K / 4, KB = K / BLOCK;
+  const int rounds = (KB + kGemmWarps - 1) / kGemmWarps;
+  const int n0 = blockIdx.x * C, mt = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+
+  // the weights do not depend on the pre-pass: load them first
+  Stage<BLOCK, C> st[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+    load_w(st[u], wq, we, u * kGemmWarps + warp, KB, N, n0, g, c);
+  pdl_wait();
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+    load_x(st[u], xq, xe, u * kGemmWarps + warp, KB, KW, mt, g, c);
+
+  const float nan = __int_as_float(0x7fc00000);
   float acc = 0.0f;
-
-  Stage<BLOCK> cur, nxt;
-  load_stage(cur, 0, x, wq, we, M, K, N, KB, m0, n, warp, lane);
-  for (int r = 0; r < rounds; ++r) {
-    if (r + 1 < rounds)
-      load_stage(nxt, r + 1, x, wq, we, M, K, N, KB, m0, n, warp, lane);
-
-    // A. quantize the warp's K-blocks of x: 4 lanes per row, reduced by
-    // shuffles, packed 4 k per word (byte i = k offset i) into shared memory
+  for (int r0 = 0; r0 < rounds; r0 += kU) {
 #pragma unroll
-    for (int i = 0; i < kKbw; ++i) {
-      float amax = 0.0f;
-      int finite = 1;
+    for (int u = 0; u < kU; ++u) {
+      const int r = r0 + u;
+      if (r >= rounds) break;
+      // exact dots: mma i holds columns n0 + V j + i (j = the B column)
+      int d[kV][2];
 #pragma unroll
-      for (int j = 0; j < BLOCK / 16; ++j) {
-        const float4 v = cur.x[i][j];
-        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
-                                 fmaxf(fabsf(v.z), fabsf(v.w))));
-        finite &= finite4(v);
+      for (int i = 0; i < kV; ++i) {
+        if constexpr (BLOCK == 32)
+          mma_k32(st[u].x[0], st[u].x[1], st[u].w[0][i], st[u].w[1][i],
+                  d[i][0], d[i][1]);
+        else
+          mma_k16(st[u].x[0], st[u].w[0][i], d[i][0], d[i][1]);
       }
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-      finite &= __shfl_xor_sync(0xffffffffu, finite, 1);
-      finite &= __shfl_xor_sync(0xffffffffu, finite, 2);
-      int e = 0;
-      if (amax > 0.0f && finite) frexpf(amax, &e);
-      const float scale = pow2f(7 - e);
+      // lane (g, c): row g, columns 2 V c + i (d[i][0]) and + V + i (d[i][1])
+      float p[2 * kV];
 #pragma unroll
-      for (int j = 0; j < BLOCK / 16; ++j) {
-        const float4 v = cur.x[i][j];
-        xs[warp][i][quarter * (BLOCK / 16) + j][row] = static_cast<int>(
-            quant8(v.x, scale) | (quant8(v.y, scale) << 8) |
-            (quant8(v.z, scale) << 16) | (quant8(v.w, scale) << 24));
+      for (int i = 0; i < kV; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = h * kV + i;
+          p[j] = st[u].ex == kBad
+                     ? nan
+                     : __fmul_rn(static_cast<float>(d[i][h]),
+                                 pow2f(st[u].ex + ew_of(st[u], j) - 14));
+        }
       }
-      if (quarter == 0) xe[warp][i][row] = finite ? e : kBad;
-    }
-    __syncwarp();
-
-    // B. exact integer dot per K-block, lane = column, all rows at once
+      float* row = &part[r & 1][warp][g][2 * kV * c];
 #pragma unroll
-    for (int i = 0; i < kKbw; ++i) {
-      int dot[kRows];
+      for (int j = 0; j < 2 * kV; j += 2)
+        *reinterpret_cast<float2*>(row + j) = make_float2(p[j], p[j + 1]);
+      // the next loads into this stage
+      const int kb = (r + kU) * kGemmWarps + warp;
+      load_w(st[u], wq, we, kb, KB, N, n0, g, c);
+      load_x(st[u], xq, xe, kb, KB, KW, mt, g, c);
+      __syncthreads();
+      if (tid < kRows * C) {
+        const float* q = &part[r & 1][0][tid / C][tid % C];
 #pragma unroll
-      for (int m = 0; m < kRows; ++m) dot[m] = 0;
-#pragma unroll
-      for (int j = 0; j < kWords; ++j) {
-        const int4 lo = *reinterpret_cast<const int4*>(&xs[warp][i][j][0]);
-        const int4 hi = *reinterpret_cast<const int4*>(&xs[warp][i][j][4]);
-        const int w = cur.w[i][j];
-        dot[0] = __dp4a(lo.x, w, dot[0]);
-        dot[1] = __dp4a(lo.y, w, dot[1]);
-        dot[2] = __dp4a(lo.z, w, dot[2]);
-        dot[3] = __dp4a(lo.w, w, dot[3]);
-        dot[4] = __dp4a(hi.x, w, dot[4]);
-        dot[5] = __dp4a(hi.y, w, dot[5]);
-        dot[6] = __dp4a(hi.z, w, dot[6]);
-        dot[7] = __dp4a(hi.w, w, dot[7]);
-      }
-#pragma unroll
-      for (int m = 0; m < kRows; ++m) {
-        const int ex = xe[warp][i][m];
-        part[warp * kKbw + i][m][lane] =
-            ex == kBad ? __int_as_float(0x7fc00000)
-                       : __fmul_rn(static_cast<float>(dot[m]),
-                                   pow2f(ex + cur.e[i] - 14));
+        for (int w = 0; w < kGemmWarps; ++w)
+          acc = __fadd_rn(acc, q[w * kRows * TL::kPart]);
       }
     }
-    __syncthreads();
-
-    // C. one f32 sum per output, over this round's K-blocks in order
-    const int nkb = min(kRoundKb, KB - r * kRoundKb);
-    for (int s = 0; s < nkb; ++s) acc = __fadd_rn(acc, part[s][warp][lane]);
-    __syncthreads();
-    cur = nxt;
   }
-  if (m0 + warp < M && n < N) out[(size_t)(m0 + warp) * N + n] = acc;
+  const int m = mt * kRows + tid / C, n = n0 + tid % C;
+  if (tid < kRows * C && m < M && n < N) out[(size_t)m * N + n] = acc;
+}
+
+template <int BLOCK, int C>
+int launch_gemm(const int* xq, const int* xe, const int* wq, const int8_t* we,
+                float* out, int M, int K, int N, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + C - 1) / C, (M + kRows - 1) / kRows);
+  cfg.blockDim = dim3(kGemmThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, bfp_gemm_kernel<BLOCK, C>, xq, xe, wq,
+                                 we, out, M, K, N);
+}
+
+template <int BLOCK>
+int launch(const float* x, const int* wq, const int8_t* we, int* scratch,
+           float* out, int M, int K, int N, int cols, cudaStream_t stream) {
+  const int Mt = (M + kRows - 1) / kRows;
+  int* xq = scratch;                                   // (Mt, K/4, 8)
+  int* xe = scratch + (size_t)Mt * (K / 4) * kRows;    // (Mt, K/BLOCK, 8)
+  const long long threads = (long long)Mt * kRows * (K / BLOCK);
+  bfp_quantize_kernel<BLOCK>
+      <<<(unsigned)((threads + kPrepThreads - 1) / kPrepThreads),
+         kPrepThreads, 0, stream>>>(x, xq, xe, M, K);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  switch (cols) {
+    case 8:
+      return launch_gemm<BLOCK, 8>(xq, xe, wq, we, out, M, K, N, stream);
+    case 16:
+      return launch_gemm<BLOCK, 16>(xq, xe, wq, we, out, M, K, N, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// scratch: int32, ceil(M / 8) * 8 * (K / 4 + K / block) words (the
+// pre-pass's x words, then its exponents); cols: output columns a block
 extern "C" int repro_bfp_matmul(const float* x, const int8_t* wq,
-                                const int8_t* we, float* out, int M, int K,
-                                int N, int block, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || block <= 0 || K % block)
+                                const int8_t* we, int* scratch, float* out,
+                                int M, int K, int N, int block, int cols,
+                                cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || block <= 0 || K % block ||
+      (M + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kCols - 1) / kCols, (M + kRows - 1) / kRows);
   const int* w = reinterpret_cast<const int*>(wq);
   switch (block) {
     case 16:
-      bfp_matmul_kernel<16><<<grid, kThreads, 0, stream>>>(x, w, we, out, M,
-                                                           K, N);
-      break;
+      return launch<16>(x, w, we, scratch, out, M, K, N, cols, stream);
     case 32:
-      bfp_matmul_kernel<32><<<grid, kThreads, 0, stream>>>(x, w, we, out, M,
-                                                           K, N);
-      break;
+      return launch<32>(x, w, we, scratch, out, M, K, N, cols, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

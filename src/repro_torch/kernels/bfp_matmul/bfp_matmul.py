@@ -16,6 +16,12 @@ gives the reference's (KB, block, N) mantissas back.
 :func:`bfp_matmul` runs ``csrc/bfp_matmul.cu`` on a CUDA tensor and its
 plain PyTorch version, :func:`bfp_matmul_plain`, on a CPU tensor; the
 plain version takes the kernel's exact arguments and gives its bits.
+
+The kernel is two launches: a pre-pass quantizes x once into the wrapper's
+scratch (:func:`quantize_activations` is its plain twin, byte for byte),
+then a GEMM streams the weights over blocks of 8 rows by
+:func:`tile_cols` columns (:func:`bfp_grid`, :func:`scratch_shapes`), 8
+warps a block taking one K-block each a round.
 """
 from __future__ import annotations
 
@@ -32,6 +38,38 @@ launches = 0
 # exponent-block sizes the kernel is built for; mantissas are int8
 KERNEL_BLOCKS = (16, 32)
 BITS = 8
+# the exponent of a K-block of x that holds a NaN or an infinity, as the
+# pre-pass writes it (csrc/bfp_matmul.cu kBad)
+BAD_EXPONENT = 1 << 20
+# the GEMM's blocking: x rows a block (one 8-row A tile), and the column
+# tiles it is built for (one warp per 8 columns); the widest tile whose
+# grid has MIN_BLOCKS blocks is taken (132 SMs on the H100)
+TILE_ROWS = 8
+TILE_COLS = (16, 8)
+MIN_BLOCKS = 132
+
+
+def tile_cols(M: int, N: int) -> int:
+    """Output columns a GEMM block: the widest of ``TILE_COLS`` whose grid
+    has ``MIN_BLOCKS`` blocks, else the narrowest."""
+    for c in TILE_COLS:
+        if math.prod(bfp_grid(M, N, c)) >= MIN_BLOCKS:
+            return c
+    return TILE_COLS[-1]
+
+
+def bfp_grid(M: int, N: int, cols: int | None = None) -> tuple:
+    """The GEMM's grid: (column tiles, 8-row tiles)."""
+    cols = tile_cols(M, N) if cols is None else cols
+    return (-(-N // cols), -(-M // TILE_ROWS))
+
+
+def scratch_shapes(M: int, K: int, block: int) -> tuple:
+    """The pre-pass's outputs, int32: x's mantissa words (ceil(M / 8),
+    K / 4, 8), 4 k a word and the 8 rows of a tile side by side, and the
+    exponents (ceil(M / 8), K / block, 8)."""
+    mt = -(-M // TILE_ROWS)
+    return (mt, K // 4, TILE_ROWS), (mt, K // block, TILE_ROWS)
 
 
 def quantize_weights(w, *, block: int = 32):
@@ -67,6 +105,24 @@ def _quantize_rows(x, block: int):
     # fmin/fmax as the kernel's fminf/fmaxf: a NaN product clips to qmax
     q = torch.fmax(torch.fmin(v, v.new_tensor(qmax)), v.new_tensor(-qmax))
     return q, e, bad
+
+
+def quantize_activations(x, block: int):
+    """The pre-pass's bytes in plain PyTorch: (words, exponents) in the
+    layouts of :func:`scratch_shapes`, from :func:`_quantize_rows`; the rows
+    past M are zero, a non-finite K-block's exponent is ``BAD_EXPONENT``.
+    Each word holds 4 consecutive k of one row, byte i = k offset i."""
+    M, K = x.shape
+    q, e, bad = _quantize_rows(x.to(torch.float32), block)
+    (mt, kw, rows), _ = scratch_shapes(M, K, block)
+    pad = mt * rows - M
+    bytes_ = torch.nn.functional.pad(q.reshape(M, K).to(torch.int8),
+                                     (0, 0, 0, pad))
+    words = bytes_.view(torch.int32).reshape(mt, rows, kw).transpose(1, 2)
+    ex = torch.where(bad, BAD_EXPONENT, e.to(torch.int32))
+    ex = torch.nn.functional.pad(ex, (0, 0, 0, pad))
+    ex = ex.reshape(mt, rows, K // block).transpose(1, 2)
+    return words.contiguous(), ex.contiguous()
 
 
 def bfp_matmul_plain(x, wq, we, *, block: int):
@@ -106,9 +162,14 @@ def _check_cuda_args(x, wq, we, block: int):
     if wq.shape[-1] != 4:
         raise ValueError(f"bfp_matmul: weight stream layout {tuple(wq.shape)}"
                          " is not (K/4, N, 4)")
+    if wq.data_ptr() % 16 or we.data_ptr() % 16:
+        raise ValueError("bfp_matmul: the weight stream and its exponents "
+                         "must be 16-byte aligned")
 
 
 def _bfp_matmul_cuda(x, wq, we, *, block: int):
+    """-> (out, scratch): the scratch holds the pre-pass's words, then its
+    exponents (:func:`scratch_shapes`)."""
     global launches
     _check_cuda_args(x, wq, we, block)
     if x.data_ptr() % 16:           # the kernel reads x as float4
@@ -116,12 +177,16 @@ def _bfp_matmul_cuda(x, wq, we, *, block: int):
     M, K = x.shape
     N = wq.shape[1]
     out = torch.empty((M, N), device=x.device, dtype=torch.float32)
+    words, exps = scratch_shapes(M, K, block)
+    scratch = torch.empty(math.prod(words) + math.prod(exps),
+                          device=x.device, dtype=torch.int32)
     err = build.library().lib.repro_bfp_matmul(
-        x.data_ptr(), wq.data_ptr(), we.data_ptr(), out.data_ptr(), M, K, N,
-        block, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), wq.data_ptr(), we.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), M, K, N, block, tile_cols(M, N),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "bfp_matmul")
     launches += 1
-    return out
+    return out, scratch
 
 
 def bfp_matmul(x, wq, we, *, block: int = 32):
@@ -139,4 +204,4 @@ def bfp_matmul(x, wq, we, *, block: int = 32):
         raise ValueError(f"bfp_matmul: unsupported device {x.device}")
     if M == 0 or N == 0:
         return torch.zeros((M, N), device=x.device, dtype=torch.float32)
-    return _bfp_matmul_cuda(x.contiguous(), wq, we, block=block)
+    return _bfp_matmul_cuda(x.contiguous(), wq, we, block=block)[0]

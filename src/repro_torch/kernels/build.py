@@ -13,8 +13,11 @@ scratches among them), and the CUDA stream (the direct launcher also its
 block tile's columns per thread, the Winograd launcher a host pointer to
 its transform matrices);
 the BFP matmul, decode-attention, SSD and depthwise-conv launchers take
-their pointers, their extents as ints and the stream (the depthwise conv
-also a host pointer to its transform matrices).  Each function returns
+their pointers (the BFP matmul's and decode attention's scratches, and
+decode attention's merge tickets, among them), their extents as ints and the stream (the BFP matmul also its
+block tile's columns, decode attention q's scale factor and its cache
+rows a split, the depthwise conv a host pointer to its transform
+matrices).  Each function returns
 the ``cudaError_t`` of its launches (0 on success).  A failed build and a
 nonzero ``cudaError_t`` both raise :class:`KernelError`, which the serving
 engines never retry or degrade around.
@@ -128,11 +131,13 @@ def _declare(lib: ctypes.CDLL):
     lib.repro_conv_winograd.argtypes = [ctypes.POINTER(ConvArgs), p, p, p,
                                         p, p, p, p, p, p]
     lib.repro_conv_winograd.restype = ctypes.c_int
-    # (x, wq, we, out, M, K, N, block, stream)
-    lib.repro_bfp_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
+    # (x, wq, we, scratch, out, M, K, N, block, columns a block, stream)
+    lib.repro_bfp_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.repro_bfp_matmul.restype = ctypes.c_int
-    # (q, k, v, lengths, out, B, S, H, KV, D, dtype, stream)
-    lib.repro_decode_attn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    # (q, k, v, lengths, scratch, tickets, out, D**-0.5 in q's dtype, B, S,
+    # H, KV, D, rows a split, dtype, stream)
+    lib.repro_decode_attn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, i,
+                                      i, i, i, i, i, i, p]
     lib.repro_decode_attn.restype = ctypes.c_int
     # (x, dt, A, B, C, y, state, Bb, L, H, P, G, N, Q, dtype, stream)
     lib.repro_ssd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]

@@ -3,16 +3,27 @@ reference's ``_decode_kernel`` (``repro/kernels/decode_attn/
 decode_attn.py:26``), the serving engine's hot spot.
 
 :func:`decode_attention` pre-scales q by D**-0.5 in q's dtype (part of the
-function, as in the reference) and runs ``csrc/decode_attn.cu`` on a CUDA
-tensor; on a CPU tensor it runs the plain version, ``ref.py``.  A failed
+function, as in the reference; the kernel does it with the factor of
+``ref.prescale_factor``) and runs ``csrc/decode_attn.cu`` on a CUDA tensor;
+on a CPU tensor it runs the plain version, ``ref.py``.  A failed
 launch raises :class:`build.KernelError`; nothing falls back.
+
+The kernel splits each slot's cache rows over blocks (flash decoding);
+the last block of a slot to finish merges the splits' partial states,
+found by an integer ticket.  Its launch geometry is here, as pure
+functions of the shape (never of the lengths, which stay on the card):
+:func:`split_rows`, :func:`decode_grid`, :func:`scratch_shape` and
+:func:`split_bounds`, the rows each split reads.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from .. import build
-from .ref import decode_attention_ref, prescale
+from .ref import decode_attention_ref, prescale, prescale_factor  # noqa: F401
 
 # launches of the CUDA kernel (the plain version does not count)
 launches = 0
@@ -21,6 +32,70 @@ launches = 0
 # covers 8 bf16 or 4 f32 values of a cache row)
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernel's blocking (csrc/decode_attn.cu): query heads a block (one warp
+# each) and cache rows a tile (one lane each)
+HEADS_PER_BLOCK = 4
+TILE_ROWS = 32
+# a split covers at most MAX_SPLIT_ROWS rows; fewer where the grid would
+# otherwise launch under MIN_BLOCKS blocks (132 SMs on the H100); more where
+# a slot would have over MAX_SPLITS splits (the merge's limit)
+MAX_SPLIT_ROWS = 256
+MIN_BLOCKS = 264
+MAX_SPLITS = 128
+
+
+@functools.lru_cache(maxsize=None)
+def split_rows(B: int, S: int, KV: int, G: int, D: int) -> int:
+    """Cache rows a split, R: the largest power of two from
+    ``MAX_SPLIT_ROWS`` down to ``TILE_ROWS`` whose grid still has
+    ``MIN_BLOCKS`` blocks (or ``TILE_ROWS`` if none has), doubled while S
+    needs over ``MAX_SPLITS`` splits.  A function of the shape only, so the
+    host never reads the lengths."""
+    per_split = B * KV * math.ceil(G / HEADS_PER_BLOCK)
+    R = MAX_SPLIT_ROWS
+    while R > TILE_ROWS and per_split * math.ceil(S / R) < MIN_BLOCKS:
+        R //= 2
+    while math.ceil(S / R) > MAX_SPLITS:
+        R *= 2
+    return R
+
+
+def decode_grid(B: int, S: int, KV: int, G: int, D: int) -> tuple:
+    """The launch's grid: (splits, KV heads x chunks of
+    ``HEADS_PER_BLOCK`` query heads, slots)."""
+    R = split_rows(B, S, KV, G, D)
+    return (math.ceil(S / R), KV * math.ceil(G / HEADS_PER_BLOCK), B)
+
+
+def scratch_shape(B: int, S: int, KV: int, G: int, D: int) -> tuple:
+    """The f32 partial states the splits write and their merge reads:
+    (B, KV, splits, G, D + 2), acc[D] then the running max and sum."""
+    return (B, KV, decode_grid(B, S, KV, G, D)[0], G, D + 2)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream: int, n: int):
+    """The kernel's merge tickets: int32, zero between calls (the block that
+    merges a slot's splits sets its ticket back to 0), one buffer per
+    device and stream, grown as needed."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def split_bounds(length: int, S: int, R: int) -> list:
+    """The [lo, hi) cache rows of each split that reads any, as the kernel
+    bounds them: n = S for length <= 0 (uniform attention), else
+    min(length, S); split i reads [i R, min((i + 1) R, n)); the slot's
+    merge takes the first ceil(n / R) splits."""
+    n = S if length <= 0 else min(length, S)
+    return [(lo, min(lo + R, n)) for lo in range(0, n, R)]
 
 
 def _check_args(q, k_cache, v_cache, lengths):
@@ -48,7 +123,7 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths):
         raise ValueError(f"decode_attention: the kernel takes "
                          f"{list(_DTYPE_CODE)} at D in {KERNEL_HEAD_DIMS}; "
                          f"got {q.dtype}, D={D}")
-    qs = prescale(q).contiguous()
+    q = q.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     for t in (k_cache, v_cache):
         if t.dtype != q.dtype or t.device != q.device \
@@ -60,11 +135,18 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths):
     if lengths.device != q.device:
         raise ValueError(f"decode_attention: lengths on {lengths.device}, "
                          f"q on {q.device}")
-    out = torch.empty_like(qs)
+    G = H // KV
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
+    part = torch.empty(scratch_shape(B, S, KV, G, D), dtype=torch.float32,
+                       device=q.device)
+    tickets = _tickets(q.device, stream,
+                       B * KV * math.ceil(G / HEADS_PER_BLOCK))
     err = build.library().lib.repro_decode_attn(
-        qs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, S, H, KV, D,
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), prescale_factor(q), B, S, H, KV, D,
+        split_rows(B, S, KV, G, D), _DTYPE_CODE[q.dtype], stream)
     build.check(err, "decode_attn")
     launches += 1
     return out

@@ -3,16 +3,28 @@ call (``repro/nn/flash.py::decode_attention``), which its kernel package
 names as the decode kernel's oracle."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 NEG_INF = -1e30
 
 
+def prescale_factor(q) -> float:
+    """D**-0.5 rounded to q's dtype, as the reference's weakly typed
+    ``q * (D ** -0.5)`` rounds it: for D = 128 in bf16 this rounding is part
+    of the function."""
+    return _factor(q.shape[-1], q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _factor(D: int, dtype) -> float:
+    return torch.tensor(D ** -0.5, dtype=dtype).item()
+
+
 def prescale(q):
-    """q * D**-0.5 in q's dtype, the factor rounded to that dtype first, as
-    the reference's weakly typed ``q * (D ** -0.5)`` is: for D = 128 in
-    bf16 this rounding is part of the function."""
-    return q * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype).item()
+    """q * D**-0.5 in q's dtype (the product of f32 values, rounded once)."""
+    return q * prescale_factor(q)
 
 
 def _attend(q, k_cache, v_cache, lengths, p_dtype):

@@ -218,6 +218,80 @@ def test_plain_is_the_ascending_f32_sum_of_exact_block_dots():
     np.testing.assert_array_equal(got, acc)
 
 
+# (M, K, N, block): fc6, fc7 and fc8 at the served bucket of 8, and the LM
+# fc_bfp head (smollm-360m: d_model 960, vocab 49,152) at a decode batch
+SERVED_FC = [(8, 9216, 4096, 32), (8, 4096, 4096, 32), (8, 4096, 1000, 32),
+             (8, 960, 49152, 32)]
+
+
+@pytest.mark.parametrize("M,K,N,block", SERVED_FC)
+def test_gemm_grid_covers_the_card(M, K, N, block):
+    """At least 119 blocks (90% of one wave of the H100's 132 SMs) at every
+    served FC layer; the scratch holds the pre-pass's words and exponents
+    of the padded 8-row tiles."""
+    cols = t_bk.tile_cols(M, N)
+    assert cols in t_bk.TILE_COLS
+    grid = t_bk.bfp_grid(M, N)
+    assert grid == (-(-N // cols), -(-M // t_bk.TILE_ROWS))
+    assert grid[0] * grid[1] >= 119, grid
+    words, exps = t_bk.scratch_shapes(M, K, block)
+    assert words == (-(-M // 8), K // 4, 8)
+    assert exps == (-(-M // 8), K // block, 8)
+
+
+def _activations(M, K, block, seed):
+    """ReLU-like rows with an all-zero K-block, an all-zero row, and (for
+    the poisoned variant) a NaN and an infinity in two K-blocks."""
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.standard_normal((M, K)), 0).astype(np.float32)
+    x[:, block:2 * block] = 0.0
+    x[M - 1] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("M,K,N,block", SERVED_FC[:3] + [(13, 4096, 1000, 32),
+                                                        (3, 48, 10, 16)])
+@pytest.mark.parametrize("poison", [False, True])
+def test_quantize_activations_unpacks_to_quantize_rows(M, K, N, block,
+                                                       poison):
+    """The pre-pass's twin, unpacked: 4 k a word (byte i = k offset i), the
+    8 rows of a tile side by side, zero rows past M; the bad-block exponent
+    where a K-block holds a NaN or an infinity."""
+    x = _activations(M, K, block, M + K)
+    if poison:
+        x[0, 3], x[M - 2, K - 1] = np.nan, np.inf
+    xt = torch.from_numpy(x)
+    words, exps = t_bk.quantize_activations(xt, block)
+    assert words.dtype == exps.dtype == torch.int32
+    assert tuple(words.shape) == t_bk.scratch_shapes(M, K, block)[0]
+    mt = words.shape[0]
+    q, e, bad = t_bk._quantize_rows(xt, block)
+    rows = words.transpose(1, 2).reshape(mt * 8, K // 4).contiguous()
+    mant = rows.view(torch.int8).reshape(mt * 8, K // block, block)
+    assert torch.equal(mant[:M].to(torch.float32), q)
+    assert not mant[M:].any()
+    ex = exps.transpose(1, 2).reshape(mt * 8, K // block)
+    assert torch.equal(ex[:M], torch.where(bad, t_bk.BAD_EXPONENT, e))
+    assert not ex[M:].any()
+    assert bool(bad.any()) == poison
+
+
+@pytest.mark.parametrize("M,K,N,block", SERVED_FC[:3] + [(3, 48, 10, 16)])
+def test_quantize_activations_matches_jax(exact_jax_exp2, M, K, N, block):
+    """Against the JAX package's quantization of x per (row, K-block), where
+    its exp2 is exact: mantissas and exponents bit for bit, all-zero blocks
+    and rows included."""
+    x = _activations(M, K, block, K + N)
+    words, exps = t_bk.quantize_activations(torch.from_numpy(x), block)
+    jm, je, _ = j_bfp.quantize(jnp.asarray(x), block=block, axis=1)
+    mt = words.shape[0]
+    mant = (words.transpose(1, 2).reshape(mt * 8, K // 4).contiguous()
+            .view(torch.int8).reshape(mt * 8, K // block, block))
+    np.testing.assert_array_equal(mant[:M].numpy(), np.asarray(jm))
+    ex = exps.transpose(1, 2).reshape(mt * 8, K // block)
+    np.testing.assert_array_equal(ex[:M].numpy(), np.asarray(je))
+
+
 def test_bfp_linear_shrinks_the_block_and_keeps_leading_dims():
     """K = 48 (the reduced fc8): fc_block resolves gcd(48, 32) = 16."""
     assert t_bops.fc_block(48) == j_bops.fc_block(48) == 16

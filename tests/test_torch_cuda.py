@@ -383,6 +383,52 @@ def test_bfp_kernel_poisons_nonfinite_rows(card):
     assert torch.equal(got[1], plain[1]) and torch.equal(got[3], plain[3])
 
 
+# (M, K, N, block): fc7, the LM fc_bfp head (smollm-360m: K 960, vocab
+# 49,152) at a decode batch and at prefill-sized M, fc8 at M 64
+BFP_SERVED_SHAPES = [(8, 4096, 4096, 32), (8, 960, 49152, 32),
+                     (13, 960, 49152, 32), (64, 960, 49152, 32),
+                     (64, 4096, 1000, 32), (13, 4096, 4096, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,block", BFP_SERVED_SHAPES)
+def test_bfp_kernel_bit_equal_at_served_shapes(card, M, K, N, block):
+    """Both column tiles (8 and 16 columns) and several 8-row tiles."""
+    x, w = _bfp_inputs(M * 7 + N, M, K, N, block)
+    wq, we = bfp_ops.quantize_weights(torch.from_numpy(w).to(card),
+                                      block=block)
+    xc = torch.from_numpy(x).to(card)
+    got = bfp.bfp_matmul(xc, wq, we, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bfp.bfp_matmul_plain(xc, wq, we, block=block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,block", [(8, 9216, 4096, 32),
+                                         (8, 4096, 1000, 32),
+                                         (13, 4096, 4096, 32),
+                                         (3, 48, 10, 16)])
+@pytest.mark.parametrize("poison", [False, True])
+def test_bfp_prepass_bytes_equal_quantize_activations(card, M, K, N, block,
+                                                      poison):
+    """The pre-pass's words and exponents in the scratch, byte for byte,
+    all-zero blocks and rows included; with a NaN and an infinity, the
+    bad-block exponent."""
+    x, w = _bfp_inputs(M + K + N, M, K, N, block)
+    if poison:
+        x[0, 3], x[M - 1, K - 1] = np.nan, -np.inf
+    wq, we = bfp_ops.quantize_weights(torch.from_numpy(w).to(card),
+                                      block=block)
+    xc = torch.from_numpy(x).to(card)
+    _, scratch = bfp._bfp_matmul_cuda(xc, wq, we, block=block)
+    torch.cuda.synchronize()
+    words, exps = bfp.quantize_activations(xc, block)
+    assert torch.equal(scratch[:words.numel()].view(words.shape), words)
+    assert torch.equal(scratch[words.numel():].view(exps.shape), exps)
+    if poison:
+        assert exps[0, 0, 0] == bfp.BAD_EXPONENT
+
+
 class _FailingBfp:
     """The loaded kernel library with only the BFP matmul launcher
     reporting ``cudaErrorLaunchFailure`` (719)."""
@@ -468,7 +514,8 @@ def test_decode_attn_kernel_matches_plain(card, dtype, D, G, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,D", [(3, 64, 4, 2, 16), (2, 100, 8, 8, 32),
-                                        (1, 33, 6, 3, 8), (2, 40, 12, 2, 64),
+                                        (1, 33, 6, 3, 8), (2, 33, 6, 3, 8),
+                                        (2, 40, 12, 2, 64),
                                         (8, 512, 15, 5, 64),
                                         (2, 2048, 24, 8, 128)])
 def test_decode_attn_kernel_geometries(card, dtype, B, S, H, KV, D):
@@ -499,6 +546,95 @@ def test_decode_attn_length_zero_and_scalar(card, dtype):
     _decode_close(got[0, 0], mean_v, dtype)
     _decode_close(dec_ops.decode_attention(q, k, v, 9),
                   decode_attention_f32_ref(q, k, v, 9), dtype)
+
+
+def _decode_check(q, k, v, lens, dtype):
+    got = decode_attn.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    _decode_close(got, decode_attention_f32_ref(q, k, v, lens), dtype)
+    _decode_close(got, decode_attn.decode_attention_ref(q, k, v, lens),
+                  dtype, DECODE_TOL_MODELS[dtype])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_skewed_lengths(card, dtype):
+    """llama3.2-3b's geometry with one slot at S and the rest at 1: the
+    long slot spans every split."""
+    q, k, v, _ = _decode_inputs(11, 8, 2048, 24, 8, 128, dtype, card)
+    lens = torch.tensor([2048] + [1] * 7, dtype=torch.int32, device=card)
+    _decode_check(q, k, v, lens, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", [(8, 512, 15, 5, 64),
+                                        (8, 2048, 24, 8, 128)])
+def test_decode_attn_lengths_around_split_boundaries(card, dtype, B, S, H,
+                                                     KV, D):
+    """Lengths R - 1, R, R + 1, 2R - 1, 2R, 2R + 1, S and 0 at the served
+    geometries' own R."""
+    R = decode_attn.split_rows(B, S, KV, H // KV, D)
+    assert R < S
+    q, k, v, _ = _decode_inputs(R + D, B, S, H, KV, D, dtype, card)
+    lens = torch.tensor([R - 1, R, R + 1, 2 * R - 1, 2 * R, 2 * R + 1, S,
+                         0][:B], dtype=torch.int32, device=card)
+    _decode_check(q, k, v, lens, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_s_not_a_multiple_of_the_split(card, dtype):
+    """S = 300 over R = 32-row splits (a ragged last split), lengths S,
+    299, 33 and 1."""
+    B, S, H, KV, D = 4, 300, 6, 2, 64
+    R = decode_attn.split_rows(B, S, KV, H // KV, D)
+    assert S % R and R < S
+    q, k, v, _ = _decode_inputs(7, B, S, H, KV, D, dtype, card)
+    lens = torch.tensor([S, S - 1, 33, 1], dtype=torch.int32, device=card)
+    _decode_check(q, k, v, lens, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_long_cache_widens_the_split(card, dtype):
+    """S = 40,000: past 128 splits of 256 rows the split widens to 512
+    rows, and the merge still takes every split of a slot."""
+    B, S, H, KV, D = 2, 40000, 6, 2, 64
+    R = decode_attn.split_rows(B, S, KV, H // KV, D)
+    assert R > decode_attn.MAX_SPLIT_ROWS
+    q, k, v, _ = _decode_inputs(17, B, S, H, KV, D, dtype, card)
+    lens = torch.tensor([S, 33333], dtype=torch.int32, device=card)
+    _decode_check(q, k, v, lens, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_length_zero_beside_long_slots(card, dtype):
+    """A slot of length 0 (the mean of v over all S rows, every split)
+    between full-length slots."""
+    q, k, v, _ = _decode_inputs(13, 4, 1024, 24, 8, 128, dtype, card)
+    lens = torch.tensor([1024, 0, 1000, 0], dtype=torch.int32, device=card)
+    got = _decode_check(q, k, v, lens, dtype)
+    mean_v = v[1].float().mean(dim=0).repeat_interleave(3, dim=0)
+    _decode_close(got[1, 0], mean_v, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D", [(8, 512, 15, 5, 64),
+                                        (8, 2048, 24, 8, 128)])
+def test_decode_attn_two_calls_are_bit_equal(card, B, S, H, KV, D):
+    """The splits merge in a fixed order whatever block arrives last (an
+    integer ticket, no float atomics): equal bits; and every merge sets its
+    ticket back to 0."""
+    q, k, v, lens = _decode_inputs(B + S, B, S, H, KV, D, torch.bfloat16,
+                                   card)
+    a = decode_attn.decode_attention(q, k, v, lens)
+    b = decode_attn.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert all(not t.any() for t in decode_attn._TICKETS.values())
 
 
 @pytest.mark.cuda

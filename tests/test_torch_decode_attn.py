@@ -145,3 +145,57 @@ def test_bad_shapes_raise(shapes):
     with pytest.raises(ValueError, match="decode_attention"):
         decode_attn.decode_attention(q, k, k, torch.ones(qs[0],
                                                          dtype=torch.int32))
+
+
+# kernel 5's launch geometry (the split over cache rows), at smollm-360m's
+# and llama3.2-3b's decode shapes and at off-path ones
+SPLIT_SHAPES = [(8, 512, 5, 3, 64), (8, 2048, 8, 3, 128), (4, 300, 2, 3, 64),
+                (1, 33, 3, 2, 8), (2, 100, 8, 1, 32), (16, 4096, 8, 4, 128)]
+
+
+@pytest.mark.parametrize("B,S,KV,G,D", SPLIT_SHAPES)
+def test_every_valid_row_lies_in_exactly_one_split(B, S, KV, G, D):
+    """The rows each split reads, as the kernel bounds them, tile [0, n)
+    without overlap for every kind of length (0: all S rows; past S: S),
+    and the merge's ceil(n / R) splits fit the grid."""
+    R = decode_attn.split_rows(B, S, KV, G, D)
+    splits = decode_attn.decode_grid(B, S, KV, G, D)[0]
+    assert splits == -(-S // R)
+    for length in sorted({0, 1, R - 1, R, R + 1, 2 * R + 1, S - 1, S,
+                          S + 7}):
+        n = S if length <= 0 else min(length, S)
+        bounds = decode_attn.split_bounds(length, S, R)
+        assert len(bounds) == -(-n // R) <= splits
+        covered = [r for lo, hi in bounds for r in range(lo, hi)]
+        assert covered == list(range(n))
+        assert all(lo == i * R and 0 < hi - lo <= R
+                   for i, (lo, hi) in enumerate(bounds))
+
+
+@pytest.mark.parametrize("B,S,KV,G,D", SPLIT_SHAPES)
+def test_split_rows_is_a_tile_multiple_picked_from_the_shape(B, S, KV, G, D):
+    R = decode_attn.split_rows(B, S, KV, G, D)
+    assert R % decode_attn.TILE_ROWS == 0
+    assert decode_attn.TILE_ROWS <= R <= decode_attn.MAX_SPLIT_ROWS
+    assert R & (R - 1) == 0
+    assert decode_attn.scratch_shape(B, S, KV, G, D) == (
+        B, KV, decode_attn.decode_grid(B, S, KV, G, D)[0], G, D + 2)
+
+
+@pytest.mark.parametrize("S", [32768, 65536, 100000])
+def test_a_long_cache_keeps_the_merge_within_its_splits(S):
+    """Past 128 splits of 256 rows the split widens, so the merge takes
+    every split of a slot."""
+    R = decode_attn.split_rows(1, S, 8, 4, 128)
+    assert -(-S // R) <= decode_attn.MAX_SPLITS
+    assert R % decode_attn.TILE_ROWS == 0 and R & (R - 1) == 0
+
+
+@pytest.mark.parametrize("name,B,S,KV,G,D", [
+    ("smollm-360m", 8, 512, 5, 3, 64), ("llama3.2-3b", 8, 2048, 8, 3, 128)])
+def test_served_geometries_launch_at_least_one_wave(name, B, S, KV, G, D):
+    """At least 132 blocks (the H100's SMs) at both decode geometries of
+    ``chip_smoke.py`` phase 5, so a long slot spreads over the card."""
+    grid = decode_attn.decode_grid(B, S, KV, G, D)
+    assert grid[1:] == (KV * -(-G // decode_attn.HEADS_PER_BLOCK), B)
+    assert np.prod(grid) >= 132, (name, grid)

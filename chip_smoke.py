@@ -40,12 +40,15 @@ Phases:
                against the plain decode attention on the same cache, and a
                reduced model's tokens against the CPU engine's;
   7. ssm     — kernel 6 (the chunked SSD scan) at mamba2-2.7b's served
-               prefill geometry (L=200, one chunk) in bf16 and f32 and at
-               L=2048 (8 chunks) in bf16, and kernel 7 (the depthwise
-               causal Winograd conv) on its x stream (C=5120, L=200 and
-               2048, bf16 and f32), each held against its plain version and
-               timed beside its bound (kernel 7 also beside ``F.conv1d``;
-               no single PyTorch call computes an SSD scan);
+               prefill geometry (L=200, one chunk) in bf16 and f32, at
+               L=472 (two chunks) and at L=2048 (8 chunks) in bf16, and
+               kernel 7 (the depthwise causal Winograd conv) on its x
+               stream (C=5120, L=200 and 2048, bf16 and f32), each held
+               against its plain version and timed beside its bound;
+               kernel 6's launches timed apart from a ``torch.profiler``
+               trace, kernel 7 also beside ``F.conv1d`` and beside a bare
+               read and write of x's bytes (no single PyTorch call computes
+               an SSD scan);
   8. mamba   — full-width mamba2-2.7b (64 layers, random weights drawn on
                the card from a seed) through ``Engine(max_batch=8,
                max_len=512)``: 24 requests of 8-480 prompt tokens, 32 new
@@ -728,6 +731,59 @@ def profile_decode(torch, decode, steps=3, marks=("decode_attn",)):
             by_mark, [(name[:60], us / steps / 1e3) for name, us in top])
 
 
+# kernel 6's launches (csrc/ssd.cu), by kernel: the front launches (one
+# chunk: C.B^T, then chunk 0's y beside the state contributions; two chunks
+# or more: C.B^T beside every chunk's state contribution), the state pass,
+# and the y of every chunk (two chunks or more)
+SSD_STAGES = ("ssd_cb_kernel", "ssd_front_kernel", "ssd_pass_kernel",
+              "ssd_y_kernel")
+
+
+def stage_ms(torch, fn, stages, calls=5):
+    """Device ms of each launch of one call of ``fn`` (``stages``: kernel
+    names in launch order, each launched at most once a call), from a
+    ``torch.profiler`` trace of ``calls`` calls, each after the L2 flush of
+    ``time_ms``: {stage: mean duration, or None if it never ran}, and
+    ``"span"``: the mean time from the first launch's start to the last
+    one's end.  Launches started programmatically dependent overlap the
+    one before, so the durations may sum to more than the span.  None
+    when the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.zeros(64 * 2 ** 20 // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.sum()
+            fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(st in e.name for st in stages)),
+                 key=lambda e: e.time_range.start)
+    if not evs:
+        return None
+    # a call's launches come in the order of ``stages``: an event whose
+    # stage is not after the last one's starts the next call
+    per, spans, call, last = {st: [] for st in stages}, [], [], -1
+    for e in evs + [None]:
+        k = None if e is None else next(
+            i for i, st in enumerate(stages) if st in e.name)
+        if call and (e is None or k <= last):
+            spans.append(max(c.time_range.end for c in call)
+                         - min(c.time_range.start for c in call))
+            call = []
+        if e is None:
+            break
+        call.append(e)
+        last = k
+        per[stages[k]].append(e.time_range.elapsed_us())
+    out = {st: (sum(v) / len(v) / 1e3 if v else None)
+           for st, v in per.items()}
+    out["span"] = sum(spans) / len(spans) / 1e3
+    return out
+
+
 def _copy_cache(cache):
     return [{"attn": {n: t.clone() for n, t in c["attn"].items()}}
             for c in cache]
@@ -940,6 +996,13 @@ def dw1d_work(B, L, C, itemsize):
     return flops, nbytes
 
 
+def stream_copy(x):
+    """A bare read and write of x's bytes (``Tensor.copy_`` into a buffer of
+    its shape): the floor a kernel streaming x in and out can reach."""
+    buf = x.new_empty(x.shape)
+    return lambda: buf.copy_(x)
+
+
 def phase_ssm(torch, np):
     """Kernels 6 and 7 at mamba2-2.7b's prefill shapes, on inputs in the
     model's ranges (dt after softplus in [1e-3, 1e-1], A = -exp(A_log) on
@@ -986,6 +1049,7 @@ def phase_ssm(torch, np):
         Q = min(chunk, L)
         (ms, host_ms), (plain_ms, _) = (time_ms(torch, kern),
                                         time_ms(torch, plain))
+        stages = stage_ms(torch, kern, SSD_STAGES)
         flops, nbytes = ssd_work(B, L, H, P, G, N, Q, x.element_size())
         bound, bound_by = _bound(flops, nbytes)
         print(f"kernel ssd {name} {dtype_name}: x {tuple(x.shape)} B/C "
@@ -995,7 +1059,12 @@ def phase_ssm(torch, np):
               f"worst excess {ex_s:.3e}; gate excess <= 0) | kernel_ms "
               f"{ms:.4f} (host enqueue {host_ms:.4f} ms) plain_ms "
               f"{plain_ms:.4f} library_ms none bound_ms {bound:.4f} "
-              f"({bound_by}: {flops:.3e} flop, {nbytes:.3e} B)")
+              f"({bound_by}: {flops:.3e} flop, {nbytes:.3e} B) | launches "
+              f"(rows {ssd.row_tile(B, L, H, Q)}, state rows "
+              f"{ssd.state_slice(B, L, H, N, Q)}), device ms from a trace: "
+              + ("not measured (no device events)" if stages is None else
+                 " ".join(f"{k} {v:.4f}" for k, v in stages.items()
+                          if v is not None)))
         check(ex_y <= 0 and ex_s <= 0, f"ssd {name} {dtype_name}: kernel "
               f"disagrees with its plain version (y excess {ex_y}, state "
               f"excess {ex_s})")
@@ -1004,7 +1073,10 @@ def phase_ssm(torch, np):
             "P": P, "G": G, "N": N, "Q": Q, "max_abs_err_y": err_y,
             "max_abs_err_state": err_s, "max_abs_plain_y": max_y, "ms": ms,
             "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "flop": flops, "bytes": nbytes})
+            "bound_by": bound_by, "flop": flops, "bytes": nbytes,
+            "rows": ssd.row_tile(B, L, H, Q),
+            "state_rows": ssd.state_slice(B, L, H, N, Q),
+            "stages_ms": stages})
         row6["max_abs_err"] = max(row6["max_abs_err"], err_y, err_s)
 
     row7 = {"name": "dw1d", "geometries": [], "max_abs_err": 0.0}
@@ -1036,9 +1108,9 @@ def phase_ssm(torch, np):
         ex, err, scale = _excess(got, ref, dtype == torch.bfloat16)
         lib_err = float((got.float() - library().transpose(1, 2).float())
                         .abs().max())
-        (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
+        (ms, host_ms), (plain_ms, _), (lib_ms, _), (floor_ms, _) = (
             time_ms(torch, kern), time_ms(torch, plain),
-            time_ms(torch, library))
+            time_ms(torch, library), time_ms(torch, stream_copy(x)))
         flops, nbytes = dw1d_work(B, L, C, x.element_size())
         bound, bound_by = _bound(flops, nbytes)
         print(f"kernel dw1d {name} {dtype_name}: x {tuple(x.shape)} | "
@@ -1047,7 +1119,9 @@ def phase_ssm(torch, np):
               f"kernel_ms {ms:.4f} (host enqueue {host_ms:.4f} ms) plain_ms "
               f"{plain_ms:.4f} library_ms(F.conv1d, groups=C, TF32 off) "
               f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}: "
-              f"{flops:.3e} flop, {nbytes:.3e} B)")
+              f"{flops:.3e} flop, {nbytes:.3e} B) stream floor "
+              f"{floor_ms:.4f} (a bare read and write of x's bytes) | "
+              f"tiles a block {wino.dw1d_launch(B, L, C)}")
         check(ex <= 0, f"dw1d {name} {dtype_name}: kernel disagrees with its"
               f" plain version (excess {ex})")
         row7["geometries"].append({
@@ -1055,12 +1129,14 @@ def phase_ssm(torch, np):
             "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
             "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_vs_kernel": lib_err, "bound_ms": bound,
-            "bound_by": bound_by, "flop": flops, "bytes": nbytes})
+            "bound_by": bound_by, "flop": flops, "bytes": nbytes,
+            "stream_floor_ms": floor_ms,
+            "tiles": wino.dw1d_launch(B, L, C)})
         row7["max_abs_err"] = max(row7["max_abs_err"], err)
     # the entries' numbers: the served geometry in bf16 (the served dtype)
     for row, keys in ((row6, ("ms", "plain_ms", "bound_ms", "bound_by")),
                       (row7, ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by"))):
+                              "bound_by", "stream_floor_ms"))):
         for key in keys:
             row[key] = row["geometries"][0][key]
     return {"ssd": row6, "dw1d": row7}
@@ -1204,7 +1280,7 @@ def phase_mamba(torch, np):
     with plain_ssm_route():
         prefill_plain_ms = _host_ms(torch, prefill)
     pre_wall, pre_busy, pre_events, pre_marks, pre_top = profile_decode(
-        torch, prefill, marks=("ssd_kernel", "dw1d_kernel"))
+        torch, prefill, marks=SSD_STAGES + ("dw1d_kernel",))
     step_ms = eng.decode_seconds / eng.decode_steps * 1e3
     dec_wall, dec_busy, dec_events, _, dec_top = profile_decode(
         torch, lambda: eng.decode(eng.last_tokens, eng.lengths, eng.cache))
@@ -1213,8 +1289,9 @@ def phase_mamba(torch, np):
           f" route | traced: device busy "
           + ("not measured (no device events)" if pre_busy is None else
              f"{pre_busy:.3f} ms in {pre_events:.0f} events, kernel 6 "
-             f"{pre_marks['ssd_kernel']:.4f} ms, kernel 7 "
-             f"{pre_marks['dw1d_kernel']:.4f} ms | top: "
+             f"{sum(pre_marks[k] for k in SSD_STAGES):.4f} ms ("
+             + ", ".join(f"{k} {pre_marks[k]:.4f}" for k in SSD_STAGES)
+             + f"), kernel 7 {pre_marks['dw1d_kernel']:.4f} ms | top: "
              + "; ".join(f"{n} {ms:.4f} ms" for n, ms in pre_top)))
     print(f"mamba decode step: {step_ms:.3f} ms host time a served step "
           f"(mean) | re-run {dec_wall:.3f} ms wall, device busy "

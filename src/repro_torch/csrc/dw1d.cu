@@ -12,28 +12,41 @@
 // winograd.py:61): mamba2-2.7b's x stream, x (B, L, 5120) bf16, w (4, 5120)
 // and bias (5120,) f32, once per layer per prefill.
 //
-// What bounds it on an H100: bytes.  A tile costs 114 flops (36 FMAs for
-// B^T d, 6 products, 18 FMAs for A^T) for 3 outputs, about 38 flops an
-// output against 4 bytes moved in bf16 (one read, one write): 9.5 flops a
-// byte, under the 20 at which FP32 FMA (67 TFLOP/s) would overtake the
-// 3.35 TB/s of device memory.  The TPU
-// kernel built the overlapping 6-tap tiles in VMEM from stride-3 slices of
-// a raw slab; here one thread owns one channel and a run of kTiles
-// consecutive tiles, and keeps the 6-tap window in registers: each tile
-// reads 3 new rows and reuses the 3 it already holds, so the raw sequence
-// is read once (plus a 3-row halo per run) and no tile tensor exists
-// anywhere.  Lanes of a warp take neighbouring channels, so every row read
-// and write is coalesced along C.  G w is computed once per thread.  The
-// transform matrices are the reference's (winograd_transform(3, 4), a
-// float64 least-squares solve rounded to f32), passed in by the host.
-// Plain FP32 FMA, a fixed order per output, no atomics: deterministic.
+// What bounds it on an H100: bytes.  A tile costs 117 flops (36 FMAs for
+// B^T d, 6 products, 18 FMAs for A^T, 3 bias adds) for 3 outputs
+// (chip_smoke.dw1d_work), 39 flops an output against 4 bytes moved in bf16
+// (one read, one write): under 10 flops a byte, below the 20 at which FP32
+// FMA (67 TFLOP/s) would overtake the 3.35 TB/s of device memory.  At the
+// served 200 tokens the whole call moves 4.1 MB, so what it costs is the
+// latency of its memory round trips, not their bandwidth.
+//
+// Design.  The TPU kernel built the overlapping 6-tap tiles in VMEM from
+// stride-3 slices of a raw slab.  Here a block of 128 lanes owns 256
+// channels, two a lane, and one run of TT tiles (TT in {1, 2, 4}); the
+// wrapper picks TT from the shape (kernels/conv/winograd.py: dw1d_launch)
+// so that the grid fills the card at least twice.  All of the run's
+// 3 TT + 3 rows come into shared memory at once, by 16-byte cp.async
+// copies (zeros outside [0, L) and past C; one element a thread where C or
+// the buffers are not 16-byte aligned, as for C = 5), and G w is computed
+// while they fly.  A lane takes six rows of its two channels into
+// registers a tile, computes the tile and writes its three outputs over
+// rows it has read; the block then stores the run's outputs with 16-byte
+// stores.  Every load and store is coalesced along C.  The transform
+// matrices are the reference's (winograd_transform(3, 4), a float64
+// least-squares solve rounded to f32), passed in by the host.  Each
+// output's fmaf chains are the same for every TT (and the same as this
+// kernel's first version), so the output does not depend on it.  No
+// atomics: deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // channels per block
-constexpr int kTiles = 8;       // tiles (24 output rows) per thread
+constexpr int kThreads = 128;   // lanes a block
+constexpr int kCh = 2 * kThreads;   // channels a block, two a lane
 constexpr int kM = 3, kR = 4, kN = kM + kR - 1;
 
 struct Dw1dMats {
@@ -46,95 +59,170 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);     // round to nearest even, as torch's cast
+template <typename T>
+__device__ __forceinline__ T to_t(float v);
+template <>
+__device__ __forceinline__ float to_t<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);   // round to nearest even, as torch's cast
 }
 
-template <typename T>
+// Rows 3 j0 - 3 .. 3 (j0 + TT) - 1 of channels [c0, c0 + kCh) into `tile`:
+// 16-byte cp.async copies where `vec` (zeros outside [0, L) and past C),
+// else one element a thread
+template <typename T, int TT>
+__device__ __forceinline__ void load_run(T (*tile)[kCh], const T* x, int L,
+                                         int C, size_t bb, int c0, int j0,
+                                         bool vec) {
+  constexpr int kRows = kM * TT + kN - kM;
+  constexpr int kV = 16 / (int)sizeof(T), kChunks = kCh / kV;
+  const int s0 = kM * j0 - (kR - 1);
+  if (vec) {
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, q = (i % kChunks) * kV;
+      const int row = s0 + r, ch = c0 + q;
+      const bool ok = row >= 0 && row < L && ch < C;
+      cp_async16(reinterpret_cast<float*>(&tile[r][q]),
+                 reinterpret_cast<const float*>(
+                     ok ? x + bb + (size_t)row * C + ch : x),
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kCh; i += kThreads) {
+      const int r = i / kCh, q = i % kCh;
+      const int row = s0 + r, ch = c0 + q;
+      tile[r][q] = (row >= 0 && row < L && ch < C)
+                       ? x[bb + (size_t)row * C + ch]
+                       : to_t<T>(0.0f);
+    }
+  }
+}
+
+// A block owns channels [c0, c0 + kCh) of batch row z and the run of TT
+// tiles j0 = blockIdx.y TT.  The run's rows come into shared memory by
+// 16-byte cp.async copies while G w is made.  Each lane computes its two
+// channels' TT tiles from the buffer, six rows in registers at a time, and
+// writes its outputs over the rows it has read; the block then stores the
+// run's output rows with 16-byte stores.
+template <typename T, int TT>
 __global__ void __launch_bounds__(kThreads)
     dw1d_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, Dw1dMats mt,
-                T* __restrict__ out, int L, int C, int nt) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int j0 = blockIdx.y * kTiles;
-  const size_t base = (size_t)blockIdx.z * L * C + c;
-  const T* xc = x + base;
-  T* oc = out + base;
+                T* __restrict__ out, int L, int C, bool vec) {
+  constexpr int kRows = kM * TT + kN - kM;       // 3 TT + 3
+  constexpr int kV = 16 / (int)sizeof(T), kChunks = kCh / kV;
+  __shared__ __align__(16) T tile[kRows][kCh];
+  const int tid = threadIdx.x, c0 = blockIdx.x * kCh;
+  const size_t bb = (size_t)blockIdx.z * L * C;
 
-  float v[kN];                  // filter transform G w
+  // the run's rows fly while G w is made
+  load_run<T, TT>(tile, x, L, C, bb, c0, blockIdx.y * TT, vec);
+  cp_async_commit();
+  const int q0 = 2 * tid, c = c0 + q0;           // this lane's channels
+  float v[2][kN], bc[2];                         // G w of each channel
 #pragma unroll
-  for (int t = 0; t < kN; ++t) {
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kR; ++k) s = fmaf(mt.g[t * kR + k], w[k * C + c], s);
-    v[t] = s;
-  }
-  const float bc = bias[c];
-
-  // window d[i] = x[s + i], s = 3j - 3; rows outside [0, L) are zeros
-  float d[kN];
-  const int s0 = kM * j0 - (kR - 1);
-#pragma unroll
-  for (int i = 0; i < kN - kM; ++i) {
-    const int s = s0 + i;
-    d[i] = (s >= 0 && s < L) ? to_f32(xc[(size_t)s * C]) : 0.0f;
-  }
-  for (int jj = 0; jj < kTiles; ++jj) {
-    const int j = j0 + jj;
-    if (j >= nt) break;
-    const int s = kM * j - (kR - 1);
-#pragma unroll
-    for (int i = kN - kM; i < kN; ++i) {
-      const int row = s + i;
-      d[i] = row < L ? to_f32(xc[(size_t)row * C]) : 0.0f;
-    }
-    float p[kN];                // (G w) * (B^T d)
+  for (int q = 0; q < 2; ++q) {
+    const bool ok = c + q < C;
 #pragma unroll
     for (int t = 0; t < kN; ++t) {
-      float u = 0.0f;
+      float acc = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kN; ++i) u = fmaf(mt.bt[t * kN + i], d[i], u);
-      p[t] = u * v[t];
+      for (int k = 0; k < kR; ++k)
+        acc = fmaf(mt.g[t * kR + k], ok ? w[k * C + c + q] : 0.0f, acc);
+      v[q][t] = acc;
     }
+    bc[q] = ok ? bias[c + q] : 0.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();                               // the run's rows are in
+
+  // tile jj reads rows 3 jj .. 3 jj + 5 of the lane's columns and writes
+  // its outputs over rows 3 jj .. 3 jj + 2, which no later tile reads
+#pragma unroll 1
+  for (int jj = 0; jj < TT; ++jj) {
+    float d[kN][2];
 #pragma unroll
-    for (int m = 0; m < kM; ++m) {
-      const int row = kM * j + m;
-      if (row < L) {
-        float y = 0.0f;
+    for (int i = 0; i < kN; ++i)
 #pragma unroll
-        for (int t = 0; t < kN; ++t) y = fmaf(mt.at[m * kN + t], p[t], y);
-        store(oc + (size_t)row * C, y + bc);
+      for (int q = 0; q < 2; ++q) d[i][q] = to_f32(tile[kM * jj + i][q0 + q]);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float p[kN];                               // (G w) * (B^T d)
+#pragma unroll
+      for (int t = 0; t < kN; ++t) {
+        float u = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kN; ++i) u = fmaf(mt.bt[t * kN + i], d[i][q], u);
+        p[t] = u * v[q][t];
+      }
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < kN; ++t) acc = fmaf(mt.at[m * kN + t], p[t], acc);
+        tile[kM * jj + m][q0 + q] = to_t<T>(acc + bc[q]);
       }
     }
-#pragma unroll
-    for (int i = 0; i < kN - kM; ++i) d[i] = d[i + kM];
+  }
+  __syncthreads();                               // the outputs are in
+  const int r0 = kM * blockIdx.y * TT, rows = min(kM * TT, L - r0);
+  if (vec) {
+    for (int i = tid; i < rows * kChunks; i += kThreads) {
+      const int r = i / kChunks, q = (i % kChunks) * kV;
+      if (c0 + q < C)
+        *reinterpret_cast<uint4*>(out + bb + (size_t)(r0 + r) * C + c0 + q) =
+            *reinterpret_cast<const uint4*>(&tile[r][q]);
+    }
+  } else {
+    for (int i = tid; i < rows * kCh; i += kThreads) {
+      const int r = i / kCh, q = i % kCh;
+      if (c0 + q < C) out[bb + (size_t)(r0 + r) * C + c0 + q] = tile[r][q];
+    }
   }
 }
 
-template <typename T>
+template <typename T, int TT>
 int launch(const void* x, const float* w, const float* bias,
            const Dw1dMats& mt, void* out, int B, int L, int C,
            cudaStream_t stream) {
-  const int nt = (L + kM - 1) / kM;
-  const dim3 grid((C + kThreads - 1) / kThreads, (nt + kTiles - 1) / kTiles,
-                  B);
-  dw1d_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, bias, mt, static_cast<T*>(out), L, C, nt);
+  const int runs = ((L + kM - 1) / kM + TT - 1) / TT;
+  if (runs > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((C + kCh - 1) / kCh, runs, B);
+  // 16-byte copies when every row starts on a 16-byte boundary
+  const bool vec = (C * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  dw1d_kernel<T, TT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), w, bias, mt, static_cast<T*>(out), L, C, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tiles(const void* x, const float* w, const float* bias,
+                 const Dw1dMats& mt, void* out, int B, int L, int C,
+                 int tiles, cudaStream_t stream) {
+  switch (tiles) {
+    case 1:
+      return launch<T, 1>(x, w, bias, mt, out, B, L, C, stream);
+    case 2:
+      return launch<T, 2>(x, w, bias, mt, out, B, L, C, stream);
+    case 4:
+      return launch<T, 4>(x, w, bias, mt, out, B, L, C, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x, out (B, L, C) contiguous in one dtype (0 = float32, 1 = bfloat16);
 // w (4, C) and bias (C,) float32; mats: host array of B^T (6x6), G (6x4)
-// and A^T (3x6), row-major.
+// and A^T (3x6), row-major; tiles: Winograd tiles a block (1, 2 or 4).
 extern "C" int repro_dw1d(const void* x, const float* w, const float* bias,
                           const float* mats, void* out, int B, int L, int C,
-                          int dtype, cudaStream_t stream) {
-  if (mats == nullptr || B <= 0 || B > 65535 || L <= 0 || C <= 0 ||
-      (L + kM - 1) / kM > 65535 * kTiles)
+                          int tiles, int dtype, cudaStream_t stream) {
+  if (mats == nullptr || B <= 0 || B > 65535 || L <= 0 || C <= 0)
     return (int)cudaErrorInvalidValue;
   Dw1dMats mt;
   for (int i = 0; i < kN * kN; ++i) mt.bt[i] = mats[i];
@@ -142,9 +230,10 @@ extern "C" int repro_dw1d(const void* x, const float* w, const float* bias,
   for (int i = 0; i < kM * kN; ++i) mt.at[i] = mats[kN * kN + kN * kR + i];
   switch (dtype) {
     case 0:
-      return launch<float>(x, w, bias, mt, out, B, L, C, stream);
+      return launch_tiles<float>(x, w, bias, mt, out, B, L, C, tiles, stream);
     case 1:
-      return launch<__nv_bfloat16>(x, w, bias, mt, out, B, L, C, stream);
+      return launch_tiles<__nv_bfloat16>(x, w, bias, mt, out, B, L, C, tiles,
+                                         stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

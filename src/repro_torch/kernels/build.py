@@ -13,11 +13,13 @@ scratches among them), and the CUDA stream (the direct launcher also its
 block tile's columns per thread, the Winograd launcher a host pointer to
 its transform matrices);
 the BFP matmul, decode-attention, SSD and depthwise-conv launchers take
-their pointers (the BFP matmul's and decode attention's scratches, and
-decode attention's merge tickets, among them), their extents as ints and the stream (the BFP matmul also its
-block tile's columns, decode attention q's scale factor and its cache
-rows a split, the depthwise conv a host pointer to its transform
-matrices).  Each function returns
+their pointers (the BFP matmul's, decode attention's and the SSD scan's
+f32 scratches, and decode attention's merge tickets, among them), their
+extents as ints and the stream (the BFP matmul also its block tile's
+columns, decode attention q's scale factor and its cache rows a split,
+the SSD scan its rows of y a block and state rows a block, the depthwise
+conv a host pointer to its transform matrices and its Winograd tiles a
+block).  Each function returns
 the ``cudaError_t`` of its launches (0 on success).  A failed build and a
 nonzero ``cudaError_t`` both raise :class:`KernelError`, which the serving
 engines never retry or degrade around.
@@ -139,11 +141,13 @@ def _declare(lib: ctypes.CDLL):
     lib.repro_decode_attn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, i,
                                       i, i, i, i, i, i, p]
     lib.repro_decode_attn.restype = ctypes.c_int
-    # (x, dt, A, B, C, y, state, Bb, L, H, P, G, N, Q, dtype, stream)
-    lib.repro_ssd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    # (x, dt, A, B, C, y, state, scratch, Bb, L, H, P, G, N, Q, rows of y a
+    # block, state rows a block, dtype, stream)
+    lib.repro_ssd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                              i, i, p]
     lib.repro_ssd.restype = ctypes.c_int
-    # (x, w, bias, mats, out, B, L, C, dtype, stream)
-    lib.repro_dw1d.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    # (x, w, bias, mats, out, B, L, C, tiles a block, dtype, stream)
+    lib.repro_dw1d.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.repro_dw1d.restype = ctypes.c_int
 
 

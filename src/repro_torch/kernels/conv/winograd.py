@@ -17,6 +17,7 @@ on a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -52,6 +53,33 @@ STAGES = 3                  # cp.async ring depth
 # 1D depthwise causal (Mamba conv, k=4 -> F(3,4))
 # ---------------------------------------------------------------------------
 _DW1D_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/dw1d.cu's blocking: channels a block (128 lanes, two channels each)
+# and the Winograd tiles (3 output rows each) of a block it is built for.
+# The wrapper takes the most tiles a block whose blocks number at least
+# DW1D_MIN_BLOCKS (two an SM on the H100's 132), else one tile
+DW1D_CHANNELS = 256
+DW1D_TILES = (4, 2, 1)
+DW1D_MIN_BLOCKS = 264
+
+
+def dw1d_runs(L: int, tiles: int) -> int:
+    """Runs of ``tiles`` Winograd tiles that cover L rows."""
+    return math.ceil(math.ceil(L / 3) / tiles)
+
+
+def dw1d_grid(B: int, L: int, C: int, tiles: int) -> tuple:
+    """(channel blocks, runs, batch): csrc/dw1d.cu's grid, one run of
+    ``tiles`` tiles a block."""
+    return math.ceil(C / DW1D_CHANNELS), dw1d_runs(L, tiles), B
+
+
+@functools.lru_cache(maxsize=None)
+def dw1d_launch(B: int, L: int, C: int) -> int:
+    """Tiles a block: a function of the shape only; the output does not
+    depend on it."""
+    cx = math.ceil(C / DW1D_CHANNELS) * B
+    return next((t for t in DW1D_TILES
+                 if dw1d_runs(L, t) * cx >= DW1D_MIN_BLOCKS), 1)
 
 
 def conv1d_depthwise_causal_plain(x, w, b):
@@ -90,7 +118,8 @@ def _conv1d_depthwise_causal_cuda(x, w, b):
     mats = _dw1d_mats()
     err = build.library().lib.repro_dw1d(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), mats.ctypes.data,
-        out.data_ptr(), B, L, C, _DW1D_DTYPE_CODE[x.dtype],
+        out.data_ptr(), B, L, C, dw1d_launch(B, L, C),
+        _DW1D_DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "dw1d")
     dw1d_launches += 1

@@ -755,6 +755,68 @@ def test_ssd_kernel_is_deterministic_and_padding_free(card):
     assert torch.equal(s3, s1) and torch.equal(y3[:, :300], y1)
 
 
+# mamba2-2.7b's heads at L = 256 k - 1, 256 k and 256 k + 1 (k = 1, 2, 8):
+# one chunk or several, ragged last chunks, a last chunk of one row
+SSD_BOUNDARY_LENGTHS = [255, 256, 257, 511, 512, 513, 2047, 2048, 2049]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", SSD_BOUNDARY_LENGTHS)
+def test_ssd_kernel_at_chunk_boundaries(card, dtype, L):
+    """The chunk count, the ragged tail and the state pass at the served
+    width: within the gate of the plain version, two calls bit-equal."""
+    args = _ssd_card_inputs(L, 1, L, 80, 64, 1, 128, dtype, card)
+    y, st = ssd.ssd_chunked_pallas(*args, chunk=256)
+    y2, st2 = ssd.ssd_chunked_pallas(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y_ref, st_ref = ssd.ssd_chunked_plain(*args, chunk=256)
+    _f32_close(y, y_ref, dtype, rel_step=True)
+    _f32_close(st, st_ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_decays_reach_the_clip(card, dtype):
+    """dt in [0.5, 1] and A = -16: every chunk's cums passes -60 within
+    eight rows, so most exponents are clipped; the kernel stays within the
+    gate of the plain version, and two calls are bit-equal."""
+    B, L, H, P, G, N = 1, 300, 8, 64, 1, 128
+    x, _, _, Bm, Cm = _ssd_card_inputs(7, B, L, H, P, G, N, dtype, card)
+    rng = np.random.default_rng(8)
+    dt = torch.from_numpy(rng.uniform(0.5, 1.0, (B, L, H)).astype(
+        np.float32)).to(card)
+    A = torch.full((H,), -16.0, device=card)
+    assert float((dt[:, :8] * A).sum(1).max()) < -60.0
+    y, st = ssd.ssd_chunked_pallas(x, dt, A, Bm, Cm, chunk=256)
+    y2, st2 = ssd.ssd_chunked_pallas(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y_ref, st_ref = ssd.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=256)
+    _f32_close(y, y_ref, dtype, rel_step=True)
+    _f32_close(st, st_ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [200, 472])
+def test_ssd_kernel_bit_equal_across_tiles(card, monkeypatch, L):
+    """Every row tile and state slice the kernel takes gives the same bits
+    (each output's sums are one order whatever the blocking)."""
+    args = _ssd_card_inputs(L + 1, 1, L, 80, 64, 1, 128, torch.bfloat16,
+                            card)
+    ref = ssd.ssd_chunked_pallas(*args, chunk=256)
+    one_chunk = L <= 256
+    for rt in ssd.ROW_TILES:
+        for ns in ((rt,) if one_chunk else ssd.STATE_SLICES):
+            monkeypatch.setattr(ssd, "row_tile", lambda *a, rt=rt: rt)
+            monkeypatch.setattr(ssd, "state_slice", lambda *a, ns=ns: ns)
+            y, st = ssd.ssd_chunked_pallas(*args, chunk=256)
+            torch.cuda.synchronize()
+            assert torch.equal(y, ref[0]) and torch.equal(st, ref[1]), \
+                (rt, ns)
+
+
 DW1D_CARD_CASES = [(1, 200, 5120), (1, 2048, 5120), (2, 7, 128), (2, 33, 5),
                    (3, 100, 96), (1, 1, 8), (1, 2, 130), (2, 64, 8)]
 
@@ -785,6 +847,28 @@ def test_dw1d_kernel_matches_plain(card, dtype, B, L, C):
         _f32_close(got, ops.conv1d_depthwise_causal(
             x.cpu(), w.cpu(), None if bias is None else bias.cpu()), dtype,
             rel_step=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C", DW1D_CARD_CASES)
+def test_dw1d_kernel_bit_equal_across_launch_settings(card, monkeypatch,
+                                                      dtype, B, L, C):
+    """Every tiles-a-block in {1, 2, 4} gives the rule's bits: each
+    output's fmaf chains are one."""
+    rng = np.random.default_rng(L * C)
+    x = torch.from_numpy(rng.standard_normal((B, L, C)).astype(
+        np.float32)).to(card, dtype)
+    w = torch.from_numpy(rng.standard_normal((4, C)).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy(rng.standard_normal((C,)).astype(np.float32)).to(
+        card)
+    ref = winograd.conv1d_depthwise_causal(x, w, b)
+    for t in winograd.DW1D_TILES:
+        monkeypatch.setattr(winograd, "dw1d_launch", lambda *a, t=t: t)
+        got = winograd.conv1d_depthwise_causal(x, w, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), t
 
 
 @pytest.mark.cuda

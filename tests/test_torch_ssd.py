@@ -167,6 +167,129 @@ def test_ssd_entry_refuses_gradients():
     assert x.grad is not None and x.grad.shape == x.shape
 
 
+# the staged twin of kernel 6 (its five stages in PyTorch): the file's
+# geometries and L = 1
+STAGED_GEOMETRIES = SSD_GEOMETRIES + [(1, 4, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,H,P,G,N,chunk", STAGED_GEOMETRIES)
+def test_ssd_staged_twin_matches_plain_and_pallas_kernel(L, H, P, G, N,
+                                                         chunk, dtype):
+    """Decays, C.B^T once per group, each chunk's dS, the state pass and y
+    from the state entering each chunk give the plain version's function
+    (both f32 inside, 1e-5) and the reference kernel's (in bf16 y within
+    one bf16 step)."""
+    j_in, t_in = _ssd_inputs(L + 2 * H, L, H, P, G, N, dtype)
+    y, s = ssd_k.ssd_chunked_staged(*t_in, chunk=chunk)
+    y_p, s_p = ssd_k.ssd_chunked_plain(*t_in, chunk=chunk)
+    assert y.dtype == t_in[0].dtype and s.dtype == torch.float32
+    assert y.shape == y_p.shape and s.shape == s_p.shape
+    if dtype == "float32":
+        _close(y, y_p, 1e-5)
+    else:
+        _one_step(y, y_p)
+    _close(s, s_p, 1e-5)
+    y_ref, s_ref = j_ssd_k.ssd_chunked_pallas(*j_in, chunk=chunk,
+                                              interpret=True)
+    if dtype == "float32":
+        _close(y, y_ref, 1e-5)
+    else:
+        _one_step(y, y_ref)
+    _close(s, s_ref, 1e-5)
+
+
+# (B, L, H, P, G, N, chunk): the card cases of tests/test_torch_cuda.py,
+# and mamba2-2.7b's heads at the served lengths and a long prompt
+SSD_CARD_SHAPES = [(1, 200, 80, 64, 1, 128, 256), (1, 600, 8, 64, 1, 128, 256),
+                   (2, 100, 4, 8, 2, 16, 32), (2, 37, 6, 16, 3, 32, 16),
+                   (1, 1, 4, 64, 1, 128, 256), (2, 300, 4, 64, 2, 256, 128),
+                   (2, 64, 4, 8, 2, 16, 16), (2, 16, 8, 16, 1, 4, 16),
+                   (1, 472, 80, 64, 1, 128, 256),
+                   (1, 2048, 80, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SSD_CARD_SHAPES)
+def test_ssd_launch_geometry_and_scratch(B, L, H, P, G, N, chunk):
+    """Every launch of every tile setting the kernel accepts fits CUDA's
+    limits (blocks, 1024 threads, 227 KB of shared memory); with one chunk
+    the state slice is the row tile; the scratch is its parts, each
+    64-word aligned but the last."""
+    Q = min(chunk, L)
+    nc = ssd_k.chunks(L, Q)
+    rows, nslice = ssd_k.row_tile(B, L, H, Q), ssd_k.state_slice(B, L, H,
+                                                                 N, Q)
+    assert rows in ssd_k.ROW_TILES and nslice in ssd_k.STATE_SLICES
+    assert nc > 1 or nslice == rows
+    for rt in ssd_k.ROW_TILES:
+        for ns in (ssd_k.STATE_SLICES if nc > 1 else (rt,)):
+            grids = ssd_k.ssd_grids(B, L, H, P, G, N, Q, rt, ns)
+            assert set(grids) == ({"cb", "front"} if nc == 1
+                                  else {"front", "pass", "y"})
+            for blocks, threads in grids.values():
+                assert 1 <= blocks <= ssd_k.MAX_GRID and threads <= 1024
+            for itemsize in (2, 4):
+                smem = ssd_k.smem_bytes(L, Q, itemsize, rt, ns)
+                assert max(smem.values()) <= ssd_k.MAX_SMEM
+    parts = ssd_k.scratch_parts(B, L, H, P, G, N, Q)
+    Qp = ssd_k.padded_chunk(Q)
+    assert Qp % ssd_k.CB_TILE == 0 and Q <= Qp < Q + ssd_k.CB_TILE
+    assert parts["lam"] % 64 == 0 and parts["cb"] % 64 == 0
+    assert parts["cb"] >= B * G * nc * Qp * Qp
+    assert parts["states"] == (B * H * nc * N * P if nc > 1 else 0)
+    assert ssd_k.scratch_numel(B, L, H, P, G, N, Q) == sum(parts.values())
+
+
+def test_ssd_scratch_at_a_served_prefill():
+    """A 472-token prefill of mamba2-2.7b (two chunks) needs about 6 MB of
+    f32 scratch: C.B^T 0.5 MB, the states 5.2 MB."""
+    words = ssd_k.scratch_numel(1, 472, 80, 64, 1, 128, 256)
+    assert 5e6 < 4 * words < 7e6
+
+
+@pytest.mark.parametrize("L,rows,nslice", [(200, 64, 64), (472, 64, 64),
+                                           (2048, 64, 64), (16, 32, 32),
+                                           (1, 32, 32)])
+def test_ssd_tile_rules(L, rows, nslice):
+    """mamba2-2.7b's heads: 64-row tiles at the served and long lengths,
+    32 where 64 would leave the launch under MIN_BLOCKS blocks."""
+    Q = min(256, L)
+    assert ssd_k.row_tile(1, L, 80 if L > 16 else 4, Q) == rows
+    assert ssd_k.state_slice(1, L, 80 if L > 16 else 4, 128, Q) == nslice
+
+
+def _cb_tiles_written(Qp, tr):
+    """The (rows, keys) C.B^T tiles the kernel writes, in its block order."""
+    out = []
+    for idx in range(ssd_k.cb_tiles(Qp, tr)):
+        t, ti = idx, 0
+        while t >= ti * tr // ssd_k.CB_TILE + 1:
+            t -= ti * tr // ssd_k.CB_TILE + 1
+            ti += 1
+        out.append((ti, t))
+    return out
+
+
+@pytest.mark.parametrize("Q", [1, 37, 64, 200, 256])
+@pytest.mark.parametrize("tr", [32, 64])
+def test_ssd_cb_tiles_cover_every_read(Q, tr):
+    """Every C.B^T entry a y block reads (rows [i0, i0 + rows), keys in
+    32-key steps below min(i0 + rows, Q)) lies in a written tile, for every
+    row tile and C.B^T tile height; no tile is written twice."""
+    Qp = ssd_k.padded_chunk(Q)
+    tiles = _cb_tiles_written(Qp, tr)
+    assert len(set(tiles)) == len(tiles)
+    written = np.zeros((Qp, Qp), bool)
+    for ti, tk in tiles:
+        written[ti * tr:(ti + 1) * tr,
+                tk * ssd_k.CB_TILE:(tk + 1) * ssd_k.CB_TILE] = True
+    for rows in ssd_k.ROW_TILES:
+        for i0 in range(0, Q, rows):
+            kend = min(i0 + rows, Q)
+            steps = -(-kend // ssd_k.KEY_STEP)
+            assert written[i0:i0 + rows, :steps * ssd_k.KEY_STEP].all()
+
+
 # --- kernel 7 -----------------------------------------------------------------
 # (L, C, r): the reference's sweep (tests/test_kernels.py) and the
 # served widths' ragged tail (L = 200 is no multiple of 3)
@@ -219,6 +342,34 @@ def test_dw1d_matches_direct_oracle(L, C, r):
            j_wg.conv1d_depthwise_causal(jx, jw, jb), 1e-5)
     _close(conv_ops.conv1d_depthwise_causal(x, w, b, pallas=False),
            j_wg.conv1d_depthwise_causal(jx, jw, jb), 1e-5)
+
+
+@pytest.mark.parametrize("B,L,C,tiles",
+                         [(1, 200, 5120, 4), (1, 2048, 5120, 4),
+                          (1, 472, 5120, 4), (2, 33, 5, 1), (1, 2, 130, 1)])
+def test_dw1d_launch_rule(B, L, C, tiles):
+    """Kernel 7's tiles a block: 4 at mamba2-2.7b's served and long
+    lengths (blocks enough for two an SM), one where the rows are few;
+    the grid within CUDA's limits."""
+    assert conv_k.dw1d_launch(B, L, C) == tiles
+    gx, gy, gz = conv_k.dw1d_grid(B, L, C, tiles)
+    assert gx == -(-C // conv_k.DW1D_CHANNELS) and gz == B
+    assert 1 <= gy <= 65535 and gy == conv_k.dw1d_runs(L, tiles)
+
+
+@pytest.mark.parametrize("L,tiles", [(200, 4), (2048, 4), (2048, 2),
+                                     (7, 1)])
+def test_dw1d_runs_cover_every_tile_once(L, tiles):
+    """Block y takes tiles y t .. y t + t - 1: together the blocks take
+    every Winograd tile of the rows exactly once, and every block has a
+    tile inside the rows."""
+    nt = -(-L // 3)
+    runs = conv_k.dw1d_grid(1, L, 256, tiles)[1]
+    taken = sorted(y * tiles + j for y in range(runs) for j in range(tiles)
+                   if y * tiles + j < nt)
+    assert taken == list(range(nt))
+    assert all(y * tiles < nt for y in range(runs))
+    assert runs * tiles * 3 >= L > (runs - 1) * tiles * 3
 
 
 def test_tiles_1d_match_reference():

@@ -25,6 +25,21 @@ Phases:
                served bucket; then one more f32 batch of 8 traced with
                ``torch.profiler`` (device busy ms, the conv kernels' device
                ms, the Winograd kernels' by stage, the device idle share);
+  4b. sdc    — the ABFT/SDC defense at full width (f32, route ``pallas``):
+               each conv layer's armed kernel bit-equal to its unarmed
+               kernel with verdict 0 on a clean slab, its verdict equal to
+               the plain version's count (and above 0) for 32 seeded
+               single-bit flips a layer plus one each in a checksum row,
+               in padding where the layer has any, in a sign and in an
+               exponent bit, on the f32 slabs and on conv3's ``conv_bfp``
+               slab, timed armed and unarmed; then BENCH_sdc's four
+               scenarios through ``CnnEngine(max_batch=8)``: clean (16
+               requests with the defense off and armed: bit-identical
+               logits, no false positive, the overhead ratio), bitflip
+               (every slab bit flip caught by the verdict, every request
+               completed), verify (a flipped and a stale slab caught by
+               their fingerprints before dispatch) and plausible (a finite
+               1e8 logit offset screened); one ``sdc:`` line each;
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
                (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), the latter also with skewed lengths
@@ -141,6 +156,10 @@ TOL_SSM_F32 = 1e-4
 SSM_ARCH = "mamba2-2.7b"
 SSM_PROMPTS = (8, 480)      # prompt lengths: some prefills span 2 chunks
 BATCH = 8
+# ABFT: seeded single-bit flips a layer, beside one each in a checksum row,
+# in padding, in a sign bit and in an exponent bit
+ABFT_FLIPS = 32
+SDC_SEED = 0
 ARRIVALS = (1, 3, 8, 5, 2, 7, 6)   # 32 requests in mixed group sizes
 TIMING_ITERS = 20
 
@@ -250,6 +269,21 @@ def flops_bytes(kname, x, out, plan):
     return 2 * madds, nbytes
 
 
+def conv_entry(kname, spec):
+    """The kernel wrapper of one AlexNet layer as ``f(x, w, b, slab,
+    **kw)`` (``checksum=True`` and ``verdict`` run the armed variant)."""
+    from repro_torch.kernels.conv import direct, winograd
+    lrn = spec.lrn if spec.fuse_lrn else None
+    pool = (spec.pool_window, spec.pool_stride) if spec.fuse_pool else None
+    if kname == "conv_direct":
+        return functools.partial(
+            direct.conv2d_direct, stride=spec.stride, padding=spec.padding,
+            relu=True, groups=spec.groups, lrn=lrn, pool=pool)
+    return functools.partial(winograd.conv2d_winograd, padding=spec.padding,
+                             relu=True, groups=spec.groups, lrn=lrn,
+                             pool=pool)
+
+
 def phase_kernels(torch, np, cfg, params):
     """The conv kernels on ``cfg``'s serving slabs (BFP-quantized under
     ``cfg.conv_bfp``)."""
@@ -261,22 +295,17 @@ def phase_kernels(torch, np, cfg, params):
             torch, np, cfg, params):
         lrn = spec.lrn if spec.fuse_lrn else None
         pool = (spec.pool_window, spec.pool_stride) if spec.fuse_pool else None
-        if kname == "conv_direct":
-            def kern():
-                return direct.conv2d_direct(
-                    x, w, b, slab, stride=spec.stride, padding=spec.padding,
-                    relu=True, groups=spec.groups, lrn=lrn, pool=pool)
+        entry = conv_entry(kname, spec)
 
+        def kern():
+            return entry(x, w, b, slab)
+
+        if kname == "conv_direct":
             def plain():
                 return direct.conv2d_direct_plain(x, slab, b, plan,
                                                   relu=True, lrn=lrn,
                                                   pool=pool)
         else:
-            def kern():
-                return winograd.conv2d_winograd(
-                    x, w, b, slab, padding=spec.padding, relu=True,
-                    groups=spec.groups, lrn=lrn, pool=pool)
-
             def plain():
                 return winograd.conv2d_winograd_plain(x, slab, b, plan,
                                                       relu=True, lrn=lrn,
@@ -451,6 +480,18 @@ def reset_launch_counts():
         mod.reset_launch_counts()
 
 
+def warm_buckets(eng, requests):
+    """Pack every bucket's slabs and launch each shape once, then zero the
+    engine's metrics."""
+    warm = requests(sum(eng.buckets))
+    for size in eng.buckets:
+        for r in warm[:size]:
+            eng.submit(r)
+        warm = warm[size:]
+        eng.run_until_done()
+    eng.reset_metrics()
+
+
 def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
     """Serve 32 requests; with ``cfg_f32`` (a BFP config's f32 twin) the
     logits are held against that model within the BFP error, else against
@@ -466,14 +507,7 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
 
     eng = CnnEngine(cfg, CnnServeConfig(max_batch=BATCH), params=params,
                     device="cuda")
-    # warm-up: pack every bucket's slabs and launch each shape once
-    warm = requests(sum(eng.buckets))
-    for size in eng.buckets:
-        for r in warm[:size]:
-            eng.submit(r)
-        warm = warm[size:]
-        eng.run_until_done()
-    eng.reset_metrics()
+    warm_buckets(eng, requests)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -588,6 +622,280 @@ def profile_batch(torch, eng, requests):
             "batch_conv_winograd_ms": marks["conv_winograd"],
             "batch_conv_winograd_stages_ms": {m: marks[m] for m in stages},
             "batch_device_idle_share": idle, "batch_top": top}
+
+
+def flip_bits(torch, slab, bits):
+    """A copy of ``slab`` on its device with each bit of ``bits`` (indices
+    into its bytes, little-endian within a byte) flipped."""
+    bad = slab.clone()
+    flat = bad.view(-1).view(torch.uint8)
+    for bit in bits:
+        flat[bit // 8] ^= 1 << (bit % 8)
+    return bad
+
+
+def flip_positions(np, slab, plan, rng):
+    """ABFT_FLIPS seeded bit positions over the whole armed slab (n,
+    *spatial, Cb + 1, Kb), then one each in a checksum row, in padding
+    where the plan has any (a channel row past C, else a column past K),
+    and in a weight's sign and exponent bits."""
+    idx = np.arange(slab.numel()).reshape(tuple(slab.shape))
+    nbits = 32 * slab.numel()
+    bits = {f"random{i}": int(v)
+            for i, v in enumerate(rng.integers(0, nbits, ABFT_FLIPS))}
+    bits["checksum_row"] = 32 * int(idx[-1, ..., -1, 1].flat[-1]) + 5
+    bits["sign"] = 32 * int(idx[0, ..., 0, 0].flat[0]) + 31
+    bits["exponent"] = 32 * int(idx[0, ..., 1, 0].flat[0]) + 27
+    if plan.Cp > plan.C:
+        # group 0's channel C: C block C // Cb, row C % Cb
+        bits["padding"] = 32 * int(idx[plan.C // plan.Cb, ...,
+                                       plan.C % plan.Cb, 0].flat[0]) + 3
+    elif getattr(plan, "Kp", plan.K) > plan.K:
+        # group 0's last K block, its last column (past K)
+        bits["padding"] = 32 * int(idx[(plan.nkb - 1) * plan.ncb, ...,
+                                       0, plan.Kb - 1].flat[0]) + 3
+    return bits
+
+
+def sdc_layer(torch, np, kname, layer, spec, x, w, b, slab, armed, plan,
+              rng, slab_kind):
+    """One layer's armed kernel: bit-equal to the unarmed kernel with
+    verdict 0 on a clean slab; the verdict equal to the plain version's
+    count (``dma.checksum_mismatches``) and above 0 for each flip; timed
+    armed and unarmed."""
+    from repro_torch.kernels.conv import dma
+    entry = conv_entry(kname, spec)
+    check(torch.equal(armed[..., :-1, :], slab)
+          and int(dma.checksum_mismatches(armed)) == 0,
+          f"{layer} ({slab_kind}): the armed slab is not the unarmed slab "
+          "plus its checksum rows")
+    base = entry(x, w, b, slab)
+    y, v = entry(x, w, b, armed, checksum=True)
+    torch.cuda.synchronize()
+    check(torch.equal(y, base) and int(v) == 0,
+          f"{layer} ({slab_kind}): armed output differs from unarmed or a "
+          f"clean slab gave verdict {int(v)}")
+    flips = flip_positions(np, armed, plan, rng)
+    misses = []
+    for where, bit in flips.items():
+        bad = flip_bits(torch, armed, [bit])
+        _, v = entry(x, w, b, bad, checksum=True)
+        got, want = int(v), int(dma.checksum_mismatches(bad))
+        if not got == want > 0:
+            misses.append((where, bit, got, want))
+    check(not misses, f"{layer} ({slab_kind}): verdict off the plain "
+          f"version's count (where, bit, verdict, plain): {misses}")
+    verdict = torch.zeros((), dtype=torch.int32, device="cuda")
+    (ms, _), (ms_abft, _) = (
+        time_ms(torch, lambda: entry(x, w, b, slab)),
+        time_ms(torch, lambda: entry(x, w, b, armed, checksum=True,
+                                     verdict=verdict)))
+    check(int(verdict) == 0, f"{layer}: verdict {int(verdict)} while timing "
+          "a clean slab")
+    named = ", ".join(k for k in flips if not k.startswith("random"))
+    print(f"sdc kernel {kname} {layer} ({slab_kind} slab "
+          f"{tuple(armed.shape)}): armed = unarmed bit for bit, verdict 0 "
+          f"clean; {len(flips)} single-bit flips ({named} and "
+          f"{ABFT_FLIPS} seeded) each verdict = plain count > 0 | "
+          f"kernel_ms {ms:.4f} armed {ms_abft:.4f} (x{ms_abft / ms:.3f})")
+    return {"layer": layer, "kernel": kname, "slab": slab_kind,
+            "armed_slab": list(armed.shape), "flips": len(flips),
+            "flip_bits": flips, "ms": ms, "ms_abft": ms_abft}
+
+
+def sdc_requests(np, cfg, rng):
+    from repro_torch.serving import ImageRequest
+
+    def requests(n, retries=3):
+        return [ImageRequest(image=rng.standard_normal(
+            (cfg.image_size, cfg.image_size, cfg.in_channels)).astype(
+                np.float32), retries=retries) for _ in range(n)]
+    return requests
+
+
+def phase_sdc(torch, np, cfg, params, rows):
+    """The ABFT/SDC defense at full width (f32, route ``pallas``): each conv
+    layer's armed kernel against the unarmed one and against its plain
+    version's count for seeded flips, on the f32 slabs and on conv3's
+    ``conv_bfp`` slab; then BENCH_sdc's four serving scenarios through
+    ``CnnEngine(max_batch=8)``.  Adds ``ms_abft`` and
+    ``abft_flips_checked`` to the conv rows of ``rows``."""
+    from repro_torch.nn.conv import pack_conv_weights
+    from repro_torch.serving import CnnEngine, CnnServeConfig, \
+        FaultInjector, FaultSpec, ImageRequest, derive_seed
+    t0 = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(SDC_SEED)
+    layers = []
+    for kname, layer, spec, x, w, b, slab, plan in layer_cases(
+            torch, np, cfg, params):
+        armed_plan = dataclasses.replace(plan, checksum=True)
+        armed = pack_conv_weights(spec, tuple(x.shape), w, abft=True).data
+        layers.append(sdc_layer(torch, np, kname, layer, spec, x, w, b, slab,
+                                armed, armed_plan, rng, "f32"))
+        row = rows[kname]
+        row["ms_abft"] = row.get("ms_abft", 0.0) + layers[-1]["ms_abft"]
+        row["abft_flips_checked"] = (row.get("abft_flips_checked", 0)
+                                     + layers[-1]["flips"])
+        if layer == "conv3":
+            bfp = pack_conv_weights(spec, tuple(x.shape), w, bfp_pack=True)
+            bfp_armed = pack_conv_weights(spec, tuple(x.shape), w,
+                                          bfp_pack=True, abft=True)
+            layers.append(sdc_layer(torch, np, kname, layer, spec, x, w, b,
+                                    bfp.data, bfp_armed.data, armed_plan,
+                                    rng, "conv_bfp"))
+            row["abft_flips_checked"] += layers[-1]["flips"]
+
+    cfg_abft = dataclasses.replace(cfg, sdc_abft=True)
+    requests = sdc_requests(np, cfg, rng)
+
+    def engine(cfg_run, **kw):
+        eng = CnnEngine(cfg_run, CnnServeConfig(
+            max_batch=BATCH, retry_backoff_ms=0.5, **kw), params=params,
+            device="cuda")
+        warm_buckets(eng, requests)
+        return eng
+
+    def serve(eng, reqs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        return time.perf_counter() - t
+
+    def balanced(eng, reqs):
+        acc = eng.accounting()
+        return (acc["balanced"] and acc["in_flight"] == 0
+                and all(r.done for r in reqs))
+
+    armed_kw = dict(verify_slabs=True, screen_abs_max=1e6)
+    # 1. clean: the same requests with the defense off and fully armed
+    probe = requests(16)
+    e_off = engine(cfg)
+    rs_off = [ImageRequest(image=r.image) for r in probe]
+    wall_off = serve(e_off, rs_off)
+    e_on = engine(cfg_abft, **armed_kw)
+    rs_on = [ImageRequest(image=r.image) for r in probe]
+    reset_launch_counts()
+    wall_on = serve(e_on, rs_on)
+    counts = launch_counts()
+    nb = e_on.batches_run
+    for k, n in (("conv_direct", 2), ("conv_winograd", 2),
+                 ("conv_winograd_fused", 1)):
+        check(counts[k] == n * nb, f"sdc clean: {k} {counts[k]} launches for "
+              f"{nb} armed batches, expected {n} a forward")
+    slabs = e_on._slabs(BATCH)
+    fp_ms = _host_ms(torch, lambda: e_on._slabs_intact(BATCH, False))
+    clean = {
+        "requests": len(probe),
+        "bit_identical": all(np.array_equal(a.logits, b.logits)
+                             for a, b in zip(rs_off, rs_on)),
+        "detections": e_on.sdc_detections,
+        "slab_integrity_failures": e_on.slab_integrity_failures,
+        "screen_magnitude": e_on.screen_magnitude,
+        "false_positive_rate": (e_on.sdc_detections
+                                + e_on.slab_integrity_failures
+                                + e_on.screen_magnitude) / max(nb, 1),
+        "wall_off_s": wall_off, "wall_armed_s": wall_on,
+        "overhead_ratio": wall_on / wall_off,
+        "fingerprint_check_ms": fp_ms,
+        "slab_bytes": sum(v.data.numel() * v.data.element_size()
+                          for v in slabs.values() if hasattr(v, "kernel")
+                          and v.data is not None),
+        "batches": nb, "launches": counts,
+        "accounting_balanced": balanced(e_off, rs_off)
+        and balanced(e_on, rs_on)}
+    check(clean["bit_identical"], "sdc clean: armed logits differ from the "
+          "unarmed engine's")
+    check(clean["false_positive_rate"] == 0.0 and clean["accounting_balanced"],
+          f"sdc clean: false positives or unbalanced accounting: {clean}")
+    print(f"sdc: clean {len(probe)} requests off vs armed (ABFT + "
+          f"fingerprints + |logit| <= 1e6): bit_identical yes, detections 0,"
+          f" integrity failures 0, magnitude screens 0, false_positive_rate "
+          f"0.0 | wall off {wall_off * 1e3:.1f} ms armed {wall_on * 1e3:.1f}"
+          f" ms overhead_ratio {clean['overhead_ratio']:.3f} (fingerprint "
+          f"check {fp_ms:.2f} ms a batch over "
+          f"{clean['slab_bytes'] / 2 ** 20:.1f} MiB of slabs) | on {card}")
+
+    # 2. bitflip: fingerprints off, so the kernels' verdict is the detector
+    flips_at = (0, 2, 4)
+    eng = engine(cfg_abft)
+    eng.arm_faults(FaultInjector(seed=derive_seed(SDC_SEED, "sdc-bitflip"),
+                                 specs={"slab.bitflip": FaultSpec(
+                                     at=flips_at)}))
+    reqs = requests(BATCH * (max(flips_at) + 2))
+    serve(eng, reqs)
+    fired = eng.faults.summary()["slab.bitflip"]["fired"]
+    bitflip = {"requests": len(reqs), "flips_fired": fired,
+               "detections": eng.sdc_detections,
+               "detection_rate": eng.sdc_detections / fired if fired else 0.0,
+               "completed": sum(r.done for r in reqs),
+               "retried": eng.images_retried,
+               "batches_failed": eng.batches_failed,
+               "accounting_balanced": balanced(eng, reqs),
+               "faults": eng.faults.summary()}
+    check(fired == len(flips_at) and bitflip["detection_rate"] == 1.0
+          and bitflip["accounting_balanced"],
+          f"sdc bitflip: a flip was missed or a request lost: {bitflip}")
+    print(f"sdc: bitflip {fired} slab bit flips over {len(reqs)} requests "
+          f"(fingerprints off): detections {eng.sdc_detections}, "
+          f"detection_rate 1.0, completed {bitflip['completed']}/{len(reqs)}"
+          f", retried {eng.images_retried}, accounting balanced | on {card}")
+
+    # 3. verify: fingerprints catch a flipped and a stale slab pre-dispatch
+    eng = engine(cfg_abft, **armed_kw)
+    eng.arm_faults(FaultInjector(seed=derive_seed(SDC_SEED, "sdc-verify"),
+                                 specs={"slab.bitflip": FaultSpec(at=(0,)),
+                                        "slab.stale": FaultSpec(at=(1,))}))
+    reqs = requests(12)
+    serve(eng, reqs)
+    verify = {"requests": len(reqs),
+              "faults_fired": sum(v["fired"] for p, v in
+                                  eng.faults.summary().items()
+                                  if p.startswith("slab.")),
+              "slab_integrity_failures": eng.slab_integrity_failures,
+              "abft_detections": eng.sdc_detections,
+              "completed": sum(r.done for r in reqs),
+              "accounting_balanced": balanced(eng, reqs),
+              "faults": eng.faults.summary()}
+    check(verify["faults_fired"] == 2
+          and verify["slab_integrity_failures"] == 2
+          and verify["abft_detections"] == 0
+          and verify["accounting_balanced"],
+          f"sdc verify: a slab fault reached a forward: {verify}")
+    print(f"sdc: verify slab.bitflip + slab.stale over {len(reqs)} requests:"
+          f" both caught before dispatch (integrity failures 2, ABFT "
+          f"detections 0), completed {verify['completed']}/{len(reqs)}, "
+          f"accounting balanced | on {card}")
+
+    # 4. plausible: a finite 1e8 offset on one row, caught by |logit| bound
+    eng = engine(cfg_abft, **armed_kw)
+    eng.arm_faults(FaultInjector(
+        seed=derive_seed(SDC_SEED, "sdc-plausible"),
+        specs={"retire.plausible": FaultSpec(at=(0,), magnitude=1e8)}))
+    reqs = requests(8)
+    serve(eng, reqs)
+    plausible = {"requests": len(reqs),
+                 "fired": eng.faults.summary()["retire.plausible"]["fired"],
+                 "screen_magnitude": eng.screen_magnitude,
+                 "screen_nonfinite": eng.screen_nonfinite,
+                 "completed": sum(r.done for r in reqs),
+                 "retried": eng.images_retried,
+                 "accounting_balanced": balanced(eng, reqs)}
+    check(plausible["fired"] == 1 and plausible["screen_magnitude"] == 1
+          and plausible["screen_nonfinite"] == 0
+          and plausible["accounting_balanced"],
+          f"sdc plausible: the corrupted row was not screened: {plausible}")
+    print(f"sdc: plausible retire.plausible (1e8) over {len(reqs)} requests:"
+          f" screen_magnitude 1, screen_nonfinite 0, completed "
+          f"{plausible['completed']}/{len(reqs)}, accounting balanced | on "
+          f"{card}")
+    seconds = time.perf_counter() - t0
+    print(f"sdc: phase {seconds:.1f} s")
+    return {"layers": layers, "clean": clean, "bitflip": bitflip,
+            "verify": verify, "plausible": plausible, "seconds": seconds,
+            "launches": counts}
 
 
 def phase_decode(torch, np):
@@ -1390,6 +1698,7 @@ def main(argv=None) -> int:
     rows["bfp_matmul"] = phase_bfp(torch, np, cfg_bfp, params)
     serves = {"f32": phase_serve(torch, np, cfg, params),
               "bfp": phase_serve(torch, np, cfg_bfp, params, cfg_f32=cfg)}
+    sdc = phase_sdc(torch, np, cfg, params, rows)
     del params
     torch.cuda.empty_cache()
     rows["decode_attn"] = phase_decode(torch, np)
@@ -1399,7 +1708,8 @@ def main(argv=None) -> int:
     mamba = phase_mamba(torch, np)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
-             "lm": lm_serve["launches"], "mamba": mamba["launches"]}
+             "sdc": sdc["launches"], "lm": lm_serve["launches"],
+             "mamba": mamba["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
@@ -1447,6 +1757,8 @@ def main(argv=None) -> int:
             entry["max_abs_err_bfp_slabs"] = \
                 rows_bfp_slabs[kname]["max_abs_err"]
             entry["ms_bfp_slabs"] = rows_bfp_slabs[kname]["ms"]
+            entry["ms_abft"] = row["ms_abft"]
+            entry["abft_flips_checked"] = row["abft_flips_checked"]
         kernels.append(entry)
     for name, serve in serves.items():
         print(f"serve {name}: {serve['completed']}/{sum(ARRIVALS)} over "
@@ -1478,6 +1790,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "serve": serves,
+                       "sdc": sdc,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()

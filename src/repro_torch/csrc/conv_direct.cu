@@ -40,6 +40,12 @@
 //    y (epilogue.cuh's fused_epilogue), and writes only the pooled map.
 //    With no pool and no LRN left to apply the conv stage writes the
 //    output and this launch is skipped.
+// ABFT (the armed instantiation, ConvArgs.verdict set): the slab carries
+// a checksum row after each tile's Cb rows of a tap (row stride Cs = Cb +
+// 1), and every conv-stage block checks its share of the whole slab
+// (abft.cuh) while its cp.async ring fills, adding the mismatched lanes to
+// the verdict.  The GEMM reads the same Cb rows either way, so armed and
+// unarmed outputs are bit-equal.
 // Numerics: each output is one thread's fmaf chain from +0 over (di, dj,
 // c) in ascending order; zero-filled taps (padding, the ragged reduction
 // tail) are FMA'd, not skipped, so a NaN weight poisons as in the plain
@@ -48,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "abft.cuh"
 #include "conv_args.cuh"
 #include "cp_async.cuh"
 #include "epilogue.cuh"
@@ -62,11 +69,11 @@ constexpr int kStages = 3;       // cp.async ring depth
 constexpr int kApad = kBK + 4;   // A row stride in shared memory (floats)
 
 // Shared memory of one conv-stage block of BN = 16 tn columns: the A and B
-// rings (which also hold the kBM x BN conv tile for an LRN in this stage)
-// and the two per-reduction-index tables.
-size_t gemm_smem_bytes(int tn, int R) {
-  return ((size_t)kStages * (kBM * kApad + kBK * 16 * tn) + 2 * (size_t)R)
-         * sizeof(float);
+// rings (which also hold the kBM x BN conv tile for an LRN in this stage),
+// the two per-reduction-index tables and, armed, the ABFT partial sums.
+size_t gemm_smem_bytes(int tn, int R, bool armed) {
+  return ((size_t)kStages * (kBM * kApad + kBK * 16 * tn) + 2 * (size_t)R
+          + (armed ? kAbftSmemInts : 0)) * sizeof(float);
 }
 
 // Whether the conv stage applies the LRN itself: one block tile holds all
@@ -77,9 +84,10 @@ __host__ __device__ __forceinline__ bool lrn_in_gemm(const ConvArgs& a,
 }
 
 // Grid (ceil(M / kBM), ceil(K / BN), g), BN = 16 TN.  VA / VB: 16-byte
-// copies of A / B.  Held to 80 registers, so three blocks share an SM and
-// a grid of up to 396 blocks fills one wave.
-template <int TN, bool VA, bool VB>
+// copies of A / B; ARMED: check the slab's checksum rows (abft.cuh).  Held
+// to 80 registers, so three blocks share an SM and a grid of up to 396
+// blocks fills one wave.
+template <int TN, bool VA, bool VB, bool ARMED>
 __global__ void __launch_bounds__(kThreads, 3)
 conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
                  const float* __restrict__ slab,
@@ -95,13 +103,13 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
   const int grp = blockIdx.z;
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
   const int t = threadIdx.x;
-  const size_t tile_elems = (size_t)a.r * a.r * a.Cb * a.Kb;
+  const size_t tile_elems = (size_t)a.r * a.r * a.Cs * a.Kb;
 
   for (int k = t; k < R; k += kThreads) {
     const int c = k % a.C, tap = k / a.C;
     xtap[k] = ((tap / a.r) << 24) | ((tap % a.r) << 16) | c;
     wrow[k] = (int)((c / a.Cb) * tile_elems
-                    + ((size_t)tap * a.Cb + c % a.Cb) * a.Kb);
+                    + ((size_t)tap * a.Cs + c % a.Cb) * a.Kb);
   }
 
   // the A row this thread gathers: one conv pixel for the whole reduction
@@ -165,6 +173,8 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
     if (s < nchunks) load_chunk(s, s * kBK);
     cp_async_commit();
   }
+  if constexpr (ARMED)          // its partial sums after the two tables
+    abft_check_slab(a, a.r * a.r, slab, (unsigned*)(wrow + R));
 
   // thread (tm, tn) of the 16 x 16 owns rows tm + 16 i and columns
   // tn * TN + j of the tile; a warp spans 4 tm x 8 tn, so its float4 reads
@@ -281,11 +291,11 @@ conv_direct_epilogue(ConvArgs a, const float* __restrict__ y,
   fused_epilogue(a, y, out);
 }
 
-template <int TN, bool VA, bool VB>
+template <int TN, bool VA, bool VB, bool ARMED>
 cudaError_t launch_gemm(const ConvArgs& a, size_t smem, cudaStream_t stream,
                         const float* x, const float* slab, const float* bias,
                         float* y) {
-  auto kernel = conv_direct_gemm<TN, VA, VB>;
+  auto kernel = conv_direct_gemm<TN, VA, VB, ARMED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -295,36 +305,52 @@ cudaError_t launch_gemm(const ConvArgs& a, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <int TN>
+template <int TN, bool ARMED>
 cudaError_t launch_tile(const ConvArgs& a, size_t smem, bool va, bool vb,
                         cudaStream_t stream, const float* x,
                         const float* slab, const float* bias, float* y) {
   if (va && vb)
-    return launch_gemm<TN, true, true>(a, smem, stream, x, slab, bias, y);
+    return launch_gemm<TN, true, true, ARMED>(a, smem, stream, x, slab, bias,
+                                              y);
   if (va)
-    return launch_gemm<TN, true, false>(a, smem, stream, x, slab, bias, y);
+    return launch_gemm<TN, true, false, ARMED>(a, smem, stream, x, slab,
+                                               bias, y);
   if (vb)
-    return launch_gemm<TN, false, true>(a, smem, stream, x, slab, bias, y);
-  return launch_gemm<TN, false, false>(a, smem, stream, x, slab, bias, y);
+    return launch_gemm<TN, false, true, ARMED>(a, smem, stream, x, slab,
+                                               bias, y);
+  return launch_gemm<TN, false, false, ARMED>(a, smem, stream, x, slab, bias,
+                                              y);
+}
+
+template <int TN>
+cudaError_t launch_armed(const ConvArgs& a, size_t smem, bool va, bool vb,
+                         cudaStream_t stream, const float* x,
+                         const float* slab, const float* bias, float* y) {
+  return a.verdict
+             ? launch_tile<TN, true>(a, smem, va, vb, stream, x, slab, bias, y)
+             : launch_tile<TN, false>(a, smem, va, vb, stream, x, slab, bias,
+                                      y);
 }
 
 }  // namespace
 
 // y: (B, out_h, out_w, g*K) scratch for the epilogue stage (unused, and
 // may equal out, when there is no pool and no LRN left to apply); tn:
-// columns per thread of the conv stage's block tile (4 or 6).
+// columns per thread of the conv stage's block tile (4 or 6).  Armed
+// (args->verdict set, args->Cs = Cb + 1), the conv stage also adds the
+// slab's mismatched checksum lanes to *args->verdict.
 extern "C" int repro_conv_direct(const ConvArgs* args, const float* x,
                                  const float* slab, const float* bias,
                                  float* y, float* out, int tn,
                                  cudaStream_t stream) {
   const ConvArgs a = *args;
   const int R = a.r * a.r * a.C;
-  const size_t smem = gemm_smem_bytes(tn, R);
+  const size_t smem = gemm_smem_bytes(tn, R, a.verdict != nullptr);
   const size_t slab_elems =
-      (size_t)a.g * a.nkb * a.ncb * a.r * a.r * a.Cb * a.Kb;
+      (size_t)a.g * a.nkb * a.ncb * a.r * a.r * a.Cs * a.Kb;
   if ((tn != 4 && tn != 6) || a.r > 127
       || a.C > 0xffff || slab_elems >= (1u << 31) || smem > 227 * 1024
-      || a.PT < 1)
+      || a.PT < 1 || a.Cs != a.Cb + (a.verdict ? 1 : 0))
     return (int)cudaErrorInvalidValue;
   const bool va = a.C % 4 == 0 && (uintptr_t)x % 16 == 0;
   const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
@@ -335,8 +361,8 @@ extern "C" int repro_conv_direct(const ConvArgs* args, const float* x,
   const bool epilogue = ea.lrn_n || a.pwin != 1 || a.ps != 1;
   float* dst = epilogue ? y : out;
   const cudaError_t err =
-      tn == 4 ? launch_tile<4>(a, smem, va, vb, stream, x, slab, bias, dst)
-              : launch_tile<6>(a, smem, va, vb, stream, x, slab, bias, dst);
+      tn == 4 ? launch_armed<4>(a, smem, va, vb, stream, x, slab, bias, dst)
+              : launch_armed<6>(a, smem, va, vb, stream, x, slab, bias, dst);
   if (err != cudaSuccess || !epilogue) return (int)err;
   const int nph = (a.ph_out + a.PT - 1) / a.PT;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;

@@ -39,6 +39,12 @@
 // 4. conv_winograd_epilogue (LRN and/or pool only): the LRN across all g*K
 //    channels and the max-pool from the conv map (epilogue.cuh's
 //    fused_epilogue); writes the pooled map.
+// ABFT (ConvArgs.verdict set): the slab carries a checksum row after each
+// tile's Cb rows of a Winograd position (row stride Cs = Cb + 1), and the
+// armed GEMM instantiation checks its blocks' shares of the whole slab
+// (abft.cuh) while their cp.async rings fill, adding the mismatched lanes
+// to the verdict.  The GEMMs read the same Cb rows either way, so armed
+// and unarmed outputs are bit-equal; one change arms kernels 2 and 3.
 // Every tile lies on the 4-grid of the plain version, so a Winograd slab
 // that is not G w G^T (conv_bfp quantizes it) gives the plain version's
 // function.  Every kernel's name holds "conv_winograd": profiles add
@@ -56,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "abft.cuh"
 #include "conv_args.cuh"
 #include "cp_async.cuh"
 #include "epilogue.cuh"
@@ -144,9 +151,10 @@ conv_winograd_input(ConvArgs a, WinoMats mt, const float* __restrict__ x,
 }
 
 // Grid (ceil(T / kBM), ceil(K / kBN), 36 * g).  VB: 16-byte copies of the
-// slab (Kb a multiple of 4).  Held to 64 registers, so four blocks share
-// an SM and AlexNet's grids of up to 432 blocks fill one wave.
-template <bool VB>
+// slab (Kb a multiple of 4); ARMED: check the slab's checksum rows
+// (abft.cuh).  Held to 64 registers, so four blocks share an SM and
+// AlexNet's grids of up to 432 blocks fill one wave.
+template <bool VB, bool ARMED>
 __global__ void __launch_bounds__(kThreads, 4)
 conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
                    const float* __restrict__ slab, float* __restrict__ m) {
@@ -159,7 +167,7 @@ conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
   const int pos = blockIdx.z / a.g, grp = blockIdx.z % a.g;
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   const int t = threadIdx.x;
-  const int tile_elems = kNP * a.Cb * a.Kb;
+  const int tile_elems = kNP * a.Cs * a.Kb;
 
   for (int c = t; c < cu; c += kThreads)           // -1: a pad channel
     crow[c] = c < a.C ? (c / a.Cb) * tile_elems + (c % a.Cb) * a.Kb : -1;
@@ -177,7 +185,7 @@ conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
   const int brow = t / kRow, bcol = (VB ? 4 : 1) * (t % kRow);
   const int n = n0 + bcol;
   const int wcol = n < a.K ? ((grp * a.nkb + n / a.Kb) * a.ncb) * tile_elems
-                                 + pos * a.Cb * a.Kb + n % a.Kb
+                                 + pos * a.Cs * a.Kb + n % a.Kb
                            : -1;
   __syncthreads();
 
@@ -202,6 +210,8 @@ conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
     if (s < nchunks) load_chunk(s, s * kBK);
     cp_async_commit();
   }
+  if constexpr (ARMED)          // its partial sums after the channel table
+    abft_check_slab(a, kNP, slab, (unsigned*)(crow + cu));
 
   // thread (tm, tn) of the 16 x 16 owns rows tm + 16 i and columns
   // tn * kTN + j of the tile; a warp spans 4 tm x 8 tn, so its float4
@@ -344,6 +354,8 @@ unsigned blocks_for(long long n, int threads) {
 // mats: host array of B^T (6x6) then A^T (4x6), row-major.  u: (36, g, T,
 // Cu) and m: (36, g, T, K) scratch; y: (B, out_h, out_w, g*K) scratch for
 // the epilogue launch (unused, and may equal out, with no LRN and no pool).
+// Armed (args->verdict set, args->Cs = Cb + 1), the GEMM stage also adds
+// the slab's mismatched checksum lanes to *args->verdict.
 extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
                                    const float* x, const float* slab,
                                    const float* bias, float* u, float* m,
@@ -351,15 +363,16 @@ extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
                                    cudaStream_t stream) {
   const ConvArgs a = *args;
   WinoMats mt;
-  const size_t slab_elems = (size_t)a.g * a.nkb * a.ncb * kNP * a.Cb * a.Kb;
-  // the GEMM's rings and channel table, within the 48 KB a launch gets
-  // without opting in (C up to 5,376 channels a group)
+  const size_t slab_elems = (size_t)a.g * a.nkb * a.ncb * kNP * a.Cs * a.Kb;
+  // the GEMM's rings, channel table and (armed) ABFT partial sums, within
+  // the 48 KB a launch gets without opting in (C up to 5,376 channels a
+  // group unarmed, 5,120 armed)
   const size_t smem =
-      ((size_t)kStages * (kBM * kApad + kBK * kBN) + u_channels(a))
-      * sizeof(float);
+      ((size_t)kStages * (kBM * kApad + kBK * kBN) + u_channels(a)
+       + (a.verdict ? kAbftSmemInts : 0)) * sizeof(float);
   if (a.r != 3 || a.s != 1 || a.PT < 1 || slab_elems >= (1u << 31)
       || smem > 48 * 1024 || (uintptr_t)u % 16 || (uintptr_t)m % 16
-      || load_mats(mats, &mt))
+      || a.Cs != a.Cb + (a.verdict ? 1 : 0) || load_mats(mats, &mt))
     return (int)cudaErrorInvalidValue;
   const long long T = (long long)a.B * tiles_per_image(a);
   conv_winograd_input<<<blocks_for(T * a.g * u_channels(a), kPointThreads),
@@ -368,10 +381,19 @@ extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid(blocks_for(T, kBM), blocks_for(a.K, kBN), kNP * a.g);
-  if (a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0)
-    conv_winograd_gemm<true><<<grid, kThreads, smem, stream>>>(a, u, slab, m);
+  const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
+  if (a.verdict && vb)
+    conv_winograd_gemm<true, true><<<grid, kThreads, smem, stream>>>(a, u,
+                                                                     slab, m);
+  else if (a.verdict)
+    conv_winograd_gemm<false, true><<<grid, kThreads, smem, stream>>>(
+        a, u, slab, m);
+  else if (vb)
+    conv_winograd_gemm<true, false><<<grid, kThreads, smem, stream>>>(
+        a, u, slab, m);
   else
-    conv_winograd_gemm<false><<<grid, kThreads, smem, stream>>>(a, u, slab, m);
+    conv_winograd_gemm<false, false><<<grid, kThreads, smem, stream>>>(
+        a, u, slab, m);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

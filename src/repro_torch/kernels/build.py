@@ -8,7 +8,9 @@ the root of the checkout, so an edited source rebuilds and an unchanged one
 is reused.  A failed build raises with the compiler's output.
 
 The conv launchers take one :class:`ConvArgs` (mirror of
-``csrc/conv_args.cuh``) by pointer, raw device pointers (the wrapper's
+``csrc/conv_args.cuh``; an armed launch also sets its slab's rows a tap
+``Cs`` and the device address of its int32 ABFT ``verdict``) by pointer,
+raw device pointers (the wrapper's
 scratches among them), and the CUDA stream (the direct launcher also its
 block tile's columns per thread, the Winograd launcher a host pointer to
 its transform matrices);
@@ -45,8 +47,8 @@ COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LIB_NAME = "librepro_torch_kernels.so"
 
 _INT_FIELDS = ("B", "H", "W", "Ct", "g", "C", "K", "r", "s", "pad_h",
-               "pad_w", "out_h", "out_w", "ncb", "Cb", "nkb", "Kb", "relu",
-               "lrn_n")
+               "pad_w", "out_h", "out_w", "ncb", "Cb", "nkb", "Kb", "Cs",
+               "relu", "lrn_n")
 _FLOAT_FIELDS = ("lrn_k", "lrn_alpha", "lrn_beta")
 _TAIL_FIELDS = ("pwin", "ps", "ph_out", "pw_out", "PT")
 
@@ -60,7 +62,8 @@ class ConvArgs(ctypes.Structure):
     ``csrc/conv_args.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in _INT_FIELDS]
                 + [(n, ctypes.c_float) for n in _FLOAT_FIELDS]
-                + [(n, ctypes.c_int) for n in _TAIL_FIELDS])
+                + [(n, ctypes.c_int) for n in _TAIL_FIELDS]
+                + [("verdict", ctypes.c_void_p)])
 
 
 @dataclass

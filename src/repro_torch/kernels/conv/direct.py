@@ -11,6 +11,11 @@ kernel's exact arguments (input, packed slab, bias, plan, flags).
 The launch geometry is pure Python here (:func:`tile_cols`,
 :func:`conv_grid`, :func:`smem_bytes`, :func:`scratch_shape`,
 :func:`block_tile`), mirrored by the launcher, so the CPU tests check it.
+
+ABFT (``checksum=True``, the reference's armed variant): the slab carries
+a checksum row in every tile, the kernel checks the whole slab once a
+launch and the call returns ``(y, verdict)``, an int32 count of mismatched
+checksum lanes (0: intact); ``y`` is bit-equal to the unarmed call's.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ BM = 64                     # conv pixels (GEMM rows) of a block tile
 TILE_COLS = (64, 96)        # output channels (columns) of a block tile
 BK = 16                     # reduction chunk
 STAGES = 3                  # cp.async ring depth
+ABFT_SMEM_INTS = 256        # an armed block's partial sums (csrc/abft.cuh)
 # pooled outputs x channels one epilogue-stage block aims for
 EPILOGUE_OUTPUTS = 2048
 
@@ -60,6 +66,7 @@ class DirectPlan:
     ncb: int
     Kb: int
     nkb: int
+    checksum: bool = False  # ABFT checksum row on every weight tile
 
     @property
     def Kfull(self) -> int:
@@ -69,16 +76,19 @@ class DirectPlan:
     def weights(self) -> dma.WeightPlan:
         return dma.WeightPlan(g=self.g, nkb=self.nkb, ncb=self.ncb,
                               Cb=self.Cb, Kb=self.Kb,
-                              spatial=(self.r, self.r))
+                              spatial=(self.r, self.r),
+                              checksum=self.checksum)
 
 
 def plan(x_shape, w_shape, *, stride: int = 1, padding: str = "SAME",
          pool=None, groups: int = 1, row_block: int = 8,
          pool_row_block: int | None = None, c_block: int | None = None,
-         k_block: int = 128, batch_block: int = 8) -> DirectPlan:
+         k_block: int = 128, batch_block: int = 8,
+         checksum: bool = False) -> DirectPlan:
     """Derive the plan from shapes + static params.  The channel block
     follows the reference's rules (its row blocking sizes the input block
-    its ``auto_c_block`` budget sees), so the slab matches its slab."""
+    its ``auto_c_block`` budget sees), so the slab matches its slab; the
+    armed plan blocks as the unarmed one does, its tiles one row taller."""
     r, s, g = w_shape[0], stride, groups
     assert w_shape[0] == w_shape[1], "square filters only"
     B, H, W, Ct = x_shape
@@ -122,7 +132,8 @@ def plan(x_shape, w_shape, *, stride: int = 1, padding: str = "SAME",
     Kb = k_blocks(K, k_block)
     return DirectPlan(r=r, s=s, g=g, C=C, K=K, out_h=out_h, out_w=out_w,
                       ph_lo=ph_lo, pw_lo=pw_lo, ph_out=ph_out, pw_out=pw_out,
-                      Cb=Cb, Cp=Cp, ncb=Cp // Cb, Kb=Kb, nkb=K // Kb)
+                      Cb=Cb, Cp=Cp, ncb=Cp // Cb, Kb=Kb, nkb=K // Kb,
+                      checksum=checksum)
 
 
 def pack_weights(w, p: DirectPlan):
@@ -138,7 +149,8 @@ def conv2d_direct_plain(x, w_tiles, bias, p: DirectPlan, *, relu: bool,
                         lrn, pool):
     """The kernel's function in plain PyTorch, from its exact arguments:
     one (B*out_h*out_w, Cp) @ (Cp, K) product per filter tap and group,
-    read from the unpacked slab."""
+    read from the unpacked slab (without its checksum rows).  Armed
+    (``p.checksum``) it returns ``(y, mismatched checksum lanes)``."""
     wg = dma.unpack_weight_tiles(w_tiles, p.weights).float()
     xg, _ = grouped_channel_pad(x.float(), p.g, p.Cb)
     B, H, W, _ = x.shape
@@ -160,7 +172,8 @@ def conv2d_direct_plain(x, w_tiles, bias, p: DirectPlan, *, relu: bool,
     y = torch.cat(ys, dim=-1) + bias.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    return apply_epilogue(y, lrn, pool).contiguous()
+    y = apply_epilogue(y, lrn, pool).contiguous()
+    return (y, dma.checksum_mismatches(w_tiles)) if p.checksum else y
 
 
 def tile_cols(p: DirectPlan) -> int:
@@ -179,9 +192,11 @@ def conv_grid(p: DirectPlan, B: int) -> tuple[int, int, int]:
 def smem_bytes(p: DirectPlan) -> int:
     """Dynamic shared memory of one conv-stage block (as
     ``repro_conv_direct`` sizes it): the A ring (BM x (BK + 4) floats a
-    stage), the B ring (BK x BN) and two ints per reduction index."""
+    stage), the B ring (BK x BN), two ints per reduction index and, armed,
+    the ABFT partial sums."""
     R = p.r * p.r * p.C
-    return (STAGES * (BM * (BK + 4) + BK * tile_cols(p)) + 2 * R) * 4
+    return (STAGES * (BM * (BK + 4) + BK * tile_cols(p)) + 2 * R
+            + (ABFT_SMEM_INTS if p.checksum else 0)) * 4
 
 
 def lrn_in_conv_stage(p: DirectPlan, lrn) -> bool:
@@ -211,25 +226,30 @@ def block_tile(Kfull: int) -> int:
 
 
 def conv_args(x, p, *, relu: bool, lrn, pool, PT: int, pad: tuple,
-              out_hw: tuple) -> build.ConvArgs:
-    """The C launcher's geometry struct (shared with the Winograd wrapper)."""
+              out_hw: tuple, verdict=None) -> build.ConvArgs:
+    """The C launcher's geometry struct (shared with the Winograd wrapper);
+    ``verdict`` (armed plans) is the int32 tensor the launch adds to."""
     B, H, W, Ct = x.shape
     pwin, ps = pool if pool is not None else (1, 1)
     return build.ConvArgs(
         B=B, H=H, W=W, Ct=Ct, g=p.g, C=p.C, K=p.K, r=p.r,
         s=getattr(p, "s", 1), pad_h=pad[0], pad_w=pad[1],
         out_h=p.out_h, out_w=p.out_w, ncb=p.ncb, Cb=p.Cb, nkb=p.nkb,
-        Kb=p.Kb, relu=int(relu), lrn_n=lrn.n if lrn is not None else 0,
+        Kb=p.Kb, Cs=p.weights.tap_rows, relu=int(relu),
+        lrn_n=lrn.n if lrn is not None else 0,
         lrn_k=lrn.k if lrn is not None else 0.0,
         lrn_alpha=lrn.alpha if lrn is not None else 0.0,
         lrn_beta=lrn.beta if lrn is not None else 0.0,
-        pwin=pwin, ps=ps, ph_out=out_hw[0], pw_out=out_hw[1], PT=PT)
+        pwin=pwin, ps=ps, ph_out=out_hw[0], pw_out=out_hw[1], PT=PT,
+        verdict=verdict.data_ptr() if p.checksum else None)
 
 
-def check_cuda_inputs(name: str, x, w_tiles, bias, kfull: int):
+def check_cuda_inputs(name: str, x, w_tiles, bias, kfull: int,
+                      verdict=None):
     """Device, dtype, contiguity and bias-shape checks every CUDA wrapper
     runs before it hands raw pointers to a kernel (the plan already ties
-    the input's and the slab's shapes to the launch geometry)."""
+    the input's and the slab's shapes to the launch geometry), and of an
+    armed call's verdict: one int32 on the same device."""
     for t in (x, w_tiles, bias):
         if t.device != x.device or t.dtype != torch.float32 \
                 or not t.is_contiguous():
@@ -239,12 +259,27 @@ def check_cuda_inputs(name: str, x, w_tiles, bias, kfull: int):
     if tuple(bias.shape) != (kfull,):
         raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
                          f"({kfull},)")
+    if verdict is not None and (verdict.device != x.device
+                                or verdict.dtype != torch.int32
+                                or verdict.numel() != 1):
+        raise ValueError(f"{name}: the verdict must be one int32 on "
+                         f"{x.device}; got {verdict.dtype} "
+                         f"{tuple(verdict.shape)} on {verdict.device}")
+
+
+def new_verdict(x, verdict=None):
+    """The int32 0-dim tensor an armed call adds its count to: ``verdict``
+    when the caller passes one (a forward sums its layers into one), else
+    a fresh zero on x's device."""
+    if verdict is None:
+        return torch.zeros((), dtype=torch.int32, device=x.device)
+    return verdict
 
 
 def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
-                        pool):
+                        pool, verdict=None):
     global launches
-    check_cuda_inputs("conv_direct", x, w_tiles, bias, p.Kfull)
+    check_cuda_inputs("conv_direct", x, w_tiles, bias, p.Kfull, verdict)
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
                       dtype=torch.float32)
@@ -253,7 +288,7 @@ def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
                                               dtype=torch.float32)
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool,
                      PT=block_tile(p.Kfull), pad=(p.ph_lo, p.pw_lo),
-                     out_hw=(p.ph_out, p.pw_out))
+                     out_hw=(p.ph_out, p.pw_out), verdict=verdict)
     err = build.library().lib.repro_conv_direct(
         ctypes.byref(args), x.data_ptr(), w_tiles.data_ptr(),
         bias.data_ptr(), y.data_ptr(), out.data_ptr(),
@@ -261,7 +296,7 @@ def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "conv_direct")
     launches += 1
-    return out
+    return (out, verdict) if p.checksum else out
 
 
 def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
@@ -270,7 +305,7 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
                   pool_row_block: int | None = None,
                   c_block: int | None = None, k_block: int = 128,
                   batch_block: int = 8, weight_prefetch: bool = True,
-                  checksum: bool = False):
+                  checksum: bool = False, verdict=None):
     """x (B,H,W,C); w (r,r,C//groups,K); any r/stride/groups, fused layer
     (bias, ReLU, cross-channel LRN, VALID max-pool).
 
@@ -279,23 +314,35 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
     ``batch_block``) shape only the slab plan; both ``weight_prefetch``
     values launch the same kernel, whose cp.async ring always stages the
     weights ahead of their use.
+
+    ``checksum=True`` (ABFT) returns ``(y, verdict)``: the slab's
+    mismatched checksum lanes added to ``verdict`` (an int32 0-dim tensor;
+    a fresh zero when None).
     """
-    if checksum:
-        raise NotImplementedError(
-            "ABFT (checksum=True) is not ported yet (ROADMAP Queue 1, "
-            "item 1)")
     p = plan(tuple(x.shape), tuple(w.shape), stride=stride, padding=padding,
              pool=pool, groups=groups, row_block=row_block,
              pool_row_block=pool_row_block, c_block=c_block,
-             k_block=k_block, batch_block=batch_block)
+             k_block=k_block, batch_block=batch_block, checksum=checksum)
     w_tiles = dma.resolve_slab(w, w_packed, p.weights,
                                lambda w: pack_weights(w, p))
     bias = (torch.zeros((p.Kfull,), device=x.device, dtype=x.dtype)
             if b is None else b)
+    verdict = new_verdict(x, verdict) if checksum else None
     if x.device.type == "cpu":
-        return conv2d_direct_plain(x, w_tiles, bias, p, relu=relu, lrn=lrn,
-                                   pool=pool)
+        y = conv2d_direct_plain(x, w_tiles, bias, p, relu=relu, lrn=lrn,
+                                pool=pool)
+        return add_plain_verdict(y, verdict)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_direct: unsupported device {x.device}")
     return _conv2d_direct_cuda(x, w_tiles, bias, p, relu=relu, lrn=lrn,
-                               pool=pool)
+                               pool=pool, verdict=verdict)
+
+
+def add_plain_verdict(y, verdict):
+    """An armed plain version's ``(y, count)`` with the count added into
+    the caller's verdict (unarmed: ``y`` as it is)."""
+    if verdict is None:
+        return y
+    y, count = y
+    verdict += count
+    return y, verdict

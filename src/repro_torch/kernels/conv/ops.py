@@ -10,7 +10,9 @@
   ``pallas=False`` runs the ``F.conv2d`` oracle.
 
 ``pallas`` keeps the reference's name: it selects the hand-written-kernel
-datapath (CUDA here).
+datapath (CUDA here).  ``checksum=True`` (ABFT) makes both 2-D entries
+return ``(y, verdict)`` on every route: the kernels' count of mismatched
+checksum lanes, and a zero verdict on the routes without a slab.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from ...core import winograd as wg
 from . import direct as _d
 from . import winograd as _k
+from .direct import new_verdict
 from .ref import conv2d_ref
 
 
@@ -45,7 +48,7 @@ def conv2d(x, w, b=None, w_packed=None, *, m: int = 4, padding: str = "SAME",
            c_block: int | None = None, pool_row_block: int | None = None,
            k_block: int = 128, batch_block: int = 8,
            weight_prefetch: bool = True, checksum: bool = False,
-           pallas: bool = True):
+           verdict=None, pallas: bool = True):
     """Fused stride-1 Winograd conv layer: bias, ReLU, groups, LRN, pool."""
     if pallas:
         return _k.conv2d_winograd(x, w, b, w_packed, m=m, padding=padding,
@@ -54,12 +57,10 @@ def conv2d(x, w, b=None, w_packed=None, *, m: int = 4, padding: str = "SAME",
                                   pool_row_block=pool_row_block,
                                   k_block=k_block, batch_block=batch_block,
                                   weight_prefetch=weight_prefetch,
-                                  checksum=checksum)
-    if checksum:
-        raise NotImplementedError("ABFT is not ported yet (ROADMAP Queue 1, "
-                                  "item 1)")
-    return wg.conv2d_winograd(x, w, b, m=m, padding=padding, relu=relu,
-                              groups=groups, lrn=lrn, pool=pool)
+                                  checksum=checksum, verdict=verdict)
+    y = wg.conv2d_winograd(x, w, b, m=m, padding=padding, relu=relu,
+                           groups=groups, lrn=lrn, pool=pool)
+    return (y, new_verdict(x, verdict)) if checksum else y
 
 
 def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
@@ -67,7 +68,8 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
                   lrn=None, pool=None, c_block: int | None = None,
                   pool_row_block: int | None = None, k_block: int = 128,
                   batch_block: int = 8, weight_prefetch: bool = True,
-                  checksum: bool = False, pallas: bool = True):
+                  checksum: bool = False, verdict=None,
+                  pallas: bool = True):
     """Fused direct conv layer for any kernel/stride geometry."""
     if pallas:
         return _d.conv2d_direct(x, w, b, w_packed, stride=stride,
@@ -76,12 +78,10 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
                                 pool_row_block=pool_row_block,
                                 k_block=k_block, batch_block=batch_block,
                                 weight_prefetch=weight_prefetch,
-                                checksum=checksum)
-    if checksum:
-        raise NotImplementedError("ABFT is not ported yet (ROADMAP Queue 1, "
-                                  "item 1)")
-    return conv2d_ref(x, w, b, stride=stride, padding=padding, groups=groups,
-                      relu=relu, lrn=lrn, pool=pool)
+                                checksum=checksum, verdict=verdict)
+    y = conv2d_ref(x, w, b, stride=stride, padding=padding, groups=groups,
+                   relu=relu, lrn=lrn, pool=pool)
+    return (y, new_verdict(x, verdict)) if checksum else y
 
 
 def launch_counts() -> dict:

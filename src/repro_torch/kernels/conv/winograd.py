@@ -12,7 +12,9 @@ G w G^T-transformed filters in the tile layout) matches it.
 :func:`conv2d_winograd` runs ``csrc/conv_winograd.cu`` on a CUDA tensor —
 the unfused kernel for bias+ReLU layers, the fused kernel when LRN or a
 pool follows — and the plain PyTorch version :func:`conv2d_winograd_plain`
-on a CPU tensor.
+on a CPU tensor.  With ``checksum=True`` (ABFT) the slab carries a checksum
+row in every tile, the GEMM stage checks the whole slab once a launch, and
+the call returns ``(y, verdict)`` (see ``kernels/conv/direct.py``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from ...core.winograd import conv1d_depthwise_causal as \
 from ...nn.pooling import apply_epilogue
 from .. import build
 from . import dma
-from .direct import check_cuda_inputs, conv_args
+from .direct import ABFT_SMEM_INTS, add_plain_verdict, check_cuda_inputs, \
+    conv_args, new_verdict
 from .epilogue import batch_blocks, channel_blocks, grouped_channel_pad, \
     k_blocks
 
@@ -172,6 +175,7 @@ class WinogradPlan:
     nkb: int
     ph_out: int             # pooled rows (== out_h when no pool)
     pw_out: int
+    checksum: bool = False  # ABFT checksum row on every weight tile
 
     @property
     def n(self) -> int:
@@ -185,17 +189,19 @@ class WinogradPlan:
     def weights(self) -> dma.WeightPlan:
         return dma.WeightPlan(g=self.g, nkb=self.nkb, ncb=self.ncb,
                               Cb=self.Cb, Kb=self.Kb,
-                              spatial=(self.n, self.n))
+                              spatial=(self.n, self.n),
+                              checksum=self.checksum)
 
 
 def plan(x_shape, w_shape, *, m: int = 4, padding: str = "SAME",
          groups: int = 1, lrn=None, pool=None, row_block: int = 8,
          pool_row_block: int | None = None, c_block: int | None = None,
-         k_block: int = 128, batch_block: int = 8) -> WinogradPlan:
+         k_block: int = 128, batch_block: int = 8,
+         checksum: bool = False) -> WinogradPlan:
     """Derive the plan from shapes + static params.  The channel and K
     blocks follow the reference's rules (its row blocking sizes the input
     block its ``auto_c_block`` budget sees), so the slab matches its
-    slab."""
+    slab; the armed plan blocks as the unarmed one does."""
     r = w_shape[0]
     t = winograd_transform(m, r)
     mm = t.m
@@ -251,7 +257,7 @@ def plan(x_shape, w_shape, *, m: int = 4, padding: str = "SAME",
     return WinogradPlan(fused=fused, m=m, r=r, g=g, C=C, K=K, out_h=out_h,
                         out_w=out_w, ph_pad=ph_pad, tw=tw, Cb=Cb, Cp=Cp,
                         ncb=Cp // Cb, Kb=Kb, Kp=Kp, nkb=Kp // Kb,
-                        ph_out=ph_out, pw_out=pw_out)
+                        ph_out=ph_out, pw_out=pw_out, checksum=checksum)
 
 
 def pack_weights(w, p: WinogradPlan):
@@ -270,7 +276,9 @@ def conv2d_winograd_plain(x, w_tiles, bias, p: WinogradPlan, *, relu: bool,
                           lrn, pool):
     """The kernels' function in plain PyTorch, from their exact arguments:
     B^T d B on the padded tiles, the n^2 Winograd-domain products against
-    the unpacked slab, A^T m A, bias, ReLU, then (fused) LRN and pool."""
+    the unpacked slab (without its checksum rows), A^T m A, bias, ReLU,
+    then (fused) LRN and pool.  Armed (``p.checksum``) it returns ``(y,
+    mismatched checksum lanes)``."""
     V = dma.unpack_weight_tiles(w_tiles, p.weights).float()  # (g,n,n,Cp,Kp)
     xg, _ = grouped_channel_pad(x.float(), p.g, p.Cb)
     B, H, W, _ = x.shape
@@ -292,7 +300,8 @@ def conv2d_winograd_plain(x, w_tiles, bias, p: WinogradPlan, *, relu: bool,
     y = torch.cat(ys, dim=-1) + bias.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    return apply_epilogue(y, lrn, pool).contiguous()
+    y = apply_epilogue(y, lrn, pool).contiguous()
+    return (y, dma.checksum_mismatches(w_tiles)) if p.checksum else y
 
 
 def num_tiles(p: WinogradPlan, B: int) -> int:
@@ -321,9 +330,10 @@ def gemm_grid(p: WinogradPlan, B: int) -> tuple[int, int, int]:
 def smem_bytes(p: WinogradPlan) -> int:
     """Dynamic shared memory of one GEMM block (as ``repro_conv_winograd``
     sizes it): the A ring (BM x (BK + 4) floats a stage), the B ring
-    (BK x BN) and one int a channel of U (its slab row offset); the other
-    launches take none."""
-    return (STAGES * (BM * (BK + 4) + BK * BN) + u_channels(p)) * 4
+    (BK x BN), one int a channel of U (its slab row offset) and, armed,
+    the ABFT partial sums; the other launches take none."""
+    return (STAGES * (BM * (BK + 4) + BK * BN) + u_channels(p)
+            + (ABFT_SMEM_INTS if p.checksum else 0)) * 4
 
 
 def scratch_shapes(p: WinogradPlan, B: int, lrn, pool) -> dict:
@@ -345,13 +355,13 @@ def _mats(p: WinogradPlan) -> np.ndarray:
 
 
 def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
-                          pool):
+                          pool, verdict=None):
     global launches, fused_launches
     if (p.m, p.r) != (4, 3):
         raise NotImplementedError(
             f"the CUDA Winograd kernels implement F(4,3) only, not "
             f"F({p.m},{p.r}) (ROADMAP Queue 2, part d)")
-    check_cuda_inputs("conv_winograd", x, w_tiles, bias, p.Kfull)
+    check_cuda_inputs("conv_winograd", x, w_tiles, bias, p.Kfull, verdict)
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
                       dtype=torch.float32)
@@ -366,7 +376,8 @@ def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
     # PT = 1: an epilogue-launch block pools one output pixel's g*K
     # channels, so each thread reads one pool window
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool, PT=1,
-                     pad=(p.ph_pad, p.ph_pad), out_hw=(p.ph_out, p.pw_out))
+                     pad=(p.ph_pad, p.ph_pad), out_hw=(p.ph_out, p.pw_out),
+                     verdict=verdict)
     err = build.library().lib.repro_conv_winograd(
         ctypes.byref(args), _mats(p).ctypes.data, x.data_ptr(),
         w_tiles.data_ptr(), bias.data_ptr(), u, m, y, out.data_ptr(),
@@ -376,7 +387,7 @@ def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
         fused_launches += 1
     else:
         launches += 1
-    return out
+    return (out, verdict) if p.checksum else out
 
 
 def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
@@ -385,7 +396,7 @@ def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
                     pool_row_block: int | None = None,
                     c_block: int | None = None, k_block: int = 128,
                     batch_block: int = 8, weight_prefetch: bool = True,
-                    checksum: bool = False):
+                    checksum: bool = False, verdict=None):
     """x (B,H,W,C); w (r,r,C//groups,K); stride-1 conv via F(m,r) x F(m,r),
     fused bias, ReLU, groups and (when set) the LRN / max-pool epilogue.
 
@@ -393,23 +404,25 @@ def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
     reference's TPU knobs shape only the slab plan; both
     ``weight_prefetch`` values launch the same kernels, whose cp.async
     ring always stages the weights ahead of their use.
+
+    ``checksum=True`` (ABFT) returns ``(y, verdict)``: the slab's
+    mismatched checksum lanes added to ``verdict`` (an int32 0-dim tensor;
+    a fresh zero when None).
     """
-    if checksum:
-        raise NotImplementedError(
-            "ABFT (checksum=True) is not ported yet (ROADMAP Queue 1, "
-            "item 1)")
     p = plan(tuple(x.shape), tuple(w.shape), m=m, padding=padding,
              groups=groups, lrn=lrn, pool=pool, row_block=row_block,
              pool_row_block=pool_row_block, c_block=c_block,
-             k_block=k_block, batch_block=batch_block)
+             k_block=k_block, batch_block=batch_block, checksum=checksum)
     w_tiles = dma.resolve_slab(w, w_packed, p.weights,
                                lambda w: pack_weights(w, p))
     bias = (torch.zeros((p.Kfull,), device=x.device, dtype=x.dtype)
             if b is None else b)
+    verdict = new_verdict(x, verdict) if checksum else None
     if x.device.type == "cpu":
-        return conv2d_winograd_plain(x, w_tiles, bias, p, relu=relu,
-                                     lrn=lrn, pool=pool)
+        y = conv2d_winograd_plain(x, w_tiles, bias, p, relu=relu, lrn=lrn,
+                                  pool=pool)
+        return add_plain_verdict(y, verdict)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_winograd: unsupported device {x.device}")
     return _conv2d_winograd_cuda(x, w_tiles, bias, p, relu=relu, lrn=lrn,
-                                 pool=pool)
+                                 pool=pool, verdict=verdict)

@@ -3,7 +3,9 @@
 ``python -m repro_torch.launch.serve --arch alexnet --full --route pallas``
 serves images through :class:`CnnEngine` and reports the per-layer
 resolved datapaths, img/s and latency percentiles, and every bucket the
-engine degraded to the ``direct`` route.
+engine degraded to the ``direct`` route; ``--sdc`` arms the
+silent-data-corruption defense (ABFT checksums in the conv kernels,
+pre-dispatch slab fingerprints, a bound on |logit|).
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --full --requests 16
 --max-len 512`` serves random prompts through the token :class:`Engine`
@@ -42,8 +44,7 @@ def apply_cnn_route(cfg, route: str):
 
 def serve_images(cfg, args) -> int:
     """Serve ``args.requests`` random images; returns the completed count."""
-    for flag, item in (("sdc", "Queue 1, item 1"),
-                       ("data_parallel", "Queue 1, item 6"),
+    for flag, item in (("data_parallel", "Queue 1, item 6"),
                        ("workers", "Queue 1, item 4")):
         if getattr(args, flag, None):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not "
@@ -51,6 +52,9 @@ def serve_images(cfg, args) -> int:
     cfg = apply_cnn_route(cfg, getattr(args, "route", "auto"))
     cfg = dataclasses.replace(
         cfg, weight_prefetch=getattr(args, "prefetch", "on") == "on")
+    sdc = bool(getattr(args, "sdc", False))
+    if sdc:
+        cfg = dataclasses.replace(cfg, sdc_abft=True)
     routes = layer_routes(cfg)
     print("conv routes: " + " ".join(f"{n}={r}" for n, r in routes))
     slo_ms = getattr(args, "slo_ms", None)
@@ -58,13 +62,19 @@ def serve_images(cfg, args) -> int:
         max_batch=args.max_batch, slo_ms=slo_ms,
         dynamic_buckets=bool(slo_ms and getattr(args, "dynamic_buckets",
                                                 False)),
-        admission=bool(slo_ms and getattr(args, "admission", False)))
+        admission=bool(slo_ms and getattr(args, "admission", False)),
+        verify_slabs=sdc, screen_abs_max=1e6 if sdc else None)
     faults = None
     if getattr(args, "chaos", False):
-        faults = FaultInjector(
-            seed=derive_seed(args.seed, cfg.name),
-            specs={"launch.transient": FaultSpec(rate=0.1),
-                   "retire.nonfinite": FaultSpec(rate=0.05)})
+        specs = {"launch.transient": FaultSpec(rate=0.1),
+                 "retire.nonfinite": FaultSpec(rate=0.05)}
+        if sdc:
+            # slab bit flips and finite logit corruption against the
+            # armed defense
+            specs["slab.bitflip"] = FaultSpec(rate=0.1)
+            specs["retire.plausible"] = FaultSpec(rate=0.05, magnitude=1e8)
+        faults = FaultInjector(seed=derive_seed(args.seed, cfg.name),
+                               specs=specs)
     eng = CnnEngine(cfg, scfg, seed=args.seed, faults=faults,
                     device=getattr(args, "device", "cuda"))
     rng = np.random.default_rng(args.seed)
@@ -96,6 +106,12 @@ def serve_images(cfg, args) -> int:
           f"balanced={'yes' if acc['balanced'] else 'NO'} | "
           f"health={s['health']['state']} retried={s['images_retried']}"
           + (f" faults_fired={faults.total_fired}" if faults else ""))
+    if sdc:
+        d = s["sdc"]
+        print(f"sdc abft=on verify_slabs=on detections={d['detections']} "
+              f"slab_integrity_failures={d['slab_integrity_failures']} "
+              f"screen_nonfinite={d['screen_nonfinite']} "
+              f"screen_magnitude={d['screen_magnitude']}")
     for d in s["degradations"]:
         print(f"DEGRADED bucket {d['bucket']}: {d['from']} -> {d['to']} "
               f"after {d['failures']} {d['reason']} failures; its img/s "
@@ -153,7 +169,12 @@ def main(argv=None):
     ap.add_argument("--chaos", action="store_true",
                     help="seeded transient launch failures + non-finite "
                          "logits")
-    ap.add_argument("--sdc", action="store_true", help="not ported yet")
+    ap.add_argument("--sdc", action="store_true",
+                    help="CNN path: arm the silent-data-corruption defense "
+                         "(ABFT checksums in the conv kernels, pre-dispatch "
+                         "slab fingerprints, |logit| <= 1e6); with --chaos "
+                         "also inject slab bit flips and finite logit "
+                         "corruption")
     ap.add_argument("--data-parallel", action="store_true",
                     help="not ported yet")
     ap.add_argument("--workers", type=int, default=0, help="not ported yet")

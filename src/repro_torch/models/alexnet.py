@@ -11,6 +11,12 @@ output is flattened in NHWC order before fc6.
 (the kernels then read BFP-quantized filters), and ``fc_bfp`` runs fc6-fc8
 through the BFP matmul kernel (``csrc/bfp_matmul.cu``) on int8 weight
 streams, whatever the conv route.
+
+SDC defense: ``sdc_abft`` packs every conv slab with its ABFT checksum
+rows and runs the kernels' armed variant; the forward then returns
+``(logits, sdc)``, ``sdc`` an int32 device tensor that every layer adds
+its mismatched checksum lanes to (0: every slab intact).  It costs one
+zero-fill a forward and no host sync.
 """
 from __future__ import annotations
 
@@ -23,8 +29,8 @@ import torch
 from ..core.device import resolve_device
 from ..kernels.bfp_matmul.ops import bfp_linear, fc_block, quantize_weights
 from ..kernels.conv.dma import WeightStager
-from ..nn.conv import ConvSpec, dispatch_conv, pack_conv_weights, \
-    resolve_kernel
+from ..nn.conv import ConvSpec, dispatch_conv, expected_pack_context, \
+    pack_conv_weights, resolve_kernel
 from ..nn.module import truncated_normal
 from ..nn.pooling import LrnParams
 
@@ -48,7 +54,8 @@ class AlexNetConfig:
     fc_bfp: bool = False
     conv_bfp: bool = False
     weight_prefetch: bool = True   # same kernel either way on the port
-    sdc_abft: bool = False
+    sdc_abft: bool = False         # ABFT checksum rows on the conv slabs;
+                                   # the forward returns (logits, sdc)
     lrn_n: int = 5
     lrn_k: float = 2.0
     lrn_alpha: float = 1e-4
@@ -69,9 +76,6 @@ def check_supported(cfg: AlexNetConfig):
     if cfg.arch != "alexnet":
         raise NotImplementedError("arch='vgg' is not ported yet (ROADMAP "
                                   "Queue 1, item 3: VGG-16 and the registry)")
-    if cfg.sdc_abft:
-        raise NotImplementedError("sdc_abft is not ported yet (ROADMAP "
-                                  "Queue 1, item 1: ABFT/SDC in kernels 1-3)")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             "the port serves float32 only; bf16 image models are ROADMAP "
@@ -199,7 +203,10 @@ def pack_serving_slabs(params, cfg: AlexNetConfig, batch: int, *,
     batch repeats that pass (same values either way).  The FC streams do
     not depend on the batch, so they come from ``stager`` (a
     :class:`WeightStager` bound to ``params``) under ``"fc6"``..: one copy
-    for every batch shape packed with the same stager."""
+    for every batch shape packed with the same stager.  ``cfg.sdc_abft``
+    packs each conv slab with its checksum rows; ``fingerprint`` stamps
+    each with a :class:`~repro_torch.nn.conv.SlabFingerprint` (a host copy
+    of every slab) for the engine's pre-dispatch check."""
     check_supported(cfg)
     plans = plans or {}
     route = _route(cfg)
@@ -210,8 +217,8 @@ def pack_serving_slabs(params, cfg: AlexNetConfig, batch: int, *,
         name = f"conv{i + 1}"
         packed[name] = pack_conv_weights(
             spec, (batch, h, h, c_in), params[name]["w"],
-            bfp_pack=cfg.conv_bfp, fingerprint=fingerprint,
-            plan=plans.get(name))
+            bfp_pack=cfg.conv_bfp, abft=cfg.sdc_abft,
+            fingerprint=fingerprint, plan=plans.get(name))
         h, c_in = spec.out_hw(h), c_out
     if cfg.fc_bfp:
         stager = WeightStager() if stager is None else stager
@@ -228,24 +235,41 @@ def features(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
     ``prefetch_next`` hook packs layer N+1's slab right after layer N is
     issued (queued behind it on the stream), and conv5's hook stages fc6's
     quantized stream under ``cfg.fc_bfp``.  ``packed`` is a
-    :func:`pack_serving_slabs` dict: layers use it and skip the staging."""
+    :func:`pack_serving_slabs` dict: layers use it and skip the staging.
+
+    Under ``cfg.sdc_abft`` the return is ``(features, sdc)``: one int32
+    zero on the device that every layer's kernel adds its mismatched
+    checksum lanes to.  A verifying stager (``WeightStager(verify=True)``)
+    gets fingerprinted slabs and the pack context to expect on a hit."""
     check_supported(cfg)
     x = images.to(torch.float32)
     route = _route(cfg)
     plans = plans or {}
     specs = [s.with_route(route) for s in layer_specs(cfg)]
+    abft = cfg.sdc_abft
+    sdc = (torch.zeros((), dtype=torch.int32, device=x.device) if abft
+           else None)
+
+    def done(x):
+        flat = x.reshape(x.shape[0], -1)
+        return (flat, sdc) if abft else flat
 
     def kw(i):
         plan = plans.get(f"conv{i + 1}")
         return ({"plan": plan} if plan is not None
                 else {"weight_prefetch": cfg.weight_prefetch})
 
+    def conv(i, x, w_packed, prefetch_next=None):
+        p = params[f"conv{i + 1}"]
+        y = dispatch_conv(specs[i], x, p["w"], p["b"], w_packed=w_packed,
+                          abft=abft, verdict=sdc,
+                          prefetch_next=prefetch_next, **kw(i))
+        return y[0] if abft else y
+
     if packed is not None:
-        for i, spec in enumerate(specs):
-            p = params[f"conv{i + 1}"]
-            x = dispatch_conv(spec, x, p["w"], p["b"],
-                              w_packed=packed.get(f"conv{i + 1}"), **kw(i))
-        return x.reshape(x.shape[0], -1)
+        for i in range(len(specs)):
+            x = conv(i, x, packed.get(f"conv{i + 1}"))
+        return done(x)
 
     stager = WeightStager() if stager is None else stager
     B, shapes, h, c_in = x.shape[0], [], x.shape[1], cfg.in_channels
@@ -259,21 +283,25 @@ def features(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
         # another quantization
         plan = plans.get(f"conv{i + 1}")
         key = (f"conv{i + 1}:{shapes[i]}:{x.device}:bfp{int(cfg.conv_bfp)}"
+               f":abft{int(abft)}"
                + (f":plan{plan}" if plan is not None else ""))
+        verify = stager.verify
+        expect = (expected_pack_context(specs[i], shapes[i],
+                                        bfp_pack=cfg.conv_bfp, abft=abft,
+                                        plan=plan) if verify else None)
         return stager.stage(key, pack_conv_weights, specs[i], shapes[i],
                             params[f"conv{i + 1}"]["w"],
-                            bfp_pack=cfg.conv_bfp, plan=plan)
+                            bfp_pack=cfg.conv_bfp, abft=abft,
+                            fingerprint=verify, plan=plan, expect=expect)
 
     def stage_fc():
         stager.stage("fc6", _stage_fc, params, "fc6")
 
-    for i, spec in enumerate(specs):
-        p = params[f"conv{i + 1}"]
+    for i in range(len(specs)):
         nxt = ((lambda i=i: stage(i + 1)) if i + 1 < len(specs)
                else (stage_fc if cfg.fc_bfp else None))
-        x = dispatch_conv(spec, x, p["w"], p["b"], w_packed=stage(i),
-                          prefetch_next=nxt, **kw(i))
-    return x.reshape(x.shape[0], -1)
+        x = conv(i, x, stage(i), nxt)
+    return done(x)
 
 
 def classifier(params, cfg: AlexNetConfig, feats, *, stager=None,
@@ -304,11 +332,16 @@ def classifier(params, cfg: AlexNetConfig, feats, *, stager=None,
 @torch.no_grad()
 def apply(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
           packed=None):
-    """Full forward: images (B, H, W, C) -> logits (B, num_classes).  One
-    stager spans conv and FC, so conv5's hook can stage fc6's stream."""
+    """Full forward: images (B, H, W, C) -> logits (B, num_classes), or
+    ``(logits, sdc)`` under ``cfg.sdc_abft``.  One stager spans conv and
+    FC, so conv5's hook can stage fc6's stream."""
     stager = WeightStager() if stager is None else stager
     feats = features(params, cfg, images, stager=stager, plans=plans,
                      packed=packed)
+    if cfg.sdc_abft:
+        feats, sdc = feats
+        return classifier(params, cfg, feats, stager=stager,
+                          packed=packed), sdc
     return classifier(params, cfg, feats, stager=stager, packed=packed)
 
 

@@ -10,10 +10,16 @@ packages)
               CUDA Winograd kernels (``cuda-winograd``), everything else
               the strided direct kernel (``cuda-direct``).
 ``auto``      ``winograd`` when eligible, else ``direct``.
+
+SDC defense (the reference's): ``abft=True`` packs and runs the kernels'
+armed variant, which returns a verdict of mismatched checksum lanes;
+``fingerprint=True`` stamps a slab with a :class:`SlabFingerprint` that
+the staging paths verify before a slab reaches a kernel.
 """
 from __future__ import annotations
 
 import math
+import zlib
 from dataclasses import dataclass, replace
 
 import torch
@@ -21,7 +27,9 @@ import torch
 from ..core import bfp
 from ..core.winograd import conv2d_winograd
 from ..kernels.conv import direct as _direct_k
+from ..kernels.conv import dma as _dma
 from ..kernels.conv import winograd as _winograd_k
+from ..kernels.conv.direct import new_verdict
 from ..kernels.conv.ops import conv2d as kernel_conv2d
 from ..kernels.conv.ops import conv2d_direct as kernel_conv2d_direct
 from ..kernels.conv.ref import conv2d_ref
@@ -143,15 +151,69 @@ def resolve_kernel(spec: ConvSpec, in_hw=None) -> str:
     return "cuda-winograd" if spec.winograd_eligible else "cuda-direct"
 
 
+def _host_bytes(data):
+    """The tensor's bytes on the host (a copy from the card), any dtype."""
+    return data.detach().contiguous().cpu().view(torch.uint8).numpy()
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+@dataclass(frozen=True)
+class SlabFingerprint:
+    """Pack-time identity of one staged weight slab: shape, dtype (the
+    reference's names, ``"float32"``), a crc32 of the packed bytes, and the
+    pack context (:func:`pack_context`).  :meth:`matches` re-derives all
+    four from the live tensor, so a corrupted slab (crc), a stale one
+    (context) or a mis-shaped one is caught before it reaches a kernel.
+    The crc32 copies the slab to the host: verification is opt-in."""
+    shape: tuple
+    dtype: str
+    crc32: int
+    context: str | None = None
+
+    def matches(self, pw, *, expect=None) -> bool:
+        """Verify a packed slab (or a bare tensor) against this
+        fingerprint; ``expect`` also pins the pack context."""
+        if expect is not None and self.context != expect:
+            return False
+        data = getattr(pw, "data", pw)
+        if data is None:
+            return True
+        return (tuple(data.shape) == tuple(self.shape)
+                and _dtype_name(data.dtype) == self.dtype
+                and zlib.crc32(_host_bytes(data)) == self.crc32)
+
+
+def slab_fingerprint(data, context: str | None = None):
+    """Fingerprint one packed tensor (None -> no fingerprint)."""
+    if data is None:
+        return None
+    return SlabFingerprint(shape=tuple(data.shape),
+                           dtype=_dtype_name(data.dtype),
+                           crc32=zlib.crc32(_host_bytes(data)),
+                           context=context)
+
+
+def verify_packed(pw, *, expect: str | None = None) -> bool:
+    """True iff ``pw`` (a :class:`PackedConvWeights` or anything shaped
+    like one) carries an intact slab; without a fingerprint it passes."""
+    fp = getattr(pw, "fingerprint", None)
+    return fp is None or fp.matches(pw, expect=expect)
+
+
 @dataclass(frozen=True)
 class PackedConvWeights:
     """A staged weight slab: the resolved datapath it was packed for, the
-    packed tensor (None when the route has no packed form), and whether it
-    is §3.6 BFP-quantized (a ``bfp`` slab that misses the plan is
-    repacked quantized, never dropped)."""
+    packed tensor (None when the route has no packed form), whether it is
+    §3.6 BFP-quantized (a ``bfp`` slab that misses the plan is repacked
+    quantized, never dropped), and its optional pack-time
+    :class:`SlabFingerprint`."""
     kernel: str
     data: object
     bfp: bool = False
+    fingerprint: object = None      # SlabFingerprint | None
 
 
 def _spec_fusion(spec: ConvSpec):
@@ -161,33 +223,41 @@ def _spec_fusion(spec: ConvSpec):
 
 
 def _kernel_weight_plan(spec: ConvSpec, kernel: str, in_shape, w_shape, *,
-                        lrn, pool, knobs: ConvPlan):
-    """The plan of the resolved kernel — the one source of slab shapes."""
+                        lrn, pool, knobs: ConvPlan, abft: bool = False):
+    """The plan of the resolved kernel — the one source of slab shapes
+    (``abft`` arms the checksum row: tiles one Cb row taller)."""
     if kernel == "cuda-winograd":
         return _winograd_k.plan(in_shape, w_shape, m=spec.winograd_m,
                                 padding=spec.padding, groups=spec.groups,
                                 lrn=lrn, pool=pool, c_block=knobs.c_block,
                                 pool_row_block=knobs.pool_row_block,
                                 k_block=knobs.k_block,
-                                batch_block=knobs.batch_block)
+                                batch_block=knobs.batch_block,
+                                checksum=abft)
     return _direct_k.plan(in_shape, w_shape, stride=spec.stride,
                           padding=spec.padding, pool=pool,
                           groups=spec.groups, c_block=knobs.c_block,
                           pool_row_block=knobs.pool_row_block,
                           k_block=knobs.k_block,
-                          batch_block=knobs.batch_block)
+                          batch_block=knobs.batch_block, checksum=abft)
 
 
 def _pack_for_plan(kernel: str, w, p, bfp_pack: bool):
     """Pack (and, under ``bfp_pack``, §3.6-quantize) the slab for a derived
     plan: shared by staging and the in-dispatch repack, so the two quantize
-    alike.  Shared exponents run along each tile's Cb contraction axis."""
+    alike.  Shared exponents run along each tile's Cb contraction axis.  An
+    armed slab's checksum row must cover the final bits, so it is taken
+    off before quantizing and computed again after."""
     pack = (_winograd_k.pack_weights if kernel == "cuda-winograd"
             else _direct_k.pack_weights)
     tiles = pack(w, p)
     if bfp_pack:
+        if p.checksum:
+            tiles = tiles[..., :-1, :]
         tiles = bfp.quantize_dequantize(
             tiles, block=math.gcd(p.weights.Cb, 32), axis=-2)
+        if p.checksum:
+            tiles = _dma.append_checksum_row(tiles)
     return tiles
 
 
@@ -209,13 +279,19 @@ def pack_context(spec: ConvSpec, kernel: str, *, bfp_pack: bool,
             f":kb{knobs.k_block}:bb{knobs.batch_block}")
 
 
-def _check_unported(*, abft=False, fingerprint=False):
-    if abft:
-        _not_ported("ABFT (abft=True / sdc_abft)",
-                    "ROADMAP Queue 1, item 1: ABFT/SDC in kernels 1-3")
-    if fingerprint:
-        _not_ported("slab fingerprints",
-                    "ROADMAP Queue 1, item 1: ABFT/SDC in kernels 1-3")
+def expected_pack_context(spec: ConvSpec, in_shape, *, bfp_pack: bool = False,
+                          abft: bool = False, plan: ConvPlan | None = None,
+                          k_block=UNSET, batch_block=UNSET) -> str:
+    """The :func:`pack_context` that :func:`pack_conv_weights` would stamp
+    for these arguments, resolved the same way, so a staging path can ask
+    that a cached slab was packed as it is about to dispatch
+    (``WeightStager.stage(expect=...)``)."""
+    knobs = plan_knobs(plan, k_block=k_block, batch_block=batch_block)
+    if plan is not None and plan.route is not None:
+        spec = spec.with_route(plan.route)
+    kernel = resolve_kernel(spec, in_hw=(in_shape[1], in_shape[2]))
+    return pack_context(spec, kernel, bfp_pack=bfp_pack, abft=abft,
+                        knobs=knobs)
 
 
 def pack_conv_weights(spec: ConvSpec, in_shape, w, *, bfp_pack: bool = False,
@@ -226,8 +302,10 @@ def pack_conv_weights(spec: ConvSpec, in_shape, w, *, bfp_pack: bool = False,
     function of the spec, the input *shape* (B, H, W, C) and the filters
     (Winograd transform, group/channel blocking, tile layout).  Under
     ``bfp_pack`` the slab is §3.6 BFP-quantized: the packed tiles on the
-    kernel routes, the raw filters on the others."""
-    _check_unported(abft=abft, fingerprint=fingerprint)
+    kernel routes, the raw filters on the others.  ``abft`` packs the
+    kernels' checksum row into every tile (pass the same flag to
+    :func:`dispatch_conv`); ``fingerprint`` stamps a
+    :class:`SlabFingerprint`, whose crc32 copies the slab to the host."""
     knobs = plan_knobs(plan, k_block=k_block, batch_block=batch_block)
     if plan is not None and plan.route is not None:
         spec = spec.with_route(plan.route)
@@ -236,11 +314,15 @@ def pack_conv_weights(spec: ConvSpec, in_shape, w, *, bfp_pack: bool = False,
         lrn_p, pool = _spec_fusion(spec)
         p = _kernel_weight_plan(spec, kernel, tuple(in_shape),
                                 tuple(w.shape), lrn=lrn_p, pool=pool,
-                                knobs=knobs)
+                                knobs=knobs, abft=abft)
         data = _pack_for_plan(kernel, w, p, bfp_pack)
     else:
         data = _quantize_filters(w) if bfp_pack else None
-    return PackedConvWeights(kernel=kernel, data=data, bfp=bfp_pack)
+    ctx = pack_context(spec, kernel, bfp_pack=bfp_pack, abft=abft,
+                       knobs=knobs)
+    return PackedConvWeights(
+        kernel=kernel, data=data, bfp=bfp_pack,
+        fingerprint=slab_fingerprint(data, ctx) if fingerprint else None)
 
 
 def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
@@ -248,7 +330,7 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
                   plan: ConvPlan | None = None, weight_prefetch=UNSET,
                   k_block=UNSET, batch_block=UNSET, c_block=UNSET,
                   pool_row_block=UNSET, row_parallel=UNSET,
-                  abft: bool = False, prefetch_next=None):
+                  abft: bool = False, verdict=None, prefetch_next=None):
     """Run one conv layer per its spec.  x (B,H,W,C), w (k,k,C//g,K), b (K,).
 
     ``w_packed`` is a slab staged by :func:`pack_conv_weights`, used when it
@@ -259,8 +341,13 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     packs now — identical values).  ``prefetch_next`` is a zero-arg
     callable invoked right after the conv is issued: work it enqueues
     (packing layer N+1's slab) queues behind this layer on the stream.
+
+    ``abft=True`` runs the kernels' armed variant and returns ``(y,
+    verdict)`` on every route: the kernels add their count of mismatched
+    checksum lanes to ``verdict`` (an int32 0-dim tensor, a fresh zero when
+    None, so a forward can sum its layers into one); the routes without a
+    slab leave it as it is.  ``y`` is bit-equal to the unarmed call's.
     """
-    _check_unported(abft=abft)
     assert w.shape[0] == w.shape[1] == spec.kernel, (w.shape, spec.kernel)
     knobs = plan_knobs(plan, batch_block=batch_block, k_block=k_block,
                        c_block=c_block, pool_row_block=pool_row_block,
@@ -282,7 +369,7 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     if w_packed is not None and kernel.startswith("cuda"):
         p = _kernel_weight_plan(spec, kernel, tuple(x.shape),
                                 tuple(w.shape), lrn=lrn_p, pool=pool,
-                                knobs=knobs)
+                                knobs=knobs, abft=abft)
         want = (p.weights.n_tiles, *p.weights.tile_shape)
         if (w_packed.kernel == kernel and w_packed.data is not None
                 and tuple(w_packed.data.shape) == want):
@@ -297,7 +384,10 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
 
     kw = dict(c_block=knobs.c_block, pool_row_block=knobs.pool_row_block,
               k_block=knobs.k_block, batch_block=knobs.batch_block,
-              weight_prefetch=knobs.weight_prefetch)
+              weight_prefetch=knobs.weight_prefetch, checksum=abft,
+              verdict=verdict)
+    if abft and not kernel.startswith("cuda"):
+        verdict = new_verdict(x, verdict)
     if kernel == "direct":
         y = conv2d_ref(x, w, bias, stride=spec.stride, padding=spec.padding,
                        groups=spec.groups, relu=relu, lrn=lrn_p, pool=pool)
@@ -314,6 +404,8 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
         y = conv2d_winograd(x, w, bias, m=spec.winograd_m,
                             padding=spec.padding, relu=relu,
                             groups=spec.groups, lrn=lrn_p, pool=pool)
+    if abft and kernel.startswith("cuda"):
+        y, verdict = y
     if prefetch_next is not None:
         prefetch_next()             # stage layer N+1 behind this dispatch
     if defer_bias:
@@ -323,4 +415,4 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
         y = apply_epilogue(y, spec.lrn if spec.fuse_lrn else None,
                            (spec.pool_window, spec.pool_stride)
                            if spec.fuse_pool else None)
-    return y
+    return (y, verdict) if abft else y

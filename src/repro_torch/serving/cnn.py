@@ -25,6 +25,18 @@ a health monitor / circuit breaker, and per-bucket degradation to the
 ``direct`` route after repeated datapath failures.  The accounting
 invariant is ``submitted == completed + shed + expired`` once drained.
 
+Silent-data-corruption defense: under the model's ``sdc_abft`` every
+forward returns an ABFT verdict from the armed conv kernels, read at
+retire after the logits' copy; a positive verdict means a staged slab's
+bits changed after packing, so the batch is never served: the bucket's
+slabs are repacked from the pristine params and the group retries
+(``sdc_detections``).  ``verify_slabs`` checks the staged slabs'
+fingerprints (shape, dtype, crc32, pack context) before every dispatch
+(``slab_integrity_failures``), and ``screen_abs_max`` bounds the retired
+logits' magnitude (``screen_magnitude``).  The ``slab.bitflip``,
+``slab.stale`` and ``retire.plausible`` fault points inject what each
+catches.
+
 Only the injected launch faults and a device out-of-memory count as launch
 failures.  A kernel that fails to build or launch (``KernelError``), and
 an asynchronous device error surfacing at the logits fetch, propagate out
@@ -35,9 +47,8 @@ kernels when the engine is made.  The ``direct``-route twin a degraded
 bucket falls back to keeps ``fc_bfp`` and ``conv_bfp``: its FC layers still
 run the BFP matmul kernel, and its convolutions quantized raw filters.
 
-Not ported yet (they raise ``NotImplementedError``): ``data_parallel``,
-``verify_slabs``, the model's ``sdc_abft``, and the ``slab.bitflip`` /
-``slab.stale`` / ``retire.plausible`` fault points (ROADMAP).
+Not ported yet (it raises ``NotImplementedError``): ``data_parallel``
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from ..core.device import resolve_device
 from ..kernels import build
 from ..kernels.conv.dma import WeightStager
 from ..models import model_for
+from ..nn.conv import verify_packed
 from .clock import MONOTONIC, Clock
 from .faults import EngineCrash, FaultInjector, TransientLaunchError
 from .health import QUARANTINED, HealthMonitor
@@ -62,9 +74,6 @@ from .scheduler import DrainTimeout, LatencyTracker, SlotScheduler
 
 __all__ = ["CnnEngine", "CnnServeConfig", "ImageRequest", "bucket_sizes"]
 
-# fault points whose defenses (ABFT, slab fingerprints, magnitude screen
-# chaos) come with a later slice of the port
-_UNPORTED_FAULTS = ("slab.bitflip", "slab.stale", "retire.plausible")
 # launch failures the retry/degrade ladder handles; everything else raised
 # by a forward propagates
 _TRANSIENT_LAUNCH = (TransientLaunchError, torch.cuda.OutOfMemoryError)
@@ -91,7 +100,7 @@ class CnnServeConfig:
     cooldown_ms: float = 250.0
     degrade_threshold: int = 3
     # -- SDC defense ----------------------------------------------------
-    verify_slabs: bool = False      # not ported yet
+    verify_slabs: bool = False      # pre-dispatch slab fingerprint check
     screen_abs_max: Optional[float] = None  # |logit| bound on the screen
 
 
@@ -126,17 +135,9 @@ class _Group:
     images: object              # device tensor (bucket, H, W, C)
     host: object = None         # pinned source of an in-flight H2D copy
     logits: object = None       # device tensor once the forward is issued
+    sdc: object = None          # device int32 ABFT verdict (sdc_abft only)
     t_launch: float = 0.0
     first_compile: bool = False  # first launch of this bucket shape
-
-
-def _check_faults(faults: Optional[FaultInjector]):
-    if faults is not None:
-        armed = sorted(set(faults.specs) & set(_UNPORTED_FAULTS))
-        if armed:
-            raise NotImplementedError(
-                f"fault points {armed} are not ported yet (ROADMAP Queue 1, "
-                "item 1: ABFT/SDC in kernels 1-3)")
 
 
 class CnnEngine:
@@ -146,10 +147,6 @@ class CnnEngine:
         if scfg.data_parallel:
             raise NotImplementedError("data_parallel is not ported yet "
                                       "(ROADMAP Queue 1, item 6)")
-        if scfg.verify_slabs:
-            raise NotImplementedError("verify_slabs is not ported yet "
-                                      "(ROADMAP Queue 1, item 1)")
-        _check_faults(faults)
         self.device = resolve_device(device)
         if (cfg.use_pallas or cfg.fc_bfp) and self.device.type == "cuda":
             build.library()     # a kernel that cannot build fails here
@@ -198,6 +195,9 @@ class CnnEngine:
         self._stager = WeightStager()
         self._launched: set = set()
         self._launched_direct: set = set()
+        self._abft = bool(cfg.sdc_abft)
+        self.sdc_detections = 0
+        self.slab_integrity_failures = 0
         self.screen_nonfinite = 0
         self.screen_magnitude = 0
         self._staged: Deque[_Group] = deque()
@@ -215,6 +215,12 @@ class CnnEngine:
         self.bucket_counts: Dict[int, int] = {}
         self.shed_reasons: Dict[str, int] = {}
         self._t_serve = 0.0
+
+    def arm_faults(self, injector: Optional[FaultInjector]):
+        """Attach (or detach) a fault injector on a live engine: chaos runs
+        arm after the warm-up, so the points' opportunities count serving
+        launches."""
+        self.faults = injector
 
     # ------------------------------------------------------------------
     @property
@@ -288,7 +294,7 @@ class CnnEngine:
         if bucket not in self._packed:
             self._packed[bucket] = self.mod.pack_serving_slabs(
                 self.params, self.cfg, bucket, plans=self.plans,
-                stager=self._stager)
+                fingerprint=self.scfg.verify_slabs, stager=self._stager)
         return self._packed[bucket]
 
     def _slabs_direct(self, bucket: int):
@@ -362,6 +368,73 @@ class CnnEngine:
             self.degradations.append({
                 "bucket": bucket, "reason": kind, "failures": n,
                 "from": self._primary_route, "to": "direct"})
+
+    # -- SDC defense internals -----------------------------------------
+    @staticmethod
+    def _slab_entries(packed: dict) -> List[str]:
+        """Names of the packed conv slabs (a tensor behind a
+        ``PackedConvWeights``), sorted, so payload draws index them as the
+        reference does."""
+        return sorted(k for k, v in packed.items()
+                      if hasattr(v, "kernel")
+                      and getattr(v, "data", None) is not None)
+
+    def _inject_bitflip(self, bucket: int):
+        """``slab.bitflip`` payload: flip one bit of the bucket's staged
+        slabs — layer, byte and bit drawn from the point's payload stream
+        in that order, as the reference draws them — in a copy on the
+        device, which replaces the cache entry.  The params stay pristine,
+        so the repack after detection restores a clean slab."""
+        packed = self._slabs(bucket)
+        names = self._slab_entries(packed)
+        if not names:
+            return
+        rng = self.faults.payload_rng("slab.bitflip")
+        name = names[int(rng.integers(len(names)))]
+        pw = packed[name]
+        data = pw.data.clone()
+        flat = data.view(-1).view(torch.uint8)
+        byte = int(rng.integers(flat.numel()))
+        flat[byte] ^= 1 << int(rng.integers(8))
+        self._packed[bucket] = {
+            **packed, name: dataclasses.replace(pw, data=data)}
+
+    def _inject_stale(self, bucket: int):
+        """``slab.stale`` payload: one layer's cache entry starts serving
+        another layer's slab (its own fingerprint stays, so only the
+        fingerprint check can tell)."""
+        packed = self._slabs(bucket)
+        names = self._slab_entries(packed)
+        if len(names) < 2:
+            return
+        rng = self.faults.payload_rng("slab.stale")
+        i = int(rng.integers(len(names)))
+        victim, donor = names[i], names[(i + 1) % len(names)]
+        self._packed[bucket] = {
+            **packed, victim: dataclasses.replace(
+                packed[victim], data=packed[donor].data)}
+
+    def _slabs_intact(self, bucket: int, degraded: bool) -> bool:
+        """Pre-dispatch fingerprint check of the bucket's staged slabs (a
+        host copy of each); unfingerprinted entries pass."""
+        packed = (self._packed_direct if degraded else self._packed).get(
+            bucket)
+        if packed is None:
+            return True
+        return all(verify_packed(v) for v in packed.values()
+                   if hasattr(v, "kernel"))
+
+    def _fail_batch(self, g: _Group, kind: str, *, repack: bool = False):
+        """A datapath failure: count it, feed health and the degradation
+        ladder, optionally drop the bucket's staged slabs (the retry
+        repacks from the pristine params), re-queue the group."""
+        self.batches_failed += 1
+        self.health.record_failure(kind)
+        self._note_datapath_failure(g.bucket, kind)
+        if repack:
+            self._packed.pop(g.bucket, None)
+            self._packed_direct.pop(g.bucket, None)
+        self._requeue_group(g)
 
     def _screen(self, logits: np.ndarray) -> np.ndarray:
         """Sampled screen on retired logits: True = row may be served
@@ -457,6 +530,19 @@ class CnnEngine:
         degraded = g.bucket in self._degraded
         launched = self._launched_direct if degraded else self._launched
         g.first_compile = g.bucket not in launched
+        # slab chaos on the primary route's staged slabs, then the
+        # pre-dispatch fingerprint gate: a corrupted or stale slab never
+        # reaches a forward
+        if self.faults is not None and not degraded:
+            if self.faults.fire("slab.bitflip"):
+                self._inject_bitflip(g.bucket)
+            if self.faults.fire("slab.stale"):
+                self._inject_stale(g.bucket)
+        if (self.scfg.verify_slabs
+                and not self._slabs_intact(g.bucket, degraded)):
+            self.slab_integrity_failures += 1
+            self._fail_batch(g, "slab", repack=True)
+            return
         g.t_launch = self.clock.now()
         try:
             if self.faults is not None:
@@ -467,6 +553,8 @@ class CnnEngine:
                         "injected transient launch failure "
                         "(RESOURCE_EXHAUSTED)")
             g.logits = self._forward(g, degraded)
+            if self._abft:
+                g.logits, g.sdc = g.logits
         except EngineCrash as e:
             self.batches_failed += 1
             self.health.force_quarantine(f"crash: {e}")
@@ -492,6 +580,14 @@ class CnnEngine:
         # CUDA context unusable, so no retry or route could serve the group
         logits = g.logits.cpu().numpy()[: len(g.reqs)]
         g.host = None
+        # the ABFT verdict, read after the logits' copy (its kernels ran
+        # before the FC layers, so this adds no wait): a positive count
+        # taints the whole batch, which is never served; the retry repacks
+        # the bucket's slabs from the pristine params
+        if g.sdc is not None and int(g.sdc) > 0:
+            self.sdc_detections += 1
+            self._fail_batch(g, "sdc", repack=True)
+            return
         if self.faults is not None:
             spec = self.faults.fire("retire.latency")
             if spec is not None and spec.delay_ms:
@@ -499,6 +595,14 @@ class CnnEngine:
             if self.faults.fire("retire.nonfinite"):
                 logits = np.array(logits)
                 logits[0] = np.nan
+            spec = self.faults.fire("retire.plausible")
+            if spec is not None:
+                # finite corruption that passes the isfinite screen; only
+                # screen_abs_max catches it
+                logits = np.array(logits)
+                rng = self.faults.payload_rng("retire.plausible")
+                row = int(rng.integers(len(logits)))
+                logits[row] = logits[row] + (spec.magnitude or 1e8)
         ok = self._screen(logits)
         now = self.clock.now()
         slo_s = (self.scfg.slo_ms or 0.0) / 1e3
@@ -614,6 +718,8 @@ class CnnEngine:
         self.batches_failed = 0
         self.bucket_counts = {}
         self.shed_reasons = {}
+        self.sdc_detections = 0
+        self.slab_integrity_failures = 0
         self.screen_nonfinite = 0
         self.screen_magnitude = 0
         self._t_serve = 0.0
@@ -674,5 +780,13 @@ class CnnEngine:
             "degraded_buckets": sorted(self._degraded),
             "degradations": list(self.degradations),
             "faults": self.faults.summary() if self.faults else None,
+            "sdc": {
+                "abft_armed": self._abft,
+                "verify_slabs": self.scfg.verify_slabs,
+                "detections": self.sdc_detections,
+                "slab_integrity_failures": self.slab_integrity_failures,
+                "screen_nonfinite": self.screen_nonfinite,
+                "screen_magnitude": self.screen_magnitude,
+            },
             "accounting": self.accounting(),
         }

@@ -145,8 +145,7 @@ def test_packed_and_staged_forwards_are_bit_equal(reduced):
     assert stager.misses == 5 and stager.hits >= 5
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(sdc_abft=True), "ABFT"), (dict(arch="vgg"), "VGG")])
+@pytest.mark.parametrize("change,match", [(dict(arch="vgg"), "VGG")])
 def test_unported_config_features_raise(change, match):
     cfg = dataclasses.replace(get_config("alexnet").reduced(), **change)
     with pytest.raises(NotImplementedError, match=match):

@@ -280,15 +280,11 @@ def test_resolve_kernel_names():
 def test_unported_options_raise():
     x, w, b = _t(*_layer_inputs(dict(kernel=3), 9, 6, 8))
     spec = t_conv.ConvSpec(kernel=3, route="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_conv.dispatch_conv(spec, x, w, b, abft=True)
     # conv_bfp is ported: the slab packs BFP-quantized and is marked so
     slab = t_conv.pack_conv_weights(spec, tuple(x.shape), w, bfp_pack=True)
     assert slab.bfp and slab.kernel == "cuda-winograd"
     assert not torch.equal(
         slab.data, t_conv.pack_conv_weights(spec, tuple(x.shape), w).data)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_conv.pack_conv_weights(spec, tuple(x.shape), w, fingerprint=True)
 
 
 @pytest.mark.parametrize("where", ["dispatch", "plan"])

@@ -32,7 +32,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bfp_matmul import bfp_matmul as bfp  # noqa: E402
 from repro_torch.kernels.bfp_matmul import ops as bfp_ops  # noqa: E402
-from repro_torch.kernels.conv import direct, ops, winograd  # noqa: E402
+from repro_torch.kernels.conv import direct, dma, ops, winograd  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attn.ref import \
@@ -287,6 +287,131 @@ def test_kernel_blocking_is_bit_equal(card, kind):
     torch.cuda.synchronize()
     assert torch.equal(base, other)
     assert torch.equal(base, no_prefetch)
+
+
+# ABFT: (kind, name, kw, r, B, H, c_in, c_out) at the five reduced AlexNet
+# geometries and at full width, and slabs whose Kb is not a multiple of 4
+# (4-byte copies)
+ABFT_CASES = (
+    [("direct",) + c for c in DIRECT_CASES[:4]]
+    + [("direct", "g2_kb10_c3", dict(groups=2, lrn=LRN, pool=POOL), 3, 2, 9,
+        6, 20)]
+    + [("winograd", n, kw, 3, B, H, ci, co)
+       for n, kw, B, H, ci, co in WINO_CASES[:6] + WINO_CASES[-1:]])
+
+
+def _armed(kind, name, kw, r, B, H, c_in, c_out, seed=11, bfp=False):
+    """(conv entry, x, w, b, armed slab, plan) on the CPU: the slab packed
+    with its checksum rows (quantized and checksummed again under
+    ``bfp``, as ``nn.conv.pack_conv_weights`` packs a ``conv_bfp`` slab)."""
+    from repro_torch.core import bfp as core_bfp
+    x, w, b = (torch.from_numpy(a) for a in _inputs(
+        seed, B, H, c_in, c_out, r, kw.get("groups", 1)))
+    mod = direct if kind == "direct" else winograd
+    p = mod.plan(tuple(x.shape), tuple(w.shape), checksum=True, **{
+        k: v for k, v in kw.items() if k != "lrn" or mod is winograd})
+    slab = mod.pack_weights(w, p)
+    if bfp:
+        rows = core_bfp.quantize_dequantize(
+            slab[..., :-1, :], block=np.gcd(p.Cb, 32), axis=-2)
+        slab = dma.append_checksum_row(rows)
+    fn = mod.conv2d_direct if kind == "direct" else mod.conv2d_winograd
+    return fn, x, w, b, slab, p
+
+
+def _flip_bits(slab, bits):
+    flat = slab.clone().contiguous().view(-1).view(torch.uint8)
+    for bit in bits:
+        flat[bit // 8] ^= 1 << (bit % 8)
+    return flat.view(slab.dtype).view(slab.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name,kw,r,B,H,c_in,c_out", ABFT_CASES)
+def test_armed_kernel_bit_equal_to_unarmed(card, kind, name, kw, r, B, H,
+                                           c_in, c_out):
+    """The armed instantiation reads the same Cb rows: its output is the
+    unarmed kernel's bit for bit, with verdict 0 on a clean slab, and one
+    launch a call."""
+    fn, x, w, b, slab, p = _armed(kind, name, kw, r, B, H, c_in, c_out)
+    xc, wc, bc = x.to(card), w.to(card), b.to(card)
+    plain_slab = dma.pack_weight_tiles(
+        dma.unpack_weight_tiles(slab, p.weights),
+        dataclasses.replace(p.weights, checksum=False))
+    base = fn(xc, wc, bc, plain_slab.to(card), relu=True, **kw)
+    before = sum(ops.launch_counts().values())
+    y, v = fn(xc, wc, bc, slab.to(card), relu=True, checksum=True, **kw)
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == before + 1
+    assert torch.equal(y, base) and int(v) == 0
+    ref, v_ref = fn(x, w, b, slab, relu=True, checksum=True, **kw)
+    assert int(v_ref) == 0
+    _close(y.cpu().numpy(), ref.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bfp", [False, True], ids=["f32", "bfp"])
+@pytest.mark.parametrize("kind,name,kw,r,B,H,c_in,c_out", ABFT_CASES)
+def test_armed_verdict_equals_plain_for_seeded_flips(card, kind, name, kw, r,
+                                                     B, H, c_in, c_out, bfp):
+    """Seeded flips anywhere in the slab (single ones, each in a checksum
+    row and in the last tile, and slabs of several flips): the kernel's
+    verdict is the plain version's count, exactly, and above 0."""
+    fn, x, w, b, slab, p = _armed(kind, name, kw, r, B, H, c_in, c_out,
+                                  bfp=bfp)
+    xc, wc, bc = x.to(card), w.to(card), b.to(card)
+    nbits = slab.numel() * 32
+    rng = np.random.default_rng(
+        [[c[1] for c in ABFT_CASES].index(name), int(bfp)])
+    row = 32 * p.Cb * p.Kb                  # tile 0's first checksum row
+    flips = [[int(v)] for v in rng.integers(0, nbits, size=8)]
+    flips += [[row + 7], [nbits - 1], [int(v) for v in rng.integers(
+        0, nbits, size=5)]]
+    for bits in flips:
+        bad = _flip_bits(slab, bits)
+        _, v = fn(xc, wc, bc, bad.to(card), relu=True, checksum=True, **kw)
+        want = int(dma.checksum_mismatches(bad))
+        assert int(v) == want > 0, (bits, int(v), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name,kw,r,B,H,c_in,c_out",
+                         [c for c in ABFT_CASES if c[1].endswith("_full")])
+def test_armed_kernel_two_calls_bit_equal(card, kind, name, kw, r, B, H,
+                                          c_in, c_out):
+    """Two armed calls on a flipped slab: the same output bits and the
+    same verdict (a block adds its count with one integer atomicAdd)."""
+    fn, x, w, b, slab, _ = _armed(kind, name, kw, r, B, H, c_in, c_out)
+    bad = _flip_bits(slab, [3, 32 * 1000 + 9, slab.numel() * 32 - 2])
+    want = int(dma.checksum_mismatches(bad))
+    xc, wc, bc, bad = x.to(card), w.to(card), b.to(card), bad.to(card)
+    y1, v1 = fn(xc, wc, bc, bad, relu=True, checksum=True, **kw)
+    y2, v2 = fn(xc, wc, bc, bad, relu=True, checksum=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and int(v1) == int(v2) == want == 3
+
+
+@pytest.mark.cuda
+def test_armed_forward_sums_layers_into_one_verdict(card):
+    """The armed AlexNet forward on the card: one int32 verdict for the
+    five layers, 0 when clean (logits bit-equal to unarmed), the flipped
+    layer's count otherwise."""
+    cfg = dataclasses.replace(get_config("alexnet").reduced(),
+                              use_pallas=True, sdc_abft=True)
+    params = alexnet.init(0, cfg, device=card)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 67, 67, 3)).astype(np.float32)).to(card)
+    packed = alexnet.pack_serving_slabs(params, cfg, 2)
+    plain = alexnet.apply(params, dataclasses.replace(cfg, sdc_abft=False),
+                          x)
+    logits, sdc = alexnet.apply(params, cfg, x, packed=packed)
+    assert torch.equal(logits, plain) and int(sdc) == 0
+    bad = dict(packed)
+    for name in ("conv2", "conv5"):
+        pw = packed[name]
+        bad[name] = dataclasses.replace(pw, data=_flip_bits(pw.data, [100]))
+    _, sdc = alexnet.apply(params, cfg, x, packed=bad)
+    assert int(sdc) == 2
 
 
 class _FailingLib:

@@ -264,9 +264,7 @@ def test_export_state_is_numpy(served):
     assert all(torch.equal(back[n]["w"], params[n]["w"]) for n in params)
 
 
-@pytest.mark.parametrize("scfg,faults", [
-    (dict(data_parallel=True), None), (dict(verify_slabs=True), None),
-    ({}, {"slab.bitflip": FaultSpec(rate=1.0)})])
+@pytest.mark.parametrize("scfg,faults", [(dict(data_parallel=True), None)])
 def test_unported_engine_options_raise(served, scfg, faults):
     cfg, params = served
     inj = FaultInjector(0, faults) if faults else None

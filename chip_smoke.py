@@ -40,6 +40,17 @@ Phases:
                completed), verify (a flipped and a stale slab caught by
                their fingerprints before dispatch) and plausible (a finite
                1e8 logit offset screened); one ``sdc:`` line each;
+  4c. autotune — the measured autotuner (``core/autotune.py``) over conv1-5
+               at full width, batch 8, f32: every candidate block tile's
+               output bit-equal to the default plan's, the armed kernel at
+               each winning tile bit-equal to the unarmed default with
+               verdict 0, tuned <= default device time in every layer;
+               the cache written to a temporary file and 16 requests served
+               through ``CnnEngine`` with it and with no plans, logits
+               bit-equal and ``tuned_layers`` naming every layer with a
+               hit; the reference's ``results/plans/alexnet.json`` loads no
+               plan on the card; one ``autotune:`` line a layer (default
+               and tuned ms, winning tile, candidates);
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
                (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), the latter also with skewed lengths
@@ -162,6 +173,11 @@ ABFT_FLIPS = 32
 SDC_SEED = 0
 ARRIVALS = (1, 3, 8, 5, 2, 7, 6)   # 32 requests in mixed group sizes
 TIMING_ITERS = 20
+# the autotune phase: candidates a layer, timed calls a candidate (their
+# median decides), requests served with and without the tuned plans
+AUTOTUNE_BUDGET = 8
+AUTOTUNE_ITERS = 10
+AUTOTUNE_REQUESTS = 16
 
 
 class CheckFailed(RuntimeError):
@@ -182,42 +198,19 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, iters=TIMING_ITERS):
-    """(device ms, host ms) of one call, each the mean over ``iters``.
-
-    Device: CUDA events around each call, with the 50 MB L2 flushed before
-    each (a serving forward finds every layer's weights evicted by the
-    others) by reading 64 MB: a read leaves clean lines, so the timed call
-    does not pay for writing a flush buffer back to memory.  A spin kernel
-    queued ahead of the start event keeps the card busy while the host
-    enqueues the call, so the events bracket the call's device work and
-    not the Python that launches it.  Host: the
-    time the call takes to return, i.e. to enqueue its work."""
-    flush = torch.zeros(64 * 2 ** 20 // 4, device="cuda")
-    enqueue = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        enqueue.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    # spin for three times the slowest warm enqueue and at least 5 ms, at
-    # up to 2 GHz: a call the host is slow to enqueue must not leave the
-    # card idle inside the events
-    cycles = int(max(3 * max(enqueue[1:]), 5e-3) * 2e9)
-    total = host = 0.0
+    """(device ms, host ms) of one call, each the mean over ``iters``
+    samples of ``repro_torch.core.timing.CudaSampler``: device time by CUDA
+    events around the call, the L2 flushed by a 64 MB read and a spin
+    kernel queued ahead of the start event before each; host time, what
+    the call takes to return (to enqueue its work)."""
+    from repro_torch.core.timing import CudaSampler
+    sampler = CudaSampler(fn)
+    device = host = 0.0
     for _ in range(iters):
-        flush.sum()
-        torch.cuda._sleep(cycles)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        fn()
-        host += time.perf_counter() - t0
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters, host / iters * 1e3
+        d, h = sampler.sample()
+        device += d
+        host += h
+    return device / iters / 1e3, host / iters / 1e3
 
 
 def layer_cases(torch, np, cfg, params):
@@ -896,6 +889,129 @@ def phase_sdc(torch, np, cfg, params, rows):
     return {"layers": layers, "clean": clean, "bitflip": bitflip,
             "verify": verify, "plausible": plausible, "seconds": seconds,
             "launches": counts}
+
+
+def phase_autotune(torch, np, cfg, params):
+    """The measured autotuner at full width on the card (batch 8, f32)."""
+    import tempfile
+    from repro_torch.core import autotune
+    from repro_torch.models import alexnet
+    from repro_torch.nn.conv import ConvPlan, dispatch_conv, \
+        pack_conv_weights
+    from repro_torch.serving import CnnEngine, CnnServeConfig, ImageRequest
+    t0 = time.perf_counter()
+    card = card_line()
+    cache = autotune.PlanCache()
+    results = autotune.autotune_alexnet(
+        cfg, BATCH, device="cuda", iters=AUTOTUNE_ITERS,
+        max_candidates=AUTOTUNE_BUDGET, check_equal=True, cache=cache)
+    tune_s = time.perf_counter() - t0
+    by_layer = {r["layer"]: r for r in results}
+    layers = []
+    for kname, layer, spec, x, w, b, _, _ in layer_cases(
+            torch, np, cfg, params):
+        r = by_layer[layer]
+        check(r["tuned_us"] <= r["default_us"],
+              f"autotune {layer}: tuned {r['tuned_us']} us > default "
+              f"{r['default_us']} us")
+        plan = ConvPlan.from_dict(r["plan"])
+        shape = tuple(x.shape)
+        w_def = pack_conv_weights(spec, shape, w)
+        w_tuned = pack_conv_weights(spec, shape, w, plan=plan)
+        y_def = dispatch_conv(spec, x, w, b, w_packed=w_def)
+        y_arm, v_arm = dispatch_conv(
+            spec, x, w, b, plan=plan, abft=True,
+            w_packed=pack_conv_weights(spec, shape, w, abft=True, plan=plan))
+        _, v_def = dispatch_conv(
+            spec, x, w, b, abft=True,
+            w_packed=pack_conv_weights(spec, shape, w, abft=True))
+        check(autotune.bit_equal(y_def, y_arm),
+              f"autotune {layer}: the armed kernel at tile {r['tile']} is "
+              f"not bit-equal to the unarmed default")
+        check(int(v_arm) == 0 and int(v_def) == 0,
+              f"autotune {layer}: verdict {int(v_arm)} at tile {r['tile']}, "
+              f"{int(v_def)} at the default tile, on a clean slab")
+        default_ms, _ = time_ms(torch, lambda: dispatch_conv(
+            spec, x, w, b, w_packed=w_def))
+        tuned_ms, _ = time_ms(torch, lambda: dispatch_conv(
+            spec, x, w, b, w_packed=w_tuned, plan=plan))
+        layers.append({"layer": layer, "kernel": kname,
+                       "default_tile": r["default_tile"], "tile": r["tile"],
+                       "candidates": r["candidates"],
+                       "default_us": r["default_us"],
+                       "tuned_us": r["tuned_us"], "steady": r["steady"],
+                       "default_ms": default_ms, "tuned_ms": tuned_ms,
+                       "rows": r["rows"]})
+        print(f"autotune: {layer} ({kname}) default {default_ms:.4f} ms "
+              f"(tile {r['default_tile']}) tuned {tuned_ms:.4f} ms (tile "
+              f"{r['tile']}) | sweep medians {r['default_us']:.2f} -> "
+              f"{r['tuned_us']:.2f} us over {r['candidates']} candidates, "
+              f"steady {r['steady']} | armed at the tile: bit-equal, "
+              f"verdict 0 | on {card}")
+
+    rng = np.random.default_rng(2)
+    images = [rng.standard_normal((cfg.image_size, cfg.image_size,
+                                   cfg.in_channels)).astype(np.float32)
+              for _ in range(AUTOTUNE_REQUESTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = cache.save(os.path.join(tmp, "alexnet_torch.json"))
+        empty = autotune.PlanCache().save(os.path.join(tmp, "empty.json"))
+        hits = sorted(alexnet.load_tuned_plans(cfg, BATCH, path=path,
+                                                  device="cuda"))
+        tuned, untuned = (CnnEngine(cfg, CnnServeConfig(
+            max_batch=BATCH, plan_cache=p), params=params, device="cuda")
+            for p in (path, empty))
+
+    def requests(n):
+        return [ImageRequest(image=rng.standard_normal(
+            (cfg.image_size, cfg.image_size, cfg.in_channels)).astype(
+                np.float32)) for _ in range(n)]
+
+    served = {}
+    for name, eng in (("tuned", tuned), ("untuned", untuned)):
+        warm_buckets(eng, requests)
+        reqs = [ImageRequest(image=im) for im in images]
+        reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        served[name] = (reqs, launch_counts(), eng.stats())
+    (rs_t, counts, stats_t), (rs_u, _, stats_u) = (served["tuned"],
+                                                   served["untuned"])
+    check(all(r.done for r in rs_t + rs_u), "autotune: a request did not "
+          "complete")
+    check(all(np.array_equal(a.logits.view(np.int32), b.logits.view(np.int32))
+              for a, b in zip(rs_t, rs_u)),
+          "autotune: the tuned engine's logits are not bit-equal to the "
+          "untuned engine's")
+    check(stats_t["tuned_layers"] == hits == [f"conv{i}" for i in
+                                              range(1, 6)]
+          and stats_u["tuned_layers"] == [],
+          f"autotune: tuned_layers {stats_t['tuned_layers']} / "
+          f"{stats_u['tuned_layers']}, cache hits {hits}")
+    nb = stats_t["batches_run"]
+    for k, n in (("conv_direct", 2), ("conv_winograd", 2),
+                 ("conv_winograd_fused", 1)):
+        check(counts[k] == n * nb, f"autotune serve: {k} {counts[k]} "
+              f"launches for {nb} batches, expected {n} a forward")
+    ref_cache = os.path.join(ROOT, "results", "plans", "alexnet.json")
+    ref_plans = alexnet.load_tuned_plans(cfg, BATCH, path=ref_cache,
+                                         device="cuda")
+    check(ref_plans == {}, f"autotune: the reference's cache gives plans "
+          f"on the card: {sorted(ref_plans)}")
+    committed = sorted(alexnet.load_tuned_plans(cfg, BATCH, device="cuda"))
+    backend = autotune.backend_kind("cuda")
+    phase_s = time.perf_counter() - t0
+    print(f"autotune: {AUTOTUNE_REQUESTS} requests served tuned and "
+          f"untuned, logits bit-equal, tuned_layers {stats_t['tuned_layers']}"
+          f" | the reference's cache: 0 plans on the card | the committed "
+          f"cache: {len(committed)} plans for {backend} | "
+          f"sweep {tune_s:.1f} s, phase {phase_s:.1f} s")
+    return {"layers": layers, "backend": backend,
+            "launches": counts, "tuned_layers": stats_t["tuned_layers"],
+            "reference_cache_plans": len(ref_plans),
+            "committed_cache_plans": committed, "sweep_s": tune_s,
+            "phase_s": phase_s}
 
 
 def phase_decode(torch, np):
@@ -1699,6 +1815,7 @@ def main(argv=None) -> int:
     serves = {"f32": phase_serve(torch, np, cfg, params),
               "bfp": phase_serve(torch, np, cfg_bfp, params, cfg_f32=cfg)}
     sdc = phase_sdc(torch, np, cfg, params, rows)
+    tuned = phase_autotune(torch, np, cfg, params)
     del params
     torch.cuda.empty_cache()
     rows["decode_attn"] = phase_decode(torch, np)
@@ -1708,7 +1825,8 @@ def main(argv=None) -> int:
     mamba = phase_mamba(torch, np)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
-             "sdc": sdc["launches"], "lm": lm_serve["launches"],
+             "sdc": sdc["launches"], "autotune": tuned["launches"],
+             "lm": lm_serve["launches"],
              "mamba": mamba["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
@@ -1753,6 +1871,11 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": bound_by, "library_ms": row["library_ms"], **extra}
+        tuned_layers = [t for t in tuned["layers"] if t["kernel"] == kname]
+        if tuned_layers:
+            entry["tuned_ms"] = sum(t["tuned_ms"] for t in tuned_layers)
+            entry["tuned_tiles"] = {t["layer"]: t["tile"]
+                                    for t in tuned_layers}
         if kname in rows_bfp_slabs:
             entry["max_abs_err_bfp_slabs"] = \
                 rows_bfp_slabs[kname]["max_abs_err"]
@@ -1790,7 +1913,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "serve": serves,
-                       "sdc": sdc,
+                       "sdc": sdc, "autotune": tuned,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()

@@ -15,10 +15,8 @@
 // 1. The conv stage is an implicit GEMM per group: rows M are the conv
 //    pixels (b, oy, ox), columns N the group's K output channels, and the
 //    reduction runs over the r*r*C taps in the order (di, dj, c), c
-//    fastest.  A block of 256 threads owns a 64 x BN tile of one group
-//    (BN = 64 or 96, whichever pads K less: conv1 379 blocks of 64 x 96,
-//    conv2 368 of 64 x 64; three blocks an SM, so either is one wave of
-//    the 132 SMs), and walks the reduction in chunks of 16
+//    fastest.  A block of 256 threads owns a BM x BN tile of one group
+//    and walks the reduction in chunks of 16
 //    through a 3-stage cp.async ring in shared memory: A is an im2col
 //    gather from NHWC x (4-byte copies, or 16-byte ones where C is a
 //    multiple of 4; taps outside the input are zero-filled by the copy),
@@ -26,9 +24,14 @@
 //    16-byte copies where Kb is a multiple of 4).  A per-block table in
 //    shared memory maps each reduction index to its (di, dj, c) and slab
 //    offset, so the gather does no division.  Each thread holds a
-//    4 x (BN / 16) register tile and reads shared memory as float4 (float2
-//    for 96 columns); a warp's reads take one wavefront each, and per 4
-//    reduction steps 8 loads feed 64 (BN = 64) or 96 FMAs.  Bias
+//    (BM / 16) x (BN / 16) register tile and reads shared memory as float4
+//    (float2 for 96 columns); a warp's reads take one wavefront each.
+//    The default tile is 64 x BN, BN = 64 or 96, whichever pads K less
+//    (conv1 379 blocks of 64 x 96, conv2 368 of 64 x 64; three blocks an
+//    SM, so either is one wave of the 132 SMs).  The launcher is also
+//    built for 64 x 128, 128 x 64 and 128 x 96 tiles (two blocks an SM,
+//    16-byte slab copies only), which the measured autotuner
+//    (core/autotune.py) may pick per layer.  Bias
 //    and ReLU (epilogue.cuh) are applied in registers and y (B, out_h,
 //    out_w, g*K) is written once; it stays in the 50 MB L2 for the second
 //    launch, as the TPU kernel kept y in VMEM.  Where one tile holds all
@@ -50,7 +53,9 @@
 // c) in ascending order; zero-filled taps (padding, the ragged reduction
 // tail) are FMA'd, not skipped, so a NaN weight poisons as in the plain
 // version.  No TF32, no atomics, no split-K: the result is deterministic
-// and does not depend on the tiling or the slab's blocking.
+// and does not depend on the tiling or the slab's blocking, so the block
+// tile is a knob that cannot change the bits.  The LRN takes the same
+// values and calls the same lrn_at in either stage.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,18 +67,23 @@
 namespace {
 
 constexpr int kThreads = 256;    // 16 x 16 threads over a block tile
-constexpr int kTM = 4;           // rows per thread
-constexpr int kBM = 16 * kTM;    // conv pixels (rows) of a block tile
 constexpr int kBK = 16;          // reduction chunk
 constexpr int kStages = 3;       // cp.async ring depth
 constexpr int kApad = kBK + 4;   // A row stride in shared memory (floats)
 
-// Shared memory of one conv-stage block of BN = 16 tn columns: the A and B
-// rings (which also hold the kBM x BN conv tile for an LRN in this stage),
-// the two per-reduction-index tables and, armed, the ABFT partial sums.
-size_t gemm_smem_bytes(int tn, int R, bool armed) {
-  return ((size_t)kStages * (kBM * kApad + kBK * 16 * tn) + 2 * (size_t)R
-          + (armed ? kAbftSmemInts : 0)) * sizeof(float);
+// Shared memory of one conv-stage block of BM = 16 tm rows and BN = 16 tn
+// columns: the A and B rings (which also hold the BM x BN conv tile for an
+// LRN in this stage), the two per-reduction-index tables and, armed, the
+// ABFT partial sums.
+size_t gemm_smem_bytes(int tm, int tn, int R, bool armed) {
+  return ((size_t)kStages * (16 * tm * kApad + kBK * 16 * tn)
+          + 2 * (size_t)R + (armed ? kAbftSmemInts : 0)) * sizeof(float);
+}
+
+// Blocks an SM the register budget is set for: three for the default
+// tiles (80 registers), two for the larger ones (128).
+__host__ __device__ constexpr int min_blocks(int tm, int tn) {
+  return tm * tn > 24 ? 2 : 3;
 }
 
 // Whether the conv stage applies the LRN itself: one block tile holds all
@@ -83,25 +93,30 @@ __host__ __device__ __forceinline__ bool lrn_in_gemm(const ConvArgs& a,
   return a.lrn_n && a.g == 1 && a.K <= bn;
 }
 
-// Grid (ceil(M / kBM), ceil(K / BN), g), BN = 16 TN.  VA / VB: 16-byte
-// copies of A / B; ARMED: check the slab's checksum rows (abft.cuh).  Held
-// to 80 registers, so three blocks share an SM and a grid of up to 396
-// blocks fills one wave.
-template <int TN, bool VA, bool VB, bool ARMED>
-__global__ void __launch_bounds__(kThreads, 3)
+// Grid (ceil(M / BM), ceil(K / BN), g), BM = 16 TM, BN = 16 TN.  VA / VB:
+// 16-byte copies of A / B; ARMED: check the slab's checksum rows
+// (abft.cuh).  The default tiles are held to 80 registers, so three blocks
+// share an SM and a grid of up to 396 blocks fills one wave.
+template <int TM, int TN, bool VA, bool VB, bool ARMED>
+__global__ void __launch_bounds__(kThreads, min_blocks(TM, TN))
 conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
                  const float* __restrict__ slab,
                  const float* __restrict__ bias, float* __restrict__ y) {
+  constexpr int BM = 16 * TM;
   constexpr int BN = 16 * TN;
+  static_assert(BM * kBK / (VA ? 4 : 1) % kThreads == 0,
+                "every thread makes the same number of A copies");
+  static_assert(BM * BN <= kStages * (BM * kApad + kBK * BN),
+                "the rings hold the conv tile of an LRN in this stage");
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                               // kStages x kBM x kApad
-  float* Bs = As + kStages * kBM * kApad;         // kStages x kBK x BN
+  float* As = smem;                               // kStages x BM x kApad
+  float* Bs = As + kStages * BM * kApad;          // kStages x kBK x BN
   const int R = a.r * a.r * a.C;
   int* xtap = (int*)(Bs + kStages * kBK * BN);    // (di << 24 | dj << 16 | c)
   int* wrow = xtap + R;                           // slab offset of row k
   const int M = a.B * a.out_h * a.out_w;
   const int grp = blockIdx.z;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int t = threadIdx.x;
   const size_t tile_elems = (size_t)a.r * a.r * a.Cs * a.Kb;
 
@@ -113,7 +128,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
   }
 
   // the A row this thread gathers: one conv pixel for the whole reduction
-  const int arow = t % kBM;
+  const int arow = t % BM;
   const int m = m0 + arow;
   const bool mvalid = m < M;
   const int hw = a.out_h * a.out_w;
@@ -140,11 +155,11 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
   __syncthreads();
 
   auto load_chunk = [&](int stage, int k0) {
-    float* as = As + stage * kBM * kApad + arow * kApad;
-    constexpr int kAPer = kBM * kBK / (VA ? 4 : 1) / kThreads;
+    float* as = As + stage * BM * kApad + arow * kApad;
+    constexpr int kAPer = BM * kBK / (VA ? 4 : 1) / kThreads;
 #pragma unroll
     for (int j = 0; j < kAPer; ++j) {
-      const int kk = (VA ? 4 : 1) * (t / kBM + (kThreads / kBM) * j);
+      const int kk = (VA ? 4 : 1) * (t / BM + (kThreads / BM) * j);
       const int k = k0 + kk;
       const int v = k < R ? xtap[k] : 0;
       const int iy = iy0 + (v >> 24), ix = ix0 + ((v >> 16) & 255);
@@ -182,9 +197,9 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
   // shared-memory wavefront
   const int tm = (t / 64) * 4 + (t % 32) / 8;
   const int tn = ((t / 32) % 2) * 8 + t % 8;
-  float acc[kTM][TN];
+  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
@@ -194,7 +209,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
     const int nxt = kc + kStages - 1;
     if (nxt < nchunks) load_chunk(nxt % kStages, nxt * kBK);
     cp_async_commit();
-    const float* as = As + (kc % kStages) * kBM * kApad + tm * kApad;
+    const float* as = As + (kc % kStages) * BM * kApad + tm * kApad;
     const float* bs = Bs + (kc % kStages) * kBK * BN + tn * TN;
 #pragma unroll
     for (int kq = 0; kq < kBK; kq += 4) {
@@ -218,7 +233,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
         }
       }
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) {
+      for (int i = 0; i < TM; ++i) {
         const float4 av =
             *reinterpret_cast<const float4*>(as + 16 * i * kApad + kq);
         const float ak[4] = {av.x, av.y, av.z, av.w};
@@ -235,12 +250,12 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
   const int kf = a.g * a.K;
   const int nt0 = n0 + tn * TN;
   if (lrn_in_gemm(a, BN)) {
-    // the block's conv tile (kBM pixels x K channels) in the rings' place,
+    // the block's conv tile (BM pixels x K channels) in the rings' place,
     // then LRN across its channels, once per pixel and channel
     __syncthreads();
     float* yt = smem;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j)
         if (nt0 + j < a.K)
@@ -248,7 +263,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
               bias_relu(acc[i][j], bias[nt0 + j], a.relu);
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
+    for (int i = 0; i < TM; ++i) {
       const int mo = m0 + tm + 16 * i;
       if (mo >= M) continue;
 #pragma unroll
@@ -260,7 +275,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
     return;
   }
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
+  for (int i = 0; i < TM; ++i) {
     const int mo = m0 + tm + 16 * i;
     if (mo >= M) continue;
     float* yp = y + (size_t)mo * kf + grp * a.K + nt0;
@@ -291,78 +306,114 @@ conv_direct_epilogue(ConvArgs a, const float* __restrict__ y,
   fused_epilogue(a, y, out);
 }
 
-template <int TN, bool VA, bool VB, bool ARMED>
+template <int TM, int TN, bool VA, bool VB, bool ARMED>
 cudaError_t launch_gemm(const ConvArgs& a, size_t smem, cudaStream_t stream,
                         const float* x, const float* slab, const float* bias,
                         float* y) {
-  auto kernel = conv_direct_gemm<TN, VA, VB, ARMED>;
+  auto kernel = conv_direct_gemm<TM, TN, VA, VB, ARMED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int M = a.B * a.out_h * a.out_w;
-  dim3 grid((M + kBM - 1) / kBM, (a.K + 16 * TN - 1) / (16 * TN), a.g);
+  dim3 grid((M + 16 * TM - 1) / (16 * TM), (a.K + 16 * TN - 1) / (16 * TN),
+            a.g);
   kernel<<<grid, kThreads, smem, stream>>>(a, x, slab, bias, y);
   return cudaGetLastError();
 }
 
-template <int TN, bool ARMED>
+// ANY_SLAB: built for 4-byte slab copies too (the default tiles); the
+// other tiles take 16-byte ones only and refuse a slab without them.
+template <int TM, int TN, bool ARMED, bool ANY_SLAB>
 cudaError_t launch_tile(const ConvArgs& a, size_t smem, bool va, bool vb,
                         cudaStream_t stream, const float* x,
                         const float* slab, const float* bias, float* y) {
   if (va && vb)
-    return launch_gemm<TN, true, true, ARMED>(a, smem, stream, x, slab, bias,
-                                              y);
-  if (va)
-    return launch_gemm<TN, true, false, ARMED>(a, smem, stream, x, slab,
-                                               bias, y);
+    return launch_gemm<TM, TN, true, true, ARMED>(a, smem, stream, x, slab,
+                                                  bias, y);
   if (vb)
-    return launch_gemm<TN, false, true, ARMED>(a, smem, stream, x, slab,
-                                               bias, y);
-  return launch_gemm<TN, false, false, ARMED>(a, smem, stream, x, slab, bias,
-                                              y);
+    return launch_gemm<TM, TN, false, true, ARMED>(a, smem, stream, x, slab,
+                                                   bias, y);
+  if constexpr (ANY_SLAB) {
+    if (va)
+      return launch_gemm<TM, TN, true, false, ARMED>(a, smem, stream, x,
+                                                     slab, bias, y);
+    return launch_gemm<TM, TN, false, false, ARMED>(a, smem, stream, x, slab,
+                                                    bias, y);
+  }
+  return cudaErrorInvalidValue;
 }
 
-template <int TN>
+template <int TM, int TN, bool ANY_SLAB>
 cudaError_t launch_armed(const ConvArgs& a, size_t smem, bool va, bool vb,
                          cudaStream_t stream, const float* x,
                          const float* slab, const float* bias, float* y) {
-  return a.verdict
-             ? launch_tile<TN, true>(a, smem, va, vb, stream, x, slab, bias, y)
-             : launch_tile<TN, false>(a, smem, va, vb, stream, x, slab, bias,
-                                      y);
+  return a.verdict ? launch_tile<TM, TN, true, ANY_SLAB>(
+                         a, smem, va, vb, stream, x, slab, bias, y)
+                   : launch_tile<TM, TN, false, ANY_SLAB>(
+                         a, smem, va, vb, stream, x, slab, bias, y);
+}
+
+// Whether the conv stage is built for this tile (rows and columns per
+// thread) and slab: the default tiles for any slab, the others for 16-byte
+// slab copies (kernels/conv/direct.py's TILES and ANY_SLAB_TILES).
+bool built_for(int tm, int tn, bool vb) {
+  return (tm == 4 && (tn == 4 || tn == 6))
+         || (vb && ((tm == 4 && tn == 8)
+                    || (tm == 8 && (tn == 4 || tn == 6))));
+}
+
+cudaError_t launch_conv_stage(int tm, int tn, const ConvArgs& a, size_t smem,
+                              bool va, bool vb, cudaStream_t stream,
+                              const float* x, const float* slab,
+                              const float* bias, float* y) {
+  if (tm == 4 && tn == 4)
+    return launch_armed<4, 4, true>(a, smem, va, vb, stream, x, slab, bias,
+                                    y);
+  if (tm == 4 && tn == 6)
+    return launch_armed<4, 6, true>(a, smem, va, vb, stream, x, slab, bias,
+                                    y);
+  if (tm == 4 && tn == 8)
+    return launch_armed<4, 8, false>(a, smem, va, vb, stream, x, slab, bias,
+                                     y);
+  if (tm == 8 && tn == 4)
+    return launch_armed<8, 4, false>(a, smem, va, vb, stream, x, slab, bias,
+                                     y);
+  if (tm == 8 && tn == 6)
+    return launch_armed<8, 6, false>(a, smem, va, vb, stream, x, slab, bias,
+                                     y);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // y: (B, out_h, out_w, g*K) scratch for the epilogue stage (unused, and
-// may equal out, when there is no pool and no LRN left to apply); tn:
-// columns per thread of the conv stage's block tile (4 or 6).  Armed
-// (args->verdict set, args->Cs = Cb + 1), the conv stage also adds the
-// slab's mismatched checksum lanes to *args->verdict.
+// may equal out, when there is no pool and no LRN left to apply); tm, tn:
+// rows and columns per thread of the conv stage's 16 tm x 16 tn block
+// tile (the default tiles are 4 x 4 and 4 x 6).  Armed (args->verdict
+// set, args->Cs = Cb + 1), the conv stage also adds the slab's mismatched
+// checksum lanes to *args->verdict.
 extern "C" int repro_conv_direct(const ConvArgs* args, const float* x,
                                  const float* slab, const float* bias,
-                                 float* y, float* out, int tn,
+                                 float* y, float* out, int tm, int tn,
                                  cudaStream_t stream) {
   const ConvArgs a = *args;
   const int R = a.r * a.r * a.C;
-  const size_t smem = gemm_smem_bytes(tn, R, a.verdict != nullptr);
+  const size_t smem = gemm_smem_bytes(tm, tn, R, a.verdict != nullptr);
   const size_t slab_elems =
       (size_t)a.g * a.nkb * a.ncb * a.r * a.r * a.Cs * a.Kb;
-  if ((tn != 4 && tn != 6) || a.r > 127
-      || a.C > 0xffff || slab_elems >= (1u << 31) || smem > 227 * 1024
-      || a.PT < 1 || a.Cs != a.Cb + (a.verdict ? 1 : 0))
-    return (int)cudaErrorInvalidValue;
   const bool va = a.C % 4 == 0 && (uintptr_t)x % 16 == 0;
   const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
+  if (!built_for(tm, tn, vb) || a.r > 127 || a.C > 0xffff
+      || slab_elems >= (1u << 31) || smem > 227 * 1024 || a.PT < 1
+      || a.Cs != a.Cb + (a.verdict ? 1 : 0))
+    return (int)cudaErrorInvalidValue;
   // the epilogue stage: the pool, and the LRN where the conv stage cannot
   // apply it (it then pools the LRN'd map)
   ConvArgs ea = a;
   if (lrn_in_gemm(a, 16 * tn)) ea.lrn_n = 0;
   const bool epilogue = ea.lrn_n || a.pwin != 1 || a.ps != 1;
-  float* dst = epilogue ? y : out;
-  const cudaError_t err =
-      tn == 4 ? launch_armed<4>(a, smem, va, vb, stream, x, slab, bias, dst)
-              : launch_armed<6>(a, smem, va, vb, stream, x, slab, bias, dst);
+  const cudaError_t err = launch_conv_stage(
+      tm, tn, a, smem, va, vb, stream, x, slab, bias, epilogue ? y : out);
   if (err != cudaSuccess || !epilogue) return (int)err;
   const int nph = (a.ph_out + a.PT - 1) / a.PT;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;

@@ -24,15 +24,18 @@
 // 2. conv_winograd_gemm: the 36 x g GEMMs M[pos, grp] = U[pos, grp] (T x Cu)
 //    @ V[pos, grp] (Cu x K), V read in place from the packed slab (tile
 //    lin = k * ncb + c of (6, 6, Cb, Kb), Kb contiguous; channels >= C and
-//    columns >= K are never read).  A block of 256 threads owns a 64 x 64
+//    columns >= K are never read).  A block of 256 threads owns a BM x BN
 //    tile of one (position, group) and walks the channels in chunks of 16
 //    through a 3-stage cp.async ring (16-byte copies; 4-byte ones for the
 //    slab when Kb is not a multiple of 4; a per-block table of each
 //    channel's slab row offset, so a copy needs no division); each thread
-//    holds a 4 x 4 register tile read from shared memory as float4, one
-//    wavefront per warp read, as conv_direct.cu's conv stage does.  AlexNet conv3-5 at
-//    batch 8 launch 432 / 432 / 288 blocks: one wave at four an SM.
-//    M is (36, g, T, K).
+//    holds a (BM / 16) x (BN / 16) register tile read from shared memory
+//    as float4 (float2 for 32 columns), one wavefront per warp read, as
+//    conv_direct.cu's conv stage does.  The default tile is 64 x 64:
+//    AlexNet conv3-5 at batch 8 launch 432 / 432 / 288 blocks, one wave at
+//    four an SM.  The launcher is also built for 32 x 64, 64 x 32 and
+//    128 x 64 tiles (16-byte slab copies only), which the measured
+//    autotuner (core/autotune.py) may pick per layer.  M is (36, g, T, K).
 // 3. conv_winograd_inverse: A^T m A, bias and ReLU per (tile, output
 //    channel), into the output, or with an LRN or a pool into the conv
 //    map (B, out_h, out_w, g*K).
@@ -56,7 +59,8 @@
 // split-K, no TF32, no atomics); the pad channels multiply U's -0.0 by a
 // zero-filled weight, and acc + -0.0 is acc bit for bit (+0.0 would turn
 // a -0.0 sum into +0.0); the inverse and the bias/ReLU as before.  So the
-// result does not depend on the tiling or the slab's blocking.  The
+// result does not depend on the tiling or the slab's blocking, and the
+// GEMM's block tile is a knob that cannot change the bits.  The
 // transform matrices are the reference's (winograd_transform(4, 3)),
 // passed in by the host.
 #include <cuda_runtime.h>
@@ -71,9 +75,6 @@ namespace {
 
 constexpr int kN = 6, kM = 4, kNP = kN * kN;
 constexpr int kThreads = 256;    // GEMM: 16 x 16 threads over a block tile
-constexpr int kTM = 4, kTN = 4;  // register tile of a GEMM thread
-constexpr int kBM = 16 * kTM;    // Winograd tiles (rows) of a block tile
-constexpr int kBN = 16 * kTN;    // output channels (columns) of a block tile
 constexpr int kBK = 16;          // input channels a chunk; U's channel pad
 constexpr int kStages = 3;       // cp.async ring depth
 constexpr int kApad = kBK + 4;   // A row stride in shared memory (floats)
@@ -150,38 +151,68 @@ conv_winograd_input(ConvArgs a, WinoMats mt, const float* __restrict__ x,
     }
 }
 
-// Grid (ceil(T / kBM), ceil(K / kBN), 36 * g).  VB: 16-byte copies of the
-// slab (Kb a multiple of 4); ARMED: check the slab's checksum rows
-// (abft.cuh).  Held to 64 registers, so four blocks share an SM and
-// AlexNet's grids of up to 432 blocks fill one wave.
-template <bool VB, bool ARMED>
-__global__ void __launch_bounds__(kThreads, 4)
+// Shared memory of one GEMM block of 16 tm x 16 tn: the rings, one int a
+// channel of U (its slab row offset) and, armed, the ABFT partial sums.
+size_t gemm_smem_bytes(int tm, int tn, int cu, bool armed) {
+  return ((size_t)kStages * (16 * tm * kApad + kBK * 16 * tn) + cu
+          + (armed ? kAbftSmemInts : 0)) * sizeof(float);
+}
+
+// Blocks an SM the register budget is set for: four (64 registers) up to
+// 16 accumulators a thread, else two.
+__host__ __device__ constexpr int min_blocks(int tm, int tn) {
+  return tm * tn > 16 ? 2 : 4;
+}
+
+// Grid (ceil(T / BM), ceil(K / BN), 36 * g), BM = 16 TM, BN = 16 TN.  VB:
+// 16-byte copies of the slab (Kb a multiple of 4); ARMED: check the slab's
+// checksum rows (abft.cuh).  The default 64 x 64 tile is held to 64
+// registers, so four blocks share an SM and AlexNet's grids of up to 432
+// blocks fill one wave.
+template <int TM, int TN, bool VB, bool ARMED>
+__global__ void __launch_bounds__(kThreads, min_blocks(TM, TN))
 conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
                    const float* __restrict__ slab, float* __restrict__ m) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                               // kStages x kBM x kApad
-  float* Bs = As + kStages * kBM * kApad;         // kStages x kBK x kBN
-  int* crow = (int*)(Bs + kStages * kBK * kBN);   // slab offset of channel c
+  float* As = smem;                               // kStages x BM x kApad
+  float* Bs = As + kStages * BM * kApad;          // kStages x kBK x BN
+  int* crow = (int*)(Bs + kStages * kBK * BN);    // slab offset of channel c
   const int cu = u_channels(a);
   const int T = a.B * tiles_per_image(a);
   const int pos = blockIdx.z / a.g, grp = blockIdx.z % a.g;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int t = threadIdx.x;
   const int tile_elems = kNP * a.Cs * a.Kb;
 
   for (int c = t; c < cu; c += kThreads)           // -1: a pad channel
     crow[c] = c < a.C ? (c / a.Cb) * tile_elems + (c % a.Cb) * a.Kb : -1;
 
-  // the A copy this thread makes each chunk: 4 channels of one tile's row
+  // the A copies this thread makes each chunk: 4 channels of rows arow +
+  // j kARows of the tile (threads past the tile's copies make none)
+  constexpr int kACopies = BM * kBK / 4;          // 16-byte copies a chunk
+  constexpr int kAPer = (kACopies + kThreads - 1) / kThreads;
+  constexpr int kARows = kThreads / (kBK / 4);    // rows a pass of copies
+  static_assert(kACopies % kThreads == 0 || kACopies < kThreads,
+                "A copies fill whole passes or part of one");
+  const bool acopies = kACopies >= kThreads || t < kACopies;
   const int arow = t / (kBK / 4), acol = 4 * (t % (kBK / 4));
-  const bool avalid = m0 + arow < T;
-  const float* ap =
-      u + (((size_t)pos * a.g + grp) * T + (avalid ? m0 + arow : 0)) * cu
-      + acol;
+  const float* ap[kAPer];
+  bool avalid[kAPer];
+#pragma unroll
+  for (int j = 0; j < kAPer; ++j) {
+    const int row = m0 + arow + j * kARows;
+    avalid[j] = row < T;
+    ap[j] = u + (((size_t)pos * a.g + grp) * T + (avalid[j] ? row : 0)) * cu
+            + acol;
+  }
   // the B copies: rows brow + j kRows of the chunk, column bcol of the
   // tile, from slab + wcol + crow[channel] (wcol < 0: a column past K)
-  constexpr int kRow = VB ? kBN / 4 : kBN;        // copies a B row takes
+  constexpr int kRow = VB ? BN / 4 : BN;          // copies a B row takes
   constexpr int kRows = kThreads / kRow;          // rows a pass of copies
+  constexpr int kBPer = (kBK + kRows - 1) / kRows;
+  static_assert(kThreads % kRow == 0 && (kBK % kRows == 0 || kRows > kBK),
+                "B copies fill whole passes or part of one");
   const int brow = t / kRow, bcol = (VB ? 4 : 1) * (t % kRow);
   const int n = n0 + bcol;
   const int wcol = n < a.K ? ((grp * a.nkb + n / a.Kb) * a.ncb) * tile_elems
@@ -190,17 +221,23 @@ conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
   __syncthreads();
 
   auto load_chunk = [&](int stage, int k0) {
-    cp_async16(As + stage * kBM * kApad + arow * kApad + acol, ap + k0,
-               avalid);
-    float* bs = Bs + stage * kBK * kBN + bcol;
+    if (acopies) {
 #pragma unroll
-    for (int j = 0; j < kBK / kRows; ++j) {
+      for (int j = 0; j < kAPer; ++j)
+        cp_async16(As + stage * BM * kApad + (arow + j * kARows) * kApad
+                       + acol,
+                   ap[j] + k0, avalid[j]);
+    }
+    float* bs = Bs + stage * kBK * BN + bcol;
+#pragma unroll
+    for (int j = 0; j < kBPer; ++j) {
       const int kk = brow + j * kRows;
+      if (kRows > kBK && kk >= kBK) continue;     // a partial pass
       const int off = crow[k0 + kk];
       const bool ok = off >= 0 && wcol >= 0;
       const float* src = ok ? slab + wcol + off : slab;
-      if (VB) cp_async16(bs + kk * kBN, src, ok);
-      else cp_async4(bs + kk * kBN, src, ok);
+      if (VB) cp_async16(bs + kk * BN, src, ok);
+      else cp_async4(bs + kk * BN, src, ok);
     }
   };
 
@@ -214,16 +251,16 @@ conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
     abft_check_slab(a, kNP, slab, (unsigned*)(crow + cu));
 
   // thread (tm, tn) of the 16 x 16 owns rows tm + 16 i and columns
-  // tn * kTN + j of the tile; a warp spans 4 tm x 8 tn, so its float4
+  // tn * TN + j of the tile; a warp spans 4 tm x 8 tn, so its float4
   // reads of A (4 rows, 80 bytes apart) and of B (8 neighbours) each take
   // one shared-memory wavefront
   const int tm = (t / 64) * 4 + (t % 32) / 8;
   const int tn = ((t / 32) % 2) * 8 + t % 8;
-  float acc[kTM][kTN];
+  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int kc = 0; kc < nchunks; ++kc) {
     cp_async_wait<kStages - 2>();
@@ -231,45 +268,62 @@ conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
     const int nxt = kc + kStages - 1;
     if (nxt < nchunks) load_chunk(nxt % kStages, nxt * kBK);
     cp_async_commit();
-    const float* as = As + (kc % kStages) * kBM * kApad + tm * kApad;
-    const float* bs = Bs + (kc % kStages) * kBK * kBN + tn * kTN;
+    const float* as = As + (kc % kStages) * BM * kApad + tm * kApad;
+    const float* bs = Bs + (kc % kStages) * kBK * BN + tn * TN;
 #pragma unroll
     for (int kq = 0; kq < kBK; kq += 4) {
-      float b[4][kTN];
+      float b[4][TN];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float4 v = *reinterpret_cast<const float4*>(bs + (kq + kk) * kBN);
-        b[kk][0] = v.x, b[kk][1] = v.y, b[kk][2] = v.z, b[kk][3] = v.w;
+        const float* bp = bs + (kq + kk) * BN;
+        if constexpr (TN % 4 == 0) {
+#pragma unroll
+          for (int j = 0; j < TN; j += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(bp + j);
+            b[kk][j] = v.x, b[kk][j + 1] = v.y, b[kk][j + 2] = v.z,
+            b[kk][j + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < TN; j += 2) {
+            const float2 v = *reinterpret_cast<const float2*>(bp + j);
+            b[kk][j] = v.x, b[kk][j + 1] = v.y;
+          }
+        }
       }
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) {
+      for (int i = 0; i < TM; ++i) {
         const float4 av =
             *reinterpret_cast<const float4*>(as + 16 * i * kApad + kq);
         const float ak[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int j = 0; j < kTN; ++j)
+          for (int j = 0; j < TN; ++j)
             acc[i][j] = fmaf(ak[kk], b[kk][j], acc[i][j]);
       }
     }
   }
   cp_async_wait<0>();
 
-  const int nt0 = n0 + tn * kTN;
+  const int nt0 = n0 + tn * TN;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
+  for (int i = 0; i < TM; ++i) {
     const int row = m0 + tm + 16 * i;
     if (row >= T) continue;
     float* mp = m + (((size_t)pos * a.g + grp) * T + row) * a.K + nt0;
-    if (a.K % 4 == 0) {                 // a whole float4, in range or not
-      if (nt0 < a.K)
-        *reinterpret_cast<float4*>(mp) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      continue;
+    if constexpr (TN % 4 == 0) {
+      if (a.K % 4 == 0) {               // whole float4s, in range or not
+#pragma unroll
+        for (int j = 0; j < TN; j += 4)
+          if (nt0 + j < a.K)
+            *reinterpret_cast<float4*>(mp + j) = make_float4(
+                acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+        continue;
+      }
     }
 #pragma unroll
-    for (int j = 0; j < kTN; ++j)
+    for (int j = 0; j < TN; ++j)
       if (nt0 + j < a.K) mp[j] = acc[i][j];
   }
 }
@@ -349,30 +403,86 @@ unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+template <int TM, int TN, bool VB, bool ARMED>
+cudaError_t launch_gemm(const ConvArgs& a, size_t smem, cudaStream_t stream,
+                        const float* u, const float* slab, float* m) {
+  auto kernel = conv_winograd_gemm<TM, TN, VB, ARMED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long T = (long long)a.B * tiles_per_image(a);
+  const dim3 grid(blocks_for(T, 16 * TM), blocks_for(a.K, 16 * TN),
+                  kNP * a.g);
+  kernel<<<grid, kThreads, smem, stream>>>(a, u, slab, m);
+  return cudaGetLastError();
+}
+
+// ANY_SLAB: built for 4-byte slab copies too (the default tile); the
+// other tiles take 16-byte ones only and refuse a slab without them.
+template <int TM, int TN, bool ANY_SLAB>
+cudaError_t launch_tile(const ConvArgs& a, size_t smem, bool vb,
+                        cudaStream_t stream, const float* u,
+                        const float* slab, float* m) {
+  if (vb)
+    return a.verdict
+               ? launch_gemm<TM, TN, true, true>(a, smem, stream, u, slab, m)
+               : launch_gemm<TM, TN, true, false>(a, smem, stream, u, slab,
+                                                  m);
+  if constexpr (ANY_SLAB)
+    return a.verdict
+               ? launch_gemm<TM, TN, false, true>(a, smem, stream, u, slab, m)
+               : launch_gemm<TM, TN, false, false>(a, smem, stream, u, slab,
+                                                   m);
+  return cudaErrorInvalidValue;
+}
+
+// Whether the GEMM stage is built for this tile (rows and columns per
+// thread) and slab: the default tile for any slab, the others for 16-byte
+// slab copies (kernels/conv/winograd.py's TILES and ANY_SLAB_TILES).
+bool built_for(int tm, int tn, bool vb) {
+  return (tm == 4 && tn == 4)
+         || (vb && ((tm == 2 && tn == 4) || (tm == 4 && tn == 2)
+                    || (tm == 8 && tn == 4)));
+}
+
+cudaError_t launch_gemm_stage(int tm, int tn, const ConvArgs& a, size_t smem,
+                              bool vb, cudaStream_t stream, const float* u,
+                              const float* slab, float* m) {
+  if (tm == 4 && tn == 4)
+    return launch_tile<4, 4, true>(a, smem, vb, stream, u, slab, m);
+  if (tm == 2 && tn == 4)
+    return launch_tile<2, 4, false>(a, smem, vb, stream, u, slab, m);
+  if (tm == 4 && tn == 2)
+    return launch_tile<4, 2, false>(a, smem, vb, stream, u, slab, m);
+  if (tm == 8 && tn == 4)
+    return launch_tile<8, 4, false>(a, smem, vb, stream, u, slab, m);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // mats: host array of B^T (6x6) then A^T (4x6), row-major.  u: (36, g, T,
 // Cu) and m: (36, g, T, K) scratch; y: (B, out_h, out_w, g*K) scratch for
-// the epilogue launch (unused, and may equal out, with no LRN and no pool).
-// Armed (args->verdict set, args->Cs = Cb + 1), the GEMM stage also adds
-// the slab's mismatched checksum lanes to *args->verdict.
+// the epilogue launch (unused, and may equal out, with no LRN and no pool);
+// tm, tn: rows and columns per thread of the GEMM's 16 tm x 16 tn block
+// tile (the default is 4 x 4).  Armed (args->verdict set, args->Cs = Cb +
+// 1), the GEMM stage also adds the slab's mismatched checksum lanes to
+// *args->verdict.
 extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
                                    const float* x, const float* slab,
                                    const float* bias, float* u, float* m,
-                                   float* y, float* out,
+                                   float* y, float* out, int tm, int tn,
                                    cudaStream_t stream) {
   const ConvArgs a = *args;
   WinoMats mt;
   const size_t slab_elems = (size_t)a.g * a.nkb * a.ncb * kNP * a.Cs * a.Kb;
-  // the GEMM's rings, channel table and (armed) ABFT partial sums, within
-  // the 48 KB a launch gets without opting in (C up to 5,376 channels a
-  // group unarmed, 5,120 armed)
   const size_t smem =
-      ((size_t)kStages * (kBM * kApad + kBK * kBN) + u_channels(a)
-       + (a.verdict ? kAbftSmemInts : 0)) * sizeof(float);
-  if (a.r != 3 || a.s != 1 || a.PT < 1 || slab_elems >= (1u << 31)
-      || smem > 48 * 1024 || (uintptr_t)u % 16 || (uintptr_t)m % 16
-      || a.Cs != a.Cb + (a.verdict ? 1 : 0) || load_mats(mats, &mt))
+      gemm_smem_bytes(tm, tn, u_channels(a), a.verdict != nullptr);
+  const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
+  if (!built_for(tm, tn, vb) || a.r != 3 || a.s != 1 || a.PT < 1
+      || slab_elems >= (1u << 31) || smem > 227 * 1024 || (uintptr_t)u % 16
+      || (uintptr_t)m % 16 || a.Cs != a.Cb + (a.verdict ? 1 : 0)
+      || load_mats(mats, &mt))
     return (int)cudaErrorInvalidValue;
   const long long T = (long long)a.B * tiles_per_image(a);
   conv_winograd_input<<<blocks_for(T * a.g * u_channels(a), kPointThreads),
@@ -380,21 +490,7 @@ extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const dim3 grid(blocks_for(T, kBM), blocks_for(a.K, kBN), kNP * a.g);
-  const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
-  if (a.verdict && vb)
-    conv_winograd_gemm<true, true><<<grid, kThreads, smem, stream>>>(a, u,
-                                                                     slab, m);
-  else if (a.verdict)
-    conv_winograd_gemm<false, true><<<grid, kThreads, smem, stream>>>(
-        a, u, slab, m);
-  else if (vb)
-    conv_winograd_gemm<true, false><<<grid, kThreads, smem, stream>>>(
-        a, u, slab, m);
-  else
-    conv_winograd_gemm<false, false><<<grid, kThreads, smem, stream>>>(
-        a, u, slab, m);
-  err = cudaGetLastError();
+  err = launch_gemm_stage(tm, tn, a, smem, vb, stream, u, slab, m);
   if (err != cudaSuccess) return (int)err;
 
   const bool epilogue = a.lrn_n || a.pwin != 1 || a.ps != 1;

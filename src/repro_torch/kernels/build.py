@@ -11,9 +11,11 @@ The conv launchers take one :class:`ConvArgs` (mirror of
 ``csrc/conv_args.cuh``; an armed launch also sets its slab's rows a tap
 ``Cs`` and the device address of its int32 ABFT ``verdict``) by pointer,
 raw device pointers (the wrapper's
-scratches among them), and the CUDA stream (the direct launcher also its
-block tile's columns per thread, the Winograd launcher a host pointer to
-its transform matrices);
+scratches among them), the rows and columns per thread of the block tile
+of their GEMM stage (the direct one's conv stage, the Winograd one's
+batched GEMM; the launcher refuses a tile it is not built for), and the
+CUDA stream (the Winograd launcher also a host pointer to its transform
+matrices);
 the BFP matmul, decode-attention, SSD and depthwise-conv launchers take
 their pointers (the BFP matmul's, decode attention's and the SSD scan's
 f32 scratches, and decode attention's merge tickets, among them), their
@@ -128,13 +130,14 @@ def _compile(out_dir: Path) -> str:
 def _declare(lib: ctypes.CDLL):
     p = ctypes.c_void_p
     i = ctypes.c_int
-    # (args, x, slab, bias, y, out, columns per thread, stream)
+    # (args, x, slab, bias, y, out, rows and columns per thread, stream)
     lib.repro_conv_direct.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p,
-                                      p, i, p]
+                                      p, i, i, p]
     lib.repro_conv_direct.restype = ctypes.c_int
-    # (args, mats, x, slab, bias, u, m, y, out, stream)
+    # (args, mats, x, slab, bias, u, m, y, out, rows and columns per
+    # thread, stream)
     lib.repro_conv_winograd.argtypes = [ctypes.POINTER(ConvArgs), p, p, p,
-                                        p, p, p, p, p, p]
+                                        p, p, p, p, p, i, i, p]
     lib.repro_conv_winograd.restype = ctypes.c_int
     # (x, wq, we, scratch, out, M, K, N, block, columns a block, stream)
     lib.repro_bfp_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]

@@ -8,9 +8,13 @@ reference's slab bit for bit.  :func:`conv2d_direct` runs the CUDA kernel
 :func:`conv2d_direct_plain`, on a CPU tensor; the plain version takes the
 kernel's exact arguments (input, packed slab, bias, plan, flags).
 
-The launch geometry is pure Python here (:func:`tile_cols`,
-:func:`conv_grid`, :func:`smem_bytes`, :func:`scratch_shape`,
-:func:`block_tile`), mirrored by the launcher, so the CPU tests check it.
+The launch geometry is pure Python here (:func:`conv_tile`,
+:func:`tile_cols`, :func:`conv_grid`, :func:`smem_bytes`,
+:func:`scratch_shape`, :func:`block_tile`), mirrored by the launcher, so
+the CPU tests check it.  The conv stage's block tile is a knob: the
+launcher is built for the :data:`TILES`, and every tile gives the same
+bits (each output is one thread's ordered FMA chain), so the measured
+autotuner (``core/autotune.py``) picks one per layer on speed alone.
 
 ABFT (``checksum=True``, the reference's armed variant): the slab carries
 a checksum row in every tile, the kernel checks the whole slab once a
@@ -38,8 +42,12 @@ from .ref import same_pad
 launches = 0
 
 # the conv stage's implicit-GEMM tiling, as csrc/conv_direct.cu has it
-BM = 64                     # conv pixels (GEMM rows) of a block tile
-TILE_COLS = (64, 96)        # output channels (columns) of a block tile
+BM = 64                     # conv pixels (GEMM rows) of a default tile
+TILE_COLS = (64, 96)        # output channels (columns) of a default tile
+# the (rows, columns) block tiles the launcher is built for: the default
+# tiles for any slab, the others for 16-byte slab copies (Kb % 4 == 0)
+TILES = ((64, 64), (64, 96), (64, 128), (128, 64), (128, 96))
+ANY_SLAB_TILES = ((64, 64), (64, 96))
 BK = 16                     # reduction chunk
 STAGES = 3                  # cp.async ring depth
 ABFT_SMEM_INTS = 256        # an armed block's partial sums (csrc/abft.cuh)
@@ -176,42 +184,64 @@ def conv2d_direct_plain(x, w_tiles, bias, p: DirectPlan, *, relu: bool,
     return (y, dma.checksum_mismatches(w_tiles)) if p.checksum else y
 
 
-def tile_cols(p: DirectPlan) -> int:
-    """Output channels (GEMM columns) of one conv-stage block tile: 64 or
-    96, whichever pads K less (64 on a tie)."""
-    return min(TILE_COLS, key=lambda bn: (-(-p.K // bn) * bn, bn))
+def conv_tile(p: DirectPlan, rows: int | None = None,
+              cols: int | None = None) -> tuple[int, int]:
+    """The conv stage's (rows, columns) block tile.  A None side takes
+    the default: BM rows, and 64 or 96 columns, whichever pads K less (64
+    on a tie).  A tile the launcher is not built for for this slab raises;
+    it never falls back to another tile."""
+    tile = (BM if rows is None else rows,
+            min(TILE_COLS, key=lambda bn: (-(-p.K // bn) * bn, bn))
+            if cols is None else cols)
+    if tile not in TILES:
+        raise ValueError(f"conv_direct is not built for a {tile} block "
+                         f"tile (rows, columns); it is built for {TILES}")
+    if tile not in ANY_SLAB_TILES and p.Kb % 4:
+        raise ValueError(f"conv_direct's {tile} block tile takes 16-byte "
+                         f"slab copies, and this slab's Kb = {p.Kb} is not "
+                         f"a multiple of 4; tiles for any slab: "
+                         f"{ANY_SLAB_TILES}")
+    return tile
 
 
-def conv_grid(p: DirectPlan, B: int) -> tuple[int, int, int]:
+def tile_cols(p: DirectPlan, tile=None) -> int:
+    """Output channels (GEMM columns) of one conv-stage block tile
+    (``tile``: (rows, columns), None sides default; see :func:`conv_tile`)."""
+    return conv_tile(p, *(tile or (None, None)))[1]
+
+
+def conv_grid(p: DirectPlan, B: int, tile=None) -> tuple[int, int, int]:
     """The conv stage's grid: (M tiles, N tiles, groups), M = B * out_h *
-    out_w conv pixels in tiles of BM."""
-    return (-(-(B * p.out_h * p.out_w) // BM), -(-p.K // tile_cols(p)),
-            p.g)
+    out_w conv pixels in tiles of the block tile's rows."""
+    rows, cols = conv_tile(p, *(tile or (None, None)))
+    return -(-(B * p.out_h * p.out_w) // rows), -(-p.K // cols), p.g
 
 
-def smem_bytes(p: DirectPlan) -> int:
+def smem_bytes(p: DirectPlan, tile=None) -> int:
     """Dynamic shared memory of one conv-stage block (as
-    ``repro_conv_direct`` sizes it): the A ring (BM x (BK + 4) floats a
-    stage), the B ring (BK x BN), two ints per reduction index and, armed,
-    the ABFT partial sums."""
+    ``repro_conv_direct`` sizes it): the A ring (rows x (BK + 4) floats a
+    stage), the B ring (BK x columns), two ints per reduction index and,
+    armed, the ABFT partial sums."""
+    rows, cols = conv_tile(p, *(tile or (None, None)))
     R = p.r * p.r * p.C
-    return (STAGES * (BM * (BK + 4) + BK * tile_cols(p)) + 2 * R
+    return (STAGES * (rows * (BK + 4) + BK * cols) + 2 * R
             + (ABFT_SMEM_INTS if p.checksum else 0)) * 4
 
 
-def lrn_in_conv_stage(p: DirectPlan, lrn) -> bool:
+def lrn_in_conv_stage(p: DirectPlan, lrn, tile=None) -> bool:
     """Whether the conv stage applies the LRN itself: one block tile holds
-    all of a pixel's channels (one group, K <= BN)."""
-    return lrn is not None and p.g == 1 and p.K <= tile_cols(p)
+    all of a pixel's channels (one group, K <= the tile's columns)."""
+    return lrn is not None and p.g == 1 and p.K <= tile_cols(p, tile)
 
 
-def scratch_shape(p: DirectPlan, B: int, lrn, pool) -> tuple | None:
+def scratch_shape(p: DirectPlan, B: int, lrn, pool,
+                  tile=None) -> tuple | None:
     """The conv map y (LRN'd where the conv stage applies the LRN) that the
     conv stage writes for the second launch to pool, or to LRN and pool,
     (B, out_h, out_w, g*K) f32; None when there is no pool and no LRN
     left, and the conv stage writes the output itself."""
     pooled = pool is not None and tuple(pool) != (1, 1)
-    if not pooled and (lrn is None or lrn_in_conv_stage(p, lrn)):
+    if not pooled and (lrn is None or lrn_in_conv_stage(p, lrn, tile)):
         return None
     return (B, p.out_h, p.out_w, p.Kfull)
 
@@ -277,13 +307,14 @@ def new_verdict(x, verdict=None):
 
 
 def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
-                        pool, verdict=None):
+                        pool, verdict=None, tile=None):
     global launches
     check_cuda_inputs("conv_direct", x, w_tiles, bias, p.Kfull, verdict)
+    tile = conv_tile(p, *(tile or (None, None)))
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
                       dtype=torch.float32)
-    shape = scratch_shape(p, B, lrn, pool)
+    shape = scratch_shape(p, B, lrn, pool, tile)
     y = out if shape is None else torch.empty(shape, device=x.device,
                                               dtype=torch.float32)
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool,
@@ -291,9 +322,8 @@ def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
                      out_hw=(p.ph_out, p.pw_out), verdict=verdict)
     err = build.library().lib.repro_conv_direct(
         ctypes.byref(args), x.data_ptr(), w_tiles.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), out.data_ptr(),
-        tile_cols(p) // 16,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        bias.data_ptr(), y.data_ptr(), out.data_ptr(), tile[0] // 16,
+        tile[1] // 16, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "conv_direct")
     launches += 1
     return (out, verdict) if p.checksum else out
@@ -305,7 +335,9 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
                   pool_row_block: int | None = None,
                   c_block: int | None = None, k_block: int = 128,
                   batch_block: int = 8, weight_prefetch: bool = True,
-                  checksum: bool = False, verdict=None):
+                  checksum: bool = False, verdict=None,
+                  tile_rows: int | None = None,
+                  tile_cols: int | None = None):
     """x (B,H,W,C); w (r,r,C//groups,K); any r/stride/groups, fused layer
     (bias, ReLU, cross-channel LRN, VALID max-pool).
 
@@ -313,7 +345,9 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
     reference's TPU knobs (``row_block``, ``pool_row_block``,
     ``batch_block``) shape only the slab plan; both ``weight_prefetch``
     values launch the same kernel, whose cp.async ring always stages the
-    weights ahead of their use.
+    weights ahead of their use.  ``tile_rows``/``tile_cols`` pick the conv
+    stage's block tile (:func:`conv_tile`; None: the default); the plain
+    version checks the tile and computes the same function.
 
     ``checksum=True`` (ABFT) returns ``(y, verdict)``: the slab's
     mismatched checksum lanes added to ``verdict`` (an int32 0-dim tensor;
@@ -323,6 +357,7 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
              pool=pool, groups=groups, row_block=row_block,
              pool_row_block=pool_row_block, c_block=c_block,
              k_block=k_block, batch_block=batch_block, checksum=checksum)
+    tile = conv_tile(p, tile_rows, tile_cols)
     w_tiles = dma.resolve_slab(w, w_packed, p.weights,
                                lambda w: pack_weights(w, p))
     bias = (torch.zeros((p.Kfull,), device=x.device, dtype=x.dtype)
@@ -335,7 +370,7 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_direct: unsupported device {x.device}")
     return _conv2d_direct_cuda(x, w_tiles, bias, p, relu=relu, lrn=lrn,
-                               pool=pool, verdict=verdict)
+                               pool=pool, verdict=verdict, tile=tile)
 
 
 def add_plain_verdict(y, verdict):

@@ -48,8 +48,10 @@ def conv2d(x, w, b=None, w_packed=None, *, m: int = 4, padding: str = "SAME",
            c_block: int | None = None, pool_row_block: int | None = None,
            k_block: int = 128, batch_block: int = 8,
            weight_prefetch: bool = True, checksum: bool = False,
-           verdict=None, pallas: bool = True):
-    """Fused stride-1 Winograd conv layer: bias, ReLU, groups, LRN, pool."""
+           verdict=None, tile_rows: int | None = None,
+           tile_cols: int | None = None, pallas: bool = True):
+    """Fused stride-1 Winograd conv layer: bias, ReLU, groups, LRN, pool;
+    ``tile_rows``/``tile_cols`` pick the kernel's GEMM block tile."""
     if pallas:
         return _k.conv2d_winograd(x, w, b, w_packed, m=m, padding=padding,
                                   relu=relu, groups=groups, lrn=lrn,
@@ -57,7 +59,8 @@ def conv2d(x, w, b=None, w_packed=None, *, m: int = 4, padding: str = "SAME",
                                   pool_row_block=pool_row_block,
                                   k_block=k_block, batch_block=batch_block,
                                   weight_prefetch=weight_prefetch,
-                                  checksum=checksum, verdict=verdict)
+                                  checksum=checksum, verdict=verdict,
+                                  tile_rows=tile_rows, tile_cols=tile_cols)
     y = wg.conv2d_winograd(x, w, b, m=m, padding=padding, relu=relu,
                            groups=groups, lrn=lrn, pool=pool)
     return (y, new_verdict(x, verdict)) if checksum else y
@@ -69,8 +72,10 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
                   pool_row_block: int | None = None, k_block: int = 128,
                   batch_block: int = 8, weight_prefetch: bool = True,
                   checksum: bool = False, verdict=None,
-                  pallas: bool = True):
-    """Fused direct conv layer for any kernel/stride geometry."""
+                  tile_rows: int | None = None,
+                  tile_cols: int | None = None, pallas: bool = True):
+    """Fused direct conv layer for any kernel/stride geometry;
+    ``tile_rows``/``tile_cols`` pick the kernel's conv-stage block tile."""
     if pallas:
         return _d.conv2d_direct(x, w, b, w_packed, stride=stride,
                                 padding=padding, relu=relu, groups=groups,
@@ -78,7 +83,8 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
                                 pool_row_block=pool_row_block,
                                 k_block=k_block, batch_block=batch_block,
                                 weight_prefetch=weight_prefetch,
-                                checksum=checksum, verdict=verdict)
+                                checksum=checksum, verdict=verdict,
+                                tile_rows=tile_rows, tile_cols=tile_cols)
     y = conv2d_ref(x, w, b, stride=stride, padding=padding, groups=groups,
                    relu=relu, lrn=lrn, pool=pool)
     return (y, new_verdict(x, verdict)) if checksum else y

@@ -14,7 +14,9 @@ the unfused kernel for bias+ReLU layers, the fused kernel when LRN or a
 pool follows — and the plain PyTorch version :func:`conv2d_winograd_plain`
 on a CPU tensor.  With ``checksum=True`` (ABFT) the slab carries a checksum
 row in every tile, the GEMM stage checks the whole slab once a launch, and
-the call returns ``(y, verdict)`` (see ``kernels/conv/direct.py``).
+the call returns ``(y, verdict)`` (see ``kernels/conv/direct.py``).  The
+batched GEMM's block tile is a knob, as kernel 1's is: the launcher is
+built for the :data:`TILES`, and every tile gives the same bits.
 """
 from __future__ import annotations
 
@@ -46,8 +48,12 @@ fused_launches = 0    # fused: + LRN and/or max-pool
 dw1d_launches = 0     # kernel 7: depthwise causal 1-D
 
 # the batched GEMM's tiling, as csrc/conv_winograd.cu has it
-BM = 64                     # Winograd tiles (GEMM rows) of a block tile
-BN = 64                     # output channels (GEMM columns) of a block tile
+BM = 64                     # Winograd tiles (GEMM rows) of the default tile
+BN = 64                     # output channels (GEMM columns) of the default
+# the (rows, columns) block tiles the launcher is built for: the default
+# for any slab, the others for 16-byte slab copies (Kb % 4 == 0)
+TILES = ((64, 64), (32, 64), (64, 32), (128, 64))
+ANY_SLAB_TILES = ((64, 64),)
 BK = 16                     # input channels a chunk (U's channel pad)
 STAGES = 3                  # cp.async ring depth
 
@@ -322,17 +328,37 @@ def u_channels(p: WinogradPlan) -> int:
     return -(-p.C // BK) * BK
 
 
-def gemm_grid(p: WinogradPlan, B: int) -> tuple[int, int, int]:
-    """The batched GEMM's grid: (T tiles, K tiles, 36 positions x g)."""
-    return -(-num_tiles(p, B) // BM), -(-p.K // BN), p.n * p.n * p.g
+def gemm_tile(p: WinogradPlan, rows: int | None = None,
+              cols: int | None = None) -> tuple[int, int]:
+    """The batched GEMM's (rows, columns) block tile; a None side takes
+    the default (BM, BN).  A tile the launcher is not built for for this
+    slab raises; it never falls back to another tile."""
+    tile = (BM if rows is None else rows, BN if cols is None else cols)
+    if tile not in TILES:
+        raise ValueError(f"conv_winograd is not built for a {tile} block "
+                         f"tile (rows, columns); it is built for {TILES}")
+    if tile not in ANY_SLAB_TILES and p.Kb % 4:
+        raise ValueError(f"conv_winograd's {tile} block tile takes 16-byte "
+                         f"slab copies, and this slab's Kb = {p.Kb} is not "
+                         f"a multiple of 4; tiles for any slab: "
+                         f"{ANY_SLAB_TILES}")
+    return tile
 
 
-def smem_bytes(p: WinogradPlan) -> int:
+def gemm_grid(p: WinogradPlan, B: int, tile=None) -> tuple[int, int, int]:
+    """The batched GEMM's grid: (T tiles, K tiles, 36 positions x g) for
+    ``tile`` ((rows, columns), None sides default; :func:`gemm_tile`)."""
+    rows, cols = gemm_tile(p, *(tile or (None, None)))
+    return -(-num_tiles(p, B) // rows), -(-p.K // cols), p.n * p.n * p.g
+
+
+def smem_bytes(p: WinogradPlan, tile=None) -> int:
     """Dynamic shared memory of one GEMM block (as ``repro_conv_winograd``
-    sizes it): the A ring (BM x (BK + 4) floats a stage), the B ring
-    (BK x BN), one int a channel of U (its slab row offset) and, armed,
-    the ABFT partial sums; the other launches take none."""
-    return (STAGES * (BM * (BK + 4) + BK * BN) + u_channels(p)
+    sizes it): the A ring (rows x (BK + 4) floats a stage), the B ring
+    (BK x columns), one int a channel of U (its slab row offset) and,
+    armed, the ABFT partial sums; the other launches take none."""
+    rows, cols = gemm_tile(p, *(tile or (None, None)))
+    return (STAGES * (rows * (BK + 4) + BK * cols) + u_channels(p)
             + (ABFT_SMEM_INTS if p.checksum else 0)) * 4
 
 
@@ -355,13 +381,14 @@ def _mats(p: WinogradPlan) -> np.ndarray:
 
 
 def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
-                          pool, verdict=None):
+                          pool, verdict=None, tile=None):
     global launches, fused_launches
     if (p.m, p.r) != (4, 3):
         raise NotImplementedError(
             f"the CUDA Winograd kernels implement F(4,3) only, not "
             f"F({p.m},{p.r}) (ROADMAP Queue 2, part d)")
     check_cuda_inputs("conv_winograd", x, w_tiles, bias, p.Kfull, verdict)
+    tile = gemm_tile(p, *(tile or (None, None)))
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
                       dtype=torch.float32)
@@ -381,6 +408,7 @@ def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
     err = build.library().lib.repro_conv_winograd(
         ctypes.byref(args), _mats(p).ctypes.data, x.data_ptr(),
         w_tiles.data_ptr(), bias.data_ptr(), u, m, y, out.data_ptr(),
+        tile[0] // 16, tile[1] // 16,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "conv_winograd")
     if p.fused:
@@ -396,7 +424,9 @@ def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
                     pool_row_block: int | None = None,
                     c_block: int | None = None, k_block: int = 128,
                     batch_block: int = 8, weight_prefetch: bool = True,
-                    checksum: bool = False, verdict=None):
+                    checksum: bool = False, verdict=None,
+                    tile_rows: int | None = None,
+                    tile_cols: int | None = None):
     """x (B,H,W,C); w (r,r,C//groups,K); stride-1 conv via F(m,r) x F(m,r),
     fused bias, ReLU, groups and (when set) the LRN / max-pool epilogue.
 
@@ -404,6 +434,9 @@ def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
     reference's TPU knobs shape only the slab plan; both
     ``weight_prefetch`` values launch the same kernels, whose cp.async
     ring always stages the weights ahead of their use.
+    ``tile_rows``/``tile_cols`` pick the GEMM's block tile
+    (:func:`gemm_tile`; None: the default); the plain version checks the
+    tile and computes the same function.
 
     ``checksum=True`` (ABFT) returns ``(y, verdict)``: the slab's
     mismatched checksum lanes added to ``verdict`` (an int32 0-dim tensor;
@@ -413,6 +446,7 @@ def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
              groups=groups, lrn=lrn, pool=pool, row_block=row_block,
              pool_row_block=pool_row_block, c_block=c_block,
              k_block=k_block, batch_block=batch_block, checksum=checksum)
+    tile = gemm_tile(p, tile_rows, tile_cols)
     w_tiles = dma.resolve_slab(w, w_packed, p.weights,
                                lambda w: pack_weights(w, p))
     bias = (torch.zeros((p.Kfull,), device=x.device, dtype=x.dtype)
@@ -425,4 +459,4 @@ def conv2d_winograd(x, w, b=None, w_packed=None, *, m: int = 4,
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_winograd: unsupported device {x.device}")
     return _conv2d_winograd_cuda(x, w_tiles, bias, p, relu=relu, lrn=lrn,
-                                 pool=pool, verdict=verdict)
+                                 pool=pool, verdict=verdict, tile=tile)

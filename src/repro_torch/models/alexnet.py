@@ -180,16 +180,17 @@ def _stage_fc(params, name: str):
     return quantize_weights(w, block=fc_block(w.shape[0]))
 
 
-def load_tuned_plans(cfg: AlexNetConfig, batch: int, *, path=None) -> dict:
-    """Tuned per-layer plans: none yet, so every layer runs the default
-    :class:`~repro_torch.nn.conv.ConvPlan` (``{}``).  Plans tuned for the
-    TPU kernels do not apply to the CUDA kernels, and a plan cache is
-    refused rather than ignored until the port's own measured autotuner
-    exists (ROADMAP Queue 1, item 5)."""
-    if path is not None:
-        raise NotImplementedError("tuned plans are not ported yet (ROADMAP "
-                                  "Queue 1, item 5: the measured autotuner)")
-    return {}
+def load_tuned_plans(cfg: AlexNetConfig, batch: int, *, path=None,
+                     device="cuda") -> dict:
+    """Tuned per-layer :class:`~repro_torch.nn.conv.ConvPlan`s from the
+    measured autotuner's cache (by default the port's own
+    ``results/plans/alexnet_torch.json``), keyed to this config's layer
+    geometries at ``batch`` on ``device``'s backend kind: ``{}`` when
+    nothing applies, and the layers run the default plan.  Every tuned
+    plan gives the default plan's bits.  See ``core/autotune.py`` and
+    ``scripts/autotune_alexnet_torch.py``."""
+    from ..core.autotune import load_alexnet_plans
+    return load_alexnet_plans(cfg, batch, path=path, device=device)
 
 
 def pack_serving_slabs(params, cfg: AlexNetConfig, batch: int, *,

@@ -41,16 +41,22 @@ ROUTES = ("auto", "direct", "winograd", "pallas")
 UNSET = object()
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
-
-
 @dataclass(frozen=True)
 class ConvPlan:
-    """Per-layer launch knobs, the reference's fields and defaults.  On the
-    port the blocking knobs shape only the packed slab, both
-    ``weight_prefetch`` values launch the same CUDA kernels, and
-    ``row_parallel`` must stay False (:func:`plan_knobs` refuses it)."""
+    """A per-layer launch plan: the reference's fields and defaults, and
+    the block tile of the resolved CUDA kernel's GEMM stage.  What the
+    measured autotuner (``core/autotune.py``) searches, persists and feeds
+    back into :func:`dispatch_conv`; ``ConvPlan()`` is exactly the default
+    launch.
+
+    On the port the blocking knobs shape only the packed slab, and both
+    ``weight_prefetch`` values and both ``row_parallel`` values launch the
+    same kernels: the cp.async rings always stage the weights ahead of
+    their use, and CUDA blocks are already independent over rows.
+    ``tile_rows``/``tile_cols`` are the GEMM block tile (kernel 1's conv
+    stage, kernels 2-3's batched GEMM); None takes the kernel's default.
+    Every tile gives the same bits: each output is one thread's ordered
+    FMA chain, whatever the tile."""
     batch_block: int = 8
     k_block: int = 128
     c_block: int | None = None
@@ -58,10 +64,21 @@ class ConvPlan:
     weight_prefetch: bool = True
     row_parallel: bool = False
     route: str | None = None
+    tile_rows: int | None = None
+    tile_cols: int | None = None
 
     def __post_init__(self):
         assert self.route is None or self.route in ROUTES, self.route
         assert self.batch_block >= 1 and self.k_block >= 1
+
+    def to_dict(self) -> dict:
+        return {k: getattr(self, k) for k in self.__dataclass_fields__}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ConvPlan":
+        """Unknown keys are ignored and missing ones default, so a plan
+        the reference wrote loads here."""
+        return cls(**{k: d[k] for k in cls.__dataclass_fields__ if k in d})
 
 
 DEFAULT_PLAN = ConvPlan()
@@ -70,16 +87,13 @@ DEFAULT_PLAN = ConvPlan()
 def plan_knobs(plan: "ConvPlan | None" = None, *, batch_block=UNSET,
                k_block=UNSET, c_block=UNSET, pool_row_block=UNSET,
                weight_prefetch=UNSET, row_parallel=UNSET) -> "ConvPlan":
-    """Effective knobs: explicit kwarg beats plan beats default."""
+    """Effective knobs: explicit kwarg beats plan beats default.  ``UNSET``
+    marks "not passed", so an explicit None still overrides a plan."""
     base = plan if plan is not None else DEFAULT_PLAN
     kw = dict(batch_block=batch_block, k_block=k_block, c_block=c_block,
               pool_row_block=pool_row_block,
               weight_prefetch=weight_prefetch, row_parallel=row_parallel)
-    knobs = replace(base, **{k: v for k, v in kw.items() if v is not UNSET})
-    if knobs.row_parallel:
-        _not_ported("row_parallel (the TPU's row-parallel weight stream)",
-                    "ROADMAP Queue 1, item 5: the measured autotuner")
-    return knobs
+    return replace(base, **{k: v for k, v in kw.items() if v is not UNSET})
 
 
 def conv_out_hw(extent: int, kernel: int, stride: int, padding: str) -> int:
@@ -222,6 +236,15 @@ def _spec_fusion(spec: ConvSpec):
     return lrn_p, pool
 
 
+def kernel_tile(kernel: str, p, knobs: ConvPlan) -> tuple[int, int]:
+    """The (rows, columns) GEMM block tile the resolved CUDA kernel
+    launches for the plan ``p`` under ``knobs``; raises for a tile it is
+    not built for."""
+    tile = (p, knobs.tile_rows, knobs.tile_cols)
+    return (_winograd_k.gemm_tile(*tile) if kernel == "cuda-winograd"
+            else _direct_k.conv_tile(*tile))
+
+
 def _kernel_weight_plan(spec: ConvSpec, kernel: str, in_shape, w_shape, *,
                         lrn, pool, knobs: ConvPlan, abft: bool = False):
     """The plan of the resolved kernel — the one source of slab shapes
@@ -305,7 +328,9 @@ def pack_conv_weights(spec: ConvSpec, in_shape, w, *, bfp_pack: bool = False,
     kernel routes, the raw filters on the others.  ``abft`` packs the
     kernels' checksum row into every tile (pass the same flag to
     :func:`dispatch_conv`); ``fingerprint`` stamps a
-    :class:`SlabFingerprint`, whose crc32 copies the slab to the host."""
+    :class:`SlabFingerprint`, whose crc32 copies the slab to the host.  The
+    plan's tile does not change the slab; a tile the kernel cannot launch
+    on it raises here, before any dispatch."""
     knobs = plan_knobs(plan, k_block=k_block, batch_block=batch_block)
     if plan is not None and plan.route is not None:
         spec = spec.with_route(plan.route)
@@ -315,6 +340,7 @@ def pack_conv_weights(spec: ConvSpec, in_shape, w, *, bfp_pack: bool = False,
         p = _kernel_weight_plan(spec, kernel, tuple(in_shape),
                                 tuple(w.shape), lrn=lrn_p, pool=pool,
                                 knobs=knobs, abft=abft)
+        kernel_tile(kernel, p, knobs)
         data = _pack_for_plan(kernel, w, p, bfp_pack)
     else:
         data = _quantize_filters(w) if bfp_pack else None
@@ -338,7 +364,8 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     (another input shape or plan, a deferred bias, a route fallback) a
     ``bfp`` slab is repacked quantized for the actual call, so §3.6
     quantization is never dropped, and a plain slab is ignored (the kernel
-    packs now — identical values).  ``prefetch_next`` is a zero-arg
+    packs now — identical values).  The plan's tile picks the CUDA
+    kernel's GEMM block tile (same bits).  ``prefetch_next`` is a zero-arg
     callable invoked right after the conv is issued: work it enqueues
     (packing layer N+1's slab) queues behind this layer on the stream.
 
@@ -386,6 +413,7 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
               k_block=knobs.k_block, batch_block=knobs.batch_block,
               weight_prefetch=knobs.weight_prefetch, checksum=abft,
               verdict=verdict)
+    tile = dict(tile_rows=knobs.tile_rows, tile_cols=knobs.tile_cols)
     if abft and not kernel.startswith("cuda"):
         verdict = new_verdict(x, verdict)
     if kernel == "direct":
@@ -394,12 +422,12 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     elif kernel == "cuda-winograd":
         y = kernel_conv2d(x, w, bias, slab, m=spec.winograd_m,
                           padding=spec.padding, relu=relu, groups=spec.groups,
-                          lrn=lrn_p, pool=pool, **kw)
+                          lrn=lrn_p, pool=pool, **kw, **tile)
     elif kernel == "cuda-direct":
         y = kernel_conv2d_direct(x, w, bias, slab, stride=spec.stride,
                                  padding=spec.padding, relu=relu,
                                  groups=spec.groups, lrn=lrn_p, pool=pool,
-                                 **kw)
+                                 **kw, **tile)
     else:
         y = conv2d_winograd(x, w, bias, m=spec.winograd_m,
                             padding=spec.padding, relu=relu,

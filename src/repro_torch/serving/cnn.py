@@ -102,6 +102,8 @@ class CnnServeConfig:
     # -- SDC defense ----------------------------------------------------
     verify_slabs: bool = False      # pre-dispatch slab fingerprint check
     screen_abs_max: Optional[float] = None  # |logit| bound on the screen
+    # -- tuned launch plans (core/autotune.py) ----------------------------
+    plan_cache: Optional[str] = None  # None: results/plans/alexnet_torch.json
 
 
 @dataclass
@@ -186,8 +188,10 @@ class CnnEngine:
         self._bucket_failures: Dict[int, int] = {}
         self.degradations: List[dict] = []
 
+        # tuned launch plans from the measured autotuner's cache, keyed to
+        # this config's layers and this card
         self.plans: Dict[str, object] = self.mod.load_tuned_plans(
-            cfg, scfg.max_batch)
+            cfg, scfg.max_batch, path=scfg.plan_cache, device=self.device)
         self._packed: Dict[int, dict] = {}
         self._packed_direct: Dict[int, dict] = {}
         # batch-independent staging (the BFP FC streams), shared by every

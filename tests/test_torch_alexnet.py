@@ -153,10 +153,19 @@ def test_unported_config_features_raise(change, match):
 
 
 def test_tuned_plans_are_refused_not_ignored():
+    """Plans tuned for the TPU kernels never steer the CUDA kernels: the
+    reference's cache (keyed ``cpu-interpret``) loads nothing, on the CPU
+    as on the card, and neither does the port's cache, tuned on a card, on
+    the CPU."""
+    from repro_torch.core import autotune
     cfg = get_config("alexnet")
-    assert alexnet.load_tuned_plans(cfg, 8) == {}
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        alexnet.load_tuned_plans(cfg, 8, path="results/plans/alexnet.json")
+    ref_cache = autotune.PLAN_DIR / "alexnet.json"
+    assert ref_cache.exists()
+    for c in (cfg, cfg.reduced()):
+        for batch in (2, 8):
+            assert alexnet.load_tuned_plans(c, batch, device="cpu") == {}
+            assert alexnet.load_tuned_plans(c, batch, path=ref_cache,
+                                            device="cpu") == {}
 
 
 def test_unknown_arch_is_refused():

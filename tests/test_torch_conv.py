@@ -289,16 +289,22 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize("where", ["dispatch", "plan"])
 def test_row_parallel_is_refused(where):
-    """The TPU's row-parallel regime has no CUDA counterpart yet: asking
-    for it raises instead of running the default kernel under its name."""
+    """Once refused, ``row_parallel=True`` is now the default launch (CUDA
+    blocks are already independent over rows): through a dispatch kwarg,
+    or a plan whose slab is packed for it, the output is the default
+    plan's bit for bit."""
     x, w, b = _t(*_layer_inputs(dict(kernel=3), 9, 6, 8))
     spec = t_conv.ConvSpec(kernel=3, route="pallas")
-    with pytest.raises(NotImplementedError, match="row_parallel.*ROADMAP"):
-        if where == "dispatch":
-            t_conv.dispatch_conv(spec, x, w, b, row_parallel=True)
-        else:
-            t_conv.pack_conv_weights(spec, tuple(x.shape), w,
-                                     plan=t_conv.ConvPlan(row_parallel=True))
+    y0 = t_conv.dispatch_conv(spec, x, w, b)
+    if where == "dispatch":
+        y = t_conv.dispatch_conv(spec, x, w, b, row_parallel=True)
+    else:
+        plan = t_conv.ConvPlan(row_parallel=True)
+        wp = t_conv.pack_conv_weights(spec, tuple(x.shape), w, plan=plan)
+        assert torch.equal(
+            wp.data, t_conv.pack_conv_weights(spec, tuple(x.shape), w).data)
+        y = t_conv.dispatch_conv(spec, x, w, b, w_packed=wp, plan=plan)
+    assert torch.equal(y.view(torch.int32), y0.view(torch.int32))
 
 
 def test_cuda_wrappers_refuse_other_devices():

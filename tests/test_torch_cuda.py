@@ -391,6 +391,69 @@ def test_armed_kernel_two_calls_bit_equal(card, kind, name, kw, r, B, H,
     assert torch.equal(y1, y2) and int(v1) == int(v2) == want == 3
 
 
+# every block tile of kernels 1-3 against the default tile: the AlexNet
+# layers (reduced and full width) and the edge geometries of both kernels
+TILE_CASES = ([("direct",) + c for c in DIRECT_CASES]
+              + [("winograd", n, kw, 3, B, H, ci, co)
+                 for n, kw, B, H, ci, co in WINO_CASES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_kind", ["f32", "bfp"])
+@pytest.mark.parametrize("kind,name,kw,r,B,H,c_in,c_out", TILE_CASES)
+def test_every_tile_bit_equal_to_the_default(card, kind, name, kw, r, B, H,
+                                             c_in, c_out, slab_kind):
+    """Each output is one thread's FMA chain in a fixed order, so every
+    block tile the launcher is built for gives the default tile's bits,
+    unarmed and armed (verdict 0 on a clean slab), on f32 slabs and on
+    ``conv_bfp``-quantized ones; a tile the launcher is not built for on
+    this slab raises and launches nothing."""
+    fn, x, w, b, armed, p = _armed(kind, name, kw, r, B, H, c_in, c_out,
+                                   seed=5, bfp=slab_kind == "bfp")
+    plain = dma.pack_weight_tiles(
+        dma.unpack_weight_tiles(armed, p.weights),
+        dataclasses.replace(p.weights, checksum=False))
+    xc, wc, bc = x.to(card), w.to(card), b.to(card)
+    slab, armed = plain.to(card), armed.to(card)
+    base = fn(xc, wc, bc, slab, relu=True, **kw).view(torch.int32)
+    mod = direct if kind == "direct" else winograd
+    for tile in mod.TILES:
+        kwt = dict(kw, tile_rows=tile[0], tile_cols=tile[1])
+        if tile not in mod.ANY_SLAB_TILES and p.Kb % 4:
+            before = dict(ops.launch_counts())
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(xc, wc, bc, slab, relu=True, **kwt)
+            assert ops.launch_counts() == before
+            continue
+        y = fn(xc, wc, bc, slab, relu=True, **kwt)
+        y_arm, v = fn(xc, wc, bc, armed, relu=True, checksum=True, **kwt)
+        torch.cuda.synchronize()
+        assert torch.equal(y.view(torch.int32), base), tile
+        assert torch.equal(y_arm.view(torch.int32), base), tile
+        assert int(v) == 0, tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["direct", "winograd"])
+def test_launcher_refuses_a_tile_it_is_not_built_for(card, kind,
+                                                     monkeypatch):
+    """The C launcher checks the tile itself: a tile the Python side is
+    told exists, but the launcher was not built for, fails the launch
+    (``KernelError``) and never falls back to another tile."""
+    mod = direct if kind == "direct" else winograd
+    monkeypatch.setattr(mod, "TILES", mod.TILES + ((32, 32),))
+    monkeypatch.setattr(mod, "ANY_SLAB_TILES",
+                        mod.ANY_SLAB_TILES + ((32, 32),))
+    r, kw = (5, dict(groups=2)) if kind == "direct" else (3, {})
+    x, w, b = (torch.from_numpy(a).to(card) for a in _inputs(
+        6, 2, 9, 8, 16, r, kw.get("groups", 1)))
+    fn = mod.conv2d_direct if kind == "direct" else mod.conv2d_winograd
+    before = dict(ops.launch_counts())
+    with pytest.raises(build.KernelError, match="cudaError_t"):
+        fn(x, w, b, relu=True, tile_rows=32, tile_cols=32, **kw)
+    assert ops.launch_counts() == before
+
+
 @pytest.mark.cuda
 def test_armed_forward_sums_layers_into_one_verdict(card):
     """The armed AlexNet forward on the card: one int32 verdict for the

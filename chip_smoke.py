@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--out numbers.json]   # checkout root, one GPU
+    python3 chip_smoke.py [--out numbers.json] [--seed N]   # one GPU
 
 Phases:
   1. device  — the card's name and power limit;
@@ -51,6 +51,41 @@ Phases:
                hit; the reference's ``results/plans/alexnet.json`` loads no
                plan on the card; one ``autotune:`` line a layer (default
                and tuned ms, winning tile, candidates);
+  3b. kernels-bf16 — kernels 1-3 at AlexNet's five layer shapes (batch 8)
+               in bf16 (bf16 x and bias; the direct slab bf16, the
+               Winograd slab f32, as the reference packs them): each call
+               bit-equal to the same kernel on the widened inputs rounded
+               to bf16 at every block tile of its launcher, armed (verdict
+               0) and unarmed; within one bf16 step of the plain version;
+               the armed direct kernel's verdict equal to the plain count
+               for 32 seeded flips and one each in a checksum row, a sign
+               and an exponent bit of each bf16 slab (conv1, conv2); timed
+               beside bf16 ``F.conv2d`` (cuDNN) and the bound;
+  3c. kernels-vgg — kernels 2-3 at VGG-16's twelve layer geometries (224
+               to 14 px, C_in 3 to 512, five with the 2x2/2 pool), batch
+               8, f32 (within TOL_KERNEL of the plain version) and bf16
+               (the bf16 rule, one bf16 step of the plain version), timed
+               beside ``F.conv2d`` + pool and the bound; then the device
+               ms of a whole VGG-16 feature pass in f32 and bf16;
+  4e. alexnet-bf16 — 32 bf16 AlexNet requests through ``CnnEngine``:
+               bit-equal to bf16 ``apply`` at the served bucket, within
+               TOL_BF16 of the f32 model on the same weights; then
+               BENCH_sdc's clean and bitflip scenarios in bf16;
+  4d. vgg    — full-width VGG-16 (random weights from a seed) through
+               ``CnnEngine(max_batch=8)`` on route pallas: 32 f32 requests
+               (kernel 2 launched 8 and kernel 3 5 times a forward,
+               bit-equal to ``apply``, within TOL_ROUTE of the direct
+               route, one traced batch), then 16 bf16 requests (bit-equal
+               to bf16 ``apply``, within TOL_BF16 of the f32 model);
+  4f. fleet  — ``ModelRegistry(slot_budget=32)`` serving full-width
+               AlexNet and VGG-16 (f32, max_batch=8): each warm engine's
+               service ms at bucket 8, ``arm_slo(1.6 x service ms,
+               admission=True)``, then a 3 s open-loop trace from
+               ``--seed`` (AlexNet diurnal at 0.5x its capacity, VGG-16
+               Poisson at 0.35x), held to the fleet benchmark's gates
+               (every engine drained, shed requests reported and never
+               served, the engines' counts equal to the front door's,
+               accounting balanced); one ``fleet:`` line a model;
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
                (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), the latter also with skewed lengths
@@ -94,6 +129,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -112,6 +148,10 @@ TOL_ROUTE = 1e-3            # served vs direct route: <= TOL_ROUTE * max|logit|
 # BFP served vs the f32 model: the JAX package's own bound for fc_bfp and
 # conv_bfp (tests/test_fused_pipeline.py), <= TOL_BFP * max|logit|
 TOL_BFP = 5e-2
+# a bf16 model served vs the f32 model on the same (bf16-representable)
+# weights: the JAX package's bf16 bound (tests/test_serve_fleet.py),
+# <= TOL_BF16 * max|logit|
+TOL_BF16 = 5e-2
 # kernel 5 vs its plain version: the JAX package's bounds for its decode
 # kernel (tests/test_kernels.py), rtol = atol; in bf16 the plain version
 # rounds its probabilities to bf16, the kernel keeps them in f32
@@ -172,6 +212,7 @@ BATCH = 8
 ABFT_FLIPS = 32
 SDC_SEED = 0
 ARRIVALS = (1, 3, 8, 5, 2, 7, 6)   # 32 requests in mixed group sizes
+BF16_ARRIVALS = (1, 3, 8, 4)       # 16
 TIMING_ITERS = 20
 # the autotune phase: candidates a layer, timed calls a candidate (their
 # median decides), requests served with and without the tuned plans
@@ -224,7 +265,7 @@ def layer_cases(torch, np, cfg, params):
     slabs = alexnet.pack_serving_slabs(params, cfg, BATCH)
     x = torch.as_tensor(rng.standard_normal(
         (BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)),
-        dtype=torch.float32, device="cuda")
+        dtype=alexnet.DTYPES[cfg.dtype], device="cuda")
     cases = []
     for i, spec in enumerate(specs):
         name = f"conv{i + 1}"
@@ -244,11 +285,13 @@ def layer_cases(torch, np, cfg, params):
     return cases
 
 
-def flops_bytes(kname, x, out, plan):
+def flops_bytes(kname, x, out, plan, slab=None):
     """(operations, bytes) the layer must do and move: each input, weight,
     bias and output byte once (the slab's real entries, not its channel or
-    K padding, which no kernel reads); multiply-adds count 2 operations,
-    in the Winograd domain for the Winograd kernels."""
+    K padding, which no kernel reads; at the slab's element size, 4 bytes
+    when None), x, bias and output at their element size; multiply-adds
+    count 2 operations, in the Winograd domain for the Winograd
+    kernels."""
     B = x.shape[0]
     if kname == "conv_direct":
         taps = plan.r * plan.r
@@ -258,7 +301,9 @@ def flops_bytes(kname, x, out, plan):
         tiles = -(-plan.out_h // plan.m) * -(-plan.out_w // plan.m)
         madds = B * tiles * taps * plan.C * plan.Kfull
     weights = taps * plan.C * plan.Kfull
-    nbytes = 4 * (x.numel() + weights + plan.Kfull + out.numel())
+    wsize = 4 if slab is None else slab.element_size()
+    nbytes = (x.element_size() * (x.numel() + plan.Kfull)
+              + wsize * weights + out.element_size() * out.numel())
     return 2 * madds, nbytes
 
 
@@ -321,7 +366,7 @@ def phase_kernels(torch, np, cfg, params):
         (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
             time_ms(torch, kern), time_ms(torch, plain),
             time_ms(torch, library))
-        flops, nbytes = flops_bytes(kname, x, got, plan)
+        flops, nbytes = flops_bytes(kname, x, got, plan, slab)
         smem = (direct.smem_bytes if kname == "conv_direct"
                 else winograd.smem_bytes)(plan)
         bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
@@ -485,13 +530,35 @@ def warm_buckets(eng, requests):
     eng.reset_metrics()
 
 
-def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
-    """Serve 32 requests; with ``cfg_f32`` (a BFP config's f32 twin) the
-    logits are held against that model within the BFP error, else against
-    the ``direct`` route."""
+def conv_launches_per_forward(cfg):
+    """Conv-kernel launches one forward of ``cfg`` on route pallas makes:
+    the direct kernel's, and the Winograd kernels' unfused and fused."""
+    from repro_torch.models import alexnet
+    from repro_torch.nn.conv import resolve_kernel
+    counts = {"conv_direct": 0, "conv_winograd": 0, "conv_winograd_fused": 0}
+    h = cfg.image_size
+    for spec in alexnet.layer_specs(cfg):
+        if resolve_kernel(spec.with_route("pallas"), in_hw=h) == \
+                "cuda-direct":
+            counts["conv_direct"] += 1
+        elif spec.fuse_pool or spec.fuse_lrn:
+            counts["conv_winograd_fused"] += 1
+        else:
+            counts["conv_winograd"] += 1
+        h = spec.out_hw(h)
+    return counts
+
+
+def phase_serve(torch, np, cfg, params, *, cfg_f32=None, params_f32=None,
+                tol=TOL_BFP, arrivals=ARRIVALS, label=None):
+    """Serve ``arrivals`` requests; with ``cfg_f32`` (a BFP or bf16
+    config's f32 twin, on ``params_f32``, by default ``params``) the logits
+    are held against that model within ``tol`` * max|logit|, else against
+    the ``direct`` route, and one more batch is traced."""
     from repro_torch.models import alexnet
     from repro_torch.serving import CnnEngine, CnnServeConfig, ImageRequest
     rng = np.random.default_rng(1)
+    label = label or ("bfp" if cfg.fc_bfp else "f32")
 
     def requests(n):
         return [ImageRequest(image=rng.standard_normal(
@@ -504,10 +571,10 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    reqs = requests(sum(ARRIVALS))
+    reqs = requests(sum(arrivals))
     reset_launch_counts()
     i = 0
-    for size in ARRIVALS:
+    for size in arrivals:
         for r in reqs[i:i + size]:
             eng.submit(r)
         i += size
@@ -526,8 +593,7 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
           f"{s['degradations']}")
     nb = s["batches_run"]
     check(nb > 0, "no batch ran")
-    per_forward = {"conv_direct": 2, "conv_winograd": 2,
-                   "conv_winograd_fused": 1,
+    per_forward = {**conv_launches_per_forward(cfg),
                    "bfp_matmul": len(cfg.fc_dims) if cfg.fc_bfp else 0}
     for k, n in per_forward.items():
         check(counts[k] == n * nb, f"{k}: {counts[k]} launches for {nb} "
@@ -545,7 +611,7 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
         for row, uid in enumerate(grp):
             x[row] = by_uid[uid].image
         ref = alexnet.apply(params, cfg, torch.as_tensor(x, device="cuda"))
-        ref = ref.cpu().numpy()
+        ref = ref.float().cpu().numpy()
         for row, uid in enumerate(grp):
             check(np.array_equal(by_uid[uid].logits, ref[row]),
                   f"served logits of request {uid} are not bit-equal to "
@@ -557,32 +623,33 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None):
         other = alexnet.apply(params, dataclasses.replace(
             cfg, use_winograd=False, use_pallas=False), images)
     else:
-        what, tol = "the f32 model", TOL_BFP
-        other = alexnet.apply(params, cfg_f32, images)
-    other = other.cpu().numpy()
+        what = "the f32 model"
+        other = alexnet.apply(params if params_f32 is None else params_f32,
+                              cfg_f32, images.float())
+    other = other.float().cpu().numpy()
     dmax = float(np.abs(served - other).max())
     lmax = float(np.abs(other).max())
-    print(f"serve {'bfp' if cfg.fc_bfp else 'f32'}: served vs {what} max|d| "
-          f"{dmax:.3e} "
+    print(f"serve {label}: served vs {what} max|d| {dmax:.3e} "
           f"(max|logit| {lmax:.3e}, rel {dmax / lmax:.3e}, tol {tol:g})")
     check(dmax <= tol * lmax, f"served logits off {what}: {dmax} > {tol} * "
           f"{lmax}")
     if cfg_f32 is not None:
-        check(dmax > 0, "BFP logits equal the f32 model's: the quantized "
-              "path did not run")
-        trace = {}
-    else:
-        trace = profile_batch(torch, eng, requests)
+        check(dmax > 0, f"{label} logits equal the f32 model's: the "
+              "quantized or bf16 path did not run")
+    trace = (profile_batch(torch, eng, requests, label) if cfg_f32 is None
+             else {})
     lat = s["latency_ms"]
     return {**trace, "completed": acc["completed"], "batches": nb,
             "bucket_counts": s["bucket_counts"],
             "imgs_per_s": s["imgs_per_s"], "p50_ms": lat["p50"],
             "p99_ms": lat["p99"], "peak_mem_bytes": peak,
-            "launches": counts, "served_vs_reference": what,
+            "launches": counts, "per_forward": per_forward,
+            "tuned_layers": s["tuned_layers"],
+            "requests": len(reqs), "served_vs_reference": what,
             "served_vs_reference_max_abs": dmax, "max_abs_logit": lmax}
 
 
-def profile_batch(torch, eng, requests):
+def profile_batch(torch, eng, requests, label="f32"):
     """Where one served batch of BATCH images goes (submit to the last
     retire, the engine's own H2D copy and host sync included): its wall
     time untraced, and from a ``torch.profiler`` trace its device busy
@@ -597,12 +664,12 @@ def profile_batch(torch, eng, requests):
     wall, busy, events, marks, top = profile_decode(
         torch, serve_batch, marks=("conv_direct", "conv_winograd", *stages))
     if busy is None:
-        print(f"serve f32 batch of {BATCH}: {wall:.3f} ms wall | the "
+        print(f"serve {label} batch of {BATCH}: {wall:.3f} ms wall | the "
               "profiler trace holds no device events; device busy time not "
               "measured")
         return {"batch_wall_ms": wall, "batch_device_busy_ms": None}
     idle = 1.0 - busy / wall
-    print(f"serve f32 batch of {BATCH}: {wall:.3f} ms wall (untraced) | "
+    print(f"serve {label} batch of {BATCH}: {wall:.3f} ms wall (untraced) | "
           f"traced: device busy {busy:.3f} ms in {events:.0f} events, "
           f"conv_direct {marks['conv_direct']:.4f} ms, conv_winograd "
           f"{marks['conv_winograd']:.4f} ms ("
@@ -631,22 +698,23 @@ def flip_positions(np, slab, plan, rng):
     """ABFT_FLIPS seeded bit positions over the whole armed slab (n,
     *spatial, Cb + 1, Kb), then one each in a checksum row, in padding
     where the plan has any (a channel row past C, else a column past K),
-    and in a weight's sign and exponent bits."""
+    and in a weight's sign and exponent bits (f32 or bf16 elements)."""
     idx = np.arange(slab.numel()).reshape(tuple(slab.shape))
-    nbits = 32 * slab.numel()
+    bpe = 8 * slab.element_size()
+    nbits = bpe * slab.numel()
     bits = {f"random{i}": int(v)
             for i, v in enumerate(rng.integers(0, nbits, ABFT_FLIPS))}
-    bits["checksum_row"] = 32 * int(idx[-1, ..., -1, 1].flat[-1]) + 5
-    bits["sign"] = 32 * int(idx[0, ..., 0, 0].flat[0]) + 31
-    bits["exponent"] = 32 * int(idx[0, ..., 1, 0].flat[0]) + 27
+    bits["checksum_row"] = bpe * int(idx[-1, ..., -1, 1].flat[-1]) + 5
+    bits["sign"] = bpe * int(idx[0, ..., 0, 0].flat[0]) + bpe - 1
+    bits["exponent"] = bpe * int(idx[0, ..., 1, 0].flat[0]) + bpe - 5
     if plan.Cp > plan.C:
         # group 0's channel C: C block C // Cb, row C % Cb
-        bits["padding"] = 32 * int(idx[plan.C // plan.Cb, ...,
-                                       plan.C % plan.Cb, 0].flat[0]) + 3
+        bits["padding"] = bpe * int(idx[plan.C // plan.Cb, ...,
+                                        plan.C % plan.Cb, 0].flat[0]) + 3
     elif getattr(plan, "Kp", plan.K) > plan.K:
         # group 0's last K block, its last column (past K)
-        bits["padding"] = 32 * int(idx[(plan.nkb - 1) * plan.ncb, ...,
-                                       0, plan.Kb - 1].flat[0]) + 3
+        bits["padding"] = bpe * int(idx[(plan.nkb - 1) * plan.ncb, ...,
+                                        0, plan.Kb - 1].flat[0]) + 3
     return bits
 
 
@@ -714,8 +782,6 @@ def phase_sdc(torch, np, cfg, params, rows):
     ``CnnEngine(max_batch=8)``.  Adds ``ms_abft`` and
     ``abft_flips_checked`` to the conv rows of ``rows``."""
     from repro_torch.nn.conv import pack_conv_weights
-    from repro_torch.serving import CnnEngine, CnnServeConfig, \
-        FaultInjector, FaultSpec, ImageRequest, derive_seed
     t0 = time.perf_counter()
     card = card_line()
     rng = np.random.default_rng(SDC_SEED)
@@ -739,6 +805,21 @@ def phase_sdc(torch, np, cfg, params, rows):
                                     rng, "conv_bfp"))
             row["abft_flips_checked"] += layers[-1]["flips"]
 
+    scen = sdc_scenarios(torch, np, cfg, params, rng, card,
+                         ("clean", "bitflip", "verify", "plausible"))
+    seconds = time.perf_counter() - t0
+    print(f"sdc: phase {seconds:.1f} s")
+    return {"layers": layers, **scen, "seconds": seconds}
+
+
+def sdc_scenarios(torch, np, cfg, params, rng, card, which, label=""):
+    """BENCH_sdc's serving scenarios named in ``which`` (clean, bitflip,
+    verify, plausible) through ``CnnEngine(max_batch=8)`` on ``cfg``;
+    returns each one's numbers, and ``launches``: the armed clean run's
+    counts."""
+    from repro_torch.serving import CnnEngine, CnnServeConfig, \
+        FaultInjector, FaultSpec, ImageRequest, derive_seed
+    out = {}
     cfg_abft = dataclasses.replace(cfg, sdc_abft=True)
     requests = sdc_requests(np, cfg, rng)
 
@@ -774,10 +855,9 @@ def phase_sdc(torch, np, cfg, params, rows):
     wall_on = serve(e_on, rs_on)
     counts = launch_counts()
     nb = e_on.batches_run
-    for k, n in (("conv_direct", 2), ("conv_winograd", 2),
-                 ("conv_winograd_fused", 1)):
-        check(counts[k] == n * nb, f"sdc clean: {k} {counts[k]} launches for "
-              f"{nb} armed batches, expected {n} a forward")
+    for k, n in conv_launches_per_forward(cfg).items():
+        check(counts[k] == n * nb, f"sdc{label} clean: {k} {counts[k]} "
+              f"launches for {nb} armed batches, expected {n} a forward")
     slabs = e_on._slabs(BATCH)
     fp_ms = _host_ms(torch, lambda: e_on._slabs_intact(BATCH, False))
     clean = {
@@ -799,11 +879,12 @@ def phase_sdc(torch, np, cfg, params, rows):
         "batches": nb, "launches": counts,
         "accounting_balanced": balanced(e_off, rs_off)
         and balanced(e_on, rs_on)}
-    check(clean["bit_identical"], "sdc clean: armed logits differ from the "
-          "unarmed engine's")
+    check(clean["bit_identical"], f"sdc{label} clean: armed logits differ "
+          "from the unarmed engine's")
     check(clean["false_positive_rate"] == 0.0 and clean["accounting_balanced"],
-          f"sdc clean: false positives or unbalanced accounting: {clean}")
-    print(f"sdc: clean {len(probe)} requests off vs armed (ABFT + "
+          f"sdc{label} clean: false positives or unbalanced accounting: "
+          f"{clean}")
+    print(f"sdc{label}: clean {len(probe)} requests off vs armed (ABFT + "
           f"fingerprints + |logit| <= 1e6): bit_identical yes, detections 0,"
           f" integrity failures 0, magnitude screens 0, false_positive_rate "
           f"0.0 | wall off {wall_off * 1e3:.1f} ms armed {wall_on * 1e3:.1f}"
@@ -811,84 +892,94 @@ def phase_sdc(torch, np, cfg, params, rows):
           f"check {fp_ms:.2f} ms a batch over "
           f"{clean['slab_bytes'] / 2 ** 20:.1f} MiB of slabs) | on {card}")
 
-    # 2. bitflip: fingerprints off, so the kernels' verdict is the detector
-    flips_at = (0, 2, 4)
-    eng = engine(cfg_abft)
-    eng.arm_faults(FaultInjector(seed=derive_seed(SDC_SEED, "sdc-bitflip"),
-                                 specs={"slab.bitflip": FaultSpec(
-                                     at=flips_at)}))
-    reqs = requests(BATCH * (max(flips_at) + 2))
-    serve(eng, reqs)
-    fired = eng.faults.summary()["slab.bitflip"]["fired"]
-    bitflip = {"requests": len(reqs), "flips_fired": fired,
-               "detections": eng.sdc_detections,
-               "detection_rate": eng.sdc_detections / fired if fired else 0.0,
-               "completed": sum(r.done for r in reqs),
-               "retried": eng.images_retried,
-               "batches_failed": eng.batches_failed,
-               "accounting_balanced": balanced(eng, reqs),
-               "faults": eng.faults.summary()}
-    check(fired == len(flips_at) and bitflip["detection_rate"] == 1.0
-          and bitflip["accounting_balanced"],
-          f"sdc bitflip: a flip was missed or a request lost: {bitflip}")
-    print(f"sdc: bitflip {fired} slab bit flips over {len(reqs)} requests "
-          f"(fingerprints off): detections {eng.sdc_detections}, "
-          f"detection_rate 1.0, completed {bitflip['completed']}/{len(reqs)}"
-          f", retried {eng.images_retried}, accounting balanced | on {card}")
-
-    # 3. verify: fingerprints catch a flipped and a stale slab pre-dispatch
-    eng = engine(cfg_abft, **armed_kw)
-    eng.arm_faults(FaultInjector(seed=derive_seed(SDC_SEED, "sdc-verify"),
-                                 specs={"slab.bitflip": FaultSpec(at=(0,)),
-                                        "slab.stale": FaultSpec(at=(1,))}))
-    reqs = requests(12)
-    serve(eng, reqs)
-    verify = {"requests": len(reqs),
-              "faults_fired": sum(v["fired"] for p, v in
-                                  eng.faults.summary().items()
-                                  if p.startswith("slab.")),
-              "slab_integrity_failures": eng.slab_integrity_failures,
-              "abft_detections": eng.sdc_detections,
-              "completed": sum(r.done for r in reqs),
-              "accounting_balanced": balanced(eng, reqs),
-              "faults": eng.faults.summary()}
-    check(verify["faults_fired"] == 2
-          and verify["slab_integrity_failures"] == 2
-          and verify["abft_detections"] == 0
-          and verify["accounting_balanced"],
-          f"sdc verify: a slab fault reached a forward: {verify}")
-    print(f"sdc: verify slab.bitflip + slab.stale over {len(reqs)} requests:"
-          f" both caught before dispatch (integrity failures 2, ABFT "
-          f"detections 0), completed {verify['completed']}/{len(reqs)}, "
-          f"accounting balanced | on {card}")
-
-    # 4. plausible: a finite 1e8 offset on one row, caught by |logit| bound
-    eng = engine(cfg_abft, **armed_kw)
-    eng.arm_faults(FaultInjector(
-        seed=derive_seed(SDC_SEED, "sdc-plausible"),
-        specs={"retire.plausible": FaultSpec(at=(0,), magnitude=1e8)}))
-    reqs = requests(8)
-    serve(eng, reqs)
-    plausible = {"requests": len(reqs),
-                 "fired": eng.faults.summary()["retire.plausible"]["fired"],
-                 "screen_magnitude": eng.screen_magnitude,
-                 "screen_nonfinite": eng.screen_nonfinite,
-                 "completed": sum(r.done for r in reqs),
-                 "retried": eng.images_retried,
-                 "accounting_balanced": balanced(eng, reqs)}
-    check(plausible["fired"] == 1 and plausible["screen_magnitude"] == 1
-          and plausible["screen_nonfinite"] == 0
-          and plausible["accounting_balanced"],
-          f"sdc plausible: the corrupted row was not screened: {plausible}")
-    print(f"sdc: plausible retire.plausible (1e8) over {len(reqs)} requests:"
-          f" screen_magnitude 1, screen_nonfinite 0, completed "
-          f"{plausible['completed']}/{len(reqs)}, accounting balanced | on "
-          f"{card}")
-    seconds = time.perf_counter() - t0
-    print(f"sdc: phase {seconds:.1f} s")
-    return {"layers": layers, "clean": clean, "bitflip": bitflip,
-            "verify": verify, "plausible": plausible, "seconds": seconds,
-            "launches": counts}
+    out.update(clean=clean, launches=counts)
+    if "bitflip" in which:
+        # 2. bitflip: fingerprints off, so the kernels' verdict detects
+        flips_at = (0, 2, 4)
+        eng = engine(cfg_abft)
+        eng.arm_faults(FaultInjector(
+            seed=derive_seed(SDC_SEED, "sdc-bitflip"),
+            specs={"slab.bitflip": FaultSpec(at=flips_at)}))
+        reqs = requests(BATCH * (max(flips_at) + 2))
+        serve(eng, reqs)
+        fired = eng.faults.summary()["slab.bitflip"]["fired"]
+        bitflip = {"requests": len(reqs), "flips_fired": fired,
+                   "detections": eng.sdc_detections,
+                   "detection_rate": (eng.sdc_detections / fired if fired
+                                      else 0.0),
+                   "completed": sum(r.done for r in reqs),
+                   "retried": eng.images_retried,
+                   "batches_failed": eng.batches_failed,
+                   "accounting_balanced": balanced(eng, reqs),
+                   "faults": eng.faults.summary()}
+        check(fired == len(flips_at) and bitflip["detection_rate"] == 1.0
+              and bitflip["accounting_balanced"],
+              f"sdc{label} bitflip: a flip was missed or a request lost: "
+              f"{bitflip}")
+        print(f"sdc{label}: bitflip {fired} slab bit flips over {len(reqs)} "
+              f"requests (fingerprints off): detections "
+              f"{eng.sdc_detections}, detection_rate 1.0, completed "
+              f"{bitflip['completed']}/{len(reqs)}, retried "
+              f"{eng.images_retried}, accounting balanced | on {card}")
+        out["bitflip"] = bitflip
+    if "verify" in which:
+        # 3. verify: fingerprints catch a flipped and a stale slab before
+        # dispatch
+        eng = engine(cfg_abft, **armed_kw)
+        eng.arm_faults(FaultInjector(
+            seed=derive_seed(SDC_SEED, "sdc-verify"),
+            specs={"slab.bitflip": FaultSpec(at=(0,)),
+                   "slab.stale": FaultSpec(at=(1,))}))
+        reqs = requests(12)
+        serve(eng, reqs)
+        verify = {"requests": len(reqs),
+                  "faults_fired": sum(v["fired"] for p, v in
+                                      eng.faults.summary().items()
+                                      if p.startswith("slab.")),
+                  "slab_integrity_failures": eng.slab_integrity_failures,
+                  "abft_detections": eng.sdc_detections,
+                  "completed": sum(r.done for r in reqs),
+                  "accounting_balanced": balanced(eng, reqs),
+                  "faults": eng.faults.summary()}
+        check(verify["faults_fired"] == 2
+              and verify["slab_integrity_failures"] == 2
+              and verify["abft_detections"] == 0
+              and verify["accounting_balanced"],
+              f"sdc{label} verify: a slab fault reached a forward: {verify}")
+        print(f"sdc{label}: verify slab.bitflip + slab.stale over "
+              f"{len(reqs)} requests: both caught before dispatch (integrity "
+              f"failures 2, ABFT detections 0), completed "
+              f"{verify['completed']}/{len(reqs)}, accounting balanced | on "
+              f"{card}")
+        out["verify"] = verify
+    if "plausible" in which:
+        # 4. plausible: a finite 1e8 offset on one row, caught by the
+        # |logit| bound
+        eng = engine(cfg_abft, **armed_kw)
+        eng.arm_faults(FaultInjector(
+            seed=derive_seed(SDC_SEED, "sdc-plausible"),
+            specs={"retire.plausible": FaultSpec(at=(0,), magnitude=1e8)}))
+        reqs = requests(8)
+        serve(eng, reqs)
+        plausible = {"requests": len(reqs),
+                     "fired":
+                         eng.faults.summary()["retire.plausible"]["fired"],
+                     "screen_magnitude": eng.screen_magnitude,
+                     "screen_nonfinite": eng.screen_nonfinite,
+                     "completed": sum(r.done for r in reqs),
+                     "retried": eng.images_retried,
+                     "accounting_balanced": balanced(eng, reqs)}
+        check(plausible["fired"] == 1 and plausible["screen_magnitude"] == 1
+              and plausible["screen_nonfinite"] == 0
+              and plausible["accounting_balanced"],
+              f"sdc{label} plausible: the corrupted row was not screened: "
+              f"{plausible}")
+        print(f"sdc{label}: plausible retire.plausible (1e8) over "
+              f"{len(reqs)} requests: screen_magnitude 1, screen_nonfinite 0, "
+              f"completed {plausible['completed']}/{len(reqs)}, accounting "
+              f"balanced | on {card}")
+        out["plausible"] = plausible
+    return out
 
 
 def phase_autotune(torch, np, cfg, params):
@@ -1012,6 +1103,440 @@ def phase_autotune(torch, np, cfg, params):
             "reference_cache_plans": len(ref_plans),
             "committed_cache_plans": committed, "sweep_s": tune_s,
             "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# bf16 and VGG-16: phases 3b, 3c, 4d, 4e, 4f
+# ---------------------------------------------------------------------------
+def library_conv(torch, x, w, b, spec):
+    """The library's layer in x's dtype: ``F.conv2d`` (cuDNN; tensor
+    cores for bf16), bias, ReLU, then the LRN and pool in x's dtype."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv.ref import same_pad
+    from repro_torch.nn.pooling import apply_epilogue
+    xc = x.permute(0, 3, 1, 2)
+    if spec.padding == "SAME":
+        _, h_lo, h_hi = same_pad(x.shape[1], spec.kernel, spec.stride)
+        _, w_lo, w_hi = same_pad(x.shape[2], spec.kernel, spec.stride)
+        xc = F.pad(xc, (w_lo, w_hi, h_lo, h_hi))
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), b, stride=spec.stride,
+                 groups=spec.groups)
+    y = torch.relu(y).permute(0, 2, 3, 1)
+    lrn = spec.lrn if spec.fuse_lrn else None
+    pool = (spec.pool_window, spec.pool_stride) if spec.fuse_pool else None
+    return apply_epilogue(y, lrn, pool)
+
+
+def bf16_excess(torch, got, ref):
+    """max of |got - ref| - (one bf16 step of |ref| + TOL_KERNEL *
+    max|ref|): <= 0 when the two agree within one bf16 step."""
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).abs() - BF16_STEP * ref.abs()
+                  - TOL_KERNEL * ref.abs().max()).max())
+
+
+def bf16_rule(torch, entry, x, w, b, slab, armed, tiles, layer):
+    """The bf16 rule at every tile of ``tiles``: the bf16 call bit-equal to
+    the call on the widened inputs rounded to bf16, armed and unarmed, the
+    armed verdict 0 on the clean slab."""
+    x32, w32, b32 = x.float(), w.float(), b.float()
+    for tile in tiles:
+        kw = dict(tile_rows=tile[0], tile_cols=tile[1])
+        y = entry(x, w, b, slab, **kw)
+        want = entry(x32, w32, b32, slab.float(), **kw).to(torch.bfloat16)
+        y_arm, v = entry(x, w, b, armed, checksum=True, **kw)
+        want_arm, _ = entry(x32, w32, b32, armed.float(), checksum=True,
+                            **kw)
+        torch.cuda.synchronize()
+        check(y.dtype is torch.bfloat16
+              and torch.equal(y.view(torch.int16), want.view(torch.int16)),
+              f"{layer} tile {tile}: the bf16 kernel is not the f32 kernel "
+              "on the widened inputs rounded to bf16")
+        check(torch.equal(y_arm.view(torch.int16), y.view(torch.int16))
+              and torch.equal(want_arm.to(torch.bfloat16).view(torch.int16),
+                              y.view(torch.int16)) and int(v) == 0,
+              f"{layer} tile {tile}: armed bf16 differs from unarmed or "
+              f"a clean slab gave verdict {int(v)}")
+
+
+def new_row(name):
+    return {"name": name, "layers": [], "max_abs_err": 0.0, "ms": 0.0,
+            "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flop": 0,
+            "bytes": 0, "per_layer": []}
+
+
+def add_layer(row, layer, **nums):
+    """Add one layer's numbers to an aggregate kernel row."""
+    row["layers"].append(layer)
+    row["per_layer"].append({"layer": layer, **nums})
+    row["max_abs_err"] = max(row["max_abs_err"], nums["max_abs_err"])
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms", "flop",
+                "bytes"):
+        row[key] += nums[key]
+
+
+def conv_bound(kname, x, flops, nbytes):
+    """(bound ms, bound_by): kernel 1 in bf16 at the bf16 tensor-core peak
+    (its products are bf16 x bf16, exact in an f32 accumulator), the rest
+    at the FP32 peak (a Winograd-domain V is not bf16-representable)."""
+    peak = (PEAK_BF16_FLOPS if kname == "conv_direct"
+            and x.element_size() == 2 else PEAK_FP32_FLOPS)
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_kernels_bf16(torch, np, cfg, params):
+    """3b: kernels 1-3 at AlexNet's five layer shapes, batch 8, in bf16:
+    the bf16 rule at every tile of each launcher's grid, armed and
+    unarmed; within one bf16 step of the plain version; the armed direct
+    kernels' verdicts for seeded flips of their bf16 slabs; timed beside
+    bf16 ``F.conv2d`` and the bound."""
+    from repro_torch.kernels.conv import direct, winograd
+    from repro_torch.nn.conv import pack_conv_weights
+    rng = np.random.default_rng(SDC_SEED + 1)
+    card = card_line()
+    rows, flips = {}, []
+    for kname, layer, spec, x, w, b, slab, plan in layer_cases(
+            torch, np, cfg, params):
+        mod = direct if kname == "conv_direct" else winograd
+        lrn = spec.lrn if spec.fuse_lrn else None
+        pool = (spec.pool_window, spec.pool_stride) if spec.fuse_pool else None
+        entry = conv_entry(kname, spec)
+        want_slab = torch.bfloat16 if kname == "conv_direct" else \
+            torch.float32
+        check(x.dtype is torch.bfloat16 and slab.dtype is want_slab,
+              f"{layer}: x {x.dtype}, slab {slab.dtype}; the reference "
+              f"packs {want_slab}")
+        armed = pack_conv_weights(spec, tuple(x.shape), w, abft=True).data
+        tiles = [t for t in mod.TILES
+                 if t in mod.ANY_SLAB_TILES or plan.Kb % 4 == 0]
+        bf16_rule(torch, entry, x, w, b, slab, armed, tiles, layer)
+        if kname == "conv_direct":
+            armed_plan = dataclasses.replace(plan, checksum=True)
+            flips.append(sdc_layer(torch, np, kname, layer, spec, x, w, b,
+                                   slab, armed, armed_plan, rng, "bf16"))
+
+        def kern():
+            return entry(x, w, b, slab)
+
+        def plain():
+            fn = (direct.conv2d_direct_plain if kname == "conv_direct"
+                  else winograd.conv2d_winograd_plain)
+            return fn(x, slab, b, plan, relu=True, lrn=lrn, pool=pool)
+
+        def library():
+            return library_conv(torch, x, w, b, spec)
+
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        excess = bf16_excess(torch, got, ref)
+        err = float((got.float() - ref.float()).abs().max())
+        lib_err = float((got.float() - library().float()).abs().max())
+        check(excess <= 0, f"{layer} bf16: kernel more than one bf16 step "
+              f"off its plain version (excess {excess})")
+        (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
+            time_ms(torch, kern), time_ms(torch, plain),
+            time_ms(torch, library))
+        flops, nbytes = flops_bytes(kname, x, got, plan, slab)
+        bound, bound_by = conv_bound(kname, x, flops, nbytes)
+        print(f"kernel {kname} {layer} (bf16 x, {str(slab.dtype)[6:]} "
+              f"slab): bf16 rule bit-equal at tiles {tiles}, armed and "
+              f"unarmed | max_abs_err {err:.3e} vs plain (within one bf16 "
+              f"step; vs bf16 F.conv2d {lib_err:.3e}) | kernel_ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} library_ms(bf16 F.conv2d, cuDNN) "
+              f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}: {flops:.3e} "
+              f"flop, {nbytes:.3e} B) | kernel_ms/library_ms "
+              f"{ms / lib_ms:.3f} | on {card}")
+        add_layer(rows.setdefault(kname, new_row(kname)), layer,
+                  max_abs_err=err, ms=ms, host_ms=host_ms,
+                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                  bound_by=bound_by, flop=flops, bytes=nbytes,
+                  tiles=[list(t) for t in tiles], slab=list(slab.shape),
+                  slab_dtype=str(slab.dtype)[6:])
+    return rows, flips
+
+
+# VGG-16's conv geometries at 224 px, each (H, C_in, C_out, pooled) once
+VGG_GEOMETRIES = ((224, 3, 64, False), (224, 64, 64, True),
+                  (112, 64, 128, False), (112, 128, 128, True),
+                  (56, 128, 256, False), (56, 256, 256, False),
+                  (56, 256, 256, True), (28, 256, 512, False),
+                  (28, 512, 512, False), (28, 512, 512, True),
+                  (14, 512, 512, False), (14, 512, 512, True))
+
+
+def phase_kernels_vgg(torch, np, cfg, params, params16):
+    """3c: kernels 2-3 at VGG-16's layer geometries, batch 8, f32 and bf16:
+    f32 within TOL_KERNEL of the plain version, bf16 under the bf16 rule
+    and within one bf16 step of its plain version; each timed beside
+    ``F.conv2d`` + pool (f32 TF32 off; bf16 on cuDNN) and the bound; then
+    the device ms of whole feature passes of the model."""
+    from repro_torch.kernels.conv import winograd
+    from repro_torch.kernels.conv.ref import conv2d_ref
+    from repro_torch.models import alexnet
+    from repro_torch.nn.conv import ConvSpec
+    rng = np.random.default_rng(3)
+    card = card_line()
+    rows = {"float32": {}, "bfloat16": {}}
+    for H, c_in, c_out, pooled in VGG_GEOMETRIES:
+        spec = ConvSpec(kernel=3, relu=True, fuse_pool=pooled,
+                        pool_window=2, pool_stride=2, route="pallas")
+        pool = (2, 2) if pooled else None
+        kname = "conv_winograd_fused" if pooled else "conv_winograd"
+        layer = f"{H}x{H}x{c_in}->{c_out}{' pool 2/2' if pooled else ''}"
+        x32 = torch.as_tensor(rng.standard_normal((BATCH, H, H, c_in)),
+                              dtype=torch.float32, device="cuda")
+        w32 = torch.as_tensor(rng.standard_normal((3, 3, c_in, c_out))
+                              * (9 * c_in) ** -0.5, dtype=torch.float32,
+                              device="cuda")
+        b32 = torch.as_tensor(rng.standard_normal(c_out) * 0.1,
+                              dtype=torch.float32, device="cuda")
+        plan = winograd.plan(tuple(x32.shape), tuple(w32.shape), pool=pool)
+        for dtype in ("float32", "bfloat16"):
+            td = alexnet.DTYPES[dtype]
+            x, w, b = x32.to(td), w32.to(td), b32.to(td)
+            slab = winograd.pack_weights(w, plan)       # f32 either way
+            if dtype == "bfloat16":
+                armed = winograd.pack_weights(w, dataclasses.replace(
+                    plan, checksum=True))
+                bf16_rule(torch, conv_entry(kname, spec), x, w, b, slab,
+                          armed, [(winograd.BM, winograd.BN)], layer)
+
+            def kern():
+                return winograd.conv2d_winograd(x, w, b, slab, relu=True,
+                                                pool=pool)
+
+            def plain():
+                return winograd.conv2d_winograd_plain(x, slab, b, plan,
+                                                      relu=True, lrn=None,
+                                                      pool=pool)
+
+            def library():
+                if dtype == "float32":
+                    return conv2d_ref(x, w, b, relu=True, pool=pool)
+                return library_conv(torch, x, w, b, spec)
+
+            got = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            if dtype == "float32":
+                check(err <= TOL_KERNEL * scale, f"vgg {layer}: kernel off "
+                      f"its plain version: {err} > {TOL_KERNEL} * {scale}")
+            else:
+                excess = bf16_excess(torch, got, ref)
+                check(excess <= 0, f"vgg {layer} bf16: more than one bf16 "
+                      f"step off the plain version ({excess})")
+            (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
+                time_ms(torch, kern), time_ms(torch, plain),
+                time_ms(torch, library))
+            flops, nbytes = flops_bytes(kname, x, got, plan, slab)
+            bound, bound_by = conv_bound(kname, x, flops, nbytes)
+            lib_name = ("F.conv2d TF32 off" if dtype == "float32"
+                        else "bf16 F.conv2d, cuDNN")
+            print(f"kernel {kname} vgg {layer} ({dtype}): max_abs_err "
+                  f"{err:.3e} (max|plain| {scale:.3e}) | kernel_ms {ms:.4f} "
+                  f"plain_ms {plain_ms:.4f} library_ms({lib_name} + pool) "
+                  f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}) | "
+                  f"kernel_ms/library_ms {ms / lib_ms:.3f} | on {card}")
+            add_layer(rows[dtype].setdefault(kname, new_row(kname)), layer,
+                      max_abs_err=err, max_abs_plain=scale, ms=ms,
+                      host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      bound_ms=bound, bound_by=bound_by, flop=flops,
+                      bytes=nbytes)
+        del x32, w32, b32, x, w, b, slab, armed
+    passes = {}
+    for dtype, p in (("float32", params), ("bfloat16", params16)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        x = torch.as_tensor(rng.standard_normal(
+            (BATCH, c.image_size, c.image_size, 3)), dtype=torch.float32,
+            device="cuda")
+        packed = alexnet.pack_serving_slabs(p, c, BATCH)
+        passes[dtype], _ = time_ms(torch, lambda: alexnet.features(
+            p, c, x, packed=packed), iters=5)
+        print(f"vgg16 feature pass ({dtype}, batch {BATCH}, 13 convs on "
+              f"kernels 2-3): {passes[dtype]:.3f} device ms | on {card}")
+    return rows, passes
+
+
+def phase_vgg(torch, np, cfg, params, params16):
+    """4d: full-width VGG-16 through ``CnnEngine(max_batch=8)`` on route
+    pallas: f32 (32 requests, the bit-equal and direct-route checks, a
+    traced batch), then bf16 (16 requests, bit-equal to bf16 ``apply``,
+    within TOL_BF16 of the f32 model on the same bf16-representable
+    weights)."""
+    per = conv_launches_per_forward(cfg)
+    check(per == {"conv_direct": 0, "conv_winograd": 8,
+                  "conv_winograd_fused": 5},
+          f"vgg16 launches a forward: {per}")
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    f32 = phase_serve(torch, np, cfg, params, label="vgg16 f32")
+    bf16 = phase_serve(torch, np, cfg16, params16, cfg_f32=cfg,
+                       params_f32=to_f32(params16), tol=TOL_BF16,
+                       arrivals=BF16_ARRIVALS, label="vgg16 bf16")
+    check(f32["tuned_layers"] == bf16["tuned_layers"] == [],
+          "a plan tuned for AlexNet in f32 steered VGG-16")
+    return {"f32": f32, "bf16": bf16}
+
+
+def to_f32(params):
+    return {k: {n: t.float() for n, t in v.items()}
+            for k, v in params.items()}
+
+
+def phase_alexnet_bf16(torch, np, cfg, params16):
+    """4e: bf16 AlexNet through ``CnnEngine(max_batch=8)``: 32 requests
+    bit-equal to bf16 ``apply`` and within TOL_BF16 of the f32 model on the
+    same weights; then BENCH_sdc's clean and bitflip scenarios in bf16."""
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    serve = phase_serve(torch, np, cfg16, params16, cfg_f32=cfg,
+                        params_f32=to_f32(params16), tol=TOL_BF16,
+                        label="alexnet bf16")
+    check(serve["tuned_layers"] == [], "a plan tuned in f32 steered bf16 "
+          "AlexNet (the plan keys carry the dtype)")
+    sdc = sdc_scenarios(torch, np, cfg16, params16,
+                        np.random.default_rng(SDC_SEED + 2), card_line(),
+                        ("clean", "bitflip"), label=" bf16")
+    return {"serve": serve, "sdc": sdc}
+
+
+def poisson_trace(rate_hz, duration_s, rng):
+    """Open-loop Poisson arrivals: exponential inter-arrival gaps."""
+    out, t = [], 0.0
+    while True:
+        t += rng.exponential(1.0 / rate_hz)
+        if t >= duration_s:
+            return out
+        out.append(t)
+
+
+def diurnal_trace(base_hz, duration_s, period_s, rng, depth=0.8):
+    """Nonhomogeneous Poisson arrivals with a sinusoidal rate, sampled by
+    thinning against the peak rate."""
+    peak = base_hz * (1 + depth)
+    out, t = [], 0.0
+    while True:
+        t += rng.exponential(1.0 / peak)
+        if t >= duration_s:
+            return out
+        if rng.uniform() * peak <= base_hz * (
+                1 + depth * math.sin(2 * math.pi * t / period_s)):
+            out.append(t)
+
+
+def phase_fleet(torch, np, cfgs, params, seed):
+    """4f: ``ModelRegistry(slot_budget=32)`` serving full-width AlexNet
+    and VGG-16 (f32, max_batch=8): each warm engine's service ms at bucket
+    8, ``arm_slo(1.6 x service ms, admission=True)``, then a 3 s open-loop
+    trace from ``seed`` (AlexNet diurnal at 0.5x its capacity, VGG-16
+    Poisson at 0.35x), held to the fleet benchmark's gates."""
+    from repro_torch.serving import CnnServeConfig, ImageRequest, \
+        ModelRegistry
+    names = ("alexnet", "vgg16")
+    rng = np.random.default_rng(seed)
+    pool = {n: rng.standard_normal((16, cfgs[n].image_size,
+                                    cfgs[n].image_size, 3)).astype(
+                                        np.float32) for n in names}
+    count = {n: 0 for n in names}
+
+    def image(n):
+        count[n] += 1
+        return pool[n][count[n] % len(pool[n])]
+
+    reg = ModelRegistry(slot_budget=32)
+    for n in names:
+        reg.register(n, cfgs[n], CnnServeConfig(max_batch=BATCH),
+                     params=params[n], device="cuda")
+        warm_buckets(reg[n], lambda k, n=n: [ImageRequest(image=image(n))
+                                             for _ in range(k)])
+    svc_ms = {}
+    for n in names:
+        samples = []
+        for _ in range(5):
+            reqs = [ImageRequest(image=image(n)) for _ in range(BATCH)]
+            for r in reqs:
+                reg[n].submit(r)
+            reg[n].run_until_done()
+            samples.append(np.median([r.t_done - r.t_submit for r in reqs]))
+        reg[n].reset_metrics()
+        svc_ms[n] = float(np.median(samples)) * 1e3
+    slos = {n: 1.6 * svc_ms[n] for n in names}
+    for n in names:
+        reg[n].arm_slo(slos[n], admission=True)
+    dur = 3.0
+    cap_hz = {n: BATCH * 1e3 / svc_ms[n] for n in names}
+    arrivals = sorted(
+        [(t, "alexnet") for t in diurnal_trace(
+            0.5 * cap_hz["alexnet"], dur, dur / 1.5, rng)]
+        + [(t, "vgg16") for t in poisson_trace(0.35 * cap_hz["vgg16"], dur,
+                                               rng)])
+    reqs = {n: [] for n in names}
+    shed = {n: [] for n in names}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    i = 0
+    while True:
+        now = time.perf_counter() - t0
+        check(now < dur * 20 + 60, "fleet: the open-loop run did not end")
+        while i < len(arrivals) and arrivals[i][0] <= now:
+            n = arrivals[i][1]
+            req = ImageRequest(image=image(n))
+            (reqs if reg.submit(n, req) else shed)[n].append(req)
+            i += 1
+        if i == len(arrivals) and reg.idle:
+            break
+        if reg.idle:
+            time.sleep(min(arrivals[i][0] - now, 0.02))
+            continue
+        reg.step()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    s = reg.stats()
+    card = card_line()
+    per = {}
+    for n in names:
+        e = s["models"][n]
+        eng = reg[n]
+        check(eng.drained and eng.sched.occupancy == 0,
+              f"fleet: {n} did not drain")
+        check(all(r.shed and not r.done for r in shed[n]),
+              f"fleet: {n} has a shed request that was served")
+        check(all(r.done for r in reqs[n]), f"fleet: {n} lost a request")
+        check(e["images_shed"] == len(shed[n])
+              and e["images_completed"] == len(reqs[n]),
+              f"fleet: {n} counts {e['images_shed']} shed / "
+              f"{e['images_completed']} completed against the front door's "
+              f"{len(shed[n])} / {len(reqs[n])}")
+        check(e["accounting"]["balanced"], f"fleet: {n} accounting "
+              f"{e['accounting']}")
+        lat = np.asarray([r.t_done - r.t_submit for r in reqs[n]]) * 1e3
+        p50, p99 = ((float(np.percentile(lat, 50)),
+                     float(np.percentile(lat, 99))) if lat.size
+                    else (0.0, 0.0))
+        per[n] = {"service_ms": svc_ms[n], "slo_ms": slos[n],
+                  "offered_hz": (0.5 if n == "alexnet" else 0.35)
+                  * cap_hz[n], "submitted": len(reqs[n]) + len(shed[n]),
+                  "completed": len(reqs[n]), "shed": len(shed[n]),
+                  "within_slo": e["images_within_slo"],
+                  "imgs_per_s": len(reqs[n]) / wall_s,
+                  "engine_imgs_per_s": e["imgs_per_s"],
+                  "goodput_imgs_per_s": e["images_within_slo"] / wall_s,
+                  "p50_ms": p50, "p99_ms": p99}
+        print(f"fleet: {n} | service {svc_ms[n]:.3f} ms at bucket {BATCH}, "
+              f"SLO {slos[n]:.3f} ms, offered {per[n]['offered_hz']:.1f} "
+              f"img/s | {per[n]['completed']}/{per[n]['submitted']} served"
+              f", shed {per[n]['shed']} | {per[n]['imgs_per_s']:.2f} img/s"
+              f" goodput {per[n]['goodput_imgs_per_s']:.2f} img/s | p50 "
+              f"{p50:.3f} ms p99 {p99:.3f} ms | on {card}")
+    print(f"fleet: {len(arrivals)} arrivals over {dur:.1f} s, wall "
+          f"{wall_s:.3f} s, every engine drained, shed requests reported "
+          f"and not served, front-door counts = engine counts, accounting "
+          f"balanced | launches {counts}")
+    return {"models": per, "wall_s": wall_s, "arrivals": len(arrivals),
+            "slots_used": s["fleet"]["slots_used"], "launches": counts}
 
 
 def phase_decode(torch, np):
@@ -1766,11 +2291,24 @@ def phase_mamba(torch, np):
             "prompt_lengths": [len(r.prompt) for r in reqs]}
 
 
+def summary(row):
+    """A kernel row's numbers for the ``kernels`` line (``bound_by`` its
+    layers' when they agree, else ``mixed``)."""
+    return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "library_ms", "layers")} | {
+        "bound_by": ("operations" if all(
+            p["bound_by"] == "operations" for p in row["per_layer"])
+            else "bytes" if all(p["bound_by"] == "bytes"
+                                for p in row["per_layer"]) else "mixed")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke run of the "
                                  "PyTorch/CUDA port.")
     ap.add_argument("--out", help="also write every number of the run to "
                     "this JSON file")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the fleet phase's open-loop trace")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1816,7 +2354,24 @@ def main(argv=None) -> int:
               "bfp": phase_serve(torch, np, cfg_bfp, params, cfg_f32=cfg)}
     sdc = phase_sdc(torch, np, cfg, params, rows)
     tuned = phase_autotune(torch, np, cfg, params)
-    del params
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    params16 = alexnet.init(0, cfg16, device="cuda")
+    rows_bf16, bf16_flips = phase_kernels_bf16(torch, np, cfg16, params16)
+    alex16 = phase_alexnet_bf16(torch, np, cfg, params16)
+    del params16
+    cfg_vgg = dataclasses.replace(get_config("vgg16"), use_pallas=True)
+    params_vgg = alexnet.init(1, cfg_vgg, device="cuda")
+    params_vgg16 = alexnet.init(1, dataclasses.replace(
+        cfg_vgg, dtype="bfloat16"), device="cuda")
+    rows_vgg, vgg_passes = phase_kernels_vgg(torch, np, cfg_vgg, params_vgg,
+                                             params_vgg16)
+    vgg = phase_vgg(torch, np, cfg_vgg, params_vgg, params_vgg16)
+    del params_vgg16
+    serves.update({"bf16": alex16["serve"], "vgg": vgg["f32"],
+                   "vgg_bf16": vgg["bf16"]})
+    fleet = phase_fleet(torch, np, {"alexnet": cfg, "vgg16": cfg_vgg},
+                        {"alexnet": params, "vgg16": params_vgg}, args.seed)
+    del params, params_vgg
     torch.cuda.empty_cache()
     rows["decode_attn"] = phase_decode(torch, np)
     lm_serve = phase_lm(torch, np)
@@ -1826,6 +2381,8 @@ def main(argv=None) -> int:
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
+             "sdc_bf16": alex16["sdc"]["launches"],
+             "fleet": fleet["launches"],
              "lm": lm_serve["launches"],
              "mamba": mamba["launches"]}
 
@@ -1876,6 +2433,11 @@ def main(argv=None) -> int:
             entry["tuned_ms"] = sum(t["tuned_ms"] for t in tuned_layers)
             entry["tuned_tiles"] = {t["layer"]: t["tile"]
                                     for t in tuned_layers}
+        if kname in rows_bf16:
+            entry["bf16"] = summary(rows_bf16[kname])
+        if kname in rows_vgg["float32"]:
+            entry["vgg"] = {dt: summary(r[kname])
+                            for dt, r in rows_vgg.items()}
         if kname in rows_bfp_slabs:
             entry["max_abs_err_bfp_slabs"] = \
                 rows_bfp_slabs[kname]["max_abs_err"]
@@ -1884,7 +2446,7 @@ def main(argv=None) -> int:
             entry["abft_flips_checked"] = row["abft_flips_checked"]
         kernels.append(entry)
     for name, serve in serves.items():
-        print(f"serve {name}: {serve['completed']}/{sum(ARRIVALS)} over "
+        print(f"serve {name}: {serve['completed']}/{serve['requests']} over "
               f"{serve['batches']} batches {serve['bucket_counts']} | "
               f"{serve['imgs_per_s']:.2f} img/s p50 {serve['p50_ms']:.3f} ms"
               f" p99 {serve['p99_ms']:.3f} ms peak mem "
@@ -1914,6 +2476,14 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "serve": serves,
                        "sdc": sdc, "autotune": tuned,
+                       "bf16": {"per_layer": {k: r["per_layer"]
+                                              for k, r in rows_bf16.items()},
+                                "flips": bf16_flips, "sdc": alex16["sdc"]},
+                       "vgg": {"per_layer": {
+                           dt: {k: r["per_layer"] for k, r in rows.items()}
+                           for dt, rows in rows_vgg.items()},
+                           "feature_pass_ms": vgg_passes},
+                       "fleet": fleet,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()

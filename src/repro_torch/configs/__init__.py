@@ -1,8 +1,9 @@
 """Config registry: ``get_config("smollm-360m")`` etc.
 
-The port serves the paper's own AlexNet, the dense GQA language models and
-the Mamba-2 SSM; the reference's other configs come with later slices of
-the port, and naming one raises with the ROADMAP item that ports it.
+The port serves the paper's own AlexNet and VGG-16, the dense GQA
+language models and the Mamba-2 SSM; the reference's other configs come
+with later slices of the port, and naming one raises with the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from importlib import import_module
 
 _MODULES = {
     "alexnet": "alexnet",
+    "vgg16": "vgg16",
     "smollm-360m": "smollm_360m",
     "llama3.2-3b": "llama3p2_3b",
     "starcoder2-15b": "starcoder2_15b",
@@ -26,7 +28,7 @@ _NOT_PORTED = {
     "whisper-tiny": "item 7c (encoder-decoder)",
 }
 
-CNN_ARCHS = ["alexnet"]
+CNN_ARCHS = ["alexnet", "vgg16"]
 LM_ARCHS = [n for n in _MODULES if n not in CNN_ARCHS]
 
 

@@ -7,8 +7,10 @@
 // reads the whole packed slab that the launch reads, each lane once a
 // launch: a lane is one (tile, spatial position, column) of the armed
 // slab (n_tiles, S, Cb + 1, Kb), S = r * r or 36; it mismatches when the
-// wraparound uint32 sum of its Cb rows' bit patterns differs from its
-// checksum row (kernels/conv/dma.py: append_checksum_row).  The GEMMs
+// wraparound sum of its Cb rows' bit patterns, modulo 2**32 for a 4-byte
+// slab and 2**16 for a bf16 one (the reference's int32 wraparound sum
+// truncated to int16), differs from its checksum row
+// (kernels/conv/dma.py: append_checksum_row).  The GEMMs
 // never read padding rows or checksum rows, so this reads every row.
 //
 // Cost: one more read of the slab, spread over every block of the
@@ -30,13 +32,15 @@ constexpr int kAbftWarps = 8;                 // a 256-thread block
 constexpr int kAbftSmemInts = kAbftWarps * 32;
 
 // Count this block's share of mismatched lanes of the armed slab (S
-// spatial positions a tile) and add it to *a.verdict.  Every thread of
-// the 256-thread block calls it; red: kAbftSmemInts ints of shared
-// memory no other thread touches meanwhile.
+// spatial positions a tile; Word: the unsigned integer of the slab's
+// element width) and add it to *a.verdict.  Every thread of the
+// 256-thread block calls it; red: kAbftSmemInts ints of shared memory no
+// other thread touches meanwhile.
+template <typename Word>
 __device__ __forceinline__ void abft_check_slab(const ConvArgs& a, int S,
-                                                const float* slab,
+                                                const void* slab,
                                                 unsigned* red) {
-  const unsigned* words = reinterpret_cast<const unsigned*>(slab);
+  const Word* words = static_cast<const Word*>(slab);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long lanes = (long long)a.g * a.nkb * a.ncb * S * a.Kb;
   const long long groups = (lanes + 31) / 32;
@@ -63,7 +67,7 @@ __device__ __forceinline__ void abft_check_slab(const ConvArgs& a, int S,
 #pragma unroll
       for (int w = 0; w < kAbftWarps; ++w) total += red[w * 32 + lane];
       const bool bad =
-          valid && total != __ldg(words + base + (size_t)a.Cb * a.Kb);
+          valid && (Word)total != __ldg(words + base + (size_t)a.Cb * a.Kb);
       count += __popc(__ballot_sync(0xffffffffu, bad));
     }
     __syncthreads();

@@ -3,6 +3,10 @@
 // repro_torch/kernels/build.py (ctypes): change both together.
 #pragma once
 
+// element-type codes of ConvArgs.xdt / ConvArgs.sdt
+constexpr int kF32 = 0;
+constexpr int kBf16 = 1;
+
 struct ConvArgs {
   int B, H, W, Ct;          // input NHWC extent, Ct = g * C
   int g, C, K;              // groups, in / out channels per group
@@ -17,6 +21,9 @@ struct ConvArgs {
   int pwin, ps;             // VALID max-pool window / stride (1, 1: none)
   int ph_out, pw_out;       // epilogue output extent
   int PT;                   // epilogue outputs per thread-block side
+  int xdt;                  // element type of x, the bias and the output
+  int sdt;                  // element type of the packed slab
+                            // (kF32 or kBf16; conv maps and scratch: f32)
   int* verdict;             // ABFT: int32 count of mismatched checksum lanes
                             // the launch adds to (null: unarmed)
 };

@@ -49,6 +49,14 @@
 // (abft.cuh) while its cp.async ring fills, adding the mismatched lanes to
 // the verdict.  The GEMM reads the same Cb rows either way, so armed and
 // unarmed outputs are bit-equal.
+// bf16 (ConvArgs.xdt = sdt = kBf16, the reference's bf16 model: bf16
+// activations, slab and bias): the conv stage's own instantiation loads x
+// and the slab with plain 2-byte loads, widened to f32 as they are stored
+// into the same f32 rings (no cp.async: it cannot widen), so the GEMM,
+// the bias, ReLU, LRN and pool run on exactly the f32 values of the
+// widened inputs; y stays f32, and only the final store rounds to bf16.
+// So the bf16 kernel is bit-equal to the f32 kernel on the widened inputs
+// with its output rounded to bf16, at every block tile.
 // Numerics: each output is one thread's fmaf chain from +0 over (di, dj,
 // c) in ascending order; zero-filled taps (padding, the ragged reduction
 // tail) are FMA'd, not skipped, so a NaN weight poisons as in the plain
@@ -56,8 +64,11 @@
 // and does not depend on the tiling or the slab's blocking, so the block
 // tile is a knob that cannot change the bits.  The LRN takes the same
 // values and calls the same lrn_at in either stage.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "abft.cuh"
 #include "conv_args.cuh"
@@ -95,13 +106,21 @@ __host__ __device__ __forceinline__ bool lrn_in_gemm(const ConvArgs& a,
 
 // Grid (ceil(M / BM), ceil(K / BN), g), BM = 16 TM, BN = 16 TN.  VA / VB:
 // 16-byte copies of A / B; ARMED: check the slab's checksum rows
-// (abft.cuh).  The default tiles are held to 80 registers, so three blocks
-// share an SM and a grid of up to 396 blocks fills one wave.
-template <int TM, int TN, bool VA, bool VB, bool ARMED>
+// (abft.cuh); T: the element type of x, the slab and the bias (bf16: plain
+// widening loads, VA = VB = false).  y is the f32 conv map, or, with
+// narrow set (bf16, no epilogue launch after), the bf16 output.  The
+// default tiles are held to 80 registers, so three blocks share an SM and
+// a grid of up to 396 blocks fills one wave.
+template <int TM, int TN, bool VA, bool VB, bool ARMED, typename T>
 __global__ void __launch_bounds__(kThreads, min_blocks(TM, TN))
-conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
-                 const float* __restrict__ slab,
-                 const float* __restrict__ bias, float* __restrict__ y) {
+conv_direct_gemm(ConvArgs a, const T* __restrict__ x,
+                 const T* __restrict__ slab, const T* __restrict__ bias,
+                 void* __restrict__ y, int narrow) {
+  constexpr bool kF32In = std::is_same<T, float>::value;
+  static_assert(kF32In || (!VA && !VB), "cp.async copies f32 only");
+  using Word = typename std::conditional<sizeof(T) == 4, unsigned,
+                                         unsigned short>::type;
+  const bool nar = !kF32In && narrow;
   constexpr int BM = 16 * TM;
   constexpr int BN = 16 * TN;
   static_assert(BM * kBK / (VA ? 4 : 1) % kThreads == 0,
@@ -135,7 +154,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
   const int mb = mvalid ? m / hw : 0, mr = mvalid ? m % hw : 0;
   const int iy0 = (mr / a.out_w) * a.s - a.pad_h;
   const int ix0 = (mr % a.out_w) * a.s - a.pad_w;
-  const float* xb = x + (size_t)mb * a.H * a.W * a.Ct + grp * a.C;
+  const T* xb = x + (size_t)mb * a.H * a.W * a.Ct + grp * a.C;
   // the B copies this thread makes each chunk: row kk, column col of the
   // tile, from slab + wcol + wrow[k] (wcol < 0: a column past K)
   constexpr int kRow = VB ? BN / 4 : BN;          // copies a B row takes
@@ -165,9 +184,10 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
       const int iy = iy0 + (v >> 24), ix = ix0 + ((v >> 16) & 255);
       const bool ok = mvalid && k < R && iy >= 0 && iy < a.H && ix >= 0
                       && ix < a.W;
-      const float* src =
+      const T* src =
           ok ? xb + ((size_t)iy * a.W + ix) * a.Ct + (v & 0xffff) : x;
-      if (VA) cp_async16(as + kk, src, ok);
+      if constexpr (!kF32In) as[kk] = ok ? widen(*src) : 0.f;
+      else if (VA) cp_async16(as + kk, src, ok);
       else cp_async4(as + kk, src, ok);
     }
     float* bs = Bs + stage * kBK * BN;
@@ -176,8 +196,10 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
       if (bkk[j] == kBK) continue;
       const int k = k0 + bkk[j];
       const bool ok = k < R && wcol[j] >= 0;
-      const float* src = ok ? slab + wcol[j] + wrow[k] : slab;
-      if (VB) cp_async16(bs + bkk[j] * BN + bcol[j], src, ok);
+      const T* src = ok ? slab + wcol[j] + wrow[k] : slab;
+      if constexpr (!kF32In) bs[bkk[j] * BN + bcol[j]] = ok ? widen(*src)
+                                                           : 0.f;
+      else if (VB) cp_async16(bs + bkk[j] * BN + bcol[j], src, ok);
       else cp_async4(bs + bkk[j] * BN + bcol[j], src, ok);
     }
   };
@@ -189,7 +211,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
     cp_async_commit();
   }
   if constexpr (ARMED)          // its partial sums after the two tables
-    abft_check_slab(a, a.r * a.r, slab, (unsigned*)(wrow + R));
+    abft_check_slab<Word>(a, a.r * a.r, slab, (unsigned*)(wrow + R));
 
   // thread (tm, tn) of the 16 x 16 owns rows tm + 16 i and columns
   // tn * TN + j of the tile; a warp spans 4 tm x 8 tn, so its float4 reads
@@ -260,7 +282,7 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
       for (int j = 0; j < TN; ++j)
         if (nt0 + j < a.K)
           yt[(tm + 16 * i) * BN + tn * TN + j] =
-              bias_relu(acc[i][j], bias[nt0 + j], a.relu);
+              bias_relu(acc[i][j], widen(bias[nt0 + j]), a.relu);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -269,8 +291,8 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < TN; ++j)
         if (nt0 + j < a.K)
-          y[(size_t)mo * kf + nt0 + j] =
-              lrn_at(yt + (tm + 16 * i) * BN, nt0 + j, a.K, a);
+          store_out(y, (size_t)mo * kf + nt0 + j,
+                    lrn_at(yt + (tm + 16 * i) * BN, nt0 + j, a.K, a), nar);
     }
     return;
   }
@@ -278,9 +300,10 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
   for (int i = 0; i < TM; ++i) {
     const int mo = m0 + tm + 16 * i;
     if (mo >= M) continue;
-    float* yp = y + (size_t)mo * kf + grp * a.K + nt0;
-    const float* bp = bias + grp * a.K + nt0;
-    if constexpr (TN % 4 == 0) {
+    const size_t yo = (size_t)mo * kf + grp * a.K + nt0;
+    const T* bp = bias + grp * a.K + nt0;
+    if constexpr (TN % 4 == 0 && kF32In) {
+      float* yp = static_cast<float*>(y) + yo;
       if (a.K % 4 == 0) {                   // whole float4s, all in range
 #pragma unroll
         for (int j = 0; j < TN; j += 4)
@@ -295,62 +318,73 @@ conv_direct_gemm(ConvArgs a, const float* __restrict__ x,
     }
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      if (nt0 + j < a.K) yp[j] = bias_relu(acc[i][j], bp[j], a.relu);
+      if (nt0 + j < a.K)
+        store_out(y, yo + j, bias_relu(acc[i][j], widen(bp[j]), a.relu),
+                  nar);
   }
 }
 
 // Grid (pooled tiles of PT x PT, B): LRN + max-pool from y in global memory.
 __global__ void __launch_bounds__(kThreads)
 conv_direct_epilogue(ConvArgs a, const float* __restrict__ y,
-                     float* __restrict__ out) {
+                     void* __restrict__ out) {
   fused_epilogue(a, y, out);
 }
 
-template <int TM, int TN, bool VA, bool VB, bool ARMED>
+// The conv stage's raw pointers: x, slab and bias in the launch's element
+// type, y the f32 conv map or (narrow) the bf16 output.
+struct GemmPtrs {
+  const void* x;
+  const void* slab;
+  const void* bias;
+  void* y;
+  int narrow;
+};
+
+template <int TM, int TN, bool VA, bool VB, bool ARMED, typename T = float>
 cudaError_t launch_gemm(const ConvArgs& a, size_t smem, cudaStream_t stream,
-                        const float* x, const float* slab, const float* bias,
-                        float* y) {
-  auto kernel = conv_direct_gemm<TM, TN, VA, VB, ARMED>;
+                        const GemmPtrs& p) {
+  auto kernel = conv_direct_gemm<TM, TN, VA, VB, ARMED, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int M = a.B * a.out_h * a.out_w;
   dim3 grid((M + 16 * TM - 1) / (16 * TM), (a.K + 16 * TN - 1) / (16 * TN),
             a.g);
-  kernel<<<grid, kThreads, smem, stream>>>(a, x, slab, bias, y);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      a, static_cast<const T*>(p.x), static_cast<const T*>(p.slab),
+      static_cast<const T*>(p.bias), p.y, p.narrow);
   return cudaGetLastError();
 }
 
 // ANY_SLAB: built for 4-byte slab copies too (the default tiles); the
-// other tiles take 16-byte ones only and refuse a slab without them.
+// other tiles take 16-byte ones only and refuse a slab without them.  A
+// bf16 launch has its own instantiation (widening loads) at every tile.
 template <int TM, int TN, bool ARMED, bool ANY_SLAB>
 cudaError_t launch_tile(const ConvArgs& a, size_t smem, bool va, bool vb,
-                        cudaStream_t stream, const float* x,
-                        const float* slab, const float* bias, float* y) {
+                        cudaStream_t stream, const GemmPtrs& p) {
+  if (a.xdt == kBf16)
+    return launch_gemm<TM, TN, false, false, ARMED, __nv_bfloat16>(
+        a, smem, stream, p);
   if (va && vb)
-    return launch_gemm<TM, TN, true, true, ARMED>(a, smem, stream, x, slab,
-                                                  bias, y);
+    return launch_gemm<TM, TN, true, true, ARMED>(a, smem, stream, p);
   if (vb)
-    return launch_gemm<TM, TN, false, true, ARMED>(a, smem, stream, x, slab,
-                                                   bias, y);
+    return launch_gemm<TM, TN, false, true, ARMED>(a, smem, stream, p);
   if constexpr (ANY_SLAB) {
     if (va)
-      return launch_gemm<TM, TN, true, false, ARMED>(a, smem, stream, x,
-                                                     slab, bias, y);
-    return launch_gemm<TM, TN, false, false, ARMED>(a, smem, stream, x, slab,
-                                                    bias, y);
+      return launch_gemm<TM, TN, true, false, ARMED>(a, smem, stream, p);
+    return launch_gemm<TM, TN, false, false, ARMED>(a, smem, stream, p);
   }
   return cudaErrorInvalidValue;
 }
 
 template <int TM, int TN, bool ANY_SLAB>
 cudaError_t launch_armed(const ConvArgs& a, size_t smem, bool va, bool vb,
-                         cudaStream_t stream, const float* x,
-                         const float* slab, const float* bias, float* y) {
-  return a.verdict ? launch_tile<TM, TN, true, ANY_SLAB>(
-                         a, smem, va, vb, stream, x, slab, bias, y)
-                   : launch_tile<TM, TN, false, ANY_SLAB>(
-                         a, smem, va, vb, stream, x, slab, bias, y);
+                         cudaStream_t stream, const GemmPtrs& p) {
+  return a.verdict
+             ? launch_tile<TM, TN, true, ANY_SLAB>(a, smem, va, vb, stream, p)
+             : launch_tile<TM, TN, false, ANY_SLAB>(a, smem, va, vb, stream,
+                                                    p);
 }
 
 // Whether the conv stage is built for this tile (rows and columns per
@@ -364,46 +398,44 @@ bool built_for(int tm, int tn, bool vb) {
 
 cudaError_t launch_conv_stage(int tm, int tn, const ConvArgs& a, size_t smem,
                               bool va, bool vb, cudaStream_t stream,
-                              const float* x, const float* slab,
-                              const float* bias, float* y) {
+                              const GemmPtrs& p) {
   if (tm == 4 && tn == 4)
-    return launch_armed<4, 4, true>(a, smem, va, vb, stream, x, slab, bias,
-                                    y);
+    return launch_armed<4, 4, true>(a, smem, va, vb, stream, p);
   if (tm == 4 && tn == 6)
-    return launch_armed<4, 6, true>(a, smem, va, vb, stream, x, slab, bias,
-                                    y);
+    return launch_armed<4, 6, true>(a, smem, va, vb, stream, p);
   if (tm == 4 && tn == 8)
-    return launch_armed<4, 8, false>(a, smem, va, vb, stream, x, slab, bias,
-                                     y);
+    return launch_armed<4, 8, false>(a, smem, va, vb, stream, p);
   if (tm == 8 && tn == 4)
-    return launch_armed<8, 4, false>(a, smem, va, vb, stream, x, slab, bias,
-                                     y);
+    return launch_armed<8, 4, false>(a, smem, va, vb, stream, p);
   if (tm == 8 && tn == 6)
-    return launch_armed<8, 6, false>(a, smem, va, vb, stream, x, slab, bias,
-                                     y);
+    return launch_armed<8, 6, false>(a, smem, va, vb, stream, p);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// y: (B, out_h, out_w, g*K) scratch for the epilogue stage (unused, and
-// may equal out, when there is no pool and no LRN left to apply); tm, tn:
-// rows and columns per thread of the conv stage's 16 tm x 16 tn block
-// tile (the default tiles are 4 x 4 and 4 x 6).  Armed (args->verdict
-// set, args->Cs = Cb + 1), the conv stage also adds the slab's mismatched
-// checksum lanes to *args->verdict.
-extern "C" int repro_conv_direct(const ConvArgs* args, const float* x,
-                                 const float* slab, const float* bias,
-                                 float* y, float* out, int tm, int tn,
+// x, bias and out in args->xdt's element type, the slab in args->sdt's
+// (the same: f32 or bf16); y: (B, out_h, out_w, g*K) f32 scratch for the
+// epilogue stage (unused, and may equal out, when there is no pool and no
+// LRN left to apply); tm, tn: rows and columns per thread of the conv
+// stage's 16 tm x 16 tn block tile (the default tiles are 4 x 4 and 4 x
+// 6).  Armed (args->verdict set, args->Cs = Cb + 1), the conv stage also
+// adds the slab's mismatched checksum lanes to *args->verdict.
+extern "C" int repro_conv_direct(const ConvArgs* args, const void* x,
+                                 const void* slab, const void* bias,
+                                 float* y, void* out, int tm, int tn,
                                  cudaStream_t stream) {
   const ConvArgs a = *args;
   const int R = a.r * a.r * a.C;
   const size_t smem = gemm_smem_bytes(tm, tn, R, a.verdict != nullptr);
   const size_t slab_elems =
       (size_t)a.g * a.nkb * a.ncb * a.r * a.r * a.Cs * a.Kb;
-  const bool va = a.C % 4 == 0 && (uintptr_t)x % 16 == 0;
-  const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
-  if (!built_for(tm, tn, vb) || a.r > 127 || a.C > 0xffff
+  const bool bf16 = a.xdt == kBf16;
+  const bool va = !bf16 && a.C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  // a bf16 launch has every tile the f32 one has for its slab's Kb
+  const bool vb = a.Kb % 4 == 0 && (bf16 || (uintptr_t)slab % 16 == 0);
+  if ((a.xdt != kF32 && a.xdt != kBf16) || a.sdt != a.xdt
+      || !built_for(tm, tn, vb) || a.r > 127 || a.C > 0xffff
       || slab_elems >= (1u << 31) || smem > 227 * 1024 || a.PT < 1
       || a.Cs != a.Cb + (a.verdict ? 1 : 0))
     return (int)cudaErrorInvalidValue;
@@ -412,8 +444,10 @@ extern "C" int repro_conv_direct(const ConvArgs* args, const float* x,
   ConvArgs ea = a;
   if (lrn_in_gemm(a, 16 * tn)) ea.lrn_n = 0;
   const bool epilogue = ea.lrn_n || a.pwin != 1 || a.ps != 1;
-  const cudaError_t err = launch_conv_stage(
-      tm, tn, a, smem, va, vb, stream, x, slab, bias, epilogue ? y : out);
+  const GemmPtrs p{x, slab, bias, epilogue ? (void*)y : out,
+                   bf16 && !epilogue};
+  const cudaError_t err =
+      launch_conv_stage(tm, tn, a, smem, va, vb, stream, p);
   if (err != cudaSuccess || !epilogue) return (int)err;
   const int nph = (a.ph_out + a.PT - 1) / a.PT;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;

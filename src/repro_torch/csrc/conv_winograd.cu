@@ -52,6 +52,16 @@
 // that is not G w G^T (conv_bfp quantizes it) gives the plain version's
 // function.  Every kernel's name holds "conv_winograd": profiles add
 // their device time up by that name.
+// bf16 (ConvArgs.xdt = kBf16: the reference's bf16 model, bf16 x and
+// bias): the slab stays f32, as the reference packs it (G w G^T in f32,
+// never cast back; sdt = kF32), so only the stages that touch x's element
+// type have a bf16 instantiation: the input transform widens x as it
+// loads it and writes U in f32, and the inverse transform widens the bias
+// and rounds its output to bf16 (nearest even) when it writes the layer's
+// output; with an LRN or a pool it writes the f32 conv map, and the
+// epilogue launch rounds.  The batched GEMM is the f32 one, unchanged.  So
+// the bf16 layer is bit-equal to the f32 layer on the widened x and bias
+// with its output rounded to bf16, at every block tile.
 // Numerics: each stage keeps the roundings of the one-kernel design it
 // replaced.  U is B^T d as an fmaf chain from +0 in index order, then
 // times B the same way; each Winograd-domain sum is one thread's fmaf
@@ -63,6 +73,7 @@
 // GEMM's block tile is a knob that cannot change the bits.  The
 // transform matrices are the reference's (winograd_transform(4, 3)),
 // passed in by the host.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,9 +109,11 @@ __host__ __device__ __forceinline__ int u_channels(const ConvArgs& a) {
 }
 
 // Grid ceil(T * g * Cu / kPointThreads): one thread a (tile, group,
-// channel), channels fastest so loads of x and stores of U coalesce.
+// channel), channels fastest so loads of x and stores of U coalesce.  XT:
+// x's element type (widened to f32 as it is loaded).
+template <typename XT>
 __global__ void __launch_bounds__(kPointThreads)
-conv_winograd_input(ConvArgs a, WinoMats mt, const float* __restrict__ x,
+conv_winograd_input(ConvArgs a, WinoMats mt, const XT* __restrict__ x,
                     float* __restrict__ u) {
   const int cu = u_channels(a);
   const int T = a.B * tiles_per_image(a);
@@ -119,7 +132,7 @@ conv_winograd_input(ConvArgs a, WinoMats mt, const float* __restrict__ x,
   const int b = t / tiles_per_image(a), r = t % tiles_per_image(a);
   const int iy0 = (r / tiles_w(a)) * kM - a.pad_h;
   const int ix0 = (r % tiles_w(a)) * kM - a.pad_w;
-  const float* xb = x + (size_t)b * a.H * a.W * a.Ct + grp * a.C + c;
+  const XT* xb = x + (size_t)b * a.H * a.W * a.Ct + grp * a.C + c;
   float d[kN][kN];
 #pragma unroll
   for (int i = 0; i < kN; ++i)
@@ -127,7 +140,7 @@ conv_winograd_input(ConvArgs a, WinoMats mt, const float* __restrict__ x,
     for (int j = 0; j < kN; ++j) {
       const int iy = iy0 + i, ix = ix0 + j;
       d[i][j] = (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
-                    ? __ldg(xb + ((size_t)iy * a.W + ix) * a.Ct)
+                    ? widen(__ldg(xb + ((size_t)iy * a.W + ix) * a.Ct))
                     : 0.f;
     }
   float tmp[kN][kN];
@@ -248,7 +261,7 @@ conv_winograd_gemm(ConvArgs a, const float* __restrict__ u,
     cp_async_commit();
   }
   if constexpr (ARMED)          // its partial sums after the channel table
-    abft_check_slab(a, kNP, slab, (unsigned*)(crow + cu));
+    abft_check_slab<unsigned>(a, kNP, slab, (unsigned*)(crow + cu));
 
   // thread (tm, tn) of the 16 x 16 owns rows tm + 16 i and columns
   // tn * TN + j of the tile; a warp spans 4 tm x 8 tn, so its float4
@@ -354,11 +367,14 @@ __device__ __forceinline__ void wino_inverse(const WinoMats& mt,
 }
 
 // Grid ceil(T * g * K / kPointThreads): one thread a (tile, group, output
-// channel), channels fastest.  y: (B, out_h, out_w, g*K).
+// channel), channels fastest.  y: (B, out_h, out_w, g*K), f32, or with
+// narrow set (bf16, no epilogue launch after) the bf16 output; XT: the
+// bias's element type.
+template <typename XT>
 __global__ void __launch_bounds__(kPointThreads)
 conv_winograd_inverse(ConvArgs a, WinoMats mt, const float* __restrict__ m,
-                      const float* __restrict__ bias,
-                      float* __restrict__ y) {
+                      const XT* __restrict__ bias, void* __restrict__ y,
+                      int narrow) {
   const int T = a.B * tiles_per_image(a);
   const long long idx = (long long)blockIdx.x * kPointThreads + threadIdx.x;
   if (idx >= (long long)T * a.g * a.K) return;
@@ -375,20 +391,22 @@ conv_winograd_inverse(ConvArgs a, WinoMats mt, const float* __restrict__ m,
   const int b = t / tiles_per_image(a), r = t % tiles_per_image(a);
   const int oy = (r / tiles_w(a)) * kM, ox = (r % tiles_w(a)) * kM;
   const int kf = a.g * a.K, kk = grp * a.K + k;
-  const float bk = bias[kk];
+  const float bk = widen(bias[kk]);
 #pragma unroll
   for (int p = 0; p < kM; ++p)
 #pragma unroll
     for (int q = 0; q < kM; ++q)
       if (oy + p < a.out_h && ox + q < a.out_w)
-        y[(((size_t)b * a.out_h + oy + p) * a.out_w + ox + q) * kf + kk] =
-            bias_relu(out[p][q], bk, a.relu);
+        store_out(y,
+                  (((size_t)b * a.out_h + oy + p) * a.out_w + ox + q) * kf
+                      + kk,
+                  bias_relu(out[p][q], bk, a.relu), narrow);
 }
 
 // Grid (pooled tiles of PT x PT, B): LRN + max-pool from the conv map y.
 __global__ void __launch_bounds__(kThreads)
 conv_winograd_epilogue(ConvArgs a, const float* __restrict__ y,
-                       float* __restrict__ out) {
+                       void* __restrict__ out) {
   fused_epilogue(a, y, out);
 }
 
@@ -461,17 +479,19 @@ cudaError_t launch_gemm_stage(int tm, int tn, const ConvArgs& a, size_t smem,
 
 }  // namespace
 
-// mats: host array of B^T (6x6) then A^T (4x6), row-major.  u: (36, g, T,
-// Cu) and m: (36, g, T, K) scratch; y: (B, out_h, out_w, g*K) scratch for
-// the epilogue launch (unused, and may equal out, with no LRN and no pool);
+// mats: host array of B^T (6x6) then A^T (4x6), row-major.  x, bias and
+// out in args->xdt's element type (f32 or bf16), the slab f32 (args->sdt).
+// u: (36, g, T, Cu) and m: (36, g, T, K) f32 scratch; y: (B, out_h,
+// out_w, g*K) f32 scratch for the epilogue launch (unused, and may equal
+// out, with no LRN and no pool);
 // tm, tn: rows and columns per thread of the GEMM's 16 tm x 16 tn block
 // tile (the default is 4 x 4).  Armed (args->verdict set, args->Cs = Cb +
 // 1), the GEMM stage also adds the slab's mismatched checksum lanes to
 // *args->verdict.
 extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
-                                   const float* x, const float* slab,
-                                   const float* bias, float* u, float* m,
-                                   float* y, float* out, int tm, int tn,
+                                   const void* x, const float* slab,
+                                   const void* bias, float* u, float* m,
+                                   float* y, void* out, int tm, int tn,
                                    cudaStream_t stream) {
   const ConvArgs a = *args;
   WinoMats mt;
@@ -479,14 +499,22 @@ extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
   const size_t smem =
       gemm_smem_bytes(tm, tn, u_channels(a), a.verdict != nullptr);
   const bool vb = a.Kb % 4 == 0 && (uintptr_t)slab % 16 == 0;
-  if (!built_for(tm, tn, vb) || a.r != 3 || a.s != 1 || a.PT < 1
+  const bool bf16 = a.xdt == kBf16;
+  if ((a.xdt != kF32 && !bf16) || a.sdt != kF32
+      || !built_for(tm, tn, vb) || a.r != 3 || a.s != 1 || a.PT < 1
       || slab_elems >= (1u << 31) || smem > 227 * 1024 || (uintptr_t)u % 16
       || (uintptr_t)m % 16 || a.Cs != a.Cb + (a.verdict ? 1 : 0)
       || load_mats(mats, &mt))
     return (int)cudaErrorInvalidValue;
   const long long T = (long long)a.B * tiles_per_image(a);
-  conv_winograd_input<<<blocks_for(T * a.g * u_channels(a), kPointThreads),
-                        kPointThreads, 0, stream>>>(a, mt, x, u);
+  const unsigned in_blocks = blocks_for(T * a.g * u_channels(a),
+                                        kPointThreads);
+  if (bf16)
+    conv_winograd_input<<<in_blocks, kPointThreads, 0, stream>>>(
+        a, mt, static_cast<const __nv_bfloat16*>(x), u);
+  else
+    conv_winograd_input<<<in_blocks, kPointThreads, 0, stream>>>(
+        a, mt, static_cast<const float*>(x), u);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -494,9 +522,14 @@ extern "C" int repro_conv_winograd(const ConvArgs* args, const float* mats,
   if (err != cudaSuccess) return (int)err;
 
   const bool epilogue = a.lrn_n || a.pwin != 1 || a.ps != 1;
-  conv_winograd_inverse<<<blocks_for(T * a.g * a.K, kPointThreads),
-                          kPointThreads, 0, stream>>>(a, mt, m, bias,
-                                                      epilogue ? y : out);
+  const unsigned inv_blocks = blocks_for(T * a.g * a.K, kPointThreads);
+  void* dst = epilogue ? (void*)y : out;
+  if (bf16)
+    conv_winograd_inverse<<<inv_blocks, kPointThreads, 0, stream>>>(
+        a, mt, m, static_cast<const __nv_bfloat16*>(bias), dst, !epilogue);
+  else
+    conv_winograd_inverse<<<inv_blocks, kPointThreads, 0, stream>>>(
+        a, mt, m, static_cast<const float*>(bias), dst, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess || !epilogue) return (int)err;
 

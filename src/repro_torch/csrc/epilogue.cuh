@@ -11,11 +11,30 @@
 // shared by overlapping windows is recomputed, with the same result), so no
 // second full-channel buffer is needed.  The plain form of this math is
 // repro_torch/nn/pooling.py.
+//
+// Element types: x, the bias and the output are f32 or bf16 (ConvArgs.xdt),
+// the slab f32 or bf16 (ConvArgs.sdt).  Loads widen to f32 (exact), every
+// sum, the bias, ReLU, LRN and pool run in f32, conv maps between launches
+// stay f32, and only the final store rounds to bf16, to nearest even, as
+// the reference's one cast of its f32 result does.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <math.h>
 
 #include "conv_args.cuh"
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// out[i] = v in the output's element type (bf16: round to nearest even).
+__device__ __forceinline__ void store_out(void* out, size_t i, float v,
+                                          bool bf16) {
+  if (bf16) static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  else static_cast<float*>(out)[i] = v;
+}
 
 // Bias, then ReLU that keeps NaN (a poisoned input must stay visible).
 __device__ __forceinline__ float bias_relu(float v, float bias, int relu) {
@@ -43,11 +62,12 @@ __device__ __forceinline__ float nan_max(float m, float v) {
 
 // One block of an epilogue launch with grid (pooled tiles of PT x PT, B):
 // the block's PT x PT pooled outputs of image blockIdx.y, all g * K
-// channels, from the conv map y (B, out_h, out_w, g * K) into out (B,
-// ph_out, pw_out, g * K).
+// channels, from the f32 conv map y (B, out_h, out_w, g * K) into out (B,
+// ph_out, pw_out, g * K) in x's element type.
 __device__ __forceinline__ void fused_epilogue(const ConvArgs& a,
                                                const float* __restrict__ y,
-                                               float* __restrict__ out) {
+                                               void* __restrict__ out) {
+  const bool bf16 = a.xdt == kBf16;
   const int kf = a.g * a.K;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;
   const int pi0 = (blockIdx.x / npw) * a.PT;
@@ -70,7 +90,9 @@ __device__ __forceinline__ void fused_epilogue(const ConvArgs& a,
         m = nan_max(m, a.lrn_n ? lrn_at(yp, k, kf, a) : yp[k]);
       }
     }
-    out[((size_t)(b * a.ph_out + pi0 + i) * a.pw_out + pj0 + j) * kf + k] =
-        m;
+    store_out(out,
+              ((size_t)(b * a.ph_out + pi0 + i) * a.pw_out + pj0 + j) * kf
+                  + k,
+              m, bf16);
   }
 }

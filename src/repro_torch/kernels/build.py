@@ -8,8 +8,10 @@ the root of the checkout, so an edited source rebuilds and an unchanged one
 is reused.  A failed build raises with the compiler's output.
 
 The conv launchers take one :class:`ConvArgs` (mirror of
-``csrc/conv_args.cuh``; an armed launch also sets its slab's rows a tap
-``Cs`` and the device address of its int32 ABFT ``verdict``) by pointer,
+``csrc/conv_args.cuh``: the element types of x, bias and output
+(``xdt``) and of the slab (``sdt``) among its fields; an armed launch
+also sets its slab's rows a tap ``Cs`` and the device address of its
+int32 ABFT ``verdict``) by pointer,
 raw device pointers (the wrapper's
 scratches among them), the rows and columns per thread of the block tile
 of their GEMM stage (the direct one's conv stage, the Winograd one's
@@ -52,7 +54,9 @@ _INT_FIELDS = ("B", "H", "W", "Ct", "g", "C", "K", "r", "s", "pad_h",
                "pad_w", "out_h", "out_w", "ncb", "Cb", "nkb", "Kb", "Cs",
                "relu", "lrn_n")
 _FLOAT_FIELDS = ("lrn_k", "lrn_alpha", "lrn_beta")
-_TAIL_FIELDS = ("pwin", "ps", "ph_out", "pw_out", "PT")
+_TAIL_FIELDS = ("pwin", "ps", "ph_out", "pw_out", "PT", "xdt", "sdt")
+# element-type codes of ConvArgs.xdt (x, bias and output) and .sdt (slab)
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 
 class KernelError(RuntimeError):

@@ -16,6 +16,11 @@ launcher is built for the :data:`TILES`, and every tile gives the same
 bits (each output is one thread's ordered FMA chain), so the measured
 autotuner (``core/autotune.py``) picks one per layer on speed alone.
 
+Element types (the reference's bf16 model): x and the bias are float32 or
+bfloat16, the slab is x's type (:func:`check_cuda_inputs`); the kernel
+widens them to f32 as it loads them, computes and keeps the conv map in
+f32 and rounds only its output to x's type, as the plain version does.
+
 ABFT (``checksum=True``, the reference's armed variant): the slab carries
 a checksum row in every tile, the kernel checks the whole slab once a
 launch and the call returns ``(y, verdict)``, an int32 count of mismatched
@@ -180,7 +185,7 @@ def conv2d_direct_plain(x, w_tiles, bias, p: DirectPlan, *, relu: bool,
     y = torch.cat(ys, dim=-1) + bias.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    y = apply_epilogue(y, lrn, pool).contiguous()
+    y = apply_epilogue(y, lrn, pool).to(x.dtype).contiguous()
     return (y, dma.checksum_mismatches(w_tiles)) if p.checksum else y
 
 
@@ -238,8 +243,8 @@ def scratch_shape(p: DirectPlan, B: int, lrn, pool,
                   tile=None) -> tuple | None:
     """The conv map y (LRN'd where the conv stage applies the LRN) that the
     conv stage writes for the second launch to pool, or to LRN and pool,
-    (B, out_h, out_w, g*K) f32; None when there is no pool and no LRN
-    left, and the conv stage writes the output itself."""
+    (B, out_h, out_w, g*K) f32 whatever x's type; None when there is no
+    pool and no LRN left, and the conv stage writes the output itself."""
     pooled = pool is not None and tuple(pool) != (1, 1)
     if not pooled and (lrn is None or lrn_in_conv_stage(p, lrn, tile)):
         return None
@@ -255,10 +260,17 @@ def block_tile(Kfull: int) -> int:
     return PT
 
 
+def dtype_code(dtype) -> int:
+    """``ConvArgs``' element-type code of a torch dtype."""
+    return build.DTYPE_CODES[str(dtype).removeprefix("torch.")]
+
+
 def conv_args(x, p, *, relu: bool, lrn, pool, PT: int, pad: tuple,
-              out_hw: tuple, verdict=None) -> build.ConvArgs:
+              out_hw: tuple, slab_dtype=None,
+              verdict=None) -> build.ConvArgs:
     """The C launcher's geometry struct (shared with the Winograd wrapper);
-    ``verdict`` (armed plans) is the int32 tensor the launch adds to."""
+    ``slab_dtype`` is the slab's element type (None: x's), ``verdict``
+    (armed plans) the int32 tensor the launch adds to."""
     B, H, W, Ct = x.shape
     pwin, ps = pool if pool is not None else (1, 1)
     return build.ConvArgs(
@@ -271,21 +283,35 @@ def conv_args(x, p, *, relu: bool, lrn, pool, PT: int, pad: tuple,
         lrn_alpha=lrn.alpha if lrn is not None else 0.0,
         lrn_beta=lrn.beta if lrn is not None else 0.0,
         pwin=pwin, ps=ps, ph_out=out_hw[0], pw_out=out_hw[1], PT=PT,
+        xdt=dtype_code(x.dtype),
+        sdt=dtype_code(x.dtype if slab_dtype is None else slab_dtype),
         verdict=verdict.data_ptr() if p.checksum else None)
 
 
+# the element types of x the conv kernels take (the bias takes x's)
+X_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_cuda_inputs(name: str, x, w_tiles, bias, kfull: int,
-                      verdict=None):
+                      verdict=None, *, slab_dtype=None):
     """Device, dtype, contiguity and bias-shape checks every CUDA wrapper
     runs before it hands raw pointers to a kernel (the plan already ties
     the input's and the slab's shapes to the launch geometry), and of an
-    armed call's verdict: one int32 on the same device."""
-    for t in (x, w_tiles, bias):
-        if t.device != x.device or t.dtype != torch.float32 \
+    armed call's verdict: one int32 on the same device.  x is float32 or
+    bfloat16, the bias x's type, the slab ``slab_dtype`` (None: x's type,
+    as the reference packs the direct slab)."""
+    if x.dtype not in X_DTYPES:
+        raise ValueError(f"{name}: x must be float32 or bfloat16; got "
+                         f"{x.dtype}")
+    want = {"x": x.dtype, "bias": x.dtype,
+            "slab": x.dtype if slab_dtype is None else slab_dtype}
+    for what, t in (("x", x), ("slab", w_tiles), ("bias", bias)):
+        if t.device != x.device or t.dtype != want[what] \
                 or not t.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be a contiguous "
-                             f"float32 tensor on {x.device}; got {t.dtype} "
-                             f"on {t.device}, contiguous={t.is_contiguous()}")
+            raise ValueError(f"{name}: the {what} must be a contiguous "
+                             f"{want[what]} tensor on {x.device}; got "
+                             f"{t.dtype} on {t.device}, "
+                             f"contiguous={t.is_contiguous()}")
     if tuple(bias.shape) != (kfull,):
         raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
                          f"({kfull},)")
@@ -313,13 +339,14 @@ def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
     tile = conv_tile(p, *(tile or (None, None)))
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
-                      dtype=torch.float32)
+                      dtype=x.dtype)
     shape = scratch_shape(p, B, lrn, pool, tile)
     y = out if shape is None else torch.empty(shape, device=x.device,
                                               dtype=torch.float32)
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool,
                      PT=block_tile(p.Kfull), pad=(p.ph_lo, p.pw_lo),
-                     out_hw=(p.ph_out, p.pw_out), verdict=verdict)
+                     out_hw=(p.ph_out, p.pw_out), slab_dtype=w_tiles.dtype,
+                     verdict=verdict)
     err = build.library().lib.repro_conv_direct(
         ctypes.byref(args), x.data_ptr(), w_tiles.data_ptr(),
         bias.data_ptr(), y.data_ptr(), out.data_ptr(), tile[0] // 16,

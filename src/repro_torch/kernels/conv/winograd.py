@@ -16,7 +16,10 @@ on a CPU tensor.  With ``checksum=True`` (ABFT) the slab carries a checksum
 row in every tile, the GEMM stage checks the whole slab once a launch, and
 the call returns ``(y, verdict)`` (see ``kernels/conv/direct.py``).  The
 batched GEMM's block tile is a knob, as kernel 1's is: the launcher is
-built for the :data:`TILES`, and every tile gives the same bits.
+built for the :data:`TILES`, and every tile gives the same bits.  x and
+the bias are float32 or bfloat16 and the slab always float32, as the
+reference packs it (its G w G^T stays f32 in a bf16 model); U, M and the
+conv map stay f32, and only the output is in x's type.
 """
 from __future__ import annotations
 
@@ -306,7 +309,7 @@ def conv2d_winograd_plain(x, w_tiles, bias, p: WinogradPlan, *, relu: bool,
     y = torch.cat(ys, dim=-1) + bias.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    y = apply_epilogue(y, lrn, pool).contiguous()
+    y = apply_epilogue(y, lrn, pool).to(x.dtype).contiguous()
     return (y, dma.checksum_mismatches(w_tiles)) if p.checksum else y
 
 
@@ -363,10 +366,11 @@ def smem_bytes(p: WinogradPlan, tile=None) -> int:
 
 
 def scratch_shapes(p: WinogradPlan, B: int, lrn, pool) -> dict:
-    """The f32 scratches a call allocates: U (36, g, T, Cu) from the input
-    transform, M (36, g, T, K) from the GEMMs and, when an LRN or a pool
-    follows, the conv map (B, out_h, out_w, g*K) the inverse transform
-    writes for the epilogue launch (else None: it writes the output)."""
+    """The f32 scratches a call allocates (whatever x's type): U (36, g,
+    T, Cu) from the input transform, M (36, g, T, K) from the GEMMs and,
+    when an LRN or a pool follows, the conv map (B, out_h, out_w, g*K) the
+    inverse transform writes for the epilogue launch (else None: it
+    writes the output)."""
     nn, T = p.n * p.n, num_tiles(p, B)
     pooled = pool is not None and tuple(pool) != (1, 1)
     return {"u": (nn, p.g, T, u_channels(p)), "m": (nn, p.g, T, p.K),
@@ -387,11 +391,12 @@ def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
         raise NotImplementedError(
             f"the CUDA Winograd kernels implement F(4,3) only, not "
             f"F({p.m},{p.r}) (ROADMAP Queue 2, part d)")
-    check_cuda_inputs("conv_winograd", x, w_tiles, bias, p.Kfull, verdict)
+    check_cuda_inputs("conv_winograd", x, w_tiles, bias, p.Kfull, verdict,
+                      slab_dtype=torch.float32)
     tile = gemm_tile(p, *(tile or (None, None)))
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
-                      dtype=torch.float32)
+                      dtype=x.dtype)
     # one allocation holds U, M and the conv map, in that order (U's rows
     # of Cu floats keep M 16-byte aligned)
     sizes = [math.prod(s) for s in scratch_shapes(p, B, lrn, pool).values()
@@ -404,7 +409,7 @@ def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
     # channels, so each thread reads one pool window
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool, PT=1,
                      pad=(p.ph_pad, p.ph_pad), out_hw=(p.ph_out, p.pw_out),
-                     verdict=verdict)
+                     slab_dtype=w_tiles.dtype, verdict=verdict)
     err = build.library().lib.repro_conv_winograd(
         ctypes.byref(args), _mats(p).ctypes.data, x.data_ptr(),
         w_tiles.data_ptr(), bias.data_ptr(), u, m, y, out.data_ptr(),

@@ -1,7 +1,8 @@
 """Serving launcher over synthetic requests.
 
 ``python -m repro_torch.launch.serve --arch alexnet --full --route pallas``
-serves images through :class:`CnnEngine` and reports the per-layer
+(or ``--arch vgg16``; ``--dtype bfloat16`` for the bf16 model) serves
+images through :class:`CnnEngine` and reports the per-layer
 resolved datapaths, img/s and latency percentiles, and every bucket the
 engine degraded to the ``direct`` route; ``--sdc`` arms the
 silent-data-corruption defense (ABFT checksums in the conv kernels,
@@ -51,7 +52,8 @@ def serve_images(cfg, args) -> int:
                                       f"ported yet (ROADMAP {item})")
     cfg = apply_cnn_route(cfg, getattr(args, "route", "auto"))
     cfg = dataclasses.replace(
-        cfg, weight_prefetch=getattr(args, "prefetch", "on") == "on")
+        cfg, weight_prefetch=getattr(args, "prefetch", "on") == "on",
+        dtype=getattr(args, "dtype", None) or cfg.dtype)
     sdc = bool(getattr(args, "sdc", False))
     if sdc:
         cfg = dataclasses.replace(cfg, sdc_abft=True)
@@ -93,7 +95,8 @@ def serve_images(cfg, args) -> int:
     s = eng.stats()
     done = sum(r.done for r in reqs)
     lat = s["latency_ms"]
-    print(f"completed {done}/{len(reqs)} requests; "
+    print(f"{cfg.name} ({cfg.dtype}): completed {done}/{len(reqs)} "
+          f"requests; "
           f"{s['imgs_per_s']:.1f} img/s over {s['batches_run']} batches "
           f"(avg occupancy {s['avg_occupancy']:.2f}, "
           f"buckets {s['bucket_counts']}) on {eng.device}")
@@ -158,6 +161,10 @@ def main(argv=None):
     ap.add_argument("--route", default="auto", choices=CNN_ROUTES,
                     help="conv route (pallas = the hand-written CUDA "
                          "kernels)")
+    ap.add_argument("--dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="CNN path: the model's dtype (default: the "
+                         "config's, float32)")
     ap.add_argument("--prefetch", default="on", choices=("on", "off"),
                     help="kept for parity with the reference; both values "
                          "launch the same kernels")

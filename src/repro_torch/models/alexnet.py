@@ -1,11 +1,19 @@
-"""AlexNet — the paper's benchmark network (the reference's
+"""AlexNet — the paper's benchmark network — and VGG-16 (the reference's
 ``repro/models/alexnet.py``).
 
 Each conv layer, LRN and pool included, is one :class:`ConvSpec` through
-:func:`dispatch_conv`; under ``use_pallas`` conv1/conv2 run the CUDA direct
-kernel and conv3-conv5 the CUDA Winograd kernels.  Activations are NHWC and
-filters HWIO at every public function, as in the reference, and the conv5
-output is flattened in NHWC order before fc6.
+:func:`dispatch_conv`; under ``use_pallas`` AlexNet's conv1/conv2 run the
+CUDA direct kernel and conv3-conv5 the CUDA Winograd kernels, and all
+thirteen of VGG-16's 3x3 convs (``arch="vgg"``) the Winograd kernels, the
+five that close a stage with a fused 2x2/2 max-pool.  Activations are NHWC
+and filters HWIO at every public function, as in the reference, and the
+last conv's output is flattened in NHWC order before fc6.
+
+``dtype="bfloat16"`` is the reference's bf16 model: parameters and
+activations in bf16, the conv kernels f32 inside with one rounding of
+each layer's output, the FC layers in bf16.  Parameters cross the numpy
+boundary as float32 arrays (exact for bf16 values), so no bf16 numpy type
+is needed.
 
 §3.6 block floating point: ``conv_bfp`` quantizes the staged conv slabs
 (the kernels then read BFP-quantized filters), and ``fc_bfp`` runs fc6-fc8
@@ -71,21 +79,34 @@ class AlexNetConfig:
                        fc_dims=(64, 48, 10), num_classes=10, fc_batch=4)
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def check_supported(cfg: AlexNetConfig):
     """Raise for the config features later slices port."""
-    if cfg.arch != "alexnet":
-        raise NotImplementedError("arch='vgg' is not ported yet (ROADMAP "
-                                  "Queue 1, item 3: VGG-16 and the registry)")
-    if cfg.dtype != "float32":
+    if cfg.arch not in ("alexnet", "vgg"):
+        raise ValueError(f"unknown CNN arch {cfg.arch!r}; the reference's "
+                         f"are 'alexnet' and 'vgg'")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"unsupported dtype {cfg.dtype!r}; the CNN path "
+                         f"takes {list(DTYPES)}")
+    if cfg.dtype != "float32" and (cfg.fc_bfp or cfg.conv_bfp):
         raise NotImplementedError(
-            "the port serves float32 only; bf16 image models are ROADMAP "
-            "Queue 1, item 3")
+            f"fc_bfp/conv_bfp with dtype={cfg.dtype!r} are not ported yet: "
+            "kernel 4 and the BFP slabs in bf16 are ROADMAP Queue 2, part f")
 
 
 def layer_specs(cfg: AlexNetConfig) -> List[ConvSpec]:
     """Krizhevsky geometry: conv1/conv2 carry LRN + pool, conv5 pool only,
-    every conv fuses bias+ReLU."""
+    every conv fuses bias+ReLU.  ``arch="vgg"``: every layer a 3x3 stride-1
+    SAME conv with bias+ReLU, a fused 2x2/2 max-pool after each layer in
+    ``cfg.pool_after`` (1-based), no LRN."""
     check_supported(cfg)
+    if cfg.arch == "vgg":
+        return [ConvSpec(kernel=3, relu=True,
+                         fuse_pool=(i + 1) in cfg.pool_after,
+                         pool_window=2, pool_stride=2)
+                for i in range(len(cfg.conv_channels))]
     lrn = LrnParams(n=cfg.lrn_n, k=cfg.lrn_k, alpha=cfg.lrn_alpha,
                     beta=cfg.lrn_beta)
     return [
@@ -120,9 +141,11 @@ def layer_routes(cfg: AlexNetConfig) -> List[Tuple[str, str]]:
 def init(seed_or_generator, cfg: AlexNetConfig, *, device="cuda") -> dict:
     """Random parameters: truncated normal, std (k*k*C/g)^-0.5 for convs
     and fan_in^-0.5 for FC layers, zero biases (the reference's scheme; the
-    numbers differ from its ``jax.random`` draw).  Drawn on the host from a
-    ``torch.Generator`` (or an int seed), then moved to ``device``."""
+    numbers differ from its ``jax.random`` draw).  Drawn in float32 on the
+    host from a ``torch.Generator`` (or an int seed), rounded to the
+    config's dtype, then moved to ``device``."""
     dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
     gen = seed_or_generator
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(seed_or_generator))
@@ -133,32 +156,40 @@ def init(seed_or_generator, cfg: AlexNetConfig, *, device="cuda") -> dict:
         k, g = spec.kernel, spec.groups
         p[f"conv{i+1}"] = {
             "w": truncated_normal(gen, (k, k, c_in // g, c_out),
-                                   (k * k * c_in // g) ** -0.5).to(dev),
-            "b": torch.zeros((c_out,), device=dev),
+                                   (k * k * c_in // g) ** -0.5).to(
+                                       dev, dtype),
+            "b": torch.zeros((c_out,), device=dev, dtype=dtype),
         }
         c_in = c_out
     d_in = fc_input_dim(cfg)
     for j, d_out in enumerate(cfg.fc_dims):
         p[f"fc{j+6}"] = {
-            "w": truncated_normal(gen, (d_in, d_out), d_in ** -0.5).to(dev),
-            "b": torch.zeros((d_out,), device=dev),
+            "w": truncated_normal(gen, (d_in, d_out), d_in ** -0.5).to(
+                dev, dtype),
+            "b": torch.zeros((d_out,), device=dev, dtype=dtype),
         }
         d_in = d_out
     return p
 
 
-def params_from_numpy(np_params, device="cuda") -> dict:
+def params_from_numpy(np_params, device="cuda", dtype="float32") -> dict:
     """Carry the reference's parameters (``repro.models.alexnet.init``'s
-    pytree, as numpy arrays) into the port's params dict on ``device``."""
+    pytree, as numpy arrays) into the port's params dict on ``device`` in
+    ``dtype`` (the config's).  Each array is read as float32 first, which
+    holds a bf16 value exactly, then rounded to ``dtype``."""
     dev = resolve_device(device)
-    return {layer: {k: torch.tensor(np.asarray(v), dtype=torch.float32,
-                                    device=dev)
+    return {layer: {k: torch.tensor(np.asarray(v, dtype=np.float32),
+                                    device=dev).to(DTYPES[dtype])
                     for k, v in sub.items()}
             for layer, sub in np_params.items()}
 
 
 def params_to_numpy(params) -> dict:
-    return {layer: {k: v.detach().cpu().numpy() for k, v in sub.items()}
+    """The params as numpy arrays on the host; bf16 tensors as float32
+    (exact), since numpy has no bf16 type of its own."""
+    return {layer: {k: (v.detach().float() if v.dtype == torch.bfloat16
+                        else v.detach()).cpu().numpy()
+                    for k, v in sub.items()}
             for layer, sub in params.items()}
 
 
@@ -243,7 +274,7 @@ def features(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
     checksum lanes to.  A verifying stager (``WeightStager(verify=True)``)
     gets fingerprinted slabs and the pack context to expect on a hit."""
     check_supported(cfg)
-    x = images.to(torch.float32)
+    x = images.to(DTYPES[cfg.dtype])
     route = _route(cfg)
     plans = plans or {}
     specs = [s.with_route(route) for s in layer_specs(cfg)]

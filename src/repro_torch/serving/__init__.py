@@ -1,5 +1,6 @@
 """Serving stack of the port: the slot scheduler, SLO policy, health
-monitor, fault injection, the image :class:`CnnEngine` and the token
+monitor, fault injection, the image :class:`CnnEngine`, the
+:class:`ModelRegistry` fleet of image engines and the token
 :class:`Engine`."""
 from .clock import MONOTONIC, Clock, MonotonicClock, VirtualClock
 from .cnn import CnnEngine, CnnServeConfig, ImageRequest
@@ -8,6 +9,7 @@ from .faults import (FAULT_POINTS, EngineCrash, FaultInjector, FaultSpec,
                      TransientLaunchError, derive_seed)
 from .health import DEGRADED, HEALTHY, QUARANTINED, HealthMonitor
 from .policy import AdmissionController, DynamicBucketPolicy, bucket_sizes
+from .registry import ModelRegistry
 from .scheduler import DrainTimeout, LatencyTracker, SlotScheduler
 
 __all__ = ["MONOTONIC", "Clock", "MonotonicClock", "VirtualClock",
@@ -16,5 +18,6 @@ __all__ = ["MONOTONIC", "Clock", "MonotonicClock", "VirtualClock",
            "EngineCrash", "FaultInjector", "FaultSpec",
            "TransientLaunchError", "derive_seed", "DEGRADED", "HEALTHY",
            "QUARANTINED", "HealthMonitor", "AdmissionController",
-           "DynamicBucketPolicy", "bucket_sizes", "DrainTimeout",
+           "DynamicBucketPolicy", "bucket_sizes", "ModelRegistry",
+           "DrainTimeout",
            "LatencyTracker", "SlotScheduler"]

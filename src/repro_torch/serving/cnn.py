@@ -13,10 +13,15 @@
 * **Pack-once weight staging** — the model's weight slabs
   (``pack_serving_slabs``) are packed once per bucket shape and handed to
   every forward of that bucket.
-* **Staged H2D** — each group's images go into a pinned host buffer and
-  are copied to the card with ``non_blocking=True``, up to
+* **Staged H2D** — each group's images go into a pinned host buffer in
+  the model's dtype (``_buf_dtype``: a bf16 model stages bf16, half the
+  bytes) and are copied to the card with ``non_blocking=True``, up to
   ``staging_depth`` groups ahead, so the copy of group N+1 overlaps the
   forward of group N.
+* **SLO control plane on a live engine** — :meth:`CnnEngine.arm_slo`
+  attaches (or replaces, or removes) the SLO policy and admission control
+  after a warm-up, keeping the packed slabs and the counters, so a
+  deployment can set its SLO from measured service times.
 
 Fault tolerance: seeded fault points (``stage.corrupt``,
 ``launch.transient``, ``launch.crash``, ``retire.nonfinite``,
@@ -159,15 +164,10 @@ class CnnEngine:
             params = self.mod.init(seed, cfg, device=self.device)
         self.params = params
         self._buckets = bucket_sizes(scfg.max_batch)
+        self._buf_dtype = self.mod.DTYPES[cfg.dtype]
         self.sched = SlotScheduler(scfg.max_batch * scfg.staging_depth)
-
-        self.policy = (DynamicBucketPolicy(
-            scfg.max_batch, scfg.slo_ms, max_extra=scfg.max_extra_buckets,
-            window=scfg.policy_window)
-            if scfg.slo_ms and scfg.dynamic_buckets else None)
-        self.admission = (AdmissionController(
-            scfg.slo_ms, slack=scfg.admission_slack)
-            if scfg.slo_ms and scfg.admission else None)
+        self.arm_slo(scfg.slo_ms, dynamic_buckets=scfg.dynamic_buckets,
+                     admission=scfg.admission)
 
         self.faults = faults
         self.health = HealthMonitor(
@@ -219,6 +219,24 @@ class CnnEngine:
         self.bucket_counts: Dict[int, int] = {}
         self.shed_reasons: Dict[str, int] = {}
         self._t_serve = 0.0
+
+    def arm_slo(self, slo_ms: Optional[float], *,
+                dynamic_buckets: bool = False, admission: bool = False):
+        """Arm (or replace, or with ``slo_ms=None`` remove) the SLO control
+        plane on a live engine: a deployment sets its SLO from service
+        times measured on a warm engine.  Only the policy objects are
+        rebuilt; the packed slabs of every bucket and the counters stay."""
+        scfg = dataclasses.replace(self.scfg, slo_ms=slo_ms,
+                                   dynamic_buckets=dynamic_buckets,
+                                   admission=admission)
+        self.scfg = scfg
+        self.policy = (DynamicBucketPolicy(
+            scfg.max_batch, scfg.slo_ms, max_extra=scfg.max_extra_buckets,
+            window=scfg.policy_window)
+            if scfg.slo_ms and scfg.dynamic_buckets else None)
+        self.admission = (AdmissionController(
+            scfg.slo_ms, slack=scfg.admission_slack)
+            if scfg.slo_ms and scfg.admission else None)
 
     def arm_faults(self, injector: Optional[FaultInjector]):
         """Attach (or detach) a fault injector on a live engine: chaos runs
@@ -284,10 +302,9 @@ class CnnEngine:
             f"group of {n} exceeds max_batch={self.buckets[-1]}; "
             f"admission must cap groups at the largest bucket")
 
-    def _put(self, host: np.ndarray):
+    def _put(self, src: torch.Tensor):
         """(device tensor, pinned source): an async H2D copy from a pinned
         buffer on the card; the source must live until the copy is done."""
-        src = torch.from_numpy(host)
         if self.device.type != "cuda":
             return src.to(self.device), None
         src = src.pin_memory()
@@ -507,11 +524,13 @@ class CnnEngine:
                 self.policy.observe_admit(len(reqs))
             bucket = self.bucket_for(len(reqs))
             h, w, c = reqs[0].image.shape
-            buf = np.zeros((bucket, h, w, c), np.float32)
+            # the model's dtype (a bf16 image rounds to nearest even here,
+            # as the forward's own cast would)
+            buf = torch.zeros((bucket, h, w, c), dtype=self._buf_dtype)
             for i, r in enumerate(reqs):
-                buf[i] = r.image
+                buf[i] = torch.from_numpy(np.asarray(r.image, np.float32))
             if self.faults is not None and self.faults.fire("stage.corrupt"):
-                buf[0] = np.nan     # the staged copy only; req.image stays
+                buf[0] = float("nan")   # the staged copy only
             images, host = self._put(buf)
             self._staged.append(_Group(slots, reqs, bucket, images, host))
 
@@ -582,7 +601,8 @@ class CnnEngine:
         g = self._compute.popleft()
         # an async device error surfaces here and propagates: it leaves the
         # CUDA context unusable, so no retry or route could serve the group
-        logits = g.logits.cpu().numpy()[: len(g.reqs)]
+        # (bf16 logits cross to the host as float32, exactly)
+        logits = g.logits.float().cpu().numpy()[: len(g.reqs)]
         g.host = None
         # the ABFT verdict, read after the logits' copy (its kernels ran
         # before the FC layers, so this adds no wait): a positive count

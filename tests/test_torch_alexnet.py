@@ -145,8 +145,11 @@ def test_packed_and_staged_forwards_are_bit_equal(reduced):
     assert stager.misses == 5 and stager.hits >= 5
 
 
-@pytest.mark.parametrize("change,match", [(dict(arch="vgg"), "VGG")])
+@pytest.mark.parametrize("change,match", [
+    (dict(dtype="bfloat16", fc_bfp=True), "ROADMAP Queue 2, part f"),
+    (dict(dtype="bfloat16", conv_bfp=True), "ROADMAP Queue 2, part f")])
 def test_unported_config_features_raise(change, match):
+    """VGG and bf16 are ported; BFP in bf16 is refused by name."""
     cfg = dataclasses.replace(get_config("alexnet").reduced(), **change)
     with pytest.raises(NotImplementedError, match=match):
         alexnet.layer_specs(cfg)
@@ -170,4 +173,4 @@ def test_tuned_plans_are_refused_not_ignored():
 
 def test_unknown_arch_is_refused():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("vgg16")
+        get_config("resnet50")

@@ -578,7 +578,8 @@ def test_refusals_name_their_roadmap_items(which):
             t_winograd._conv1d_depthwise_causal_cuda(
                 x, torch.zeros((3, 4)), torch.zeros((4,)))
     else:
-        cfg = dataclasses.replace(get_config("alexnet"), dtype="bfloat16")
+        cfg = dataclasses.replace(get_config("alexnet"), dtype="bfloat16",
+                                  fc_bfp=True)
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 3"):
+                           match="ROADMAP Queue 2, part f"):
             alexnet.check_supported(cfg)

@@ -1109,3 +1109,152 @@ def test_engine_prefills_mamba_through_kernels_6_and_7(card):
             assert winograd.dw1d_launches - n7 == \
                 cfg.num_layers * len(prompts)
     assert out["cpu"] == out[str(card)]
+
+
+# ---------------------------------------------------------------------------
+# kernels 1-3 in bf16, and at VGG-16's geometries
+# ---------------------------------------------------------------------------
+# bf16 rule: kernel(x, slab, b) on bf16 x and bias (the direct slab bf16,
+# the Winograd slab f32, as the reference packs them) is bit-equal to the
+# same kernel on the widened inputs with its output rounded to bf16, at
+# every block tile, armed and unarmed; within one bf16 step (rtol 2**-7,
+# atol 1e-5 * max|plain|) of the plain version on the same inputs
+BF16_CASES = [c for c in TILE_CASES if c[1] in (
+    "conv1_reduced", "conv2_reduced", "conv1_full", "conv2_full",
+    "g2_c4_lrn_pool", "lrn_k130_epilogue", "conv3_reduced", "conv5_reduced",
+    "conv3_full", "conv4_full", "conv5_full", "ragged_c5_k40_pool",
+    "kb_not_x4_g2")]
+# VGG-16's conv geometries, each (H, C_in, C_out, pooled) once: 2x2/2 pools
+# closing the stages, C_in = 3 on a Winograd layer, 224-pixel planes
+VGG_CASES = [(224, 3, 64, False), (224, 64, 64, True), (112, 64, 128, False),
+             (112, 128, 128, True), (56, 128, 256, False),
+             (56, 256, 256, False), (56, 256, 256, True),
+             (28, 256, 512, False), (28, 512, 512, False),
+             (28, 512, 512, True), (14, 512, 512, False),
+             (14, 512, 512, True)]
+VGG_IDS = [f"{h}_{c}_{k}{'_pool' if p else ''}" for h, c, k, p in VGG_CASES]
+
+
+def _bf16_layer(kind, kw, r, B, H, c_in, c_out, seed, armed):
+    """(entry, x, w, b, slab) in bf16 on the CPU, the slab in the dtype
+    the reference packs (direct bf16, Winograd f32)."""
+    x, w, b = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(
+        seed, B, H, c_in, c_out, r, kw.get("groups", 1)))
+    mod = direct if kind == "direct" else winograd
+    p = mod.plan(tuple(x.shape), tuple(w.shape), checksum=armed, **{
+        k: v for k, v in kw.items() if k != "lrn" or mod is winograd})
+    slab = mod.pack_weights(w, p)
+    fn = mod.conv2d_direct if kind == "direct" else mod.conv2d_winograd
+    return fn, x, w, b, slab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name,kw,r,B,H,c_in,c_out", BF16_CASES)
+def test_bf16_kernels_follow_the_rule_at_every_tile(card, kind, name, kw, r,
+                                                    B, H, c_in, c_out):
+    mod = direct if kind == "direct" else winograd
+    for armed in (False, True):
+        fn, x, w, b, slab = _bf16_layer(kind, kw, r, B, H, c_in, c_out, 7,
+                                        armed)
+        assert slab.dtype is (torch.bfloat16 if kind == "direct"
+                              else torch.float32)
+        xc, wc, bc, sc = (t.to(card) for t in (x, w, b, slab))
+        extra = dict(checksum=True) if armed else {}
+        plain = fn(x, w, b, slab, relu=True, **kw, **extra)
+        plain = plain[0] if armed else plain
+        for tile in mod.TILES:
+            kwt = dict(kw, tile_rows=tile[0], tile_cols=tile[1])
+            if tile not in mod.ANY_SLAB_TILES and mod.plan(
+                    tuple(x.shape), tuple(w.shape), **{
+                        k: v for k, v in kw.items()
+                        if k != "lrn" or mod is winograd}).Kb % 4:
+                continue
+            y = fn(xc, wc, bc, sc, relu=True, **kwt, **extra)
+            y32 = fn(xc.float(), wc.float(), bc.float(), sc.float(),
+                     relu=True, **kwt, **extra)
+            if armed:
+                (y, v), (y32, _) = y, y32
+                assert int(v) == 0, tile
+            torch.cuda.synchronize()
+            assert y.dtype is torch.bfloat16
+            assert torch.equal(y.view(torch.int16),
+                               y32.to(torch.bfloat16).view(torch.int16)), \
+                (tile, armed)
+        got, ref = y.float().cpu().numpy(), plain.float().numpy()
+        excess = np.abs(got - ref) - (2.0 ** -7 * np.abs(ref)
+                                      + 1e-5 * np.abs(ref).max())
+        assert excess.max() <= 0, (armed, excess.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv1_full", "conv2_full",
+                                  "conv2_reduced"])
+def test_bf16_armed_direct_slab_verdict_equals_plain(card, name):
+    """Seeded flips in a bf16 direct slab (16-bit checksum lanes, the
+    checksum row included): the kernel's verdict is the plain count."""
+    kind, _, kw, r, B, H, c_in, c_out = next(c for c in BF16_CASES
+                                             if c[1] == name)
+    fn, x, w, b, slab = _bf16_layer(kind, kw, r, B, H, c_in, c_out, 8, True)
+    xc, wc, bc = x.to(card), w.to(card), b.to(card)
+    nbits = slab.numel() * 16
+    rng = np.random.default_rng(len(name))
+    p = direct.plan(tuple(x.shape), tuple(w.shape), checksum=True, **{
+        k: v for k, v in kw.items() if k != "lrn"})
+    flips = [[int(v)] for v in rng.integers(0, nbits, size=10)]
+    flips += [[16 * p.Cb * p.Kb + 3], [nbits - 1],
+              [int(v) for v in rng.integers(0, nbits, size=4)]]
+    for bits in flips:
+        bad = _flip_bits(slab, bits)
+        _, v = fn(xc, wc, bc, bad.to(card), relu=True, checksum=True, **kw)
+        want = int(dma.checksum_mismatches(bad))
+        assert int(v) == want > 0, (bits, int(v), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,c_in,c_out,pooled", VGG_CASES, ids=VGG_IDS)
+def test_winograd_kernels_at_vgg_geometries(card, H, c_in, c_out, pooled):
+    """Kernels 2-3 at each VGG-16 layer geometry (batch 2): f32 against
+    the plain version, and the bf16 rule; one launch a call."""
+    kw = dict(pool=(2, 2)) if pooled else {}
+    x, w, b = _inputs(9, 2, H, c_in, c_out, 3, 1)
+    n0 = winograd.fused_launches if pooled else winograd.launches
+    got, ref = _both(lambda x, w, b: winograd.conv2d_winograd(
+        x, w, b, relu=True, **kw), card, x, w, b)
+    assert (winograd.fused_launches if pooled else winograd.launches) \
+        == n0 + 1
+    _close(got, ref)
+    xc, wc, bc = (torch.from_numpy(a).to(card).to(torch.bfloat16)
+                  for a in (x, w, b))
+    y = winograd.conv2d_winograd(xc, wc, bc, relu=True, **kw)
+    y32 = winograd.conv2d_winograd(xc.float(), wc.float(), bc.float(),
+                                   relu=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y.view(torch.int16),
+                       y32.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["alexnet", "vgg16"])
+def test_bf16_engine_on_the_card_matches_the_cpu(card, arch):
+    """A reduced bf16 model served on the card: logits bit-equal to
+    ``apply`` on the card at the served bucket, and within one bf16 step
+    of the CPU plain versions' logits a layer (5e-2 * max|logit|)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_pallas=True,
+                              dtype="bfloat16")
+    params = alexnet.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    imgs = rng.standard_normal((4, cfg.image_size, cfg.image_size, 3)
+                               ).astype(np.float32)
+    dev = {k: {n: t.to(card) for n, t in v.items()}
+           for k, v in params.items()}
+    eng = CnnEngine(cfg, CnnServeConfig(max_batch=4), params=dev,
+                    device=card)
+    reqs = [ImageRequest(image=im) for im in imgs]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    got = np.stack([r.logits for r in reqs])
+    want = alexnet.apply(dev, cfg, torch.from_numpy(imgs).to(card))
+    assert np.array_equal(got, want.float().cpu().numpy())
+    cpu = alexnet.apply(params, cfg, torch.from_numpy(imgs)).float().numpy()
+    assert np.abs(got - cpu).max() <= 5e-2 * np.abs(cpu).max()

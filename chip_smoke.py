@@ -86,6 +86,23 @@ Phases:
                (every engine drained, shed requests reported and never
                served, the engines' counts equal to the front door's,
                accounting balanced); one ``fleet:`` line a model;
+  4g. supervised — worker processes (``serving/supervisor.py``), each with
+               its own CUDA context loading the parent's kernel build:
+               (a) ``BENCH_supervisor``'s shape at full width: f32 AlexNet
+               on route pallas, ``CnnServeConfig(max_batch=8)``, 2 workers,
+               ``max_restarts=2``, 24 bursts of 3 every 15 ms, deadline
+               2,000 ms, retries 3, served undisturbed and with
+               ``worker.crash`` at w0's pump opportunity 8; (b) each worker
+               serving f32 AlexNet and bf16 VGG-16 from a checkpoint
+               directory, a second checkpoint torn (a byte of one leaf of
+               each model flipped), w0 killed mid-flight and served through
+               after its respawn.  Gates: balanced accounting, goodput > 0,
+               the kill fails over requests bit-equal to ``apply``, every
+               completed request bit-equal to ``apply`` at its served
+               bucket, every worker on the card with conv launches > 0
+               (the respawned one too), no degraded bucket, the respawn
+               restored step 1 and step 1's bf16 leaves are init's bits;
+               img/s, goodput, p50/p99, the kill-to-ready seconds;
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
                (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), the latter also with skewed lengths
@@ -219,6 +236,16 @@ TIMING_ITERS = 20
 AUTOTUNE_BUDGET = 8
 AUTOTUNE_ITERS = 10
 AUTOTUNE_REQUESTS = 16
+# BENCH_supervisor's shape (benchmarks/serve_fleet.py::run_supervised): a
+# 2-worker fleet, the identical bursty trace served undisturbed and with
+# worker.crash at w0's pump opportunity SUP_KILL_AT; goodput counts the
+# images served within SUP_SLO_MS
+SUP_BURSTS, SUP_BURST, SUP_GAP_S = 24, 3, 0.015
+SUP_DEADLINE_MS = 2000.0
+SUP_RETRIES = 3
+SUP_SLO_MS = 300.0
+SUP_KILL_AT = 8
+SUP_RESTARTS = 2
 
 
 class CheckFailed(RuntimeError):
@@ -1539,6 +1566,294 @@ def phase_fleet(torch, np, cfgs, params, seed):
             "slots_used": s["fleet"]["slots_used"], "launches": counts}
 
 
+def drive_open_loop(arrivals, submit, step, idle, max_wall_s=300.0):
+    """Replay arrival offsets (seconds) in real time: due requests are
+    submitted, then the fleet ticks; sleep only when idle and the next
+    arrival is ahead (``benchmarks/serve_fleet.py::drive_open_loop``).
+    One arrival time (a burst) a tick: when a slow tick makes several
+    bursts due, each still gets its own tick, so a pump-indexed fault
+    lands mid-trace whatever the host's speed."""
+    t0 = time.perf_counter()
+    i = 0
+    while True:
+        now = time.perf_counter() - t0
+        check(now <= max_wall_s, "supervised: the open-loop run did not end")
+        while i < len(arrivals) and arrivals[i] <= now:
+            submit()
+            i += 1
+            if i < len(arrivals) and arrivals[i] != arrivals[i - 1]:
+                break
+        if i == len(arrivals) and idle():
+            return
+        if idle():
+            time.sleep(min(arrivals[i] - now, 0.02))
+            continue
+        step()
+
+
+def worker_launches(sup):
+    """Each worker incarnation's kernel launches since its ready (a dead
+    one's as of its last heartbeat), as (worker, counts) pairs."""
+    out = [(e["worker"] + " (killed)", e["launches"]) for e in sup.events
+           if e["event"] == "death"]
+    return out + [(h.name, h.last_launches) for h in sup.workers.values()
+                  if h.alive]
+
+
+def check_workers(sup, kind, label, require):
+    """Every spawned worker names the card and launched the conv kernels
+    in its warm-up; each worker in ``require`` launched them serving; no
+    engine degraded a bucket."""
+    spawns = [e for e in sup.events if e["event"] == "spawn"]
+    check(spawns and all(e["device_name"] == kind for e in spawns),
+          f"supervised {label}: a worker is not on {kind}: "
+          f"{[e['device_name'] for e in spawns]}")
+    check(all(e["warmup_launches"]["conv_direct"] > 0
+              and e["warmup_launches"]["conv_winograd"] > 0 for e in spawns),
+          f"supervised {label}: a worker's warm-up launched no conv kernel: "
+          f"{[e['warmup_launches'] for e in spawns]}")
+    check(not [e for e in sup.events if e["event"] == "spawn-failed"],
+          f"supervised {label}: a spawn failed: {sup.events}")
+    for name in require:
+        h = sup.workers[name]
+        check(h.alive and h.last_launches.get("conv_direct", 0) > 0
+              and h.last_launches.get("conv_winograd", 0) > 0,
+              f"supervised {label}: {name} launched no conv kernel: "
+              f"{h.last_launches}")
+    for h in sup.workers.values():
+        check(not any(h.last_degradations.values()),
+              f"supervised {label}: {h.name} degraded a bucket: "
+              f"{h.last_degradations}")
+
+
+def all_bit_equal(sup, label, params=None):
+    """Every completed request bit-equal to ``apply`` at its served
+    bucket, on the card."""
+    done = [u for u, (_, r) in sup.requests.items() if r.done]
+    par = sup.verify_bit_parity(uids=done, params=params)
+    check(par["checked"] == len(done) > 0 and par["mismatched"] == 0,
+          f"supervised {label}: served logits not bit-equal to apply: {par}")
+    return par
+
+
+def supervised_run(torch, np, cfg, params, kind, card, kill):
+    """Part (a): BENCH_supervisor's run at full width, on the card."""
+    from repro_torch.serving import (CnnServeConfig, FaultSpec, ImageRequest,
+                                     Supervisor, SupervisorConfig,
+                                     WorkerModel)
+    label = "killed" if kill else "baseline"
+    chaos = ({"worker.crash": FaultSpec(at=(SUP_KILL_AT,), limit=1)}
+             if kill else None)
+    sup = Supervisor((WorkerModel("alexnet", cfg,
+                                  CnnServeConfig(max_batch=BATCH)),),
+                     SupervisorConfig(n_workers=2, max_restarts=SUP_RESTARTS,
+                                      checkpoint_on_start=False),
+                     chaos=chaos, chaos_workers=("w0",), device="cuda")
+    rng = np.random.default_rng(11)
+    trace = [i * SUP_GAP_S for i in range(SUP_BURSTS)
+             for _ in range(SUP_BURST)]
+    reqs = []
+
+    def submit():
+        reqs.append(ImageRequest(image=rng.standard_normal(
+            (cfg.image_size, cfg.image_size, cfg.in_channels)).astype(
+                np.float32), deadline_ms=SUP_DEADLINE_MS,
+            retries=SUP_RETRIES))
+        sup.submit("alexnet", reqs[-1])
+
+    t_up = time.perf_counter()
+    with sup:
+        up_s = time.perf_counter() - t_up
+        t0 = time.perf_counter()
+        drive_open_loop(trace, submit, sup.step, lambda: sup.drained)
+        sup.run_until_done()
+        wall = time.perf_counter() - t0
+        sup.step()                      # refresh the heartbeat reports
+        acc = sup.accounting()
+        check(acc["balanced"] and acc["in_flight"] == 0
+              and acc["submitted"] == acc["completed"] + acc["shed"]
+              + acc["expired"], f"supervised {label}: accounting {acc}")
+        within = sum(1 for r in reqs if r.done
+                     and (r.t_done - r.t_submit) * 1e3 <= SUP_SLO_MS)
+        check(within > 0, f"supervised {label}: zero goodput")
+        failover = (sup.verify_bit_parity(params=params)
+                    if sup.failover_uids
+                    else {"checked": 0, "mismatched": 0, "bad_uids": []})
+        deaths = [e for e in sup.events if e["event"] == "death"]
+        if kill:
+            check(deaths, "supervised: the seeded worker.crash never fired")
+            check(acc["failed_over"] > 0, "supervised: the kill failed "
+                  "over no request (it landed on an idle worker)")
+            check(failover["checked"] > 0 and failover["mismatched"] == 0,
+                  f"supervised: failover bit-parity violated: {failover}")
+            # the trace drains before the respawn is up: wait for it, so
+            # its card and warm-up launches are checked too
+            while not sup.workers["w0"].alive:
+                check(time.perf_counter() - t0 < 300,
+                      "supervised: w0 did not come back")
+                sup.step()
+                time.sleep(0.01)
+        check_workers(sup, kind, label, ("w1",) if kill else ("w0", "w1"))
+        par = all_bit_equal(sup, label, params)
+        lat = np.asarray([r.t_done - r.t_submit for r in reqs if r.done])
+        respawn = [e for e in sup.events if e["event"] == "spawn"
+                   and e["restarts"] > 0]
+        out = {"accounting": acc, "imgs_per_s": acc["completed"] / wall,
+               "goodput_imgs_per_s": within / wall, "wall_s": wall,
+               "start_s": up_s,
+               "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+               "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+               "deaths": [{"worker": e["worker"], "reason": e["reason"]}
+                          for e in deaths],
+               "kill_to_ready_s": (respawn[0]["t"] - deaths[0]["t"]
+                                   if respawn and deaths else None),
+               "failover_parity": failover, "parity": par,
+               "launches": worker_launches(sup)}
+    print(f"supervised {label}: {acc['completed']}/{acc['submitted']} "
+          f"served (shed {acc['shed']}, expired {acc['expired']}, failed "
+          f"over {acc['failed_over']}) | {out['imgs_per_s']:.2f} img/s, "
+          f"goodput {out['goodput_imgs_per_s']:.2f} img/s (SLO "
+          f"{SUP_SLO_MS:g} ms) | p50 {out['p50_ms']:.3f} ms p99 "
+          f"{out['p99_ms']:.3f} ms | fleet up in {up_s:.2f} s | failover "
+          f"parity {failover['checked']} checked, {failover['mismatched']} "
+          f"mismatched; all {par['checked']} bit-equal | kill to ready "
+          f"{out['kill_to_ready_s']} s | on {card}")
+    return out
+
+
+def supervised_restart(torch, np, cfgs, params, kind, card):
+    """Part (b): a two-model fleet (f32 AlexNet, bf16 VGG-16) restarts
+    crash-consistently past a torn checkpoint."""
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.models import alexnet
+    from repro_torch.serving import (CnnServeConfig, ImageRequest,
+                                     Supervisor, SupervisorConfig,
+                                     WorkerModel)
+    models = (WorkerModel("alexnet", cfgs["alexnet"],
+                          CnnServeConfig(max_batch=BATCH), seed=0),
+              WorkerModel("vgg16", cfgs["vgg16"],
+                          CnnServeConfig(max_batch=BATCH), seed=1))
+    rng = np.random.default_rng(12)
+
+    def image(m):
+        c = cfgs[m]
+        return rng.standard_normal((c.image_size, c.image_size,
+                                    c.in_channels)).astype(np.float32)
+
+    def traffic(n):
+        # each model's requests back to back: round-robin gives each
+        # model's to both workers
+        for m in ("alexnet", "vgg16"):
+            for _ in range(n):
+                sup.submit(m, ImageRequest(image=image(m),
+                                           deadline_ms=60_000.0))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = Supervisor(models, SupervisorConfig(
+            n_workers=2, max_restarts=SUP_RESTARTS), ckpt_dir=tmp,
+            device="cuda")
+        t_up = time.perf_counter()
+        with sup:
+            up_s = time.perf_counter() - t_up
+            t_ck = time.perf_counter()
+            check(sup.checkpoint()["step"] == 2, "supervised restart: the "
+                  "second checkpoint is not step 2")
+            ckpt_s = time.perf_counter() - t_ck
+            for m, leaf in (("alexnet", "params__conv1__w.npy"),
+                            ("vgg16", "params__fc6__w.npy")):
+                path = os.path.join(tmp, m, "step_0000000002", leaf)
+                with open(path, "r+b") as f:        # tear step 2
+                    f.seek(-1, os.SEEK_END)
+                    b = f.read(1)
+                    f.seek(-1, os.SEEK_END)
+                    f.write(bytes([b[0] ^ 0x01]))
+            traffic(BATCH)          # queued at both workers, not stepped
+            sup.kill_worker("w0", "chip_smoke: kill")
+            t_kill = time.perf_counter()
+            while not sup.workers["w0"].alive:
+                check(time.perf_counter() - t_kill < 300,
+                      "supervised restart: w0 did not come back")
+                sup.step()
+                time.sleep(0.01)
+            kill_to_ready = next(e["t"] for e in sup.events
+                                 if e["event"] == "spawn"
+                                 and e["restarts"] == 1) - next(
+                e["t"] for e in sup.events if e["event"] == "death")
+            h = sup.workers["w0"]
+            check(h.restored == {"alexnet": 1, "vgg16": 1},
+                  f"supervised restart: w0 restored {h.restored}, not step "
+                  f"1 past the torn step 2")
+            for _ in range(5):
+                traffic(BATCH)
+                sup.run_until_done()
+                sup.step()
+                served = {m: a["completed"]
+                          for m, a in h.last_accounting.items()}
+                if all(served.get(m, 0) > 0 for m in cfgs):
+                    break
+            check(all(served.get(m, 0) > 0 for m in cfgs),
+                  f"supervised restart: the respawned w0 served {served}")
+            acc = sup.accounting()
+            check(acc["balanced"] and acc["in_flight"] == 0
+                  and acc["submitted"] == acc["completed"] + acc["shed"]
+                  + acc["expired"] and acc["failed_over"] > 0,
+                  f"supervised restart: accounting {acc}")
+            check_workers(sup, kind, "restart", ("w0", "w1"))
+            check(h.last_launches.get("conv_winograd_fused", 0) > 0,
+                  f"supervised restart: w0 launched no fused Winograd "
+                  f"kernel: {h.last_launches}")
+            # the workers' params are init(seed)'s: served logits bit-equal
+            # to apply on init's params prove the restored bf16 leaves
+            par = all_bit_equal(sup, "restart", params)
+            got = ckpt.restore(os.path.join(tmp, "vgg16"), {
+                "step": 0, "params": alexnet.empty_params(
+                    cfgs["vgg16"], device="cuda")}, step=1)["params"]
+            check(all(got[l][k].dtype == torch.bfloat16 and torch.equal(
+                got[l][k].view(torch.int16),
+                params["vgg16"][l][k].view(torch.int16))
+                for l in got for k in got[l]),
+                "supervised restart: the bf16 leaves of step 1 are not "
+                "init's bits")
+            launches = worker_launches(sup)
+    print(f"supervised restart: AlexNet f32 + VGG-16 bf16 on 2 workers, "
+          f"up in {up_s:.2f} s, checkpoint {ckpt_s:.2f} s; w0 killed and "
+          f"back in {kill_to_ready:.2f} s with step 1 past the torn step "
+          f"2; {acc['completed']}/{acc['submitted']} served, failed over "
+          f"{acc['failed_over']}; all {par['checked']} bit-equal to apply "
+          f"| on {card}")
+    return {"accounting": acc, "start_s": up_s, "checkpoint_s": ckpt_s,
+            "kill_to_ready_s": kill_to_ready, "restored": h.restored,
+            "parity": par, "launches": launches}
+
+
+def phase_supervised(torch, np, cfgs, params, kind):
+    """4g: BENCH_supervisor at full width (part a) and a crash-consistent
+    restart of a two-model fleet (part b), kernels 1-3 in every worker.
+    ``params``: init(0) of f32 AlexNet and init(1) of bf16 VGG-16, what
+    the workers draw."""
+    card = card_line()
+    t0 = time.perf_counter()
+    alex = {"alexnet": params["alexnet"]}
+    runs = {"baseline": supervised_run(torch, np, cfgs["alexnet"], alex,
+                                       kind, card, kill=False),
+            "killed": supervised_run(torch, np, cfgs["alexnet"], alex, kind,
+                                     card, kill=True)}
+    gp = runs["baseline"]["goodput_imgs_per_s"]
+    ratio = runs["killed"]["goodput_imgs_per_s"] / gp
+    restart = supervised_restart(torch, np, cfgs, params, kind, card)
+    totals = {k: 0 for k in launch_counts()}
+    for out in (*runs.values(), restart):
+        for _, counts in out["launches"]:
+            for k, n in counts.items():
+                totals[k] += n
+    seconds = time.perf_counter() - t0
+    print(f"supervised: goodput_under_kill_ratio {ratio:.4f} | workers' "
+          f"launches {totals} | phase {seconds:.1f} s | on {card}")
+    return {**runs, "restart": restart, "goodput_under_kill_ratio": ratio,
+            "launches": totals, "seconds": seconds}
+
 def phase_decode(torch, np):
     """Kernel 5 at each decode geometry: held against its plain version in
     f32 and bf16, timed in bf16 (the served dtype) beside its bound and
@@ -2366,12 +2681,17 @@ def main(argv=None) -> int:
     rows_vgg, vgg_passes = phase_kernels_vgg(torch, np, cfg_vgg, params_vgg,
                                              params_vgg16)
     vgg = phase_vgg(torch, np, cfg_vgg, params_vgg, params_vgg16)
-    del params_vgg16
     serves.update({"bf16": alex16["serve"], "vgg": vgg["f32"],
                    "vgg_bf16": vgg["bf16"]})
     fleet = phase_fleet(torch, np, {"alexnet": cfg, "vgg16": cfg_vgg},
                         {"alexnet": params, "vgg16": params_vgg}, args.seed)
-    del params, params_vgg
+    del params_vgg
+    torch.cuda.empty_cache()
+    supervised = phase_supervised(
+        torch, np, {"alexnet": cfg, "vgg16": dataclasses.replace(
+            cfg_vgg, dtype="bfloat16")},
+        {"alexnet": params, "vgg16": params_vgg16}, kind)
+    del params, params_vgg16
     torch.cuda.empty_cache()
     rows["decode_attn"] = phase_decode(torch, np)
     lm_serve = phase_lm(torch, np)
@@ -2383,6 +2703,7 @@ def main(argv=None) -> int:
              "sdc": sdc["launches"], "autotune": tuned["launches"],
              "sdc_bf16": alex16["sdc"]["launches"],
              "fleet": fleet["launches"],
+             "supervised": supervised["launches"],
              "lm": lm_serve["launches"],
              "mamba": mamba["launches"]}
 
@@ -2483,7 +2804,7 @@ def main(argv=None) -> int:
                            dt: {k: r["per_layer"] for k, r in rows.items()}
                            for dt, rows in rows_vgg.items()},
                            "feature_pass_ms": vgg_passes},
-                       "fleet": fleet,
+                       "fleet": fleet, "supervised": supervised,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()

@@ -14,6 +14,14 @@ pre-dispatch slab fingerprints, a bound on |logit|).
 ``--arch mamba2-2.7b`` serves the Mamba-2 SSM the same way (kernels 7 and
 6 in every layer of each prefill, the one-token recurrence in decode).
 
+``python -m repro_torch.launch.serve --arch vgg16 --dtype bfloat16
+--workers 2 --kill-worker`` serves the images through a
+:class:`Supervisor` of worker processes (heartbeats, failover
+re-dispatch, crash-consistent restart) and reports the fleet's
+accounting, the failover bit-parity and each worker's card and kernel
+launches; ``--kill-worker`` kills worker w0 mid-run, ``--chaos`` arms
+seeded worker crashes and stalls.
+
 Runs on the card unless ``--device cpu`` is given (the plain versions of
 the kernels then run).
 """
@@ -28,6 +36,7 @@ from ..configs import CNN_ARCHS, LM_ARCHS, get_config
 from ..models.alexnet import layer_routes
 from ..serving import (CnnEngine, CnnServeConfig, Engine, FaultInjector,
                        FaultSpec, ImageRequest, Request, ServeConfig,
+                       Supervisor, SupervisorConfig, WorkerModel,
                        derive_seed)
 
 CNN_ROUTES = ("auto", "direct", "winograd", "pallas")
@@ -43,17 +52,88 @@ def apply_cnn_route(cfg, route: str):
                                use_pallas=route == "pallas")
 
 
-def serve_images(cfg, args) -> int:
-    """Serve ``args.requests`` random images; returns the completed count."""
-    for flag, item in (("data_parallel", "Queue 1, item 6"),
-                       ("workers", "Queue 1, item 4")):
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not "
-                                      f"ported yet (ROADMAP {item})")
+def cnn_config(cfg, args):
+    """The image model's config as the flags set it: route, weight
+    prefetch, dtype.  ``--data-parallel`` is refused."""
+    if getattr(args, "data_parallel", False):
+        raise NotImplementedError("--data-parallel is not ported yet "
+                                  "(ROADMAP Queue 1, item 6)")
     cfg = apply_cnn_route(cfg, getattr(args, "route", "auto"))
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, weight_prefetch=getattr(args, "prefetch", "on") == "on",
         dtype=getattr(args, "dtype", None) or cfg.dtype)
+
+
+def _images(cfg, args):
+    rng = np.random.default_rng(args.seed)
+    return [ImageRequest(image=rng.standard_normal(
+                (cfg.image_size, cfg.image_size, cfg.in_channels))
+                .astype(np.float32),
+                deadline_ms=getattr(args, "deadline_ms", None),
+                retries=getattr(args, "retries", 2))
+            for _ in range(args.requests)]
+
+
+def serve_supervised(cfg, args) -> int:
+    """Serve ``args.requests`` random images through ``args.workers``
+    worker processes behind one :class:`Supervisor`; returns the completed
+    count.  ``--kill-worker`` kills worker w0 mid-run (zero-loss
+    failover); ``--chaos`` arms seeded per-worker crashes and stalls."""
+    cfg = cnn_config(cfg, args)
+    scfg = CnnServeConfig(max_batch=args.max_batch,
+                          slo_ms=getattr(args, "slo_ms", None))
+    chaos = None
+    if getattr(args, "chaos", False):
+        chaos = {"worker.crash": FaultSpec(rate=0.02, limit=1),
+                 "worker.stall": FaultSpec(rate=0.05, delay_ms=50.0,
+                                           limit=3)}
+    device = getattr(args, "device", "cuda")
+    sup = Supervisor((WorkerModel(cfg.name, cfg, scfg, seed=args.seed),),
+                     SupervisorConfig(n_workers=args.workers,
+                                      checkpoint_on_start=False),
+                     seed=args.seed, chaos=chaos, device=device)
+    reqs = _images(cfg, args)
+    # kill right after an even-indexed submit: round-robin puts those on
+    # w0, so the kill orphans an in-flight request
+    kill_at = ((len(reqs) // 2) & ~1 if getattr(args, "kill_worker", False)
+               else None)
+    with sup:
+        for i, r in enumerate(reqs):
+            sup.submit(cfg.name, r)
+            if kill_at is not None and i == kill_at:
+                sup.kill_worker("w0", "operator:--kill-worker")
+                kill_at = None
+            sup.step()
+        sup.run_until_done()
+        sup.step()                  # refresh the workers' heartbeat reports
+        acc = sup.accounting()
+        lat = sup.latency.percentiles_ms()
+        print(f"supervised fleet {cfg.name} ({cfg.dtype}) on {device}: "
+              f"{args.workers} workers, completed "
+              f"{acc['completed']}/{acc['submitted']} "
+              f"(shed={acc['shed']} expired={acc['expired']} "
+              f"failed_over={acc['failed_over']}) "
+              f"balanced={'yes' if acc['balanced'] else 'NO'}")
+        print(f"latency p50={lat['p50']:.1f}ms p90={lat['p90']:.1f}ms "
+              f"p99={lat['p99']:.1f}ms")
+        if sup.failover_uids:
+            par = sup.verify_bit_parity()
+            print(f"failover bit-parity: {par['checked']} checked, "
+                  f"{par['mismatched']} mismatched")
+        for name, w in sup.stats()["workers"].items():
+            print(f"worker {name}: {w['device_name']} restarts="
+                  f"{w['restarts']} launches={w['launches']} degradations="
+                  f"{w['degradations']}")
+        deaths = [e for e in sup.events if e["event"] == "death"]
+        if deaths:
+            print("worker deaths: " + "; ".join(
+                f"{e['worker']}({e['reason']})" for e in deaths))
+    return acc["completed"]
+
+
+def serve_images(cfg, args) -> int:
+    """Serve ``args.requests`` random images; returns the completed count."""
+    cfg = cnn_config(cfg, args)
     sdc = bool(getattr(args, "sdc", False))
     if sdc:
         cfg = dataclasses.replace(cfg, sdc_abft=True)
@@ -79,13 +159,7 @@ def serve_images(cfg, args) -> int:
                                specs=specs)
     eng = CnnEngine(cfg, scfg, seed=args.seed, faults=faults,
                     device=getattr(args, "device", "cuda"))
-    rng = np.random.default_rng(args.seed)
-    reqs = [ImageRequest(image=rng.standard_normal(
-                (cfg.image_size, cfg.image_size, cfg.in_channels))
-                .astype(np.float32),
-                deadline_ms=getattr(args, "deadline_ms", None),
-                retries=getattr(args, "retries", 2))
-            for _ in range(args.requests)]
+    reqs = _images(cfg, args)
     for r in reqs:
         if scfg.admission:
             eng.try_submit(r)
@@ -175,7 +249,8 @@ def main(argv=None):
     ap.add_argument("--retries", type=int, default=2)
     ap.add_argument("--chaos", action="store_true",
                     help="seeded transient launch failures + non-finite "
-                         "logits")
+                         "logits; with --workers, seeded worker crashes "
+                         "and stalls")
     ap.add_argument("--sdc", action="store_true",
                     help="CNN path: arm the silent-data-corruption defense "
                          "(ABFT checksums in the conv kernels, pre-dispatch "
@@ -184,14 +259,21 @@ def main(argv=None):
                          "corruption")
     ap.add_argument("--data-parallel", action="store_true",
                     help="not ported yet")
-    ap.add_argument("--workers", type=int, default=0, help="not ported yet")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="CNN path: >0 serves through a Supervisor owning "
+                         "this many worker processes (heartbeats, failover "
+                         "re-dispatch, crash-consistent restart)")
+    ap.add_argument("--kill-worker", action="store_true",
+                    help="with --workers: kill worker w0 mid-run")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    if args.arch in CNN_ARCHS:
+    if args.arch in CNN_ARCHS and args.workers > 0:
+        serve_supervised(cfg, args)
+    elif args.arch in CNN_ARCHS:
         serve_images(cfg, args)
     else:
         serve_tokens(cfg, args)

@@ -149,27 +149,35 @@ def init(seed_or_generator, cfg: AlexNetConfig, *, device="cuda") -> dict:
     gen = seed_or_generator
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(seed_or_generator))
-    p = {}
+    return {name: {"w": truncated_normal(gen, shape, std).to(dev, dtype),
+                   "b": torch.zeros((width,), device=dev, dtype=dtype)}
+            for name, shape, std, width in _param_table(cfg)}
+
+
+def empty_params(cfg: AlexNetConfig, *, device="cuda") -> dict:
+    """Uninitialized parameters of :func:`init`'s structure, shapes and
+    dtype on ``device``: what a checkpoint restores into, without the
+    host-side draw."""
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
+    return {name: {"w": torch.empty(shape, device=dev, dtype=dtype),
+                   "b": torch.empty((width,), device=dev, dtype=dtype)}
+            for name, shape, std, width in _param_table(cfg)}
+
+
+def _param_table(cfg: AlexNetConfig):
+    """(layer, weight shape, weight std, bias width) in draw order."""
     c_in = cfg.in_channels
     for i, (spec, c_out) in enumerate(zip(layer_specs(cfg),
                                           cfg.conv_channels)):
         k, g = spec.kernel, spec.groups
-        p[f"conv{i+1}"] = {
-            "w": truncated_normal(gen, (k, k, c_in // g, c_out),
-                                   (k * k * c_in // g) ** -0.5).to(
-                                       dev, dtype),
-            "b": torch.zeros((c_out,), device=dev, dtype=dtype),
-        }
+        yield (f"conv{i+1}", (k, k, c_in // g, c_out),
+               (k * k * c_in // g) ** -0.5, c_out)
         c_in = c_out
     d_in = fc_input_dim(cfg)
     for j, d_out in enumerate(cfg.fc_dims):
-        p[f"fc{j+6}"] = {
-            "w": truncated_normal(gen, (d_in, d_out), d_in ** -0.5).to(
-                dev, dtype),
-            "b": torch.zeros((d_out,), device=dev, dtype=dtype),
-        }
+        yield f"fc{j+6}", (d_in, d_out), d_in ** -0.5, d_out
         d_in = d_out
-    return p
 
 
 def params_from_numpy(np_params, device="cuda", dtype="float32") -> dict:

@@ -22,6 +22,7 @@ differ by f32 noise, so they agree within one bf16 step (rtol 2**-7, atol
 1e-5 * max|plain|), and the SSD's f32 state within 1e-5 * max|plain|.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -1258,3 +1259,71 @@ def test_bf16_engine_on_the_card_matches_the_cpu(card, arch):
     assert np.array_equal(got, want.float().cpu().numpy())
     cpu = alexnet.apply(params, cfg, torch.from_numpy(imgs)).float().numpy()
     assert np.abs(got - cpu).max() <= 5e-2 * np.abs(cpu).max()
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_bf16_onto_the_card(card, tmp_path):
+    """A bf16 checkpoint written from the card comes back on the card,
+    bit for bit."""
+    from repro_torch import checkpoint as ckpt
+    cfg = dataclasses.replace(get_config("vgg16").reduced(),
+                              dtype="bfloat16")
+    params = alexnet.init(2, cfg, device=card)
+    ckpt.save(str(tmp_path), {"step": 1, "params": params})
+    got = ckpt.restore(str(tmp_path), {"step": 0, "params": alexnet
+                                       .empty_params(cfg, device=card)})
+    for layer, sub in params.items():
+        for k, v in sub.items():
+            t = got["params"][layer][k]
+            assert t.device.type == "cuda" and t.dtype == torch.bfloat16
+            assert torch.equal(t.view(torch.int16), v.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_supervised_fleet_on_the_card(card, tmp_path):
+    """Two worker processes on the card serve reduced AlexNet on route
+    pallas; w0 is killed mid-flight: the fleet balances, every request
+    completes bit-equal to ``apply`` on the card at its served bucket,
+    and every worker, the respawned w0 included, names the card and
+    launched the conv kernels."""
+    from repro_torch.serving import Supervisor, SupervisorConfig, WorkerModel
+    cfg = dataclasses.replace(get_config("alexnet").reduced(),
+                              use_pallas=True)
+    sup = Supervisor((WorkerModel("alexnet", cfg, CnnServeConfig(
+        max_batch=2)),), SupervisorConfig(n_workers=2, max_restarts=1),
+        ckpt_dir=str(tmp_path), device="cuda")
+    rng = np.random.default_rng(6)
+    with sup:
+        reqs = [ImageRequest(image=im, deadline_ms=60_000.0)
+                for im in rng.standard_normal(
+                    (8, cfg.image_size, cfg.image_size, 3)).astype(
+                        np.float32)]
+        for r in reqs:
+            sup.submit("alexnet", r)
+        sup.kill_worker("w0", "test-kill")
+        acc = sup.run_until_done(max_steps=5000)
+        assert acc["balanced"] and acc["completed"] == 8
+        assert acc["failed_over"] > 0
+        t0 = time.monotonic()
+        while not sup.workers["w0"].alive and time.monotonic() - t0 < 300:
+            sup.step()
+            time.sleep(0.05)
+        assert sup.workers["w0"].restored == {"alexnet": 1}
+        sup.workers["w1"].alive = False       # serve through the respawn
+        more = [ImageRequest(image=im) for im in rng.standard_normal(
+            (3, cfg.image_size, cfg.image_size, 3)).astype(np.float32)]
+        for r in more:
+            assert sup.submit("alexnet", r)
+        sup.workers["w1"].alive = True
+        sup.run_until_done(max_steps=5000)
+        sup.step()                  # refresh every heartbeat report
+        par = sup.verify_bit_parity(uids=[r.uid for r in reqs + more])
+        assert par == {"checked": 11, "mismatched": 0, "bad_uids": []}
+        name = torch.cuda.get_device_name(0)
+        for h in sup.workers.values():
+            assert h.device_name == name
+            assert h.last_launches["conv_direct"] > 0
+            assert h.last_launches["conv_winograd"] > 0
+            assert not any(h.last_degradations.values())
+        deaths = [e for e in sup.events if e["event"] == "death"]
+        assert deaths and deaths[0]["launches"] is not None

@@ -135,7 +135,31 @@ Phases:
                plain route (``pallas=False``), with f32 activations (the
                same function) and with the served bf16 ones (the kernels
                no further from the f32 model than the plain route); and a
-               reduced model's tokens against the CPU engine's.
+               reduced model's tokens against the CPU engine's;
+  9. train   — (a) kernel 7's backward at mamba2-2.7b's training shapes
+               (x and dy (1, 512, 5120) and (1, 2048, 5120) bf16, (1, 512,
+               5120) f32): dx bit-equal to flip(kernel 7(flip(dy))), dw
+               within 1e-4 * max|dw| and db within one bf16 step of their
+               plain versions, two wgrad runs bit-equal; timed beside the
+               plain versions, the autograd backward of the same depthwise
+               ``F.conv1d`` and the bound; (b) smollm-360m at published
+               widths (f32 params, bf16 compute, remat) trained 30 steps of
+               8 x 256 tokens through ``Trainer``: finite losses and grad
+               norms, the loss falls; step ms, tokens/s, peak memory, one
+               traced step's device busy ms and idle share; (c) mamba2-2.7b
+               at published widths (64 layers), 1 x 512 tokens: one loss
+               and gradient on the kernel route against the plain route,
+               in f32 activations within 1e-3 (loss) and 2e-2 * max|g|
+               (each leaf), in the trained bf16 the loss within 1e-3 of the
+               f32 loss and the gradients no further from the f32 ones than
+               the plain route's; then 4
+               ``Trainer`` steps, each launching kernel 7 128 times (the
+               forward and the remat recompute), its backward kernels 64
+               times each and kernel 6 never, and one more step traced;
+               (d) recovery: smollm-360m's
+               widths at 4 layers, 20 steps, a checkpoint every 10, a
+               failure at step 15: one recovery that restored, the final
+               params within rtol 1e-4, atol 1e-5 of an uninterrupted run.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -224,6 +248,29 @@ TOL_SSM_F32 = 1e-4
 SSM_ARCH = "mamba2-2.7b"
 SSM_PROMPTS = (8, 480)      # prompt lengths: some prefills span 2 chunks
 BATCH = 8
+# phase 9 (training): kernel 7's backward at mamba2-2.7b's training shapes
+# (B, L, C, dtype); dw against its plain version within TOL_WGRAD *
+# max|dw| (f32 sums of B * L terms in other orders), db also within one
+# bf16 step where dy is bf16 (the reference rounds db to dy's dtype)
+TRAIN_DW1D_GEOMETRIES = ((1, 512, 5120, "bfloat16"),
+                         (1, 2048, 5120, "bfloat16"),
+                         (1, 512, 5120, "float32"))
+TOL_WGRAD = 1e-4
+TRAIN_DENSE_ARCH = "smollm-360m"
+TRAIN_DENSE_SHAPE = (8, 256, 30)      # batch, seq, steps
+TRAIN_SSM_SHAPE = (1, 512, 4)         # two 256-token chunks
+TRAIN_SSM_LAYERS = 64                 # all of mamba2-2.7b's
+# the mamba probe: kernel route vs plain route (the reference model's own
+# route: the pure-torch Winograd conv, differentiated); in f32 (one
+# function) the loss within TOL_TRAIN_LOSS relative and each leaf's
+# gradient within TOL_TRAIN_GRAD of its max|g|; in the trained bf16 the
+# plain route rounds inside its Winograd transforms (its loss 1.45e-3 off
+# the f32 one at full width) and the kernels stay f32 inside, so the
+# kernels' bf16 loss must be within TOL_TRAIN_LOSS of the f32 loss and
+# their gradients no further from the f32 ones than the plain route's
+# (phase 8's rule)
+TOL_TRAIN_LOSS = 1e-3                 # relative
+TOL_TRAIN_GRAD = 2e-2                 # of each leaf's max|g|
 # ABFT: seeded single-bit flips a layer, beside one each in a checksum row,
 # in padding, in a sign bit and in an exponent bit
 ABFT_FLIPS = 32
@@ -2606,6 +2653,414 @@ def phase_mamba(torch, np):
             "prompt_lengths": [len(r.prompt) for r in reqs]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+def dw1d_bwd_work(B, L, C, itemsize, kind):
+    """(operations, bytes) of the backward's dx (kernel 7 on the reversed
+    cotangent: the forward's work, dy read and dx written once) or of its
+    wgrad (x and dy read once, dw and db written in f32; 9 operations an
+    element: four multiply-adds and an add)."""
+    if kind == "dx":
+        return dw1d_work(B, L, C, itemsize)
+    return 9 * B * L * C, 2 * itemsize * B * L * C + 4 * 5 * C
+
+
+def _wgrad_excess(got, ref, rel_step):
+    """(worst excess over 1e-4 * max|ref| (+ one bf16 step of |ref| where
+    ``rel_step``), max|diff|, max|ref|)."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    scale = float(ref.abs().max())
+    bound = TOL_WGRAD * scale
+    if rel_step:
+        bound = bound + BF16_STEP * ref.abs()
+    return float((diff - bound).max()), float(diff.max()), scale
+
+
+def phase_train_kernels(torch, np):
+    """9a: kernel 7's backward at mamba2-2.7b's training shapes: dx
+    bit-equal to flip(kernel 7(flip(dy))), dw and db against the
+    reference's formula; timed beside the plain versions, the autograd
+    backward of the same depthwise ``F.conv1d`` and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv import winograd as wino
+    rng = np.random.default_rng(9)
+    rows = {k: {"name": k, "geometries": [], "max_abs_err": 0.0}
+            for k in ("dw1d_bwd", "dw1d_wgrad")}
+    for B, L, C, dtype_name in TRAIN_DW1D_GEOMETRIES:
+        dtype = getattr(torch, dtype_name)
+        bf16 = dtype == torch.bfloat16
+
+        def dev(a, dt=dtype):
+            return torch.as_tensor(a, dtype=torch.float32,
+                                   device="cuda").to(dt)
+        x = dev(rng.standard_normal((B, L, C)))
+        dy = dev(rng.standard_normal((B, L, C)))
+        w = dev(rng.standard_normal((4, C)) * 0.1, torch.float32)
+        zero = torch.zeros((C,), device="cuda")
+        flip = wino.conv1d_depthwise_causal(dy.flip(1).contiguous(), w,
+                                            zero).flip(1)
+        dx = wino.conv1d_depthwise_causal_dx(dy, w)
+        dw, db = wino.conv1d_depthwise_causal_wgrad(x, dy, 4)
+        dw2, db2 = wino.conv1d_depthwise_causal_wgrad(x, dy, 4)
+        torch.cuda.synchronize()
+        check(dx.dtype == dtype and torch.equal(dx, flip),
+              f"dw1d_bwd ({B},{L},{C}) {dtype_name}: dx is not bit-equal to "
+              f"flip(kernel 7(flip(dy)))")
+        check(torch.equal(dw, dw2) and torch.equal(db, db2),
+              f"dw1d_wgrad ({B},{L},{C}) {dtype_name}: two runs differ")
+        dx_plain = wino.conv1d_depthwise_causal_dx_plain(dy, w)
+        pdw, pdb = wino.conv1d_depthwise_causal_wgrad_plain(x, dy, 4)
+        ex_x, err_x, max_x = _excess(dx, dx_plain, bf16)
+        ex_w, err_w, max_w = _wgrad_excess(dw, pdw, False)
+        ex_b, err_b, max_b = _wgrad_excess(db, pdb, bf16)
+        check(ex_x <= 0 and ex_w <= 0 and ex_b <= 0,
+              f"kernel 7's backward ({B},{L},{C}) {dtype_name} disagrees "
+              f"with its plain version: dx excess {ex_x}, dw {ex_w}, db "
+              f"{ex_b}")
+
+        # the library: the autograd backward of the same depthwise conv
+        xt = x.transpose(1, 2).detach().requires_grad_(True)
+        wl = w.T[:, None, :].to(dtype).detach().requires_grad_(True)
+        bl = zero.to(dtype).requires_grad_(True)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yl = F.conv1d(xt, wl, bl, padding=3, groups=C)[..., :L]
+        gy = dy.transpose(1, 2)
+
+        def library():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return torch.autograd.grad(yl, (xt, wl, bl), gy,
+                                           retain_graph=True)
+        (ms_x, host_x), (ms_w, host_w) = (
+            time_ms(torch, lambda: wino.conv1d_depthwise_causal_dx(dy, w)),
+            time_ms(torch, lambda: wino.conv1d_depthwise_causal_wgrad(
+                x, dy, 4)))
+        (plain_x, _), (plain_w, _), (lib_ms, _) = (
+            time_ms(torch, lambda: wino.conv1d_depthwise_causal_dx_plain(
+                dy, w)),
+            time_ms(torch, lambda: wino.conv1d_depthwise_causal_wgrad_plain(
+                x, dy, 4)),
+            time_ms(torch, library))
+        for kname, kind, ms, host, plain_ms, err, scale in (
+                ("dw1d_bwd", "dx", ms_x, host_x, plain_x, err_x, max_x),
+                ("dw1d_wgrad", "wgrad", ms_w, host_w, plain_w,
+                 max(err_w, err_b), max(max_w, max_b))):
+            flops, nbytes = dw1d_bwd_work(B, L, C, x.element_size(), kind)
+            bound, bound_by = _bound(flops, nbytes)
+            print(f"kernel {kname} ({B},{L},{C}) {dtype_name}: "
+                  + (f"bit-equal to flip(kernel 7(flip(dy))); vs plain "
+                     f"{err_x:.3e} (max|plain| {max_x:.3e})" if kind == "dx"
+                     else f"dw vs plain {err_w:.3e} (max|plain| "
+                     f"{max_w:.3e}), db {err_b:.3e} (max|plain| "
+                     f"{max_b:.3e}), two runs bit-equal")
+                  + f" | kernel_ms {ms:.4f} (host enqueue {host:.4f} ms) "
+                  f"plain_ms {plain_ms:.4f} library_ms(F.conv1d autograd "
+                  f"backward: dx, dw, db) {lib_ms:.4f} bound_ms {bound:.4f} "
+                  f"({bound_by}: {flops:.3e} flop, {nbytes:.3e} B)"
+                  + (f" | tiles a block {wino.dw1d_launch(B, L, C)}"
+                     if kind == "dx" else
+                     f" | rows a block {wino.dw1d_wgrad_rows(B, L, C)}"))
+            rows[kname]["geometries"].append({
+                "B": B, "L": L, "C": C, "dtype": dtype_name,
+                "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
+                "host_ms": host, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": bound_by, "flop": flops,
+                "bytes": nbytes})
+            rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+        del xt, wl, bl, yl
+    for row in rows.values():
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+            row[key] = row["geometries"][0][key]
+    return rows
+
+
+def _train_batch(torch, np, vocab, B, S, seed):
+    from repro_torch.data.pipeline import synthetic_batches
+    b = next(synthetic_batches(batch=B, seq_len=S, vocab=vocab, seed=seed))
+    return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+
+
+def _loss_and_grads(torch, params, cfg, batch):
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_leaves
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = lm.loss_fn(params, cfg, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _train_report(hist, tokens):
+    dts = sorted(h["dt"] for h in hist[1:])
+    step_ms = dts[len(dts) // 2] * 1e3
+    return {"steps": len(hist), "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms": step_ms, "first_step_ms": hist[0]["dt"] * 1e3,
+            "tokens_per_s": tokens / step_ms * 1e3}
+
+
+def phase_train_smollm(torch, np, card):
+    """9b: smollm-360m at published widths (f32 params, bf16 compute,
+    remat) trained through ``Trainer`` on the card, then one step traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = get_config(TRAIN_DENSE_ARCH)
+    B, S, steps = TRAIN_DENSE_SHAPE
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, TrainerConfig(steps=steps, batch=B, seq_len=S,
+                                    log_every=1), params=params,
+                 device="cuda")
+    hist = tr.run()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(hist) == steps and all(
+        math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+        for h in hist), f"train {TRAIN_DENSE_ARCH}: a non-finite loss or "
+        f"grad norm: {[(h['loss'], h['grad_norm']) for h in hist]}")
+    check(hist[-1]["loss"] < hist[0]["loss"], f"train {TRAIN_DENSE_ARCH}: "
+          f"the loss did not fall ({hist[0]['loss']} -> {hist[-1]['loss']})")
+    rep = _train_report(hist, B * S)
+    batch = next(tr.data)
+    wall, busy, events, _, top = profile_decode(
+        torch, lambda: tr.train_step(batch), steps=2, marks=())
+    rep.update(arch=TRAIN_DENSE_ARCH, batch=B, seq_len=S,
+               peak_mem_bytes=peak, traced_wall_ms=wall,
+               device_busy_ms=busy, device_events=events, top=top,
+               idle_share=None if busy is None else 1.0 - busy / wall)
+    print(f"train {TRAIN_DENSE_ARCH} (published widths, batch {B} x {S}, "
+          f"remat, {steps} steps): loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}, grad norm {hist[0]['grad_norm']:.3f} -> "
+          f"{hist[-1]['grad_norm']:.3f} | step {rep['step_ms']:.2f} ms "
+          f"median (first {rep['first_step_ms']:.1f} ms), "
+          f"{rep['tokens_per_s']:.1f} tokens/s | peak mem "
+          f"{peak / 2 ** 30:.2f} GiB | traced step: {wall:.2f} ms wall, "
+          + ("device busy not measured (no device events)" if busy is None
+             else f"device busy {busy:.2f} ms in {events:.0f} events, idle "
+             f"share {1.0 - busy / wall:.4f} | top: "
+             + "; ".join(f"{n} {ms:.3f} ms" for n, ms in top))
+          + f" | on {card}")
+    del tr, params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_train_mamba(torch, np, card):
+    """9c: mamba2-2.7b at published widths: one loss and gradient on the
+    kernel route against the plain route (no optimizer state), then
+    ``Trainer`` steps with kernel 7 forward and backward counted on every
+    layer of every step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = get_config(SSM_ARCH)
+    if TRAIN_SSM_LAYERS != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_SSM_LAYERS)
+    B, S, steps = TRAIN_SSM_SHAPE
+    L = cfg.num_layers
+    want = {"dw1d": 2 * L, "dw1d_bwd": L, "dw1d_wgrad": L, "ssd": 0}
+    params = lm.init(torch.Generator(device="cuda").manual_seed(1), cfg,
+                     device="cuda")
+    batch = _train_batch(torch, np, cfg.vocab_size, B, S, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def both_routes(c):
+        """(loss, grads) on the kernel route and on the plain route, and
+        the seconds of each."""
+        out = []
+        for plain in (False, True):
+            t0 = time.perf_counter()
+            with plain_ssm_route() if plain else contextlib.nullcontext():
+                lg = _loss_and_grads(torch, params, c, batch)
+                torch.cuda.synchronize()
+            out.append((*lg, time.perf_counter() - t0))
+        return out
+
+    def worst_leaf(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                    1e-30)
+                   for x, y in zip(a, b))
+
+    def rel_norm(a, b):
+        num = sum(float(((x - y).float() ** 2).sum()) for x, y in zip(a, b))
+        den = sum(float((y.float() ** 2).sum()) for y in b)
+        return math.sqrt(num / den)
+
+    # f32 activations: the two routes are one function summed in other
+    # orders; the trained bf16 activations: the plain route rounds inside
+    # its Winograd conv, the kernels stay f32 inside, so the kernels'
+    # gradients must be no further from the f32 ones than the plain route's
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    reset_launch_counts()
+    (l32k, g32k, s32k), (l32p, g32p, s32p) = both_routes(cfg32)
+    n = launch_counts()
+    check(all(n[k] == v for k, v in want.items()),
+          f"train {SSM_ARCH} probe: launches {n} on the kernel route, then "
+          f"none on the plain route; expected {want}")
+    rel32 = abs(float(l32k) - float(l32p)) / abs(float(l32p))
+    worst32 = worst_leaf(g32k, g32p)
+    del g32p
+    (lk, gk, sk), (lp, gp, sp) = both_routes(cfg)
+    rel16 = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst16 = worst_leaf(gk, gp)
+    k_off, p_off = rel_norm(gk, g32k), rel_norm(gp, g32k)
+    k_loss_off = abs(float(lk) - float(l32k)) / abs(float(l32k))
+    p_loss_off = abs(float(lp) - float(l32k)) / abs(float(l32k))
+    finite = all(bool(torch.isfinite(g).all()) for g in gk)
+    probe_peak = torch.cuda.max_memory_allocated()
+    del g32k, gk, gp
+    print(f"train {SSM_ARCH} probe ({L} layers, batch {B} x {S}): f32 "
+          f"activations, loss kernels {float(l32k):.6f} plain route "
+          f"{float(l32p):.6f} (rel {rel32:.3e}, gate {TOL_TRAIN_LOSS:g}), "
+          f"worst leaf gradient {worst32:.3e} of its max|g| (gate "
+          f"{TOL_TRAIN_GRAD:g}) | bf16 activations, loss {float(lk):.6f} vs "
+          f"{float(lp):.6f} (rel {rel16:.3e}; off the f32 loss: kernels "
+          f"{k_loss_off:.3e} (gate {TOL_TRAIN_LOSS:g}), plain route "
+          f"{p_loss_off:.3e}), worst leaf {worst16:.3e}; gradients off "
+          f"the f32 kernel route's (relative norm): kernels {k_off:.3e}, "
+          f"plain route {p_off:.3e} (gate kernels <= plain) | fwd+bwd ms "
+          f"kernels / plain: f32 "
+          f"{s32k * 1e3:.1f} / {s32p * 1e3:.1f}, bf16 {sk * 1e3:.1f} / "
+          f"{sp * 1e3:.1f} | peak mem {probe_peak / 2 ** 30:.2f} GiB | "
+          f"launches {n}")
+    check(finite and math.isfinite(float(lk)),
+          f"train {SSM_ARCH} probe: a non-finite loss or gradient")
+    check(rel32 <= TOL_TRAIN_LOSS and worst32 <= TOL_TRAIN_GRAD
+          and k_loss_off <= TOL_TRAIN_LOSS and k_off <= p_off,
+          f"train {SSM_ARCH} probe: the kernel route is off the plain "
+          f"route: f32 loss rel {rel32}, worst leaf {worst32}; bf16 loss "
+          f"off f32 {k_loss_off} (the plain route's {p_loss_off}), "
+          f"gradients {k_off} against the plain route's {p_off}")
+    kern_s, plain_s = sk, sp
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    snaps = []
+    tr = Trainer(cfg, TrainerConfig(steps=steps, batch=B, seq_len=S,
+                                    log_every=1), params=params,
+                 device="cuda",
+                 failure_injector=lambda s: snaps.append(launch_counts())
+                 and False)
+    reset_launch_counts()
+    hist = tr.run()
+    snaps.append(launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [{k: b[k] - a[k] for k in want}
+                for a, b in zip(snaps, snaps[1:])]
+    check(len(per_step) == steps and all(p == want for p in per_step),
+          f"train {SSM_ARCH}: launches a step {per_step}, expected {want}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"train {SSM_ARCH}: a non-finite loss or grad "
+          f"norm: {[(h['loss'], h['grad_norm']) for h in hist]}")
+    rep = _train_report(hist, B * S)
+    batch = next(tr.data)
+    wall, busy, events, marks, top = profile_decode(
+        torch, lambda: tr.train_step(batch), steps=1,
+        marks=("dw1d_kernel", "dw1d_wgrad"))
+    rep.update(traced_wall_ms=wall, device_busy_ms=busy,
+               device_events=events, kernel7_ms=marks, top=top,
+               idle_share=None if busy is None else 1.0 - busy / wall)
+    rep.update(arch=SSM_ARCH, layers=L, batch=B, seq_len=S,
+               peak_mem_bytes=peak, probe_peak_mem_bytes=probe_peak,
+               probe_f32_loss_rel=rel32, probe_f32_worst_leaf_rel=worst32,
+               probe_bf16_loss_rel=rel16, probe_bf16_worst_leaf_rel=worst16,
+               probe_bf16_kernel_off_f32=k_off,
+               probe_bf16_plain_off_f32=p_off,
+               probe_bf16_kernel_loss_off_f32=k_loss_off,
+               probe_bf16_plain_loss_off_f32=p_loss_off,
+               probe_kernel_ms=kern_s * 1e3, probe_plain_ms=plain_s * 1e3,
+               launches=snaps[-1], launches_per_step=per_step[0])
+    print(f"train {SSM_ARCH} ({L} layers, published widths, batch {B} x "
+          f"{S}, remat, {steps} steps): losses "
+          + " ".join(f"{h['loss']:.4f}" for h in hist)
+          + f" | grad norms " + " ".join(f"{h['grad_norm']:.3f}"
+                                         for h in hist)
+          + f" | step {rep['step_ms']:.1f} ms median (first "
+          f"{rep['first_step_ms']:.1f} ms) | peak mem {peak / 2 ** 30:.2f} "
+          f"GiB | launches a step {per_step[0]} | traced step: {wall:.1f} "
+          f"ms wall, "
+          + ("device busy not measured (no device events)" if busy is None
+             else f"device busy {busy:.1f} ms in {events:.0f} events, idle "
+             f"share {1.0 - busy / wall:.4f}, kernel 7 forward and dx "
+             f"{marks['dw1d_kernel']:.3f} ms, wgrad "
+             f"{marks['dw1d_wgrad']:.3f} ms | top: "
+             + "; ".join(f"{n} {ms:.3f} ms" for n, ms in top))
+          + f" | on {card}")
+    del tr, params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_train_recovery(torch, np, card):
+    """9d: smollm-360m's widths at 4 layers, a failure injected at step
+    15 with checkpoints every 10: one recovery that restored, and the
+    final params those of an uninterrupted run (the test's bound)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_config(TRAIN_DENSE_ARCH), num_layers=4)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(2), cfg,
+                     device="cuda")
+    init = [t.clone() for t in tree_leaves(params)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainerConfig(steps=20, batch=4, seq_len=128, ckpt_every=10,
+                             ckpt_dir=d, log_every=0)
+        fails = {15}
+        tr = Trainer(cfg, tcfg, params=params, device="cuda",
+                     failure_injector=lambda s: s in fails and
+                     not fails.discard(s))
+        tr.run()
+        rec = tr.events.recoveries
+    ref_params = lm.init(torch.Generator(device="cuda").manual_seed(2), cfg,
+                         device="cuda")
+    for t, a in zip(tree_leaves(ref_params), init):
+        t.copy_(a)
+    ref = Trainer(cfg, dataclasses.replace(tcfg, ckpt_every=0, ckpt_dir=""),
+                  params=ref_params, device="cuda")
+    ref.run()
+    seconds = time.perf_counter() - t0
+    worst = 0.0
+    close = True
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(tr.state["params"]),
+                        tree_leaves(ref.state["params"])):
+            diff = (a - b).abs()
+            close &= bool((diff <= 1e-5 + 1e-4 * b.abs()).all())
+            worst = max(worst, float(diff.max()))
+    print(f"train recovery ({TRAIN_DENSE_ARCH} widths, 4 layers, 20 steps, "
+          f"checkpoint every 10, failure at 15): recoveries {rec} | final "
+          f"params vs uninterrupted: max|diff| {worst:.3e} (gate rtol 1e-4 "
+          f"atol 1e-5) | {seconds:.1f} s | on {card}")
+    check(len(rec) == 1 and rec[0]["restored"] and rec[0]["step"] == 15,
+          f"train recovery: recoveries {rec}")
+    check(int(tr.state["step"]) == 20 and close,
+          f"train recovery: step {int(tr.state['step'])}, params off the "
+          f"uninterrupted run by {worst}")
+    return {"recoveries": rec, "max_abs_diff": worst, "seconds": seconds}
+
+
+def phase_train(torch, np, card):
+    """Phase 9: 9a-9d."""
+    t0 = time.perf_counter()
+    rows = phase_train_kernels(torch, np)
+    dense = phase_train_smollm(torch, np, card)
+    ssm = phase_train_mamba(torch, np, card)
+    recovery = phase_train_recovery(torch, np, card)
+    seconds = time.perf_counter() - t0
+    print(f"train: phase 9 {seconds:.1f} s")
+    return rows, {"dense": dense, "ssm": ssm, "recovery": recovery,
+                  "phase_s": seconds}
+
+
 def summary(row):
     """A kernel row's numbers for the ``kernels`` line (``bound_by`` its
     layers' when they agree, else ``mixed``)."""
@@ -2698,6 +3153,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows.update(phase_ssm(torch, np))
     mamba = phase_mamba(torch, np)
+    torch.cuda.empty_cache()
+    train_rows, train = phase_train(torch, np, card)
+    rows.update(train_rows)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
@@ -2705,7 +3163,8 @@ def main(argv=None) -> int:
              "fleet": fleet["launches"],
              "supervised": supervised["launches"],
              "lm": lm_serve["launches"],
-             "mamba": mamba["launches"]}
+             "mamba": mamba["launches"],
+             "train": train["ssm"]["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
@@ -2716,19 +3175,26 @@ def main(argv=None) -> int:
                 "decode_attn":
                     "src/repro/kernels/decode_attn/decode_attn.py:26",
                 "ssd": "src/repro/kernels/ssd/ssd.py:25",
-                "dw1d": "src/repro/kernels/conv/winograd.py:61"}
+                "dw1d": "src/repro/kernels/conv/winograd.py:61",
+                # the reference's VJP of kernel 7 (ops.py:47 _dw1d_bwd):
+                # the Pallas kernel re-run reversed (:51), the reductions
+                # (:55)
+                "dw1d_bwd": "src/repro/kernels/conv/ops.py:51",
+                "dw1d_wgrad": "src/repro/kernels/conv/ops.py:55"}
     sources = {"conv_direct": "src/repro_torch/csrc/conv_direct.cu",
                "conv_winograd": "src/repro_torch/csrc/conv_winograd.cu",
                "conv_winograd_fused": "src/repro_torch/csrc/conv_winograd.cu",
                "bfp_matmul": "src/repro_torch/csrc/bfp_matmul.cu",
                "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
                "ssd": "src/repro_torch/csrc/ssd.cu",
-               "dw1d": "src/repro_torch/csrc/dw1d.cu"}
+               "dw1d": "src/repro_torch/csrc/dw1d.cu",
+               "dw1d_bwd": "src/repro_torch/csrc/dw1d.cu",
+               "dw1d_wgrad": "src/repro_torch/csrc/dw1d.cu"}
     # launches: the serve run of the slice that ported the kernel (the conv
     # kernels f32 AlexNet, kernel 4 BFP AlexNet, kernel 5 the LM, kernels
     # 6 and 7 mamba); launches_by_path: every run
     home = {"bfp_matmul": "bfp", "decode_attn": "lm", "ssd": "mamba",
-            "dw1d": "mamba"}
+            "dw1d": "mamba", "dw1d_bwd": "train", "dw1d_wgrad": "train"}
     kernels = []
     for kname, row in rows.items():
         if "geometries" in row:
@@ -2790,6 +3256,13 @@ def main(argv=None) -> int:
           f"{mamba['peak_mem_bytes'] / 2 ** 20:.1f} MiB | init "
           f"{mamba['init_s']:.2f} s | launches ssd {mamba['launches']['ssd']}"
           f" dw1d {mamba['launches']['dw1d']} | on {card}")
+    print(f"train: {TRAIN_DENSE_ARCH} {train['dense']['step_ms']:.2f} ms a "
+          f"step, {train['dense']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{train['dense']['peak_mem_bytes'] / 2 ** 30:.2f} GiB | {SSM_ARCH} "
+          f"{train['ssm']['step_ms']:.1f} ms a step, peak "
+          f"{train['ssm']['peak_mem_bytes'] / 2 ** 30:.2f} GiB, launches "
+          f"{train['ssm']['launches']} | phase 9 {train['phase_s']:.1f} s | "
+          f"on {card}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -2806,6 +3279,7 @@ def main(argv=None) -> int:
                            "feature_pass_ms": vgg_passes},
                        "fleet": fleet, "supervised": supervised,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
+                       "train": train,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()
                                      if "per_layer" in r},

@@ -85,10 +85,11 @@ class ArchConfig:
 
     dtype: str = "bfloat16"        # activation / compute dtype
     param_dtype: str = "float32"   # parameter storage dtype
-    remat: bool = True             # training only; the port serves
-    remat_policy: str = "nothing"
+    remat: bool = True             # training: recompute each layer in the
+    #                                backward (nn/blocks.py)
+    remat_policy: str = "nothing"  # or "save_attn": keep the flash output
     logits_softcap: float = 0.0
-    banded_attention: bool = False  # training only (flash backward slice)
+    banded_attention: bool = False  # lower-triangle flash schedule (causal)
     fc_bfp: bool = False           # stream the untied lm_head as
     #                                shared-exponent int8 BFP (paper §3.6)
 

@@ -30,6 +30,9 @@ _NOT_PORTED = {
 
 CNN_ARCHS = ["alexnet", "vgg16"]
 LM_ARCHS = [n for n in _MODULES if n not in CNN_ARCHS]
+# every LM config of the reference, ported or not (get_config names the
+# item that ports the rest)
+ALL_LM_ARCHS = LM_ARCHS + list(_NOT_PORTED)
 
 
 def list_configs():

@@ -37,6 +37,23 @@
 // output's fmaf chains are the same for every TT (and the same as this
 // kernel's first version), so the output does not depend on it.  No
 // atomics: deterministic.
+//
+// The backward (kernel 7's VJP, the reference's _dw1d_bwd at
+// src/repro/kernels/conv/ops.py:47, which re-runs the Pallas kernel on the
+// time-reversed cotangent) is two more entries:
+//   * dx: this kernel in its time-reversed mode (`rev`): it reads input
+//     row L-1-t where the forward reads row t and writes output row L-1-t,
+//     with a zero bias.  The tiles are those of the forward on the reversed
+//     sequence, so dx is bit-equal to flip(kernel7(flip(dy))) and the two
+//     flips are never copied.
+//   * dw, db: repro_dw1d_wgrad, a reduction over (b, t).  Bound by bytes
+//     (x and dy read once: 9 flops a pair of elements).  A block owns 128
+//     channels, one a lane, and a split of one batch row's time steps; a
+//     lane walks its rows with x[t-3..t-1] in registers and sums the four
+//     tap products and dy in f32, and writes them to a per-block partial.
+//     A second launch adds the partials of each channel in split order.
+//     No atomics: two runs give the same bits.  dw stays f32; db is
+//     rounded once to dy's type (the reference sums dy in dy's dtype).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,11 +87,11 @@ __device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float v) {
 
 // Rows 3 j0 - 3 .. 3 (j0 + TT) - 1 of channels [c0, c0 + kCh) into `tile`:
 // 16-byte cp.async copies where `vec` (zeros outside [0, L) and past C),
-// else one element a thread
+// else one element a thread.  Row s is x's row s, or row L-1-s when `rev`
 template <typename T, int TT>
 __device__ __forceinline__ void load_run(T (*tile)[kCh], const T* x, int L,
                                          int C, size_t bb, int c0, int j0,
-                                         bool vec) {
+                                         bool vec, bool rev) {
   constexpr int kRows = kM * TT + kN - kM;
   constexpr int kV = 16 / (int)sizeof(T), kChunks = kCh / kV;
   const int s0 = kM * j0 - (kR - 1);
@@ -83,9 +100,10 @@ __device__ __forceinline__ void load_run(T (*tile)[kCh], const T* x, int L,
       const int r = i / kChunks, q = (i % kChunks) * kV;
       const int row = s0 + r, ch = c0 + q;
       const bool ok = row >= 0 && row < L && ch < C;
+      const int src = rev ? L - 1 - row : row;
       cp_async16(reinterpret_cast<float*>(&tile[r][q]),
                  reinterpret_cast<const float*>(
-                     ok ? x + bb + (size_t)row * C + ch : x),
+                     ok ? x + bb + (size_t)src * C + ch : x),
                  ok);
     }
   } else {
@@ -93,7 +111,7 @@ __device__ __forceinline__ void load_run(T (*tile)[kCh], const T* x, int L,
       const int r = i / kCh, q = i % kCh;
       const int row = s0 + r, ch = c0 + q;
       tile[r][q] = (row >= 0 && row < L && ch < C)
-                       ? x[bb + (size_t)row * C + ch]
+                       ? x[bb + (size_t)(rev ? L - 1 - row : row) * C + ch]
                        : to_t<T>(0.0f);
     }
   }
@@ -104,12 +122,13 @@ __device__ __forceinline__ void load_run(T (*tile)[kCh], const T* x, int L,
 // 16-byte cp.async copies while G w is made.  Each lane computes its two
 // channels' TT tiles from the buffer, six rows in registers at a time, and
 // writes its outputs over the rows it has read; the block then stores the
-// run's output rows with 16-byte stores.
+// run's output rows with 16-byte stores.  With `rev` the rows are read and
+// written time-reversed (row s of the run is x's and out's row L-1-s).
 template <typename T, int TT>
 __global__ void __launch_bounds__(kThreads)
     dw1d_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, Dw1dMats mt,
-                T* __restrict__ out, int L, int C, bool vec) {
+                T* __restrict__ out, int L, int C, bool vec, bool rev) {
   constexpr int kRows = kM * TT + kN - kM;       // 3 TT + 3
   constexpr int kV = 16 / (int)sizeof(T), kChunks = kCh / kV;
   __shared__ __align__(16) T tile[kRows][kCh];
@@ -117,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t bb = (size_t)blockIdx.z * L * C;
 
   // the run's rows fly while G w is made
-  load_run<T, TT>(tile, x, L, C, bb, c0, blockIdx.y * TT, vec);
+  load_run<T, TT>(tile, x, L, C, bb, c0, blockIdx.y * TT, vec, rev);
   cp_async_commit();
   const int q0 = 2 * tid, c = c0 + q0;           // this lane's channels
   float v[2][kN], bc[2];                         // G w of each channel
@@ -170,21 +189,23 @@ __global__ void __launch_bounds__(kThreads)
   if (vec) {
     for (int i = tid; i < rows * kChunks; i += kThreads) {
       const int r = i / kChunks, q = (i % kChunks) * kV;
+      const int row = rev ? L - 1 - (r0 + r) : r0 + r;
       if (c0 + q < C)
-        *reinterpret_cast<uint4*>(out + bb + (size_t)(r0 + r) * C + c0 + q) =
+        *reinterpret_cast<uint4*>(out + bb + (size_t)row * C + c0 + q) =
             *reinterpret_cast<const uint4*>(&tile[r][q]);
     }
   } else {
     for (int i = tid; i < rows * kCh; i += kThreads) {
       const int r = i / kCh, q = i % kCh;
-      if (c0 + q < C) out[bb + (size_t)(r0 + r) * C + c0 + q] = tile[r][q];
+      const int row = rev ? L - 1 - (r0 + r) : r0 + r;
+      if (c0 + q < C) out[bb + (size_t)row * C + c0 + q] = tile[r][q];
     }
   }
 }
 
 template <typename T, int TT>
 int launch(const void* x, const float* w, const float* bias,
-           const Dw1dMats& mt, void* out, int B, int L, int C,
+           const Dw1dMats& mt, void* out, int B, int L, int C, bool rev,
            cudaStream_t stream) {
   const int runs = ((L + kM - 1) / kM + TT - 1) / TT;
   if (runs > 65535) return (int)cudaErrorInvalidValue;
@@ -194,34 +215,115 @@ int launch(const void* x, const float* w, const float* bias,
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   dw1d_kernel<T, TT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, bias, mt, static_cast<T*>(out), L, C, vec);
+      static_cast<const T*>(x), w, bias, mt, static_cast<T*>(out), L, C, vec,
+      rev);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_tiles(const void* x, const float* w, const float* bias,
                  const Dw1dMats& mt, void* out, int B, int L, int C,
-                 int tiles, cudaStream_t stream) {
+                 int tiles, bool rev, cudaStream_t stream) {
   switch (tiles) {
     case 1:
-      return launch<T, 1>(x, w, bias, mt, out, B, L, C, stream);
+      return launch<T, 1>(x, w, bias, mt, out, B, L, C, rev, stream);
     case 2:
-      return launch<T, 2>(x, w, bias, mt, out, B, L, C, stream);
+      return launch<T, 2>(x, w, bias, mt, out, B, L, C, rev, stream);
     case 4:
-      return launch<T, 4>(x, w, bias, mt, out, B, L, C, stream);
+      return launch<T, 4>(x, w, bias, mt, out, B, L, C, rev, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// dw and db: per-block partial sums, then a fixed-order second pass
+// ---------------------------------------------------------------------------
+constexpr int kWgThreads = 128;     // channels a block, one a lane
+
+// Block (channel block, split, batch row b): lane c sums, over rows
+// [split * rows, min(L, (split + 1) * rows)) of batch row b,
+// dy[t] * x[t - 3 + k] for the four taps k and dy[t] itself, in f32, and
+// writes the five sums to part[(b * splits + split) * 5 + k][c]
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads)
+    dw1d_wgrad_partial(const T* __restrict__ x, const T* __restrict__ dy,
+                       float* __restrict__ part, int L, int C, int rows) {
+  const int c = blockIdx.x * kWgThreads + threadIdx.x;
+  if (c >= C) return;
+  const int t0 = blockIdx.y * rows, t1 = min(L, t0 + rows);
+  const size_t bb = (size_t)blockIdx.z * L * C + c;
+  // x[t-3], x[t-2], x[t-1] of this lane's channel (zeros before t = 0)
+  float x3 = t0 >= 3 ? to_f32(x[bb + (size_t)(t0 - 3) * C]) : 0.0f;
+  float x2 = t0 >= 2 ? to_f32(x[bb + (size_t)(t0 - 2) * C]) : 0.0f;
+  float x1 = t0 >= 1 ? to_f32(x[bb + (size_t)(t0 - 1) * C]) : 0.0f;
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f, ad = 0.0f;
+#pragma unroll 4
+  for (int t = t0; t < t1; ++t) {
+    const float xt = to_f32(x[bb + (size_t)t * C]);
+    const float g = to_f32(dy[bb + (size_t)t * C]);
+    a0 = fmaf(g, x3, a0);
+    a1 = fmaf(g, x2, a1);
+    a2 = fmaf(g, x1, a2);
+    a3 = fmaf(g, xt, a3);
+    ad += g;
+    x3 = x2;
+    x2 = x1;
+    x1 = xt;
+  }
+  float* p = part + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * 5 * C + c;
+  p[0] = a0;
+  p[(size_t)C] = a1;
+  p[2 * (size_t)C] = a2;
+  p[3 * (size_t)C] = a3;
+  p[4 * (size_t)C] = ad;
+}
+
+// Lane c adds its channel's S partials in order: dw[k][c] in f32, db[c]
+// rounded once to T and widened back to f32
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads)
+    dw1d_wgrad_final(const float* __restrict__ part, float* __restrict__ dw,
+                     float* __restrict__ db, int C, int S) {
+  const int c = blockIdx.x * kWgThreads + threadIdx.x;
+  if (c >= C) return;
+  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int k = 0; k < 5; ++k) acc[k] += part[((size_t)s * 5 + k) * C + c];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) dw[(size_t)k * C + c] = acc[k];
+  db[c] = to_f32(to_t<T>(acc[4]));
+}
+
+template <typename T>
+int launch_wgrad(const void* x, const void* dy, float* part, float* dw,
+                 float* db, int B, int L, int C, int rows,
+                 cudaStream_t stream) {
+  const int splits = (L + rows - 1) / rows;
+  if (splits > 65535) return (int)cudaErrorInvalidValue;
+  const int cb = (C + kWgThreads - 1) / kWgThreads;
+  dw1d_wgrad_partial<T><<<dim3(cb, splits, B), kWgThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), part, L, C, rows);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  dw1d_wgrad_final<T><<<cb, kWgThreads, 0, stream>>>(part, dw, db, C,
+                                                      B * splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, out (B, L, C) contiguous in one dtype (0 = float32, 1 = bfloat16);
 // w (4, C) and bias (C,) float32; mats: host array of B^T (6x6), G (6x4)
-// and A^T (3x6), row-major; tiles: Winograd tiles a block (1, 2 or 4).
+// and A^T (3x6), row-major; tiles: Winograd tiles a block (1, 2 or 4);
+// reverse: nonzero to read and write the rows time-reversed (the dx of the
+// backward, with a zero bias).
 extern "C" int repro_dw1d(const void* x, const float* w, const float* bias,
                           const float* mats, void* out, int B, int L, int C,
-                          int tiles, int dtype, cudaStream_t stream) {
+                          int tiles, int reverse, int dtype,
+                          cudaStream_t stream) {
   if (mats == nullptr || B <= 0 || B > 65535 || L <= 0 || C <= 0)
     return (int)cudaErrorInvalidValue;
   Dw1dMats mt;
@@ -230,9 +332,30 @@ extern "C" int repro_dw1d(const void* x, const float* w, const float* bias,
   for (int i = 0; i < kM * kN; ++i) mt.at[i] = mats[kN * kN + kN * kR + i];
   switch (dtype) {
     case 0:
-      return launch_tiles<float>(x, w, bias, mt, out, B, L, C, tiles, stream);
+      return launch_tiles<float>(x, w, bias, mt, out, B, L, C, tiles,
+                                 reverse != 0, stream);
     case 1:
       return launch_tiles<__nv_bfloat16>(x, w, bias, mt, out, B, L, C, tiles,
+                                         reverse != 0, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dw (4, C) and db (C,) float32 of the depthwise conv's backward from x and
+// dy (B, L, C) contiguous in one dtype (0 = float32, 1 = bfloat16); part:
+// the f32 scratch of B * ceil(L / rows) * 5 * C partial sums; rows: time
+// steps a block.
+extern "C" int repro_dw1d_wgrad(const void* x, const void* dy, float* part,
+                                float* dw, float* db, int B, int L, int C,
+                                int rows, int dtype, cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || L <= 0 || C <= 0 || rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0:
+      return launch_wgrad<float>(x, dy, part, dw, db, B, L, C, rows, stream);
+    case 1:
+      return launch_wgrad<__nv_bfloat16>(x, dy, part, dw, db, B, L, C, rows,
                                          stream);
     default:
       return (int)cudaErrorInvalidValue;

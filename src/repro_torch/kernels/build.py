@@ -24,8 +24,9 @@ f32 scratches, and decode attention's merge tickets, among them), their
 extents as ints and the stream (the BFP matmul also its block tile's
 columns, decode attention q's scale factor and its cache rows a split,
 the SSD scan its rows of y a block and state rows a block, the depthwise
-conv a host pointer to its transform matrices and its Winograd tiles a
-block).  Each function returns
+conv a host pointer to its transform matrices, its Winograd tiles a block
+and its time-reversal flag, its backward's reduction its f32 partials and
+time steps a block).  Each function returns
 the ``cudaError_t`` of its launches (0 on success).  A failed build and a
 nonzero ``cudaError_t`` both raise :class:`KernelError`, which the serving
 engines never retry or degrade around.
@@ -156,9 +157,13 @@ def _declare(lib: ctypes.CDLL):
     lib.repro_ssd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                               i, i, p]
     lib.repro_ssd.restype = ctypes.c_int
-    # (x, w, bias, mats, out, B, L, C, tiles a block, dtype, stream)
-    lib.repro_dw1d.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    # (x, w, bias, mats, out, B, L, C, tiles a block, reverse, dtype,
+    # stream)
+    lib.repro_dw1d.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_dw1d.restype = ctypes.c_int
+    # (x, dy, partials, dw, db, B, L, C, rows a block, dtype, stream)
+    lib.repro_dw1d_wgrad.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.repro_dw1d_wgrad.restype = ctypes.c_int
 
 
 def library() -> KernelLibrary:

@@ -2,8 +2,10 @@
 ``repro/kernels/conv/ops.py``).
 
 * :func:`conv1d_depthwise_causal` — kernel 7, Mamba-2's depthwise causal
-  conv, forward only; ``pallas=False`` runs the pure-torch Winograd twin.
-  Kernel 7's backward comes with training (ROADMAP Queue 1, item 7d).
+  conv, with its backward as a ``torch.autograd.Function`` (the
+  reference's custom VJP): dx is kernel 7 run time-reversed on the
+  cotangent, dw and db a deterministic reduction kernel; ``pallas=False``
+  runs the pure-torch Winograd twin, which autograd differentiates.
 * :func:`conv2d` — the Winograd kernels for stride-1 layers;
   ``pallas=False`` runs the pure-torch Winograd route.
 * :func:`conv2d_direct` — the strided direct kernel for any geometry;
@@ -25,21 +27,40 @@ from .direct import new_verdict
 from .ref import conv2d_ref
 
 
+class _Dw1d(torch.autograd.Function):
+    """Kernel 7 with the reference's VJP (``_dw1d_bwd``): dx = kernel 7
+    on the time-reversed cotangent, cast to x's dtype; dw summed in f32
+    and db summed in dy's dtype, both cast to w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return _k.conv1d_depthwise_causal(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _k.conv1d_depthwise_causal_dx(dy, w).to(x.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = _k.conv1d_depthwise_causal_wgrad(x.contiguous(), dy,
+                                                      w.shape[0])
+            dw, db = dw.to(w.dtype), db.to(w.dtype)
+        return dx, dw, db if ctx.has_bias else None
+
+
 def conv1d_depthwise_causal(x, w, b=None, *, pallas: bool = True):
     """x (B,L,C); w (r,C); b (C,) or None -> (B,L,C), left-padded causal.
 
     ``pallas=True`` runs kernel 7 (its plain version on a CPU tensor), f32
-    inside; ``pallas=False`` the pure-torch Winograd in x's dtype, which
-    autograd differentiates.  The kernel has no backward yet, so an input
-    that requires grad raises instead of leaving the graph."""
+    inside, and its backward kernels when autograd asks for gradients;
+    ``pallas=False`` the pure-torch Winograd in x's dtype, which autograd
+    differentiates."""
     if pallas:
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, w, b)):
-            raise NotImplementedError(
-                "kernel 7 (conv1d_depthwise_causal, pallas=True) has no "
-                "backward yet (ROADMAP Queue 1, item 7d); run it under "
-                "torch.no_grad() or pass pallas=False")
-        return _k.conv1d_depthwise_causal(x, w, b)
+        return _Dw1d.apply(x, w, b)
     return wg.conv1d_depthwise_causal(x, w, b)
 
 
@@ -94,7 +115,8 @@ def launch_counts() -> dict:
     """CUDA-kernel launches so far, by kernel."""
     return {"conv_direct": _d.launches, "conv_winograd": _k.launches,
             "conv_winograd_fused": _k.fused_launches,
-            "dw1d": _k.dw1d_launches}
+            "dw1d": _k.dw1d_launches, "dw1d_bwd": _k.dw1d_bwd_launches,
+            "dw1d_wgrad": _k.dw1d_wgrad_launches}
 
 
 def reset_launch_counts():
@@ -102,3 +124,5 @@ def reset_launch_counts():
     _k.launches = 0
     _k.fused_launches = 0
     _k.dw1d_launches = 0
+    _k.dw1d_bwd_launches = 0
+    _k.dw1d_wgrad_launches = 0

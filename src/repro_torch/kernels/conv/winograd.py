@@ -4,7 +4,10 @@
 
 :func:`conv1d_depthwise_causal` is kernel 7, Mamba-2's depthwise causal
 1-D conv by F(3,4) (``csrc/dw1d.cu`` on a CUDA tensor, the plain version
-:func:`conv1d_depthwise_causal_plain` on a CPU tensor).  The rest is the
+:func:`conv1d_depthwise_causal_plain` on a CPU tensor), and
+:func:`conv1d_depthwise_causal_dx` / :func:`conv1d_depthwise_causal_wgrad`
+its backward: kernel 7 time-reversed on the cotangent, and a
+deterministic two-pass reduction for dw and db.  The rest is the
 F(m,3) x F(m,3) conv layers, AlexNet conv3-conv5 on the ``pallas`` route.
 
 ``plan``/``pack_weights`` mirror the reference, so the packed slab (the
@@ -49,6 +52,8 @@ from .epilogue import batch_blocks, channel_blocks, grouped_channel_pad, \
 launches = 0          # unfused: conv + bias + ReLU
 fused_launches = 0    # fused: + LRN and/or max-pool
 dw1d_launches = 0     # kernel 7: depthwise causal 1-D
+dw1d_bwd_launches = 0     # kernel 7 time-reversed: the backward's dx
+dw1d_wgrad_launches = 0   # the backward's dw and db (two launches a call)
 
 # the batched GEMM's tiling, as csrc/conv_winograd.cu has it
 BM = 64                     # Winograd tiles (GEMM rows) of the default tile
@@ -102,6 +107,27 @@ def conv1d_depthwise_causal_plain(x, w, b):
                                        b.float()).to(x.dtype)
 
 
+def conv1d_depthwise_causal_dx_plain(dy, w):
+    """The backward's dx in PyTorch, the reference's formula: kernel 7's
+    function on the time-reversed cotangent, no bias, reversed back.
+    dx[s] = sum_k w[k] dy[s + r-1-k]; dy (B,L,C) -> (B,L,C) in dy's
+    dtype."""
+    zero = torch.zeros((w.shape[1],), dtype=torch.float32, device=w.device)
+    return conv1d_depthwise_causal_plain(dy.flip(1), w, zero).flip(1)
+
+
+def conv1d_depthwise_causal_wgrad_plain(x, dy, r: int):
+    """The backward's dw and db in PyTorch, the reference's formula:
+    dw[k, c] = sum_{b,t} dy[b,t,c] x[b,t-r+1+k,c] summed in f32 (r, C),
+    and db = dy summed over (b, t) in dy's dtype, widened to f32 (C,)."""
+    L = x.shape[1]
+    xp = F.pad(x, (0, 0, r - 1, 0)).float()
+    g = dy.float()
+    dw = torch.stack([torch.einsum("blc,blc->c", g, xp[:, k:k + L])
+                      for k in range(r)])
+    return dw, dy.sum(dim=(0, 1)).float()
+
+
 def _dw1d_mats() -> np.ndarray:
     t = winograd_transform(3, 4)
     return np.ascontiguousarray(np.concatenate(
@@ -109,16 +135,27 @@ def _dw1d_mats() -> np.ndarray:
             np.float32))
 
 
-def _conv1d_depthwise_causal_cuda(x, w, b):
-    global dw1d_launches
-    if w.shape[0] != 4:
+def _check_dw1d_cuda(r: int, *xs):
+    if r != 4:
         raise NotImplementedError(
             f"the CUDA depthwise kernel implements F(3,4) (4 taps) only, "
-            f"not {w.shape[0]} taps (ROADMAP Queue 2, part d)")
-    if x.dtype not in _DW1D_DTYPE_CODE or not x.is_contiguous():
-        raise ValueError(f"conv1d_depthwise_causal: the kernel takes a "
-                         f"contiguous {list(_DW1D_DTYPE_CODE)} x; got "
-                         f"{x.dtype}, contiguous={x.is_contiguous()}")
+            f"not {r} taps (ROADMAP Queue 2, part d)")
+    for x in xs:
+        if x.dtype not in _DW1D_DTYPE_CODE or not x.is_contiguous():
+            raise ValueError(f"conv1d_depthwise_causal: the kernel takes a "
+                             f"contiguous {list(_DW1D_DTYPE_CODE)} x; got "
+                             f"{x.dtype}, contiguous={x.is_contiguous()}")
+        if x.dtype != xs[0].dtype or x.shape != xs[0].shape or \
+                x.device != xs[0].device:
+            raise ValueError("conv1d_depthwise_causal: x and dy differ in "
+                             "dtype, shape or device")
+
+
+def _conv1d_depthwise_causal_cuda(x, w, b, *, reverse: bool = False):
+    """Kernel 7; ``reverse`` reads and writes the rows time-reversed (the
+    backward's dx, counted in :data:`dw1d_bwd_launches`)."""
+    global dw1d_launches, dw1d_bwd_launches
+    _check_dw1d_cuda(w.shape[0], x)
     w = w.to(torch.float32).contiguous()
     b = b.to(torch.float32).contiguous()
     for t in (w, b):
@@ -130,12 +167,57 @@ def _conv1d_depthwise_causal_cuda(x, w, b):
     mats = _dw1d_mats()
     err = build.library().lib.repro_dw1d(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), mats.ctypes.data,
-        out.data_ptr(), B, L, C, dw1d_launch(B, L, C),
+        out.data_ptr(), B, L, C, dw1d_launch(B, L, C), int(reverse),
         _DW1D_DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "dw1d")
-    dw1d_launches += 1
+    build.check(err, "dw1d_bwd" if reverse else "dw1d")
+    if reverse:
+        dw1d_bwd_launches += 1
+    else:
+        dw1d_launches += 1
     return out
+
+
+# csrc/dw1d.cu's wgrad blocking: 128 channels a block, one a lane; the
+# wrapper splits each batch row's time steps so that the blocks number at
+# least DW1D_WGRAD_MIN_BLOCKS (eight an SM on the H100's 132), with at
+# least DW1D_WGRAD_MIN_ROWS steps a split
+DW1D_WGRAD_CHANNELS = 128
+DW1D_WGRAD_MIN_BLOCKS = 1056
+DW1D_WGRAD_MIN_ROWS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def dw1d_wgrad_rows(B: int, L: int, C: int) -> int:
+    """Time steps a block of the wgrad kernel: a function of the shape
+    only (the sums' order, and so the bits, depend on it)."""
+    cx = math.ceil(C / DW1D_WGRAD_CHANNELS) * B
+    splits = max(1, min(math.ceil(L / DW1D_WGRAD_MIN_ROWS),
+                        math.ceil(DW1D_WGRAD_MIN_BLOCKS / cx)))
+    return math.ceil(L / splits)
+
+
+def dw1d_wgrad_scratch_shape(B: int, L: int, C: int) -> tuple:
+    """The f32 partial sums: (batch row x split, 5 sums, C)."""
+    return (B * math.ceil(L / dw1d_wgrad_rows(B, L, C)), 5, C)
+
+
+def _conv1d_depthwise_causal_wgrad_cuda(x, dy, r: int):
+    global dw1d_wgrad_launches
+    _check_dw1d_cuda(r, x, dy)
+    B, L, C = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty(dw1d_wgrad_scratch_shape(B, L, C), **f32)
+    dw = torch.empty((r, C), **f32)
+    db = torch.empty((C,), **f32)
+    err = build.library().lib.repro_dw1d_wgrad(
+        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), B, L, C, dw1d_wgrad_rows(B, L, C),
+        _DW1D_DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dw1d_wgrad")
+    dw1d_wgrad_launches += 1
+    return dw, db
 
 
 def conv1d_depthwise_causal(x, w, b=None):
@@ -152,10 +234,37 @@ def conv1d_depthwise_causal(x, w, b=None):
                          f"is not ({w.shape[1]},)")
     if x.device.type == "cpu":
         return conv1d_depthwise_causal_plain(x, w, b)
+    _check_cuda_device(x)
+    return _conv1d_depthwise_causal_cuda(x, w, b)
+
+
+def _check_cuda_device(x):
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_depthwise_causal: unsupported device "
                          f"{x.device}")
-    return _conv1d_depthwise_causal_cuda(x, w, b)
+
+
+def conv1d_depthwise_causal_dx(dy, w):
+    """The backward's dx: dy (B,L,C), w (r,C) -> (B,L,C) in dy's dtype.
+    Kernel 7 time-reversed on a CUDA tensor (bit-equal to
+    flip(kernel7(flip(dy))) with a zero bias), the plain version on a CPU
+    tensor."""
+    if dy.device.type == "cpu":
+        return conv1d_depthwise_causal_dx_plain(dy, w)
+    _check_cuda_device(dy)
+    zero = torch.zeros((w.shape[1],), dtype=torch.float32, device=w.device)
+    return _conv1d_depthwise_causal_cuda(dy, w, zero, reverse=True)
+
+
+def conv1d_depthwise_causal_wgrad(x, dy, r: int):
+    """The backward's (dw (r,C), db (C,)), both f32: dw summed in f32,
+    db summed and rounded once to dy's dtype.  The two-pass reduction
+    kernel on CUDA tensors (deterministic), the plain version on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return conv1d_depthwise_causal_wgrad_plain(x, dy, r)
+    _check_cuda_device(x)
+    return _conv1d_depthwise_causal_wgrad_cuda(x, dy, r)
 
 
 # ---------------------------------------------------------------------------

@@ -12,15 +12,19 @@ from . import ssd as _k
 
 def ssd_chunked(x, dt, A, B_, C_, *, chunk: int = 256, pallas: bool = True):
     """``pallas=True`` runs kernel 6 (its plain version on a CPU tensor).
-    The kernel has no backward yet, so an input that requires grad raises
-    instead of leaving the graph; ``pallas=False`` is differentiable."""
+    The kernel has no backward, as the reference's has no VJP, so an input
+    that requires grad raises instead of leaving the graph; training takes
+    ``pallas=False``, the differentiable chunked twin, as the reference's
+    model does."""
     if pallas:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (x, dt, A, B_, C_)):
             raise NotImplementedError(
-                "kernel 6 (ssd_chunked, pallas=True) has no backward yet "
-                "(ROADMAP Queue 1, item 7d); run it under torch.no_grad() "
-                "or pass pallas=False")
+                "kernel 6 (ssd_chunked, pallas=True) has no backward (the "
+                "reference's has no VJP; ROADMAP Queue 1, item 7d): "
+                "training takes the differentiable twin, pallas=False "
+                "(nn/ssd.py in mode 'train'); run the kernel under "
+                "torch.no_grad()")
         return _k.ssd_chunked_pallas(x, dt, A, B_, C_, chunk=chunk)
     from ...nn.ssd import ssd_chunked as torch_impl
     return torch_impl(x, dt, A, B_, C_, chunk)

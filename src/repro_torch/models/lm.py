@@ -7,8 +7,11 @@ final norm and the readout: tied (``embed_attend``), an untied
 through kernel 4 (``kernels/bfp_matmul``), the paper's §3.6 FC regime.
 Parameters are nested dicts of tensors with ``stack`` a list of per-layer
 dicts; :func:`params_from_reference` carries the reference's parameters
-(with its scan-stacked layers) over.  ``loss_fn`` comes with the training
-slice (ROADMAP Queue 1, item 7d).
+(with its scan-stacked layers) over, and :func:`to_reference_layout` /
+:func:`from_reference_layout` convert any params-shaped tree (params,
+grads, AdamW moments) to and from the reference's stacked layout, which
+the trainer's checkpoints use.  :func:`loss_fn` is the reference's
+masked cross entropy with its metrics.
 """
 from __future__ import annotations
 
@@ -21,16 +24,7 @@ from ..kernels.bfp_matmul.ops import bfp_linear
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
 from ..nn.layers import (embed, embed_attend, embed_init, linear,
                          linear_init, norm, norm_init)
-from ..nn.module import torch_dtype
-
-
-def _map(fn, tree):
-    """``fn`` on every leaf of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+from ..nn.module import torch_dtype, tree_map
 
 
 def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
@@ -55,7 +49,7 @@ def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
 def to_device(tree, device):
     """A params (or cache) tree with every tensor on ``device``."""
     dev = resolve_device(device)
-    return _map(lambda t: t.to(dev), tree)
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def _reference_layers(stack, cfg: ArchConfig):
@@ -65,13 +59,42 @@ def _reference_layers(stack, cfg: ArchConfig):
     period = cfg.pattern_period()
     n_groups = (cfg.num_layers - len(stack["prefix"])) // period
     return list(stack["prefix"]) + [
-        _map(lambda a: a[m], stack["scan"][f"b{j}"])
+        tree_map(lambda a: a[m], stack["scan"][f"b{j}"])
         for m in range(n_groups) for j in range(period)]
+
+
+def _stack(trees, device):
+    """Trees of one structure -> one tree of their leaves stacked on a new
+    leading axis (on ``device``, or each leaf's own)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees], device) for k in first}
+    return torch.stack([t.detach().to(device or t.device) for t in trees])
+
+
+def to_reference_layout(tree, cfg: ArchConfig, *, device=None) -> dict:
+    """A params-shaped tree (params, grads, AdamW moments) in the
+    reference's layout: the layer list stacked into {"prefix": [],
+    "scan": {"b<j>": ...}}, group m's block j holding layer m * period +
+    j (the ported families have no prefix layers).  The stacked leaves
+    are new tensors on ``device`` (the host, for a checkpoint) or on each
+    leaf's own device."""
+    period = cfg.pattern_period()
+    layers = tree["stack"]
+    scan = {f"b{j}": _stack(layers[j::period], device)
+            for j in range(period)}
+    return dict(tree, stack={"prefix": [], "scan": scan})
+
+
+def from_reference_layout(tree, cfg: ArchConfig) -> dict:
+    """The inverse of :func:`to_reference_layout`: the layer list of
+    views into the stacked leaves (no copy)."""
+    return dict(tree, stack=_reference_layers(tree["stack"], cfg))
 
 
 def _tensors(tree, device):
     dev = resolve_device(device)
-    return _map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
 
 
 def params_from_reference(np_params, cfg: ArchConfig, *, device="cuda"):
@@ -124,3 +147,32 @@ def apply(params, cfg: ArchConfig, tokens, *, mode: str = "train",
                                      length=length, caches=caches)
     x = norm(cfg.norm_type, params["final_norm"], x)
     return _readout(params, cfg, x), new_caches, aux
+
+
+def loss_fn(params, cfg: ArchConfig, batch, collect_aux: bool = True):
+    """batch: {"inputs": (B,S), "targets": (B,S)} int tensors; targets < 0
+    are masked.  Returns (loss + aux, metrics) as the reference does."""
+    logits, _, aux = apply(params, cfg, batch["inputs"], mode="train")
+    return _ce(logits, batch["targets"], aux)
+
+
+def _ce(logits, targets, aux):
+    """Masked mean cross entropy over the valid targets, the reference's
+    formulation: the log-sum-exp against the detached row max, and the
+    label's logit (here gathered: the reference's one-hot select-sum adds
+    zeros to it, the same value).  Accuracy counts a label whose logit is
+    >= the row max, ties included."""
+    valid = targets >= 0
+    tgt = torch.clamp(targets, min=0).long()
+    lf = logits.to(torch.float32)
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    label_logit = torch.gather(lf, -1, tgt[..., None])[..., 0]
+    nll = lse - label_logit
+    denom = torch.clamp(valid.sum(), min=1)
+    loss = torch.where(valid, nll, 0.0).sum() / denom
+    total = loss + aux
+    is_max = label_logit >= m[..., 0]
+    metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
+               "accuracy": (valid & is_max).sum() / denom}
+    return total, metrics

@@ -1,7 +1,10 @@
 """GQA attention with RoPE (the reference's ``repro/nn/attention.py``).
 
 Modes:
-  train   — causal blockwise attention, no cache.
+  train   — causal blockwise attention with the flash backward, no cache
+            (``banded_attention`` picks the lower-triangle schedule; under
+            ``remat_policy="save_attn"`` the layer's checkpoint keeps the
+            flash output, ``flash.FLASH_OP``).
   prefill — causal, and the layer's K/V written into its cache.
   decode  — S new tokens (one, in serving) against the cache at per-slot
             offsets; the attention itself is kernel 5 on the card.
@@ -62,7 +65,8 @@ def gqa_apply(p, cfg: ArchConfig, x, *, mode: str, length=None, cache=None):
         pos = torch.arange(S, device=x.device)[None, :]
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
-        o = flash.flash_attention(q, k, v, causal=True)
+        o = flash.flash_attention(q, k, v, causal=True,
+                                  banded=cfg.banded_attention)
         if mode == "prefill" and cache is not None:
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v

@@ -8,13 +8,25 @@ layer ``i`` here is group ``i`` of the reference's scan
 (``models.lm.params_from_reference`` unstacks it).  A layer's mixer is
 attention or the Mamba-2 SSM; the MoE kind comes with ROADMAP Queue 1,
 item 7c.
+
+Under ``cfg.remat`` in train mode each layer runs inside
+``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, one layer at a time, as the reference's
+``jax.checkpoint`` of its period-1 scan group does.  With
+``remat_policy="save_attn"`` selective checkpointing keeps the flash
+attention's output (``flash.FLASH_OP``), so the recompute skips it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import ArchConfig
 from .attention import attn_cache_shape, attn_init, gqa_apply
+from .flash import FLASH_OP
 from .layers import norm, norm_init
 from .mlp import mlp_apply, mlp_init
 from .module import torch_dtype
@@ -81,12 +93,41 @@ def stack_cache_shape(cfg: ArchConfig, batch: int, max_len: int):
             for mixer, _ in stack_kinds(cfg)]
 
 
+def _save_attn(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op is FLASH_OP
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context():
+    return create_selective_checkpoint_contexts(_save_attn)
+
+
+def _remat_block(bp, x, cfg, mixer, ffn):
+    return block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode="train")[0]
+
+
+def _remat_kwargs(cfg: ArchConfig) -> dict:
+    """``checkpoint``'s keyword arguments for ``cfg.remat_policy``."""
+    if cfg.remat_policy == "save_attn":
+        return {"use_reentrant": False, "context_fn": _remat_context}
+    if cfg.remat_policy == "nothing":
+        return {"use_reentrant": False}
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
 def stack_apply(params, cfg: ArchConfig, x, *, mode: str, length=None,
                 caches=None):
     """Every layer in order -> (x, caches, aux); aux (the MoE router loss)
     is 0 for the dense kinds."""
     new_caches = None if caches is None else []
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    kw = _remat_kwargs(cfg) if remat else None
     for i, ((mixer, ffn), bp) in enumerate(zip(stack_kinds(cfg), params)):
+        if remat:
+            x = checkpoint(functools.partial(_remat_block, cfg=cfg,
+                                             mixer=mixer, ffn=ffn),
+                           bp, x, **kw)
+            continue
         x, c = block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode=mode,
                            length=length,
                            cache=None if caches is None else caches[i])

@@ -7,6 +7,8 @@ card's for a full-width model); the
 numbers differ from the reference's ``jax.random`` draw, so tests carry the
 reference's params over instead (``models.lm.params_from_reference``).
 There is no ``vmap`` stacking: a layer stack is a list of per-layer dicts.
+:func:`tree_map`, :func:`tree_leaves`, :func:`count_params` and
+:func:`tree_bytes` walk such trees.
 """
 from __future__ import annotations
 
@@ -39,3 +41,30 @@ def param(gen: torch.Generator, shape, dtype, scale: float | None = None):
     if scale is None:
         scale = dense_init_std(shape[0] if len(shape) > 1 else shape[-1])
     return truncated_normal(gen, shape, scale, dtype)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts (keys in sorted order, as the
+    reference's pytree flattening) and lists, in order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def count_params(tree) -> int:
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))

@@ -2,12 +2,15 @@
 ``repro/nn/ssd.py``).
 
 Prefill and train run the x stream's depthwise causal conv through kernel 7
-(``kernels/conv/ops.py::conv1d_depthwise_causal``) and the chunked SSD scan
-through kernel 6 (``kernels/ssd/ops.py::ssd_chunked``); on CPU tensors both
-take their plain versions.  Decode is the single-token recurrence in plain
-PyTorch.  As in the reference, z/x/B/C/dt are separate projections and the
-conv runs per stream (x, B, C); only the x stream (width d_inner) takes the
-Winograd kernel.
+(``kernels/conv/ops.py::conv1d_depthwise_causal``, whose backward is kernel
+7 time-reversed and a reduction kernel).  Prefill runs the chunked SSD scan
+through kernel 6 (``kernels/ssd/ops.py::ssd_chunked``); train runs it on
+the differentiable pure-torch chunked twin (``pallas=False``), the
+reference's own training route: its scan kernel has no VJP.  On CPU tensors
+the kernels take their plain versions.  Decode is the single-token
+recurrence in plain PyTorch.  As in the reference, z/x/B/C/dt are
+separate projections and the conv runs per stream (x, B, C); only the x
+stream (width d_inner) takes the Winograd kernel.
 
 Caches are updated in place (``copy_`` into the given tensors), as the
 attention caches are, so the engine's batched decode needs no copy back.
@@ -225,6 +228,9 @@ def mamba_apply(p, cfg: ArchConfig, x, *, mode: str, cache=None):
         for name, val in (("conv_x", conv_x), ("conv_b", conv_b),
                           ("conv_c", conv_c), ("state", state)):
             cache[name].copy_(val)
+    elif mode == "train":       # the route is fixed by mode: the twin
+        y, state = ssd_ops.ssd_chunked(xh, dt, A, bg, cg, chunk=s.chunk,
+                                       pallas=False)
     else:
         y, state = ssd_ops.ssd_chunked(xh, dt, A, bg, cg, chunk=s.chunk)
         if mode == "prefill" and cache is not None:

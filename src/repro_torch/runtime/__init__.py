@@ -1,0 +1,2 @@
+from .trainer import (InjectedFailure, Trainer, TrainerConfig,  # noqa: F401
+                      TrainerEvents)

@@ -1086,6 +1086,114 @@ def test_ssd_and_dw1d_launch_errors_raise(card, monkeypatch, which):
         call()
 
 
+# kernel 7's backward: mamba2-2.7b's training shapes beside the cases above
+DW1D_BWD_CASES = DW1D_CARD_CASES + [(1, 512, 5120), (2, 257, 5120)]
+
+
+def _dw1d_bwd_inputs(seed, B, L, C, dtype, card):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(card, dt)
+    return (t(rng.standard_normal((B, L, C))),
+            t(rng.standard_normal((B, L, C))),
+            t(rng.standard_normal((4, C)) * 0.5, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C", DW1D_BWD_CASES)
+def test_dw1d_dx_bit_equal_to_flipped_forward(card, monkeypatch, dtype, B,
+                                              L, C):
+    """dx is kernel 7 time-reversed: bit-equal to flip(kernel7(flip(dy)))
+    with a zero bias at every tiles-a-block the launcher is built for, and
+    within one bf16 step of the plain version (the reference's formula)."""
+    _, dy, w = _dw1d_bwd_inputs(L + C, B, L, C, dtype, card)
+    zero = torch.zeros((C,), device=card)
+    plain = winograd.conv1d_depthwise_causal_dx_plain(dy, w)
+    for t in winograd.DW1D_TILES:
+        monkeypatch.setattr(winograd, "dw1d_launch", lambda *a, t=t: t)
+        n0, f0 = winograd.dw1d_bwd_launches, winograd.dw1d_launches
+        dx = winograd.conv1d_depthwise_causal_dx(dy, w)
+        ref = winograd.conv1d_depthwise_causal(
+            dy.flip(1).contiguous(), w, zero).flip(1)
+        torch.cuda.synchronize()
+        assert winograd.dw1d_bwd_launches == n0 + 1
+        assert winograd.dw1d_launches == f0 + 1
+        assert dx.dtype == dtype and torch.equal(dx, ref), t
+        _f32_close(dx, plain, dtype, rel_step=True)
+
+
+def _wgrad_close(got, ref, dtype, rel_step):
+    """max|diff| <= 1e-4 * max|ref| (f32 sums of up to B * L terms in
+    other orders), plus one bf16 step of |ref| where ``rel_step`` (db is
+    rounded to dy's dtype)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    bound = 1e-4 * float(ref.abs().max())
+    if rel_step and dtype == torch.bfloat16:
+        bound = bound + BF16_STEP * ref.abs()
+    excess = float(((got - ref).abs() - bound).max())
+    assert excess <= 0, excess
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C", DW1D_BWD_CASES)
+def test_dw1d_wgrad_matches_plain_and_repeats(card, dtype, B, L, C):
+    """dw and db against the reference's formula (f32 einsum, db summed in
+    dy's dtype); a second run gives the same bits (no atomics)."""
+    x, dy, _ = _dw1d_bwd_inputs(L * 7 + C, B, L, C, dtype, card)
+    n0 = winograd.dw1d_wgrad_launches
+    dw, db = winograd.conv1d_depthwise_causal_wgrad(x, dy, 4)
+    dw2, db2 = winograd.conv1d_depthwise_causal_wgrad(x, dy, 4)
+    torch.cuda.synchronize()
+    assert winograd.dw1d_wgrad_launches == n0 + 2
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    pdw, pdb = winograd.conv1d_depthwise_causal_wgrad_plain(x, dy, 4)
+    _wgrad_close(dw, pdw, dtype, rel_step=False)
+    _wgrad_close(db, pdb, dtype, rel_step=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw1d_entry_gradients_card_vs_cpu(card, dtype):
+    """The autograd entry on the card (kernel 7 forward, dx, wgrad) against
+    the same entry on the CPU (the plain versions), with a bias."""
+    x, dy, w = _dw1d_bwd_inputs(3, 2, 77, 300, dtype, card)
+    b = torch.linspace(-1, 1, 300, device=card)
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (x, w, b)]
+        y = ops.conv1d_depthwise_causal(*leaves)
+        y.backward(dy.to(dev))
+        grads[dev.type] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for got, ref, rel in zip(grads["cuda"], grads["cpu"],
+                             (True, False, True)):
+        assert got.dtype == ref.dtype
+        _wgrad_close(got, ref, dtype, rel_step=rel)
+
+
+@pytest.mark.cuda
+def test_dw1d_wgrad_launch_error_raises(card, monkeypatch):
+    class Failing:
+        def __init__(self, real):
+            self._real = real
+
+        def __getattr__(self, name):
+            if name == "repro_dw1d_wgrad":
+                return lambda *args: 719
+            return getattr(self._real, name)
+
+    real = build.library()
+    monkeypatch.setattr(build, "library", lambda: dataclasses.replace(
+        real, lib=Failing(real.lib)))
+    x = torch.ones((1, 9, 4), device=card)
+    with pytest.raises(build.KernelError, match="dw1d_wgrad.*719"):
+        winograd.conv1d_depthwise_causal_wgrad(x, x, 4)
+
+
 @pytest.mark.cuda
 def test_engine_prefills_mamba_through_kernels_6_and_7(card):
     """The reduced mamba2-2.7b served on the card launches kernels 6 and 7
@@ -1327,3 +1435,94 @@ def test_supervised_fleet_on_the_card(card, tmp_path):
             assert not any(h.last_degradations.values())
         deaths = [e for e in sup.events if e["event"] == "death"]
         assert deaths and deaths[0]["launches"] is not None
+
+
+# ---------------------------------------------------------------------------
+# training: kernel 7 forward and backward inside a step
+# ---------------------------------------------------------------------------
+def _train_loss_grads(params, cfg, batch):
+    from repro_torch.nn.module import tree_leaves
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = lm.loss_fn(params, cfg, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.cuda
+def test_reduced_mamba_train_step_kernel_route_vs_plain(card, monkeypatch):
+    """One loss and gradient of a reduced mamba2-2.7b (f32, remat on) on
+    the card: kernel 7 forward twice a layer (the remat recompute), its
+    backward kernels once, kernel 6 never (the scan trains on its twin);
+    against the plain route (pallas=False) on the card and against the
+    CPU: loss within 1e-5 relative, each gradient within 1e-4 * max|g|."""
+    import functools
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(),
+                              remat=True)
+    params = lm.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 41))
+    batch = {"inputs": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:])}
+
+    def on(dev):
+        return (lm.to_device(params, dev), cfg,
+                {k: v.to(dev) for k, v in batch.items()})
+
+    ops.reset_launch_counts()
+    ssd_ops.reset_launch_counts()
+    kern = _train_loss_grads(*on(card))
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    L = cfg.num_layers
+    assert (n["dw1d"], n["dw1d_bwd"], n["dw1d_wgrad"]) == (2 * L, L, L)
+    assert ssd_ops.launch_counts()["ssd"] == 0
+    cpu = _train_loss_grads(*on("cpu"))
+    monkeypatch.setattr(ops, "conv1d_depthwise_causal", functools.partial(
+        ops.conv1d_depthwise_causal, pallas=False))
+    plain = _train_loss_grads(*on(card))
+    assert ops.launch_counts()["dw1d"] == 2 * L
+    for ref in (plain, cpu):
+        np.testing.assert_allclose(float(kern[0]), float(ref[0]), rtol=1e-5)
+        for g, r in zip(kern[1], ref[1]):
+            r = r.to(card)
+            assert float((g - r).abs().max()) <= 1e-4 * float(
+                r.abs().max())
+
+
+@pytest.mark.cuda
+def test_trainer_on_the_card_matches_the_cpu(card, tmp_path):
+    """A reduced smollm-360m trained 6 steps on the card through the
+    stream buffer's pinned side-stream copies, with a checkpoint: the loss
+    falls and the params agree with a CPU run within the reference's
+    restart bound."""
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = get_config("smollm-360m").reduced()
+    params = lm.init(0, cfg, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tcfg = TrainerConfig(steps=6, batch=4, seq_len=32, log_every=1,
+                             base_lr=3e-3, warmup=1, ckpt_every=3,
+                             ckpt_dir=str(tmp_path / dev))
+        tr = Trainer(cfg, tcfg, params=lm.to_device(params, dev),
+                     device=dev)
+        runs[dev] = (tr, tr.run())
+    tr, hist = runs["cuda"]
+    assert tr.device.type == "cuda" and len(hist) == 6
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    for x, y in zip(tree_leaves(tr.state["params"]),
+                    tree_leaves(runs["cpu"][0].state["params"])):
+        np.testing.assert_allclose(x.detach().cpu().numpy(),
+                                   y.detach().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_stream_buffer_on_the_card(card):
+    from repro_torch.core.streambuf import StreamBuffer
+    src = [{"inputs": np.full((4, 8), i, np.int32)} for i in range(6)]
+    out = []
+    for b in StreamBuffer(iter(src), device=card):
+        assert b["inputs"].is_cuda
+        out.append(int(b["inputs"].sum()))
+    assert out == [32 * i for i in range(6)]

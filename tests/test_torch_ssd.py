@@ -379,21 +379,27 @@ def test_tiles_1d_match_reference():
 
 
 def test_dw1d_entry_refuses_gradients():
-    """Kernel 7 has no backward yet (ROADMAP item 7d): an input that
-    requires grad raises instead of leaving the graph; without grad mode,
-    and on the pure-torch route, it runs."""
+    """Kernel 7's entry now has its backward (ROADMAP item 7d): on CPU
+    tensors the gradients autograd takes through it are the plain versions'
+    (dx the forward on the reversed cotangent, dw and db the reference's
+    reductions), bit for bit, and agree with autograd through the
+    pure-torch Winograd route; without grad mode it runs as before."""
     _, (x, w, b) = _dw1d_inputs(0, 12, 4, 4, "float32")
-    for t in (x, w, b):
-        t.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="item 7d"):
-            conv_ops.conv1d_depthwise_causal(x, w, b)
-        t.requires_grad_(False)
-    w.requires_grad_(True)
+    dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 12, 4)).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    conv_ops.conv1d_depthwise_causal(*leaves).backward(dy)
+    dx = conv_k.conv1d_depthwise_causal_dx_plain(dy, w)
+    dw, db = conv_k.conv1d_depthwise_causal_wgrad_plain(x, dy, 4)
+    for t, ref in zip(leaves, (dx, dw, db)):
+        assert torch.equal(t.grad, ref)
+    twin = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    conv_ops.conv1d_depthwise_causal(*twin, pallas=False).backward(dy)
+    for t, ref in zip(leaves, twin):
+        torch.testing.assert_close(t.grad, ref.grad, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
-        conv_ops.conv1d_depthwise_causal(x, w, b)
-    y = conv_ops.conv1d_depthwise_causal(x, w, b, pallas=False)
-    y.sum().backward()
-    assert w.grad is not None and w.grad.shape == w.shape
+        y = conv_ops.conv1d_depthwise_causal(*leaves)
+    assert not y.requires_grad
 
 
 # --- the mixer ----------------------------------------------------------------

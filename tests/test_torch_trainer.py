@@ -1,0 +1,249 @@
+"""The port's training runtime on the CPU: the twins of the reference's
+trainer tests (``tests/test_runtime.py``), restart across the two packages
+in both directions, the training CLI and the 100M example's config.
+
+A cross-package restart holds the port to the reference's own restart
+bound, rtol 1e-4 / atol 1e-5: the second half runs in the other package
+from the same checkpointed state (f32, summation orders differ)."""
+import dataclasses
+import os
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.runtime import Trainer as JTrainer
+from repro.runtime import TrainerConfig as JTrainerConfig
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs import get_config
+from repro_torch.launch import train as train_cli
+from repro_torch.models import lm
+from repro_torch.nn.module import tree_leaves
+from repro_torch.runtime import InjectedFailure, Trainer, TrainerConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tiny():
+    return get_config("smollm-360m").reduced()
+
+
+def _trainer(tcfg, **kw):
+    return Trainer(_tiny(), tcfg, device="cpu", **kw)
+
+
+def test_loss_decreases():
+    tr = _trainer(TrainerConfig(steps=40, batch=8, seq_len=64, base_lr=3e-3,
+                                log_every=5))
+    hist = tr.run()
+    assert [h["step"] for h in hist] == list(range(5, 45, 5))
+    assert hist[-1]["loss"] < hist[0]["loss"] * 0.7
+    assert all(np.isfinite(h["grad_norm"]) for h in hist)
+
+
+@pytest.mark.parametrize("async_ckpt", [False, True])
+def test_checkpoint_restart_exact(tmp_path, async_ckpt):
+    d = str(tmp_path / "ck")
+    t1 = _trainer(TrainerConfig(steps=20, batch=4, seq_len=32, ckpt_every=20,
+                                ckpt_dir=d, log_every=5,
+                                async_ckpt=async_ckpt))
+    t1.run()
+    t2 = _trainer(TrainerConfig(steps=30, batch=4, seq_len=32, ckpt_dir=d,
+                                log_every=5))
+    assert t2.restore_latest()
+    assert int(t2.state["step"]) == 20
+    t2.run()
+    t3 = _trainer(TrainerConfig(steps=30, batch=4, seq_len=32, log_every=5))
+    t3.run()
+    for x, y in zip(tree_leaves(t2.state["params"]),
+                    tree_leaves(t3.state["params"])):
+        np.testing.assert_allclose(x.detach().numpy(), y.detach().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_failure_recovery(tmp_path):
+    d = str(tmp_path / "ck")
+    fails = {15}
+    tr = _trainer(TrainerConfig(steps=25, batch=4, seq_len=32, ckpt_every=10,
+                                ckpt_dir=d, log_every=5),
+                  failure_injector=lambda s: s in fails and
+                  not fails.discard(s))
+    tr.run()
+    assert len(tr.events.recoveries) == 1
+    assert tr.events.recoveries[0]["restored"]
+    assert tr.events.recoveries[0]["step"] == 15
+    assert int(tr.state["step"]) == 25
+
+
+def test_failure_recovery_replays_the_uninterrupted_run(tmp_path):
+    """Recovery restores step 10 and replays batches 10-14 exactly: the
+    result is the uninterrupted run's (the data stream is step-keyed)."""
+    d = str(tmp_path / "ck")
+    fails = {15}
+    tcfg = TrainerConfig(steps=20, batch=2, seq_len=16, ckpt_every=10,
+                         ckpt_dir=d, log_every=0)
+    tr = _trainer(tcfg, failure_injector=lambda s: s in fails and
+                  not fails.discard(s))
+    tr.run()
+    ref = _trainer(dataclasses.replace(tcfg, ckpt_every=0, ckpt_dir=""))
+    ref.run()
+    for x, y in zip(tree_leaves(tr.state["params"]),
+                    tree_leaves(ref.state["params"])):
+        assert torch.equal(x, y)
+
+
+def test_failure_without_checkpoint_retries_the_step():
+    fails = {3}
+    tr = _trainer(TrainerConfig(steps=5, batch=2, seq_len=8, log_every=0),
+                  failure_injector=lambda s: s in fails and
+                  not fails.discard(s))
+    tr.run()
+    assert tr.events.recoveries == [{"step": 3, "restored": False,
+                                     "err": "injected failure @ step 3"}]
+    assert int(tr.state["step"]) == 5
+    assert issubclass(InjectedFailure, RuntimeError)
+
+
+def test_straggler_detection():
+    slow = {30}
+
+    def injector(s):
+        if s in slow:
+            slow.discard(s)
+            time.sleep(1.0)
+        return False
+
+    seen = []
+    tr = _trainer(TrainerConfig(steps=35, batch=2, seq_len=16, log_every=50,
+                                straggler_min_history=8),
+                  failure_injector=injector, straggler_hook=seen.append)
+    tr.run()
+    assert len(tr.events.stragglers) >= 1
+    # the slow step (index 30) ends at step 31; CPU noise may add others
+    assert 31 in [ev["step"] for ev in tr.events.stragglers]
+    assert seen == tr.events.stragglers
+
+
+def test_mesh_and_cuda_refusals(monkeypatch):
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        Trainer(_tiny(), TrainerConfig(), mesh=object(), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        Trainer(_tiny(), TrainerConfig())
+
+
+def test_checkpoint_uses_the_reference_layout(tmp_path):
+    """Leaf names, shapes and dtypes of the port's training checkpoint are
+    those of the reference's state."""
+    d = str(tmp_path / "ck")
+    tr = _trainer(TrainerConfig(steps=2, batch=2, seq_len=8, ckpt_every=2,
+                                ckpt_dir=d, log_every=0))
+    tr.run()
+    j_cfg = j_get_config("smollm-360m").reduced()
+    jt = JTrainer(j_cfg, JTrainerConfig(steps=0, batch=2, seq_len=8))
+    flat = jax.tree_util.tree_flatten_with_path(jt.state)[0]
+    from repro.checkpoint.checkpoint import _leaf_name
+    want = {_leaf_name(p): (list(a.shape), str(a.dtype)) for p, a in flat}
+    import json
+    with open(os.path.join(d, "step_0000000002", "manifest.json")) as f:
+        got = {leaf["name"]: (leaf["shape"], leaf["dtype"])
+               for leaf in json.load(f)["leaves"]}
+    assert got == want
+
+
+# --- restart across the packages ---
+def _j_params_np(jt):
+    return jax.tree_util.tree_map(np.asarray, jt.state["params"])
+
+
+def _assert_close_to_reference(port_params, j_state_params, cfg):
+    ref = lm.params_from_reference(
+        jax.tree_util.tree_map(np.asarray, j_state_params), cfg,
+        device="cpu")
+    for x, y in zip(tree_leaves(port_params), tree_leaves(ref)):
+        np.testing.assert_allclose(x.detach().numpy(), y.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _configs(d):
+    kw = dict(batch=4, seq_len=32, log_every=5)
+    return (dict(kw, steps=10, ckpt_every=10, ckpt_dir=d),
+            dict(kw, steps=20, ckpt_dir=d), dict(kw, steps=20))
+
+
+def test_reference_checkpoint_restores_into_the_port(tmp_path):
+    """The reference trains 10 steps and checkpoints; the port restores
+    and trains 10 more; the reference's uninterrupted 20 steps agree."""
+    d = str(tmp_path / "ck")
+    first, second, whole = _configs(d)
+    j_cfg, cfg = j_get_config("smollm-360m").reduced(), _tiny()
+    JTrainer(j_cfg, JTrainerConfig(**first)).run()
+    tr = Trainer(cfg, TrainerConfig(**second), device="cpu")
+    assert tr.restore_latest() and int(tr.state["step"]) == 10
+    tr.run()
+    jt = JTrainer(j_cfg, JTrainerConfig(**whole))
+    jt.run()
+    _assert_close_to_reference(tr.state["params"], jt.state["params"], cfg)
+
+
+def test_port_checkpoint_restores_into_the_reference(tmp_path):
+    """The port trains 10 steps from the reference's init and checkpoints;
+    the reference restores and trains 10 more; its uninterrupted 20 steps
+    agree."""
+    d = str(tmp_path / "ck")
+    first, second, whole = _configs(d)
+    j_cfg, cfg = j_get_config("smollm-360m").reduced(), _tiny()
+    j_init = JTrainer(j_cfg, JTrainerConfig(**whole))
+    tr = Trainer(cfg, TrainerConfig(**first), device="cpu",
+                 params=lm.params_from_reference(_j_params_np(j_init), cfg,
+                                                 device="cpu"))
+    tr.run()
+    assert ckpt.latest_step(d) == 10
+    jt2 = JTrainer(j_cfg, JTrainerConfig(**second))
+    assert jt2.restore_latest()
+    assert int(jax.device_get(jt2.state["step"])) == 10
+    jt2.run()
+    j_init.run()
+    _assert_close_to_reference(
+        lm.params_from_reference(_j_params_np(jt2), cfg, device="cpu"),
+        j_init.state["params"], cfg)
+
+
+# --- the CLI and the example ---
+def test_train_cli_on_the_cpu(tmp_path, capsys):
+    d = str(tmp_path / "ck")
+    hist = train_cli.main(["--arch", "mamba2-2.7b", "--steps", "4",
+                           "--batch", "2", "--seq-len", "16", "--device",
+                           "cpu", "--ckpt-dir", d, "--ckpt-every", "2"])
+    assert [h["step"] for h in hist] == [1, 2, 3, 4]
+    assert ckpt.latest_step(d) == 4
+    train_cli.main(["--arch", "mamba2-2.7b", "--steps", "6", "--batch", "2",
+                    "--seq-len", "16", "--device", "cpu", "--ckpt-dir", d])
+    out = capsys.readouterr().out
+    assert "resumed from step 4" in out and "step      6 loss" in out
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--mesh", "2x2"], "item 7d"),
+    (["--arch", "granite-moe-1b-a400m"], "item 7c"),
+    (["--arch", "phi4-mini-3.8b"], "item 7a")])
+def test_train_cli_refusals(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        train_cli.main(argv + ["--device", "cpu", "--steps", "1"])
+
+
+def test_train_100m_example_config_matches_reference():
+    import importlib.util
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    got = dataclasses.asdict(load("train_100m_torch").make_100m())
+    ref = dataclasses.asdict(load("train_100m").make_100m())
+    assert got == ref

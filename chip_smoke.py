@@ -104,9 +104,11 @@ Phases:
                restored step 1 and step 1's bf16 leaves are init's bits;
                img/s, goodput, p50/p99, the kill-to-ready seconds;
   5. decode  — kernel 5 (decode attention) at smollm-360m's decode geometry
-               (B=8, S=512, H=15, KV=5, D=64) and llama3.2-3b's (H=24,
+               (B=8, S=512, H=15, KV=5, D=64), llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), the latter also with skewed lengths
-               (one slot at S, seven at 1), f32 and bf16, held against its
+               (one slot at S, seven at 1), granite-moe-1b-a400m's (H=16,
+               KV=8, D=64, S=512) and phi4-mini-3.8b's (H=24, KV=8,
+               D=128, S=512), f32 and bf16, held against its
                plain version (and, within one bf16 step, against the plain
                version with f32 probabilities, the kernel's arithmetic),
                two calls bit-equal, and timed in bf16 beside its bytes
@@ -160,6 +162,23 @@ Phases:
                widths at 4 layers, 20 steps, a checkpoint every 10, a
                failure at step 15: one recovery that restored, the final
                params within rtol 1e-4, atol 1e-5 of an uninterrupted run.
+  10. moe    — (a) granite-moe-1b-a400m at published widths (f32
+               parameters drawn on the card, bf16 activations) through
+               ``Engine(max_batch=8, max_len=512, prefill_bucket=64)``: 24
+               requests of 8-200 prompt tokens, 32 new tokens each; kernel
+               5 launched 24 times a decode step; tok/s, p50/p99, peak
+               memory and one traced decode step; (b) an f32-activation
+               granite engine's decode step 12 re-run on copies of its
+               cache with kernel 5 and with the plain decode attention:
+               kernel 5 24 times then 0, every MoE layer routed alike,
+               logits within 1e-4 * max|logit|; phi4-mini-3.8b (f32
+               parameters) serving 4 requests of 8 tokens, kernel 5 32
+               times a step; (c) deepseek-v2-lite-16b (bf16 parameters,
+               31.4 GB, drawn on the card): 16 requests of 16 tokens, no
+               kernel launched (MLA decodes in the absorbed form); (d) its
+               f32 decode step re-run with the absorbed and the
+               materialised MLA, held as in (b); (e) reduced granite and
+               deepseek: the card's greedy tokens equal the CPU engine's.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -211,7 +230,9 @@ PEAK_BF16_FLOPS = 989e12
 DECODE_GEOMETRIES = (("smollm-360m", 8, 512, 15, 5, 64, None),
                      ("llama3.2-3b", 8, 2048, 24, 8, 128, None),
                      ("llama3.2-3b skewed", 8, 2048, 24, 8, 128,
-                      (2048, 1, 1, 1, 1, 1, 1, 1)))
+                      (2048, 1, 1, 1, 1, 1, 1, 1)),
+                     ("granite-moe-1b-a400m", 8, 512, 16, 8, 64, None),
+                     ("phi4-mini-3.8b", 8, 512, 24, 8, 128, None))
 LM_ARCH = "smollm-360m"
 LM_REQUESTS = 24
 LM_MAX_NEW = 32
@@ -271,6 +292,27 @@ TRAIN_SSM_LAYERS = 64                 # all of mamba2-2.7b's
 # (phase 8's rule)
 TOL_TRAIN_LOSS = 1e-3                 # relative
 TOL_TRAIN_GRAD = 2e-2                 # of each leaf's max|g|
+# phase 10 (mixture of experts and MLA): granite-moe-1b-a400m (GQA + MoE
+# on every layer: kernel 5 in each), phi4-mini-3.8b (dense GQA, 128-wide
+# heads) and deepseek-v2-lite-16b (MLA + MoE after one dense layer: no
+# kernel) at published widths through the token Engine; (requests, new
+# tokens) of each, prompts of MOE_PROMPTS tokens (129-192 pad to 192, so
+# the MoE's second group of 128 holds 64 zero rows)
+MOE_ARCH = "granite-moe-1b-a400m"
+MLA_ARCH = "deepseek-v2-lite-16b"
+PHI_ARCH = "phi4-mini-3.8b"
+MOE_SHAPE = (24, 32)
+PHI_SHAPE = (4, 8)
+MLA_SHAPE = (16, 16)
+MOE_PROMPTS = (8, 200)
+MOE_PROBE_STEP = 12
+# the f32 probes (granite: kernel 5 against the plain decode attention;
+# deepseek: the absorbed MLA decode against the materialised one) re-run
+# one function summed in other orders: logits <= TOL_PROBE * max|logit|
+# (the CPU tests' bound for the models), every MoE layer routed alike.  In
+# bf16 the routers' near-ties flip under any rounding difference, so a
+# bf16 comparison would measure routing, not the attention
+TOL_PROBE = 1e-4
 # ABFT: seeded single-bit flips a layer, beside one each in a checksum row,
 # in padding, in a sign bit and in an exponent bit
 ABFT_FLIPS = 32
@@ -2096,8 +2138,8 @@ def stage_ms(torch, fn, stages, calls=5):
 
 
 def _copy_cache(cache):
-    return [{"attn": {n: t.clone() for n, t in c["attn"].items()}}
-            for c in cache]
+    return [{kind: {n: t.clone() for n, t in bufs.items()}
+             for kind, bufs in c.items()} for c in cache]
 
 
 def phase_lm(torch, np):
@@ -2107,8 +2149,7 @@ def phase_lm(torch, np):
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import ops as dec_ops
     from repro_torch.models import lm
-    from repro_torch.nn import flash
-    from repro_torch.serving import Engine, Request, ServeConfig
+    from repro_torch.serving import Engine, ServeConfig
     cfg = get_config(LM_ARCH)
     scfg = ServeConfig(max_batch=BATCH, max_len=512, prefill_bucket=64)
     rng = np.random.default_rng(4)
@@ -2174,13 +2215,8 @@ def phase_lm(torch, np):
     n0 = kernel5_launches()
     kern = logits_of(_copy_cache(probe["cache"]))
     n1 = kernel5_launches()
-    real = flash.decode_attention
-    flash.decode_attention = lambda q, k, v, length: \
-        dec_ops.decode_attention(q, k, v, length, pallas=False)
-    try:
+    with plain_decode_attention():
         plain = logits_of(probe["cache"])
-    finally:
-        flash.decode_attention = real
     n2 = kernel5_launches()
     check(n1 - n0 == cfg.num_layers and n2 == n1, f"lm probe: kernel 5 ran "
           f"{n1 - n0} times in the kernel re-run and {n2 - n1} in the plain "
@@ -2225,22 +2261,7 @@ def phase_lm(torch, np):
               + "; ".join(f"{n} {ms:.4f} ms" for n, ms in top))
 
     # a reduced model: the card's greedy tokens are the CPU engine's
-    small = get_config(LM_ARCH).reduced()
-    sp = lm.init(1, small, device="cpu")
-    prompts = [r.prompt[:20] for r in reqs[:5]]
-    toks = {}
-    for dev in ("cpu", "cuda"):
-        e = Engine(small, ServeConfig(max_batch=3, max_len=64,
-                                      prefill_bucket=16),
-                   params=lm.to_device(sp, dev), device=dev)
-        rs = [Request(prompt=[t % small.vocab_size for t in p], max_new=6)
-              for p in prompts]
-        for r in rs:
-            e.submit(r)
-        e.run_until_done()
-        toks[dev] = [r.generated for r in rs]
-    check(toks["cpu"] == toks["cuda"], "reduced smollm-360m: the card's "
-          "greedy tokens differ from the CPU engine's")
+    reduced_on_card(torch, np, LM_ARCH, 1)
 
     lat = eng.latency.percentiles_ms()
     return {"arch": LM_ARCH, "completed": sum(r.done for r in reqs),
@@ -3061,6 +3082,291 @@ def phase_train(torch, np, card):
                   "phase_s": seconds}
 
 
+# --- phase 10: mixture-of-experts and MLA serving ---------------------------
+@contextlib.contextmanager
+def plain_decode_attention():
+    """GQA decode on kernel 5's plain version while inside."""
+    from repro_torch.kernels.decode_attn import ops as dec_ops
+    from repro_torch.nn import flash
+    real = flash.decode_attention
+    flash.decode_attention = functools.partial(dec_ops.decode_attention,
+                                               pallas=False)
+    try:
+        yield
+    finally:
+        flash.decode_attention = real
+
+
+@contextlib.contextmanager
+def materialised_mla():
+    """MLA decode with per-head K and V at cache length while inside."""
+    from repro_torch.nn import attention
+    real = attention.mla_decode
+    attention.mla_decode = attention.mla_decode_materialised
+    try:
+        yield
+    finally:
+        attention.mla_decode = real
+
+
+@contextlib.contextmanager
+def recorded_routing(store):
+    """Every MoE layer's routed expert indices appended to ``store``."""
+    from repro_torch.nn import moe
+    real = moe.route
+
+    def route(p, cfg, xg):
+        out = real(p, cfg, xg)
+        store.append(out[2])
+        return out
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def _snapshot_at(step, probe):
+    """A ``before_decode`` hook: copies of what decode step ``step`` reads."""
+    def hook(e):
+        if e.decode_steps == step:
+            probe.update(tokens=e.last_tokens.clone(),
+                         lengths=e.lengths.copy(), mask=e.active.copy(),
+                         cache=_copy_cache(e.cache))
+    return hook
+
+
+def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label):
+    """Serve ``n_req`` requests of MOE_PROMPTS prompt tokens and
+    ``max_new`` new ones through ``Engine(max_batch=8, max_len=512,
+    prefill_bucket=64)`` after a warm-up; the launch counts of the run,
+    its numbers, and one decode step (step ``max_new // 2``, on a copy of
+    its cache) traced as ``phase_lm`` traces smollm-360m's."""
+    from repro_torch.serving import Engine, ServeConfig
+    scfg = ServeConfig(max_batch=BATCH, max_len=512, prefill_bucket=64)
+    warm = Engine(cfg, scfg, params=params, device="cuda")
+    for r in _requests(rng, cfg.vocab_size, 2, 8, 70, 2):
+        warm.submit(r)
+    warm.run_until_done()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, scfg, params=params, device="cuda")
+    reqs = _requests(rng, cfg.vocab_size, n_req, *MOE_PROMPTS, max_new)
+    probe = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done(before_decode=_snapshot_at(max_new // 2, probe))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(r.done and len(r.generated) == max_new for r in reqs),
+          f"{label} serve: {sum(r.done for r in reqs)}/{len(reqs)} done, "
+          f"tokens {sorted({len(r.generated) for r in reqs})}")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{label} serve: a token outside the vocabulary")
+    check(bool(probe), f"{label}: the run ended before decode step "
+          f"{max_new // 2}")
+    # prefills whose padded length is no multiple of the MoE's group: their
+    # last group holds zero rows, routed like tokens (the pad-row ties)
+    padded = 0 if cfg.moe is None else sum(
+        eng._pad_len(len(r.prompt)) % min(cfg.moe.group_size,
+                                          eng._pad_len(len(r.prompt))) > 0
+        for r in reqs)
+    check(cfg.moe is None or padded > 0, f"{label}: no prefill padded a "
+          "MoE group")
+    steps = eng.decode_steps
+    step_ms = eng.decode_seconds / steps * 1e3
+    probe_ms, busy_ms, events, marks, top = profile_decode(
+        torch, lambda: eng.decode(probe["tokens"], probe["lengths"],
+                                  probe["cache"]))
+    idle = None if busy_ms is None else 1.0 - busy_ms / probe_ms
+    lat = eng.latency.percentiles_ms()
+    out = {"arch": cfg.name, "param_dtype": cfg.param_dtype,
+           "dtype": cfg.dtype, "requests": n_req,
+           "completed": sum(r.done for r in reqs),
+           "tokens": eng.tokens_generated, "decode_steps": steps,
+           "decode_tokens_per_s": eng.decode_tokens_per_s,
+           "wall_tokens_per_s": eng.tokens_generated / wall, "wall_s": wall,
+           "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+           "peak_mem_bytes": peak, "launches": counts, "step_ms": step_ms,
+           "probe_step_ms": probe_ms, "device_busy_ms_per_step": busy_ms,
+           "device_events_per_step": events, "device_idle_share": idle,
+           "kernel5_ms_per_step": None if marks is None
+           else marks["decode_attn"], "top_device_ops": top,
+           "prompt_lengths": [len(r.prompt) for r in reqs],
+           "moe_padded_prefills": padded}
+    if busy_ms is None:
+        trace = "the profiler trace holds no device events; device busy " \
+            "time not measured"
+    else:
+        trace = (f"device busy {busy_ms:.3f} ms in {events:.0f} device "
+                 f"events (profiled), kernel 5 "
+                 f"{out['kernel5_ms_per_step']:.4f} ms of it, idle share "
+                 f"{idle:.4f} | top: "
+                 + "; ".join(f"{n} {ms:.4f} ms" for n, ms in top))
+    print(f"moe serve {label} ({cfg.param_dtype} params, {cfg.dtype} "
+          f"activations): {out['completed']}/{n_req} requests, "
+          f"{out['tokens']} tokens over {steps} decode steps, {padded} "
+          f"prefills with zero rows in a MoE group | "
+          f"{out['decode_tokens_per_s']:.2f} tok/s in decode, "
+          f"{out['wall_tokens_per_s']:.2f} tok/s wall | p50 "
+          f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms | peak mem "
+          f"{peak / 2 ** 30:.2f} GiB | {step_ms:.3f} ms host a served step "
+          f"(mean), probe step {probe_ms:.3f} ms wall, {trace}")
+    return out
+
+
+def f32_probe(torch, np, cfg, params, alt, label):
+    """One mid-run decode step of an f32-activation engine, re-run on
+    copies of its cache on the served route and under ``alt`` (the plain
+    decode attention, or the materialised MLA): logits within TOL_PROBE *
+    max|logit|, every MoE layer's routing equal; kernel 5's launches in
+    each re-run."""
+    from repro_torch.kernels.decode_attn import ops as dec_ops
+    from repro_torch.serving import Engine, ServeConfig
+    eng = Engine(cfg, ServeConfig(max_batch=BATCH, max_len=512,
+                                  prefill_bucket=64),
+                 params=params, device="cuda")
+    rng = np.random.default_rng(12)
+    for r in _requests(rng, cfg.vocab_size, BATCH, *MOE_PROMPTS,
+                       MOE_PROBE_STEP + 4):
+        eng.submit(r)
+    probe = {}
+    hook = _snapshot_at(MOE_PROBE_STEP, probe)
+    while not probe:
+        eng.step(hook)
+    runs = []
+    for ctx in (contextlib.nullcontext(), alt()):
+        routes = []
+        n0 = dec_ops.launch_counts()["decode_attn"]
+        with ctx, recorded_routing(routes):
+            logits = eng.decode(probe["tokens"], probe["lengths"],
+                                _copy_cache(probe["cache"]))
+        torch.cuda.synchronize()
+        runs.append((logits, routes,
+                     dec_ops.launch_counts()["decode_attn"] - n0))
+    (got, r_got, k_got), (ref, r_ref, k_ref) = runs
+    act = torch.as_tensor(probe["mask"], device="cuda")
+    got, ref = got[act], ref[act]
+    check(bool(torch.isfinite(got).all()) and got.shape[-1]
+          == cfg.vocab_size, f"{label} probe: logits malformed")
+    same = sum(int(torch.equal(a, b)) for a, b in zip(r_got, r_ref))
+    dmax = float((got - ref).abs().max())
+    lmax = float(ref.abs().max())
+    print(f"moe probe {label} (f32 activations, decode step "
+          f"{MOE_PROBE_STEP}, {int(probe['mask'].sum())} active slots): "
+          f"logits max|d| {dmax:.3e} (max|logit| {lmax:.3e}, rel "
+          f"{dmax / lmax:.3e}, tol {TOL_PROBE:g}) | MoE layers routed "
+          f"alike {same}/{len(r_ref)} | kernel 5 launches {k_got} then "
+          f"{k_ref}")
+    check(len(r_got) == len(r_ref) > 0 and same == len(r_ref),
+          f"{label} probe: {len(r_ref) - same} MoE layers routed otherwise")
+    check(dmax <= TOL_PROBE * lmax, f"{label} probe: logits off: {dmax} > "
+          f"{TOL_PROBE} * {lmax}")
+    return {"max_abs": dmax, "max_logit": lmax, "moe_layers": len(r_ref),
+            "moe_layers_equal": same, "kernel5_launches": [k_got, k_ref]}
+
+
+def reduced_on_card(torch, np, arch, seed):
+    """A reduced model's greedy tokens on the card equal the CPU
+    engine's (f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine, Request, ServeConfig
+    small = get_config(arch).reduced()
+    sp = lm.init(seed, small, device="cpu")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, small.vocab_size, size=n).tolist()
+               for n in (5, 17, 20, 9, 12)]
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        e = Engine(small, ServeConfig(max_batch=3, max_len=64,
+                                      prefill_bucket=8),
+                   params=lm.to_device(sp, dev), device=dev)
+        rs = [Request(prompt=p, max_new=6) for p in prompts]
+        for r in rs:
+            e.submit(r)
+        e.run_until_done()
+        toks[dev] = [r.generated for r in rs]
+    check(toks["cpu"] == toks["cuda"], f"reduced {arch}: the card's greedy "
+          "tokens differ from the CPU engine's")
+    return len(prompts)
+
+
+def phase_moe(torch, np):
+    """Phase 10: 10a-10e."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_bytes
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    out = {}
+    # 10a, 10b: granite-moe-1b-a400m, f32 parameters drawn on the card
+    cfg = get_config(MOE_ARCH)
+    params = lm.init(gen.manual_seed(0), cfg, device="cuda")
+    g = serve_lm_full(torch, np, cfg, params, *MOE_SHAPE,
+                      np.random.default_rng(10), "granite")
+    k5 = g["launches"]["decode_attn"]
+    check(k5 == cfg.num_layers * g["decode_steps"], f"granite: kernel 5 "
+          f"{k5} launches for {g['decode_steps']} decode steps, expected "
+          f"{cfg.num_layers} a step")
+    others = {k: n for k, n in g["launches"].items() if k != "decode_attn"}
+    check(not any(others.values()), f"granite serve launched {others}")
+    g["probe"] = f32_probe(torch, np,
+                           dataclasses.replace(cfg, dtype="float32"),
+                           params, plain_decode_attention, "granite")
+    check(g["probe"]["kernel5_launches"] == [cfg.num_layers, 0],
+          f"granite probe: kernel 5 ran {g['probe']['kernel5_launches']} "
+          f"times in the kernel and plain re-runs; expected "
+          f"[{cfg.num_layers}, 0]")
+    out["granite"] = g
+    del params
+    torch.cuda.empty_cache()
+    # phi4-mini-3.8b: dense GQA with 128-wide heads, f32 parameters
+    cfg = get_config(PHI_ARCH)
+    params = lm.init(gen.manual_seed(1), cfg, device="cuda")
+    ph = serve_lm_full(torch, np, cfg, params, *PHI_SHAPE,
+                       np.random.default_rng(11), "phi4-mini")
+    check(ph["launches"]["decode_attn"] == cfg.num_layers
+          * ph["decode_steps"], f"phi4-mini: kernel 5 "
+          f"{ph['launches']['decode_attn']} launches for "
+          f"{ph['decode_steps']} steps, expected {cfg.num_layers} a step")
+    out["phi4"] = ph
+    del params
+    torch.cuda.empty_cache()
+    # 10c, 10d: deepseek-v2-lite-16b, bf16 parameters drawn on the card
+    cfg = dataclasses.replace(get_config(MLA_ARCH), param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = lm.init(gen.manual_seed(2), cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    d = serve_lm_full(torch, np, cfg, params, *MLA_SHAPE,
+                      np.random.default_rng(12), "deepseek")
+    d["init_s"] = init_s
+    d["param_bytes"] = tree_bytes(params)
+    check(not any(d["launches"].values()), f"deepseek serve launched "
+          f"{d['launches']}; MLA decodes with no kernel")
+    d["probe"] = f32_probe(torch, np,
+                           dataclasses.replace(cfg, dtype="float32"),
+                           params, materialised_mla, "deepseek")
+    out["deepseek"] = d
+    del params
+    torch.cuda.empty_cache()
+    # 10e: the reduced models, card against CPU
+    out["reduced"] = {arch: reduced_on_card(torch, np, arch, 3)
+                      for arch in (MOE_ARCH, MLA_ARCH)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"moe: reduced {MOE_ARCH} and {MLA_ARCH} tokens equal to the CPU "
+          f"engine's | phase 10 {out['phase_s']:.1f} s")
+    return out
+
+
 def summary(row):
     """A kernel row's numbers for the ``kernels`` line (``bound_by`` its
     layers' when they agree, else ``mixed``)."""
@@ -3156,6 +3462,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_rows, train = phase_train(torch, np, card)
     rows.update(train_rows)
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch, np)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
@@ -3164,7 +3472,10 @@ def main(argv=None) -> int:
              "supervised": supervised["launches"],
              "lm": lm_serve["launches"],
              "mamba": mamba["launches"],
-             "train": train["ssm"]["launches"]}
+             "train": train["ssm"]["launches"],
+             "moe": moe["granite"]["launches"],
+             "moe_phi4": moe["phi4"]["launches"],
+             "moe_mla": moe["deepseek"]["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
@@ -3263,6 +3574,16 @@ def main(argv=None) -> int:
           f"{train['ssm']['peak_mem_bytes'] / 2 ** 30:.2f} GiB, launches "
           f"{train['ssm']['launches']} | phase 9 {train['phase_s']:.1f} s | "
           f"on {card}")
+    for key in ("granite", "phi4", "deepseek"):
+        m = moe[key]
+        print(f"serve moe {m['arch']} ({m['param_dtype']} params): "
+              f"{m['completed']}/{m['requests']} requests, {m['tokens']} "
+              f"tokens over {m['decode_steps']} decode steps | "
+              f"{m['decode_tokens_per_s']:.2f} tok/s in decode, "
+              f"{m['wall_tokens_per_s']:.2f} tok/s wall | p50 "
+              f"{m['p50_ms']:.3f} ms p99 {m['p99_ms']:.3f} ms | peak mem "
+              f"{m['peak_mem_bytes'] / 2 ** 30:.2f} GiB | kernel 5 "
+              f"{m['launches']['decode_attn']} | on {card}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -3279,7 +3600,7 @@ def main(argv=None) -> int:
                            "feature_pass_ms": vgg_passes},
                        "fleet": fleet, "supervised": supervised,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
-                       "train": train,
+                       "train": train, "moe": moe,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()
                                      if "per_layer" in r},

@@ -1,9 +1,9 @@
 """Config registry: ``get_config("smollm-360m")`` etc.
 
 The port serves the paper's own AlexNet and VGG-16, the dense GQA
-language models and the Mamba-2 SSM; the reference's other configs come
-with later slices of the port, and naming one raises with the ROADMAP
-item that ports it.
+language models, the Mamba-2 SSM and the mixture-of-experts models (GQA
+or MLA attention); the reference's other configs come with later slices
+of the port, and naming one raises with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -16,14 +16,15 @@ _MODULES = {
     "llama3.2-3b": "llama3p2_3b",
     "starcoder2-15b": "starcoder2_15b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 # the reference's LM configs that later slices port (ROADMAP Queue 1)
 _NOT_PORTED = {
-    "phi4-mini-3.8b": "item 7a (dense GQA: its config file only)",
-    "jamba-v0.1-52b": "items 7b and 7c (hybrid SSM + MoE)",
-    "granite-moe-1b-a400m": "item 7c (MoE)",
-    "deepseek-v2-lite-16b": "item 7c (MoE, MLA)",
+    "jamba-v0.1-52b": "item 7c (hybrid: Mamba-2 and attention layers, MoE "
+                      "every other layer)",
     "phi-3-vision-4.2b": "item 7c (VLM)",
     "whisper-tiny": "item 7c (encoder-decoder)",
 }

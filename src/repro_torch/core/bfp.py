@@ -85,6 +85,18 @@ def bfp_matmul(x, w, *, block: int = 32, bits: int = 8):
     return (acc * scale).sum(dim=1)
 
 
+def weight_of(p, key: str = "w", dtype=None):
+    """The raw weight ``p[key]``, cast to ``dtype`` if given.  A
+    BFP-compressed dict (``quantize_linear_tree``'s ``<key>_q`` leaves)
+    raises, as ``nn.layers.linear`` does."""
+    if key + "_q" in p:
+        raise NotImplementedError(
+            "BFP-compressed linear weights (quantize_linear_tree) are not "
+            "ported yet (ROADMAP Queue 1, item 7c)")
+    w = p[key]
+    return w.to(dtype) if dtype is not None else w
+
+
 def error_bound(e, *, bits: int = 8):
     """Per-element max abs quantization error given block exponents: half
     a step from rounding plus up to one step from clipping the block max,

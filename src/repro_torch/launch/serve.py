@@ -12,7 +12,11 @@ pre-dispatch slab fingerprints, a bound on |logit|).
 --max-len 512`` serves random prompts through the token :class:`Engine`
 (kernel 5 on every decode step) and reports tokens/s and latency;
 ``--arch mamba2-2.7b`` serves the Mamba-2 SSM the same way (kernels 7 and
-6 in every layer of each prefill, the one-token recurrence in decode).
+6 in every layer of each prefill, the one-token recurrence in decode), and
+``--arch granite-moe-1b-a400m`` or ``--arch deepseek-v2-lite-16b`` the
+mixture-of-experts models (kernel 5 in each of granite's GQA layers;
+deepseek's MLA decodes in the absorbed form, with no kernel;
+``--param-dtype bfloat16`` halves a full-width model's parameters).
 
 ``python -m repro_torch.launch.serve --arch vgg16 --dtype bfloat16
 --workers 2 --kill-worker`` serves the images through a
@@ -199,6 +203,8 @@ def serve_images(cfg, args) -> int:
 def serve_tokens(cfg, args) -> int:
     """Serve ``args.requests`` random prompts; returns the completed
     count."""
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     scfg = ServeConfig(max_batch=args.max_batch, max_len=args.max_len)
     eng = Engine(cfg, scfg, seed=args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
@@ -212,9 +218,11 @@ def serve_tokens(cfg, args) -> int:
     eng.run_until_done()
     done = sum(r.done for r in reqs)
     lat = eng.latency.percentiles_ms()
-    print(f"finished {done}/{len(reqs)} requests; {eng.tokens_generated} "
-          f"tokens; decode throughput {eng.decode_tokens_per_s:.1f} tok/s "
-          f"({eng.decode_steps} batched decode steps) on {eng.device}")
+    print(f"{cfg.name} ({cfg.param_dtype} params, {cfg.dtype} "
+          f"activations): finished {done}/{len(reqs)} requests; "
+          f"{eng.tokens_generated} tokens; decode throughput "
+          f"{eng.decode_tokens_per_s:.1f} tok/s ({eng.decode_steps} batched "
+          f"decode steps) on {eng.device}")
     print(f"latency p50={lat['p50']:.1f}ms p90={lat['p90']:.1f}ms "
           f"p99={lat['p99']:.1f}ms")
     return done
@@ -239,6 +247,10 @@ def main(argv=None):
                     choices=("float32", "bfloat16"),
                     help="CNN path: the model's dtype (default: the "
                          "config's, float32)")
+    ap.add_argument("--param-dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="LM path: the parameters' storage dtype (default: "
+                         "the config's, float32)")
     ap.add_argument("--prefetch", default="on", choices=("on", "off"),
                     help="kept for parity with the reference; both values "
                          "launch the same kernels")

@@ -1,7 +1,7 @@
 """Model families of the port: the CNN path and the decoder-only LM
-families, dense and SSM."""
+families: dense, SSM and mixture-of-experts."""
 
-_NOT_PORTED = {"hybrid": "7c", "moe": "7c", "audio": "7c", "vlm": "7c"}
+_NOT_PORTED = {"hybrid": "7c", "audio": "7c", "vlm": "7c"}
 
 
 def model_for(cfg):
@@ -9,7 +9,7 @@ def model_for(cfg):
     if cfg.family == "cnn":
         from . import alexnet
         return alexnet
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "ssm", "moe"):
         from . import lm
         return lm
     raise NotImplementedError(

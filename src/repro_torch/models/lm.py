@@ -1,5 +1,5 @@
-"""Decoder-only language model, the dense and SSM families (the
-reference's ``repro/models/lm.py``).
+"""Decoder-only language model, the dense, SSM and mixture-of-experts
+families (the reference's ``repro/models/lm.py``).
 
 tokens (B, S) -> logits (B, S, V) f32 through embed, the layer stack, the
 final norm and the readout: tied (``embed_attend``), an untied
@@ -7,7 +7,8 @@ final norm and the readout: tied (``embed_attend``), an untied
 through kernel 4 (``kernels/bfp_matmul``), the paper's §3.6 FC regime.
 Parameters are nested dicts of tensors with ``stack`` a list of per-layer
 dicts; :func:`params_from_reference` carries the reference's parameters
-(with its scan-stacked layers) over, and :func:`to_reference_layout` /
+(its dense-prefix layers and scan-stacked groups) over, and
+:func:`to_reference_layout` /
 :func:`from_reference_layout` convert any params-shaped tree (params,
 grads, AdamW moments) to and from the reference's stacked layout, which
 the trainer's checkpoints use.  :func:`loss_fn` is the reference's
@@ -74,16 +75,20 @@ def _stack(trees, device):
 
 def to_reference_layout(tree, cfg: ArchConfig, *, device=None) -> dict:
     """A params-shaped tree (params, grads, AdamW moments) in the
-    reference's layout: the layer list stacked into {"prefix": [],
-    "scan": {"b<j>": ...}}, group m's block j holding layer m * period +
-    j (the ported families have no prefix layers).  The stacked leaves
-    are new tensors on ``device`` (the host, for a checkpoint) or on each
-    leaf's own device."""
+    reference's layout: the first ``first_k_dense`` layers in "prefix",
+    the rest stacked into "scan": {"b<j>": ...}, group m's block j holding
+    layer prefix + m * period + j.  The leaves are new tensors on
+    ``device`` (the host, for a checkpoint) or on each leaf's own
+    device."""
     period = cfg.pattern_period()
+    n_prefix = cfg.moe.first_k_dense if cfg.moe is not None else 0
     layers = tree["stack"]
-    scan = {f"b{j}": _stack(layers[j::period], device)
+    prefix = [tree_map(lambda t: t.detach().to(device or t.device,
+                                               copy=True), layer)
+              for layer in layers[:n_prefix]]
+    scan = {f"b{j}": _stack(layers[n_prefix + j::period], device)
             for j in range(period)}
-    return dict(tree, stack={"prefix": [], "scan": scan})
+    return dict(tree, stack={"prefix": prefix, "scan": scan})
 
 
 def from_reference_layout(tree, cfg: ArchConfig) -> dict:
@@ -105,8 +110,9 @@ def params_from_reference(np_params, cfg: ArchConfig, *, device="cuda"):
 
 
 def cache_shape(cfg: ArchConfig, batch: int, max_len: int):
-    """Per-layer cache structure: [{"attn": {"k": (shape, dtype), ...}}] or
-    [{"ssm": {"conv_x": ..., "state": ...}}], by each layer's mixer."""
+    """Per-layer cache structure, by each layer's mixer: [{"attn": {"k":
+    (shape, dtype), "v": ...}}] (GQA), [{"attn": {"ckv": ..., "kpe":
+    ...}}] (MLA) or [{"ssm": {"conv_x": ..., "state": ...}}]."""
     return stack_cache_shape(cfg, batch, max_len)
 
 
@@ -133,18 +139,20 @@ def _readout(params, cfg: ArchConfig, x):
 
 
 def apply(params, cfg: ArchConfig, tokens, *, mode: str = "train",
-          length=None, caches=None):
+          length=None, caches=None, collect_aux: bool = False):
     """tokens (B, S) int -> (logits (B, S, V) f32, caches, aux).
 
     train: no caches.  prefill: ``caches`` (zeroed, one row per sequence)
     filled from position 0.  decode: S new tokens (one, in serving)
     appended at ``length``, a scalar or a (B,) tensor; the caches are
-    updated in place."""
+    updated in place.  aux: the MoE layers' router loss, summed, under
+    ``collect_aux``; else 0."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     x, new_caches, aux = stack_apply(params["stack"], cfg, x, mode=mode,
-                                     length=length, caches=caches)
+                                     length=length, caches=caches,
+                                     collect_aux=collect_aux)
     x = norm(cfg.norm_type, params["final_norm"], x)
     return _readout(params, cfg, x), new_caches, aux
 
@@ -152,7 +160,8 @@ def apply(params, cfg: ArchConfig, tokens, *, mode: str = "train",
 def loss_fn(params, cfg: ArchConfig, batch, collect_aux: bool = True):
     """batch: {"inputs": (B,S), "targets": (B,S)} int tensors; targets < 0
     are masked.  Returns (loss + aux, metrics) as the reference does."""
-    logits, _, aux = apply(params, cfg, batch["inputs"], mode="train")
+    logits, _, aux = apply(params, cfg, batch["inputs"], mode="train",
+                           collect_aux=collect_aux)
     return _ce(logits, batch["targets"], aux)
 
 

@@ -1,33 +1,37 @@
-"""GQA attention with RoPE (the reference's ``repro/nn/attention.py``).
+"""Attention mixers: GQA with RoPE, and DeepSeek-V2's multi-head latent
+attention (MLA) (the reference's ``repro/nn/attention.py``).
 
 Modes:
   train   — causal blockwise attention with the flash backward, no cache
             (``banded_attention`` picks the lower-triangle schedule; under
             ``remat_policy="save_attn"`` the layer's checkpoint keeps the
             flash output, ``flash.FLASH_OP``).
-  prefill — causal, and the layer's K/V written into its cache.
+  prefill — causal, and the layer's cache written from position 0.
   decode  — S new tokens (one, in serving) against the cache at per-slot
-            offsets; the attention itself is kernel 5 on the card.
+            offsets.  GQA's attention is kernel 5 on the card; MLA decodes
+            in the absorbed (latent-space) form, plain products that never
+            materialise the per-head K/V at cache length.
 
-The cache is updated in place (the serving engine owns one preallocated
-(B, max_len, KV, D) pair per layer, as the reference donates its cache to
-the jitted step) and returned.  MLA and cross-attention come with ROADMAP
+A GQA layer caches K and V, (B, max_len, KV, D) each; an MLA layer the
+normalised latent ``ckv`` (B, max_len, kv_lora) and the roped shared key
+``kpe`` (B, max_len, rope_dim).  The cache is updated in place (the
+serving engine owns it preallocated, as the reference donates its cache
+to the jitted step) and returned.  Cross-attention comes with ROADMAP
 Queue 1, item 7c.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..config import ArchConfig
+from ..core.bfp import weight_of
 from . import flash
-from .layers import linear, linear_init, rope
+from .layers import linear, linear_init, rmsnorm, rmsnorm_init, rope
 from .module import torch_dtype
 
 
 def _check_supported(cfg: ArchConfig, cross: bool = False):
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet (ROADMAP "
-                                  "Queue 1, item 7c)")
     if cross or cfg.cross_attention:
         raise NotImplementedError("cross-attention is not ported yet "
                                   "(ROADMAP Queue 1, item 7c)")
@@ -37,6 +41,19 @@ def attn_init(gen, cfg: ArchConfig, cross: bool = False):
     _check_supported(cfg, cross)
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     dtype = torch_dtype(cfg.param_dtype)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "wq": linear_init(gen, d, H * (m.qk_nope_head_dim
+                                           + m.qk_rope_head_dim), dtype),
+            "wdkv": linear_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                                dtype),
+            "kv_norm": rmsnorm_init(m.kv_lora_rank, dtype),
+            "wuk": linear_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                               dtype),
+            "wuv": linear_init(gen, m.kv_lora_rank, H * m.v_head_dim, dtype),
+            "wo": linear_init(gen, H * m.v_head_dim, d, dtype),
+        }
     return {
         "wq": linear_init(gen, d, H * hd, dtype, bias=cfg.qkv_bias),
         "wk": linear_init(gen, d, KV * hd, dtype, bias=cfg.qkv_bias),
@@ -48,8 +65,12 @@ def attn_init(gen, cfg: ArchConfig, cross: bool = False):
 def attn_cache_shape(cfg: ArchConfig, batch: int, max_len: int):
     """Cache structure of one attention layer: {name: (shape, dtype)}."""
     _check_supported(cfg)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.d_head)
     dt = torch_dtype(cfg.dtype)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
+                "kpe": ((batch, max_len, m.qk_rope_head_dim), dt)}
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.d_head)
     return {"k": (shape, dt), "v": (shape, dt)}
 
 
@@ -106,3 +127,111 @@ def pos_of(length, S, device=None):
     if length.ndim == 0:
         return length + ar
     return length[:, None] + ar
+
+
+def len_mask(length, S_total: int, extra: int = 0, device=None):
+    """(B?, 1, 1, S_total) validity mask of the positions < length +
+    extra."""
+    valid_to = torch.as_tensor(length, device=device) + extra
+    if valid_to.ndim:
+        valid_to = valid_to[:, None, None, None]
+    return torch.arange(S_total, device=device)[None, None, None, :] \
+        < valid_to
+
+
+def mla_apply(p, cfg: ArchConfig, x, *, mode: str, length=None, cache=None):
+    """x (B, S, d_model) -> (y (B, S, d_model), cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rdim, vdim, lora = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                              m.v_head_dim, m.kv_lora_rank)
+    q = linear(p["wq"], x).reshape(B, S, H, nope + rdim)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    dkv = linear(p["wdkv"], x)
+    ckv, k_pe = dkv[..., :lora], dkv[..., lora:]
+    ckv = rmsnorm(p["kv_norm"], ckv)
+
+    if mode in ("train", "prefill"):
+        pos = torch.arange(S, device=x.device)[None, :]
+        q_pe = rope(q_pe, pos, cfg.rope_theta)
+        k_pe = rope(k_pe[:, :, None, :], pos, cfg.rope_theta)   # (B,S,1,r)
+        k_nope = linear(p["wuk"], ckv).reshape(B, S, H, nope)
+        v = linear(p["wuv"], ckv).reshape(B, S, H, vdim)
+        k = torch.cat([k_nope, k_pe.expand(B, S, H, rdim)], dim=-1)
+        qf = torch.cat([q_nope, q_pe], dim=-1)
+        # V zero-padded to the q/k head width (flash's one width), then
+        # sliced
+        o = flash.flash_attention(qf, k, F.pad(v, (0, nope + rdim - vdim)),
+                                  causal=True,
+                                  banded=cfg.banded_attention)[..., :vdim]
+        if mode == "prefill" and cache is not None:
+            cache["ckv"][:, :S] = ckv
+            cache["kpe"][:, :S] = k_pe[:, :, 0, :]
+    elif mode == "decode":
+        posv = pos_of(length, S, x.device)
+        q_pe = rope(q_pe, posv, cfg.rope_theta)
+        k_pe = rope(k_pe[:, :, None, :], posv, cfg.rope_theta)[:, :, 0, :]
+        cache_write(cache["ckv"], ckv, length)
+        cache_write(cache["kpe"], k_pe, length)
+        o = mla_decode(p, cfg, q_nope, q_pe, cache["ckv"], cache["kpe"],
+                       length)
+    else:
+        raise ValueError(mode)
+    y = linear(p["wo"], o.reshape(B, S, H * vdim))
+    return y.to(x.dtype), cache
+
+
+def mla_decode(p, cfg: ArchConfig, q_nope, q_pe, ckv, kpe, length):
+    """MLA's absorbed (latent-space) decode: q_nope (B, S, H, nope) and the
+    roped q_pe (B, S, H, r) against the caches ckv (B, L, kv_lora) and kpe
+    (B, L, r), positions < length + S valid -> o (B, S, H, v_head_dim).
+    q_nope goes into the latent space through wuk; the scores are two f32
+    products (latent and rope parts), scaled as a sum; the probabilities
+    meet ckv in the cache's dtype, then wuv.  Per-head K and V are never
+    materialised at cache length."""
+    m, H = cfg.mla, cfg.num_heads
+    nope, rdim, lora = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    wuk = weight_of(p["wuk"], dtype=q_nope.dtype).reshape(lora, H, nope)
+    q_abs = torch.einsum("bqhn,lhn->bqhl", q_nope, wuk)
+    s = (torch.einsum("bqhl,bsl->bhqs", q_abs.float(), ckv.float())
+         + torch.einsum("bqhr,bsr->bhqs", q_pe.float(), kpe.float()))
+    s = s * ((nope + rdim) ** -0.5)
+    mask = len_mask(length, ckv.shape[1], extra=q_nope.shape[1],
+                    device=ckv.device)
+    pr = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    lat = torch.einsum("bhqs,bsl->bqhl", pr.to(ckv.dtype), ckv)
+    wuv = weight_of(p["wuv"], dtype=q_nope.dtype).reshape(lora, H,
+                                                           m.v_head_dim)
+    return torch.einsum("bqhl,lhv->bqhv", lat, wuv)
+
+
+def mla_decode_materialised(p, cfg: ArchConfig, q_nope, q_pe, ckv, kpe,
+                            length):
+    """The plain version of :func:`mla_decode`, the same function in
+    another order: per-head K = [ckv . wuk, kpe] and V = ckv . wuv
+    materialised at cache length, then masked softmax attention in f32."""
+    m, H = cfg.mla, cfg.num_heads
+    nope, rdim = m.qk_nope_head_dim, m.qk_rope_head_dim
+    B, L, _ = ckv.shape
+    dt = q_nope.dtype
+    k_nope = linear(p["wuk"], ckv.to(dt)).reshape(B, L, H, nope)
+    k = torch.cat([k_nope, kpe.to(dt)[:, :, None, :].expand(B, L, H, rdim)],
+                  dim=-1)
+    v = linear(p["wuv"], ckv.to(dt)).reshape(B, L, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) \
+        * ((nope + rdim) ** -0.5)
+    mask = len_mask(length, L, extra=q.shape[1], device=ckv.device)
+    pr = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("bhqs,bshv->bqhv", pr, v.float()).to(dt)
+
+
+def attn_apply(p, cfg: ArchConfig, x, *, mode: str, length=None,
+               cache=None):
+    """The layer's mixer: MLA where the config has it, else GQA."""
+    if cfg.mla is not None:
+        if mode == "bidir":
+            raise ValueError("MLA encoder not supported")
+        return mla_apply(p, cfg, x, mode=mode, length=length, cache=cache)
+    return gqa_apply(p, cfg, x, mode=mode, length=length, cache=cache)

@@ -1,13 +1,14 @@
 """Residual blocks and the layer stack (the reference's
 ``repro/nn/blocks.py``).
 
-The reference scans one compiled block body over stacked parameters; the
-port runs eagerly, so the stack is a Python loop over a list of per-layer
-parameter dicts.  Dense models have pattern period 1 and no prefix, so
-layer ``i`` here is group ``i`` of the reference's scan
-(``models.lm.params_from_reference`` unstacks it).  A layer's mixer is
-attention or the Mamba-2 SSM; the MoE kind comes with ROADMAP Queue 1,
-item 7c.
+The reference runs its dense-prefix layers (``first_k_dense``) unrolled
+and scans one compiled block body (one pattern period) over stacked
+parameters for the rest; the port runs eagerly, so the stack is a Python
+loop over a list of per-layer parameter dicts in layer order
+(``models.lm.params_from_reference`` unstacks the reference's).  A
+layer's mixer is attention (GQA or MLA) or the Mamba-2 SSM, its FFN a
+dense MLP, a mixture of experts (``nn/moe.py``) or none: deepseek's layer
+0 is ("attn", "mlp"), layers 1-26 ("attn", "moe").
 
 Under ``cfg.remat`` in train mode each layer runs inside
 ``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations are
@@ -25,18 +26,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..config import ArchConfig
-from .attention import attn_cache_shape, attn_init, gqa_apply
+from .attention import attn_apply, attn_cache_shape, attn_init
 from .flash import FLASH_OP
 from .layers import norm, norm_init
 from .mlp import mlp_apply, mlp_init
+from .moe import moe_apply, moe_init
 from .module import torch_dtype
 from .ssd import mamba_apply, mamba_init, ssm_cache_shape
 
 
 def _check_kind(ffn: str):
-    if ffn not in ("mlp", "none"):
-        raise NotImplementedError(f"ffn {ffn!r} is not ported yet (ROADMAP "
-                                  "Queue 1, item 7c: MoE)")
+    if ffn not in ("mlp", "moe", "none"):
+        raise ValueError(f"unknown ffn kind {ffn!r}")
 
 
 def block_init(gen, cfg: ArchConfig, mixer: str, ffn: str):
@@ -46,31 +47,40 @@ def block_init(gen, cfg: ArchConfig, mixer: str, ffn: str):
         p["attn"] = attn_init(gen, cfg)
     else:
         p["ssm"] = mamba_init(gen, cfg)
-    if ffn == "mlp":
+    if ffn != "none":
         p["norm2"] = norm_init(cfg.norm_type, cfg.d_model, dtype)
-        p["mlp"] = mlp_init(gen, cfg)
+        p[ffn] = mlp_init(gen, cfg) if ffn == "mlp" else moe_init(gen, cfg)
     return p
 
 
 def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
-                length=None, cache=None):
-    """x (B, S, d_model) -> (x, cache); ``stack_kinds`` has checked the
+                length=None, cache=None, collect_aux: bool = False):
+    """x (B, S, d_model) -> (x, cache, aux); aux is the MoE router loss
+    under ``collect_aux``, else 0.  ``stack_kinds`` has checked the
     kind."""
     h = norm(cfg.norm_type, p["norm1"], x)
     if mixer == "attn":
-        h, c = gqa_apply(p["attn"], cfg, h, mode=mode, length=length,
-                         cache=None if cache is None else cache["attn"])
+        h, c = attn_apply(p["attn"], cfg, h, mode=mode, length=length,
+                          cache=None if cache is None else cache["attn"])
     else:       # the SSM carries its own position in its state
         h, c = mamba_apply(p["ssm"], cfg, h, mode=mode,
                            cache=None if cache is None else cache["ssm"])
     x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "mlp":
         x = x + mlp_apply(p["mlp"], cfg, norm(cfg.norm_type, p["norm2"], x))
-    return x, (None if cache is None else {mixer: c})
+    elif ffn == "moe":
+        h, a = moe_apply(p["moe"], cfg, norm(cfg.norm_type, p["norm2"], x),
+                         return_aux=collect_aux)
+        x = x + h
+        if a is not None:
+            aux = a
+    return x, (None if cache is None else {mixer: c}), aux
 
 
 def stack_kinds(cfg: ArchConfig):
-    """(mixer, ffn) of every layer, in order."""
+    """(mixer, ffn) of every layer, in order: the dense prefix
+    (``first_k_dense``) and then the repeating pattern."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     for _, ffn in kinds:
         _check_kind(ffn)
@@ -102,8 +112,10 @@ def _remat_context():
     return create_selective_checkpoint_contexts(_save_attn)
 
 
-def _remat_block(bp, x, cfg, mixer, ffn):
-    return block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode="train")[0]
+def _remat_block(bp, x, cfg, mixer, ffn, collect_aux):
+    x, _, aux = block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode="train",
+                            collect_aux=collect_aux)
+    return x, aux
 
 
 def _remat_kwargs(cfg: ArchConfig) -> dict:
@@ -116,22 +128,24 @@ def _remat_kwargs(cfg: ArchConfig) -> dict:
 
 
 def stack_apply(params, cfg: ArchConfig, x, *, mode: str, length=None,
-                caches=None):
-    """Every layer in order -> (x, caches, aux); aux (the MoE router loss)
-    is 0 for the dense kinds."""
+                caches=None, collect_aux: bool = False):
+    """Every layer in order -> (x, caches, aux); aux, the MoE router loss
+    summed over the layers under ``collect_aux``, is 0 otherwise."""
     new_caches = None if caches is None else []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     kw = _remat_kwargs(cfg) if remat else None
     for i, ((mixer, ffn), bp) in enumerate(zip(stack_kinds(cfg), params)):
         if remat:
-            x = checkpoint(functools.partial(_remat_block, cfg=cfg,
-                                             mixer=mixer, ffn=ffn),
-                           bp, x, **kw)
-            continue
-        x, c = block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode=mode,
-                           length=length,
-                           cache=None if caches is None else caches[i])
-        if new_caches is not None:
-            new_caches.append(c)
-    return x, new_caches, torch.zeros((), dtype=torch.float32,
-                                      device=x.device)
+            x, aux = checkpoint(functools.partial(
+                _remat_block, cfg=cfg, mixer=mixer, ffn=ffn,
+                collect_aux=collect_aux), bp, x, **kw)
+        else:
+            x, c, aux = block_apply(
+                bp, cfg, x, mixer=mixer, ffn=ffn, mode=mode, length=length,
+                cache=None if caches is None else caches[i],
+                collect_aux=collect_aux)
+            if new_caches is not None:
+                new_caches.append(c)
+        aux_total = aux_total + aux
+    return x, new_caches, aux_total

@@ -92,6 +92,11 @@ class Trainer:
             raise NotImplementedError(
                 f"Trainer trains the LM families; family {cfg.family!r} "
                 "has no loss_fn in the port")
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "Trainer: training a mixture-of-experts model (its router "
+                "loss through the trainer) is not ported yet (ROADMAP Queue "
+                "1, item 7c)")
         self.events = TrainerEvents()
         self._failure_injector = failure_injector
         self._straggler_hook = straggler_hook

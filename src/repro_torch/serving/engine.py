@@ -9,15 +9,20 @@ attention is kernel 5 (``csrc/decode_attn.cu``) on the card.  Prefill runs
 per request at admission, padded to a multiple of ``prefill_bucket`` (an
 SSM model's at exact length: its state would absorb pad tokens; its
 prefill runs kernels 7 and 6 in every layer), and its one-row cache is
-copied into the request's slot.
+copied into the request's slot, buffer by buffer.  The mixture-of-experts
+models serve the same way: their pad tokens are routed and take expert
+capacity as in the reference, and an MLA layer decodes in the absorbed
+form, with no kernel.
 
 Slot and queue bookkeeping is the shared :class:`SlotScheduler`, as for
 :class:`CnnEngine`; this module owns the decode state: per-layer caches
-(attention: (max_batch, max_len, KV, D) in ``cfg.dtype``; SSM: the conv
-windows and the f32 state), preallocated and updated in place, the slots'
-lengths (on the host, uploaded with the active mask once a step) and their
-last tokens (on the device).  The engine runs
-eagerly; each step ends in one host sync, the fetch of the new tokens.
+(GQA: (max_batch, max_len, KV, D) K and V in ``cfg.dtype``; MLA: the
+latent (max_batch, max_len, kv_lora) and the rope key (max_batch,
+max_len, rope_dim); SSM: the conv windows and the f32 state),
+preallocated and updated in place, the slots' lengths (on the host,
+uploaded with the active mask once a step) and their last tokens (on the
+device).  The engine runs eagerly; each step ends in one host sync, the
+fetch of the new tokens.
 
 Request lifecycle: submit() -> queued -> admitted (prefill) -> decoding ->
 finished (max_new, max_len or eos).
@@ -100,9 +105,9 @@ class Engine:
         self.sched.submit(req)
 
     def _pad_len(self, n: int) -> int:
-        # an SSM's state would absorb the pad tokens, so the SSM family
-        # prefills at exact length, as in the reference
-        if self.cfg.family == "ssm":
+        # an SSM's state would absorb the pad tokens, so the SSM and hybrid
+        # families prefill at exact length, as in the reference
+        if self.cfg.family in ("ssm", "hybrid"):
             return n
         b = self.scfg.prefill_bucket
         return min(-(-n // b) * b, self.scfg.max_len)

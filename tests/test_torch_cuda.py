@@ -41,6 +41,7 @@ from repro_torch.kernels.decode_attn.ref import \
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.models import alexnet, lm  # noqa: E402
+from repro_torch.nn import moe  # noqa: E402
 from repro_torch.nn.pooling import LrnParams  # noqa: E402
 from repro_torch.serving import (CnnEngine, CnnServeConfig,  # noqa: E402
                                  Engine, ImageRequest, Request, ServeConfig)
@@ -846,7 +847,8 @@ def test_decode_attn_launch_error_raises(card, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-3b",
+                                  "granite-moe-1b-a400m"])
 def test_engine_decodes_through_kernel5(card, arch):
     """The reduced model served on the card launches kernel 5 once per
     layer per decode step and emits the CPU engine's greedy tokens."""
@@ -1526,3 +1528,100 @@ def test_stream_buffer_on_the_card(card):
         assert b["inputs"].is_cuda
         out.append(int(b["inputs"].sum()))
     assert out == [32 * i for i in range(6)]
+
+
+# the mixture-of-experts layer and the MoE / MLA models -----------------------
+MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
+
+
+def _moe_layer(arch, S, dev, seed=0):
+    cfg = get_config(arch).reduced()
+    p = moe.moe_init(torch.Generator().manual_seed(seed), cfg)
+    x = np.random.default_rng(seed + 1).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)
+    return cfg, lm.to_device(p, dev), torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 20, 1])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_layer_on_the_card_matches_the_cpu(card, arch, S):
+    """f32: the routed experts equal the CPU's, y within 1e-5 * max|y|
+    (cuBLAS sums in another order), the router loss within 1e-6."""
+    out = {}
+    for dev in ("cpu", card):
+        cfg, p, x = _moe_layer(arch, S, dev)
+        y, aux = moe.moe_apply(p, cfg, x, return_aux=True)
+        idx = moe.route(p, cfg, moe.group(cfg, x)[0])[2]
+        out[str(dev)] = (y.cpu(), float(aux), idx.cpu())
+    (y0, a0, i0), (y1, a1, i1) = out["cpu"], out[str(card)]
+    assert torch.equal(i0, i1)
+    assert float((y1 - y0).abs().max()) <= 1e-5 * float(y0.abs().max())
+    assert abs(a1 - a0) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_layer_on_the_card_is_deterministic(card, arch):
+    """Two runs of the one-hot route on the card are bit-equal."""
+    cfg, p, x = _moe_layer(arch, 20, card)
+    a, _ = moe.moe_apply(p, cfg, x)
+    b, _ = moe.moe_apply(p, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_apply_on_the_card_matches_the_cpu(card, arch, mode):
+    """Reduced granite-moe-1b-a400m (kernel 5 in decode) and
+    deepseek-v2-lite-16b (absorbed MLA, no kernel) in f32: logits within
+    1e-4 * max|logit| of the CPU's, in every mode."""
+    cfg = get_config(arch).reduced()
+    params = lm.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 11)))
+    new = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+    lens = torch.tensor([11, 6])
+    out = {}
+    for dev in ("cpu", card):
+        p = lm.to_device(params, dev)
+        if mode == "train":
+            logits, _, _ = lm.apply(p, cfg, toks.to(dev))
+        else:
+            caches = lm.cache_init(cfg, 2, 24, device=dev)
+            logits, caches, _ = lm.apply(p, cfg, toks.to(dev),
+                                         mode="prefill", caches=caches)
+            if mode == "decode":
+                n0 = decode_attn.launches
+                logits, _, _ = lm.apply(p, cfg, new.to(dev), mode="decode",
+                                        length=lens.to(dev), caches=caches)
+                if dev == card:
+                    want = cfg.num_layers if cfg.mla is None else 0
+                    assert decode_attn.launches - n0 == want
+        out[str(dev)] = logits.cpu()
+    ref, got = out["cpu"], out[str(card)]
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_mla_engine_on_the_card_matches_the_cpu(card):
+    """Reduced deepseek-v2-lite-16b served on the card: the CPU engine's
+    greedy tokens, and no kernel-5 launch (MLA decodes in the absorbed
+    form)."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    params = lm.init(0, cfg, device="cpu")
+    scfg = ServeConfig(max_batch=3, max_len=64, prefill_bucket=16)
+    out = {}
+    for dev in ("cpu", card):
+        eng = Engine(cfg, scfg, params=lm.to_device(params, dev), device=dev)
+        reqs = [Request(prompt=list(range(1, n + 1)), max_new=5)
+                for n in (5, 12, 3, 20)]
+        for r in reqs:
+            eng.submit(r)
+        n0 = decode_attn.launches
+        eng.run_until_done()
+        out[str(dev)] = [r.generated for r in reqs]
+        assert decode_attn.launches == n0
+    assert out["cpu"] == out[str(card)]

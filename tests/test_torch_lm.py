@@ -1,10 +1,12 @@
-"""The port's dense LM stack and token Engine against the JAX package.
+"""The port's dense and mixture-of-experts LM stacks and the token Engine
+against the JAX package.
 
 Same numpy-made inputs on both sides, weights carried over from the
 reference with ``lm.params_from_reference``, all on the CPU (kernel 5 and
 kernel 4 take their plain versions there).  Tolerances: the elementwise
 layers 1e-6; ``lm.apply`` logits 1e-4 * max|logit| in f32 (summation
-orders differ); the Engine's greedy tokens exactly.
+orders differ); the MoE router loss and ``loss_fn`` 1e-5 relative; the
+Engine's greedy tokens exactly.
 """
 import dataclasses
 
@@ -29,10 +31,12 @@ from repro_torch.kernels.bfp_matmul import ops as bfp_ops
 from repro_torch.kernels.decode_attn import ops as dec_ops
 from repro_torch.launch import serve
 from repro_torch.models import lm, model_for
-from repro_torch.nn import attention, flash, layers, mlp
+from repro_torch.nn import attention, blocks, flash, layers, mlp, module
 from repro_torch.serving import Engine, Request, ServeConfig
 
-ARCHS = ["smollm-360m", "llama3.2-3b", "starcoder2-15b"]
+ARCHS = ["smollm-360m", "llama3.2-3b", "starcoder2-15b", "phi4-mini-3.8b"]
+# GQA + MoE on every layer; MLA + MoE after one dense layer
+MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
 
 
 def _np(tree):
@@ -62,7 +66,7 @@ def _close_logits(got, ref):
 
 
 # --- configs and dispatch ----------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_configs_match_reference(arch):
     for full in (True, False):
         j_cfg, cfg = j_get_config(arch), get_config(arch)
@@ -75,15 +79,30 @@ def test_configs_match_reference(arch):
             [j_cfg.layer_kind(i) for i in range(j_cfg.num_layers)]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
-                                  "granite-moe-1b-a400m", "whisper-tiny",
-                                  "phi-3-vision-4.2b", "phi4-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b",
+                                  "jamba-v0.1-52b"])
 def test_unported_archs_raise_with_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
         get_config(arch)
 
 
-@pytest.mark.parametrize("family", ["hybrid", "moe", "audio", "vlm"])
+def test_pattern_periodicity_on_the_ports_configs():
+    """The reference's ``test_pattern_periodicity`` facts: deepseek's first
+    layer is dense and the rest MoE; granite is MoE on every layer; the
+    stack runs them in that order."""
+    d = get_config("deepseek-v2-lite-16b")
+    assert d.layer_kind(0) == ("attn", "mlp")
+    assert d.layer_kind(1) == ("attn", "moe")
+    assert d.layer_kind(26) == ("attn", "moe")
+    assert blocks.stack_kinds(d) == [("attn", "mlp")] + [("attn", "moe")] * 26
+    g = get_config("granite-moe-1b-a400m")
+    assert blocks.stack_kinds(g) == [("attn", "moe")] * 24
+    assert blocks.stack_kinds(d.reduced()) == [("attn", "mlp")] + \
+        [("attn", "moe")] * 2
+    assert model_for(d) is lm and model_for(g) is lm
+
+
+@pytest.mark.parametrize("family", ["hybrid", "audio", "vlm"])
 def test_unported_families_raise_with_their_roadmap_item(family):
     cfg = dataclasses.replace(get_config("smollm-360m"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
@@ -225,33 +244,85 @@ def _apply_both(arch, mode):
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_apply_matches_reference(arch, mode):
     """Logits in all three modes, and the caches that prefill and decode
-    leave, on reduced smollm-360m, llama3.2-3b and starcoder2-15b (untied,
-    LayerNorm, GELU, biases)."""
+    leave, by their own names (GQA's k and v, MLA's ckv and kpe), on
+    reduced smollm-360m, llama3.2-3b, starcoder2-15b (untied, LayerNorm,
+    GELU, biases), phi4-mini-3.8b, granite-moe-1b-a400m and
+    deepseek-v2-lite-16b (a dense prefix layer, MLA)."""
     got, ref, caches, j_caches = _apply_both(arch, mode)
     assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
     _close_logits(got, ref)
     if caches is not None:
         want = _caches_from_reference(j_caches, get_config(arch).reduced())
+        names = {"ckv", "kpe"} if arch.startswith("deepseek") else {"k", "v"}
+        assert len(caches) == len(want)
         for have, ref_layer in zip(caches, want):
-            for name in ("k", "v"):
+            assert set(have["attn"]) == set(ref_layer["attn"]) == names
+            for name in names:
                 np.testing.assert_allclose(have["attn"][name].numpy(),
                                            ref_layer["attn"][name].numpy(),
                                            rtol=1e-5, atol=1e-5)
 
 
-def test_init_matches_reference_structure():
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_router_aux_and_loss_match_reference(arch):
+    """``collect_aux``: the MoE layers' router loss summed over the stack,
+    and ``loss_fn``'s total and metrics, against the reference's."""
+    j_cfg, cfg, j_params, params = _reference(arch)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, cfg.vocab_size, (2, 20))
+    tgt = rng.integers(-1, cfg.vocab_size, (2, 20))
+    _, _, j_aux = j_lm.apply(j_params, j_cfg, jnp.asarray(toks, jnp.int32),
+                             collect_aux=True)
+    _, _, aux = lm.apply(params, cfg, torch.from_numpy(toks),
+                         collect_aux=True)
+    assert float(j_aux) > 0
+    assert float(aux) == pytest.approx(float(j_aux), rel=1e-5)
+    assert float(lm.apply(params, cfg, torch.from_numpy(toks))[2]) == 0.0
+    j_total, j_m = j_lm.loss_fn(
+        j_params, j_cfg, {"inputs": jnp.asarray(toks, jnp.int32),
+                          "targets": jnp.asarray(tgt, jnp.int32)})
+    total, m = lm.loss_fn(params, cfg, {"inputs": torch.from_numpy(toks),
+                                        "targets": torch.from_numpy(tgt)})
+    assert float(total) == pytest.approx(float(j_total), rel=1e-5)
+    for k in ("loss", "aux_loss", "accuracy"):
+        assert float(m[k]) == pytest.approx(float(j_m[k]), rel=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "deepseek-v2-lite-16b"])
+def test_init_matches_reference_structure(arch):
     """The port's init draws the reference's tree, shapes and dtypes, with
-    the stack as one dict per layer."""
-    cfg = get_config("starcoder2-15b").reduced()
-    _, _, _, carried = _reference("starcoder2-15b")
+    the stack as one dict per layer (deepseek: a dense layer, then MLA +
+    MoE layers)."""
+    cfg = get_config(arch).reduced()
+    _, _, _, carried = _reference(arch)
     mine = lm.init(0, cfg, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path
     assert [(k, tuple(v.shape), v.dtype) for k, v in flat(mine)[0]] == \
         [(k, tuple(v.shape), v.dtype) for k, v in flat(carried)[0]]
     assert len(mine["stack"]) == cfg.num_layers
+
+
+def test_reference_layout_with_a_prefix_round_trips():
+    """Reduced deepseek: ``to_reference_layout`` puts layer 0 in "prefix"
+    and stacks the MoE layers in "scan", leaf for leaf the reference's tree
+    (names, shapes, dtypes, values); ``from_reference_layout`` undoes it."""
+    _, cfg, j_params, params = _reference("deepseek-v2-lite-16b")
+    ref = lm.to_reference_layout(params, cfg)
+    assert len(ref["stack"]["prefix"]) == 1
+    flat_j = jax.tree_util.tree_flatten_with_path(j_params)[0]
+    flat_t = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in flat_j] == \
+        [jax.tree_util.keystr(p) for p, _ in flat_t]
+    for (_, a), (_, b) in zip(flat_j, flat_t):
+        assert b.dtype == torch.float32 and tuple(b.shape) == a.shape
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    back = lm.from_reference_layout(ref, cfg)
+    assert len(back["stack"]) == cfg.num_layers
+    for a, b in zip(module.tree_leaves(back), module.tree_leaves(params)):
+        assert torch.equal(a, b)
 
 
 # --- the Engine --------------------------------------------------------------
@@ -267,6 +338,16 @@ ENGINE_CASES = {
                                   prefill_bucket=16),
                              [list(range(1, n + 1))
                               for n in (5, 12, 3, 20, 7, 9)], 4),
+    # prompts of 17 and 20 pad to 24: the MoE's second group of 16 then
+    # holds 8 zero rows, routed like tokens
+    "moe_granite": ("granite-moe-1b-a400m", 2,
+                    dict(max_batch=2, max_len=64, prefill_bucket=8),
+                    [[(7 * i + 3) % 503 + 1 for i in range(n)]
+                     for n in (5, 17, 20, 9)], 5),
+    "moe_mla_deepseek": ("deepseek-v2-lite-16b", 3,
+                         dict(max_batch=2, max_len=64, prefill_bucket=8),
+                         [[(11 * i + 5) % 503 + 1 for i in range(n)]
+                          for n in (5, 17, 20, 9)], 5),
 }
 
 
@@ -395,4 +476,20 @@ def test_serve_cli_lm_on_the_cpu(capsys):
                 "--max-len", "64", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "finished 3/3 requests; 9 tokens" in out and "on cpu" in out
+    assert dec_ops.launch_counts() == {"decode_attn": 0}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "granite-moe-1b-a400m"],
+    ["--arch", "deepseek-v2-lite-16b", "--param-dtype", "bfloat16"]])
+def test_serve_cli_moe_on_the_cpu(argv, capsys):
+    """The MoE models through the launcher (reduced); granite's GQA decode
+    takes kernel 5's plain version on the CPU, deepseek's MLA no kernel."""
+    dec_ops.reset_launch_counts()
+    serve.main(argv + ["--requests", "3", "--max-new", "3", "--max-len",
+                       "64", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "finished 3/3 requests; 9 tokens" in out and "on cpu" in out
+    dtype = "bfloat16" if "--param-dtype" in argv else "float32"
+    assert f"({dtype} params, float32 activations)" in out
     assert dec_ops.launch_counts() == {"decode_attn": 0}

@@ -42,7 +42,9 @@ from repro_torch.models import lm
 from repro_torch.nn import flash, module
 from repro_torch.optim import adamw
 
-LM_ARCHS = ["smollm-360m", "llama3.2-3b", "starcoder2-15b", "mamba2-2.7b"]
+LM_ARCHS = ["smollm-360m", "llama3.2-3b", "starcoder2-15b", "mamba2-2.7b",
+            "phi4-mini-3.8b", "granite-moe-1b-a400m",
+            "deepseek-v2-lite-16b"]
 BF16_STEP = 2.0 ** -7
 
 

@@ -229,7 +229,7 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2x2"], "item 7d"),
     (["--arch", "granite-moe-1b-a400m"], "item 7c"),
-    (["--arch", "phi4-mini-3.8b"], "item 7a")])
+    (["--arch", "deepseek-v2-lite-16b"], "item 7c")])
 def test_train_cli_refusals(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(argv + ["--device", "cpu", "--steps", "1"])

@@ -107,8 +107,12 @@ Phases:
                (B=8, S=512, H=15, KV=5, D=64), llama3.2-3b's (H=24,
                KV=8, D=128, S=2048), the latter also with skewed lengths
                (one slot at S, seven at 1), granite-moe-1b-a400m's (H=16,
-               KV=8, D=64, S=512) and phi4-mini-3.8b's (H=24, KV=8,
-               D=128, S=512), f32 and bf16, held against its
+               KV=8, D=64, S=512), phi4-mini-3.8b's (H=24, KV=8,
+               D=128, S=512), whisper-tiny's self decode (H=KV=6, D=64,
+               S=448) and cross decode over 1,500 encoder rows (all
+               full, and one slot full with seven at 750) and
+               phi-3-vision-4.2b's (H=KV=32, D=96, S=1088: 576 patches
+               and 512 text positions), f32 and bf16, held against its
                plain version (and, within one bf16 step, against the plain
                version with f32 probabilities, the kernel's arithmetic),
                two calls bit-equal, and timed in bf16 beside its bytes
@@ -179,6 +183,25 @@ Phases:
                f32 decode step re-run with the absorbed and the
                materialised MLA, held as in (b); (e) reduced granite and
                deepseek: the card's greedy tokens equal the CPU engine's.
+  11. encdec/vlm — (a) whisper-tiny at published widths (4 + 4 layers,
+               f32 parameters drawn on the card, bf16 activations) through
+               ``Engine(max_batch=8, max_len=448, cross_len=1500)``: 24
+               requests of 4-64 prompt tokens with 1,500 frames (750 for
+               every third), 32 new tokens each; kernel 5 launched 8
+               times a decode step (each decoder layer's self and cross
+               decode); the probe step's logits of a full-frame and a
+               half-frame slot against teacher forcing (``encdec.apply``
+               over the same frames) within 5e-2 * max|logit|, and in an
+               f32-activation engine within 1e-4; (b) phi-3-vision-4.2b
+               at published widths (32 layers, MHA at head_dim 96, f32
+               parameters drawn on the card, bf16 activations) through
+               ``Engine(max_batch=8, max_len=512)``: 16 requests of 8-200
+               prompt tokens with 576 x 1024 patches, 32 new tokens each,
+               every one of them delivered; kernel 5 32 times a step; an
+               f32 decode step with kernel 5 against the plain decode
+               attention within 1e-4 * max|logit|; (c) reduced whisper and
+               phi-3-vision: the card's greedy tokens equal the CPU
+               engine's.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -226,13 +249,22 @@ TOL_LM = 2e-2
 PEAK_BF16_FLOPS = 989e12
 # (name, B, S, H, KV, D, lengths): smollm-360m's and llama3.2-3b's decode
 # geometry with random lengths in [1, S], and llama3.2-3b's with one slot
-# at S and the rest at 1 (the longest slot sets the time unless it is split)
+# at S and the rest at 1 (the longest slot sets the time unless it is
+# split); granite's and phi4-mini's; whisper-tiny's self cache (its 448
+# positions full) and its cross cache of 1,500 encoder rows (all full, and
+# one slot full with the rest at 750), MHA at D = 64; phi-3-vision-4.2b's
+# 576 patches + 512 text positions, full, MHA at D = 96
 DECODE_GEOMETRIES = (("smollm-360m", 8, 512, 15, 5, 64, None),
                      ("llama3.2-3b", 8, 2048, 24, 8, 128, None),
                      ("llama3.2-3b skewed", 8, 2048, 24, 8, 128,
                       (2048, 1, 1, 1, 1, 1, 1, 1)),
                      ("granite-moe-1b-a400m", 8, 512, 16, 8, 64, None),
-                     ("phi4-mini-3.8b", 8, 512, 24, 8, 128, None))
+                     ("phi4-mini-3.8b", 8, 512, 24, 8, 128, None),
+                     ("whisper-tiny self", 8, 448, 6, 6, 64, (448,) * 8),
+                     ("whisper-tiny cross", 8, 1500, 6, 6, 64, (1500,) * 8),
+                     ("whisper-tiny cross skewed", 8, 1500, 6, 6, 64,
+                      (1500,) + (750,) * 7),
+                     ("phi-3-vision-4.2b", 8, 1088, 32, 32, 96, (1088,) * 8))
 LM_ARCH = "smollm-360m"
 LM_REQUESTS = 24
 LM_MAX_NEW = 32
@@ -313,6 +345,27 @@ MOE_PROBE_STEP = 12
 # bf16 the routers' near-ties flip under any rounding difference, so a
 # bf16 comparison would measure routing, not the attention
 TOL_PROBE = 1e-4
+# phase 11 (encoder-decoder and vision-language serving) at published
+# widths.  whisper-tiny through Engine(max_batch=8, max_len=448 (its
+# decoder's context), cross_len=1500): (requests, new tokens), prompts of
+# ENCDEC_PROMPTS tokens, 1,500 encoder frames a request and 750 for every
+# third; kernel 5 twice a decoder layer a step, over the self and the
+# cross cache.  The probe step's logits of a full-frame and a half-frame
+# slot against teacher forcing (``encdec.apply`` in train mode over the
+# same frames): in the served bf16 within TOL_BF16 * max|logit| (the two
+# round in other places), in an f32-activation engine within TOL_PROBE
+ENCDEC_ARCH = "whisper-tiny"
+ENCDEC_SHAPE = (24, 32)
+ENCDEC_PROMPTS = (4, 64)
+ENCDEC_MAX_LEN = 448
+ENCDEC_CROSS = 1500
+# phi-3-vision-4.2b (MHA, head_dim 96) through Engine(max_batch=8,
+# max_len=512): 576 x 1024 patches a request, prompts of VLM_PROMPTS
+# tokens; every request gets its tokens (the reference retires them after
+# 2: its max_len test counts the patch prefix)
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_SHAPE = (16, 32)
+VLM_PROMPTS = (8, 200)
 # ABFT: seeded single-bit flips a layer, beside one each in a checksum row,
 # in padding, in a sign bit and in an exponent bit
 ABFT_FLIPS = 32
@@ -335,6 +388,10 @@ SUP_RETRIES = 3
 SUP_SLO_MS = 300.0
 SUP_KILL_AT = 8
 SUP_RESTARTS = 2
+
+
+# the card the token engines of phases 10 and 11 serve on
+DEVICE = "cuda"
 
 
 class CheckFailed(RuntimeError):
@@ -3127,24 +3184,31 @@ def recorded_routing(store):
 
 
 def _snapshot_at(step, probe):
-    """A ``before_decode`` hook: copies of what decode step ``step`` reads."""
+    """A ``before_decode`` hook: copies of what decode step ``step`` reads,
+    and each active slot's request with its count of generated tokens."""
     def hook(e):
         if e.decode_steps == step:
             probe.update(tokens=e.last_tokens.clone(),
                          lengths=e.lengths.copy(), mask=e.active.copy(),
-                         cache=_copy_cache(e.cache))
+                         cache=_copy_cache(e.cache),
+                         slots={int(s): (e.slot_req[s],
+                                         len(e.slot_req[s].generated))
+                                for s in e.active.nonzero()[0]})
     return hook
 
 
-def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label):
+def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label, *,
+                  scfg=None, reqs=None, keep=None, tag="moe"):
     """Serve ``n_req`` requests of MOE_PROMPTS prompt tokens and
-    ``max_new`` new ones through ``Engine(max_batch=8, max_len=512,
-    prefill_bucket=64)`` after a warm-up; the launch counts of the run,
-    its numbers, and one decode step (step ``max_new // 2``, on a copy of
-    its cache) traced as ``phase_lm`` traces smollm-360m's."""
+    ``max_new`` new ones (or ``reqs``) through ``Engine(max_batch=8,
+    max_len=512, prefill_bucket=64)`` (or ``scfg``) after a warm-up; the
+    launch counts of the run, its numbers, and one decode step (step
+    ``max_new // 2``, on a copy of its cache) traced as ``phase_lm``
+    traces smollm-360m's; ``keep`` receives that step's snapshot."""
     from repro_torch.serving import Engine, ServeConfig
-    scfg = ServeConfig(max_batch=BATCH, max_len=512, prefill_bucket=64)
-    warm = Engine(cfg, scfg, params=params, device="cuda")
+    if scfg is None:
+        scfg = ServeConfig(max_batch=BATCH, max_len=512, prefill_bucket=64)
+    warm = Engine(cfg, scfg, params=params, device=DEVICE)
     for r in _requests(rng, cfg.vocab_size, 2, 8, 70, 2):
         warm.submit(r)
     warm.run_until_done()
@@ -3152,8 +3216,9 @@ def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(cfg, scfg, params=params, device="cuda")
-    reqs = _requests(rng, cfg.vocab_size, n_req, *MOE_PROMPTS, max_new)
+    eng = Engine(cfg, scfg, params=params, device=DEVICE)
+    if reqs is None:
+        reqs = _requests(rng, cfg.vocab_size, n_req, *MOE_PROMPTS, max_new)
     probe = {}
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -3209,7 +3274,9 @@ def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label):
                  f"{out['kernel5_ms_per_step']:.4f} ms of it, idle share "
                  f"{idle:.4f} | top: "
                  + "; ".join(f"{n} {ms:.4f} ms" for n, ms in top))
-    print(f"moe serve {label} ({cfg.param_dtype} params, {cfg.dtype} "
+    if keep is not None:
+        keep.update(probe)
+    print(f"{tag} serve {label} ({cfg.param_dtype} params, {cfg.dtype} "
           f"activations): {out['completed']}/{n_req} requests, "
           f"{out['tokens']} tokens over {steps} decode steps, {padded} "
           f"prefills with zero rows in a MoE group | "
@@ -3221,20 +3288,24 @@ def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label):
     return out
 
 
-def f32_probe(torch, np, cfg, params, alt, label):
+def f32_probe(torch, np, cfg, params, alt, label, *, decorate=None,
+              tag="moe"):
     """One mid-run decode step of an f32-activation engine, re-run on
     copies of its cache on the served route and under ``alt`` (the plain
     decode attention, or the materialised MLA): logits within TOL_PROBE *
-    max|logit|, every MoE layer's routing equal; kernel 5's launches in
-    each re-run."""
+    max|logit|, every MoE layer's routing equal (a model with MoE layers);
+    kernel 5's launches in each re-run.  ``decorate(rng, request)`` gives
+    a request its patches."""
     from repro_torch.kernels.decode_attn import ops as dec_ops
     from repro_torch.serving import Engine, ServeConfig
     eng = Engine(cfg, ServeConfig(max_batch=BATCH, max_len=512,
                                   prefill_bucket=64),
-                 params=params, device="cuda")
+                 params=params, device=DEVICE)
     rng = np.random.default_rng(12)
     for r in _requests(rng, cfg.vocab_size, BATCH, *MOE_PROMPTS,
                        MOE_PROBE_STEP + 4):
+        if decorate is not None:
+            decorate(rng, r)
         eng.submit(r)
     probe = {}
     hook = _snapshot_at(MOE_PROBE_STEP, probe)
@@ -3251,21 +3322,25 @@ def f32_probe(torch, np, cfg, params, alt, label):
         runs.append((logits, routes,
                      dec_ops.launch_counts()["decode_attn"] - n0))
     (got, r_got, k_got), (ref, r_ref, k_ref) = runs
-    act = torch.as_tensor(probe["mask"], device="cuda")
+    act = torch.as_tensor(probe["mask"], device=DEVICE)
     got, ref = got[act], ref[act]
     check(bool(torch.isfinite(got).all()) and got.shape[-1]
           == cfg.vocab_size, f"{label} probe: logits malformed")
     same = sum(int(torch.equal(a, b)) for a, b in zip(r_got, r_ref))
     dmax = float((got - ref).abs().max())
     lmax = float(ref.abs().max())
-    print(f"moe probe {label} (f32 activations, decode step "
+    print(f"{tag} probe {label} (f32 activations, decode step "
           f"{MOE_PROBE_STEP}, {int(probe['mask'].sum())} active slots): "
           f"logits max|d| {dmax:.3e} (max|logit| {lmax:.3e}, rel "
           f"{dmax / lmax:.3e}, tol {TOL_PROBE:g}) | MoE layers routed "
           f"alike {same}/{len(r_ref)} | kernel 5 launches {k_got} then "
           f"{k_ref}")
-    check(len(r_got) == len(r_ref) > 0 and same == len(r_ref),
-          f"{label} probe: {len(r_ref) - same} MoE layers routed otherwise")
+    if cfg.moe is None:
+        check(not r_got and not r_ref, f"{label} probe: routed with no MoE")
+    else:
+        check(len(r_got) == len(r_ref) > 0 and same == len(r_ref),
+              f"{label} probe: {len(r_ref) - same} MoE layers routed "
+              "otherwise")
     check(dmax <= TOL_PROBE * lmax, f"{label} probe: logits off: {dmax} > "
           f"{TOL_PROBE} * {lmax}")
     return {"max_abs": dmax, "max_logit": lmax, "moe_layers": len(r_ref),
@@ -3274,21 +3349,34 @@ def f32_probe(torch, np, cfg, params, alt, label):
 
 def reduced_on_card(torch, np, arch, seed):
     """A reduced model's greedy tokens on the card equal the CPU
-    engine's (f32)."""
+    engine's (f32).  The encoder-decoder's requests carry 16, 8, 3, 16
+    and 12 frames over a cross cache of 16 rows; the VLM's carry
+    patches."""
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
+    from repro_torch.models import lm, model_for
     from repro_torch.serving import Engine, Request, ServeConfig
     small = get_config(arch).reduced()
-    sp = lm.init(seed, small, device="cpu")
+    sp = model_for(small).init(seed, small, device="cpu")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, small.vocab_size, size=n).tolist()
                for n in (5, 17, 20, 9, 12)]
+    extras = [{} for _ in prompts]
+    if small.family == "audio":
+        extras = [{"frames": (rng.standard_normal((T, small.d_model))
+                              * 0.5).astype(np.float32)}
+                  for T in (16, 8, 3, 16, 12)]
+    elif small.family == "vlm":
+        extras = [{"patches": (rng.standard_normal((small.num_patches,
+                                                    1024)) * 0.1)
+                   .astype(np.float32)} for _ in prompts]
     toks = {}
     for dev in ("cpu", "cuda"):
-        e = Engine(small, ServeConfig(max_batch=3, max_len=64,
-                                      prefill_bucket=8),
-                   params=lm.to_device(sp, dev), device=dev)
-        rs = [Request(prompt=p, max_new=6) for p in prompts]
+        e = Engine(small, ServeConfig(
+            max_batch=3, max_len=64, prefill_bucket=8,
+            cross_len=16 if small.family == "audio" else 0),
+            params=lm.to_device(sp, dev), device=dev)
+        rs = [Request(prompt=p, max_new=6, **x)
+              for p, x in zip(prompts, extras)]
         for r in rs:
             e.submit(r)
         e.run_until_done()
@@ -3364,6 +3452,171 @@ def phase_moe(torch, np):
     out["phase_s"] = time.perf_counter() - t0
     print(f"moe: reduced {MOE_ARCH} and {MLA_ARCH} tokens equal to the CPU "
           f"engine's | phase 10 {out['phase_s']:.1f} s")
+    return out
+
+
+# --- phase 11: encoder-decoder and vision-language serving -------------------
+def encdec_requests(np, cfg, rng, n, max_new):
+    """``n`` requests of ENCDEC_PROMPTS prompt tokens with 0.1 * N(0, 1)
+    frames: ENCDEC_CROSS rows, half that for every third request."""
+    reqs = _requests(rng, cfg.vocab_size, n, *ENCDEC_PROMPTS, max_new)
+    for i, r in enumerate(reqs):
+        rows = ENCDEC_CROSS // 2 if i % 3 == 2 else ENCDEC_CROSS
+        r.frames = rng.standard_normal((rows, cfg.d_model),
+                                       dtype=np.float32) * 0.1
+    return reqs
+
+
+def encdec_scfg():
+    from repro_torch.serving import ServeConfig
+    return ServeConfig(max_batch=BATCH, max_len=ENCDEC_MAX_LEN,
+                       prefill_bucket=64, cross_len=ENCDEC_CROSS)
+
+
+def teacher_forced(torch, np, eng, probe, tol, label):
+    """The probe step re-run on a copy of its cache; the logits of its
+    first full-frame and first half-frame slot against ``encdec.apply``
+    in train mode over the slot's prompt, its tokens so far and its
+    frames: within ``tol`` * max|logit|, argmax the token the engine
+    emitted.  Kernel 5's launches in the re-run."""
+    from repro_torch.kernels.decode_attn import ops as dec_ops
+    from repro_torch.models import encdec
+    cfg = eng.cfg
+    n0 = dec_ops.launch_counts()["decode_attn"]
+    logits = eng.decode(probe["tokens"], probe["lengths"],
+                        _copy_cache(probe["cache"]))
+    launched = dec_ops.launch_counts()["decode_attn"] - n0
+    picked = {}
+    for s, (req, g) in sorted(probe["slots"].items()):
+        picked.setdefault(req.frames.shape[0], (s, req, g))
+    check(set(picked) == {ENCDEC_CROSS, ENCDEC_CROSS // 2},
+          f"{label}: the probe step has slots with {sorted(picked)} frames")
+    out = {"kernel5_launches": launched}
+    for rows, (s, req, g) in sorted(picked.items()):
+        check(int(probe["lengths"][s]) == len(req.prompt) + g - 1,
+              f"{label}: slot {s} length {int(probe['lengths'][s])}")
+        toks = torch.tensor([req.prompt + req.generated[:g]], device=DEVICE)
+        with torch.no_grad():
+            tf, _, _ = encdec.apply(
+                eng.params, cfg, toks,
+                frames=torch.from_numpy(req.frames)[None].to(DEVICE))
+        ref, got = tf[0, -1], logits[s]
+        dmax = float((got - ref).abs().max())
+        lmax = float(ref.abs().max())
+        emitted = req.generated[g]
+        print(f"encdec probe {label} ({cfg.dtype} activations) slot {s}, "
+              f"{rows} frames, position {len(toks[0]) - 1}: decode vs "
+              f"teacher forcing max|d| {dmax:.3e} (max|logit| {lmax:.3e}, "
+              f"rel {dmax / lmax:.3e}, tol {tol:g}) | argmax "
+              f"{int(got.argmax())}, emitted {emitted}")
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+        check(dmax <= tol * lmax, f"{label} slot {s} ({rows} frames): "
+              f"decode logits off teacher forcing: {dmax} > {tol} * {lmax}")
+        check(int(got.argmax()) == emitted, f"{label} slot {s}: the re-run "
+              "step's argmax is not the token the engine emitted")
+        out[f"frames_{rows}"] = {"slot": s, "max_abs": dmax,
+                                 "max_logit": lmax}
+    return out
+
+
+def phase_encdec(torch, np, gen):
+    """11a: whisper-tiny at published widths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.serving import Engine
+    cfg = get_config(ENCDEC_ARCH)
+    params = encdec.init(gen.manual_seed(3), cfg, device=DEVICE)
+    rng = np.random.default_rng(13)
+    n_req, max_new = ENCDEC_SHAPE
+    probe = {}
+    w = serve_lm_full(torch, np, cfg, params, n_req, max_new, rng,
+                      ENCDEC_ARCH, scfg=encdec_scfg(),
+                      reqs=encdec_requests(np, cfg, rng, n_req, max_new),
+                      keep=probe, tag="encdec")
+    k5 = w["launches"]["decode_attn"]
+    check(k5 == 2 * cfg.num_layers * w["decode_steps"], f"whisper: kernel "
+          f"5 {k5} launches for {w['decode_steps']} decode steps, expected "
+          f"{2 * cfg.num_layers} a step (self and cross)")
+    others = {k: n for k, n in w["launches"].items() if k != "decode_attn"}
+    check(not any(others.values()), f"whisper serve launched {others}")
+    eng = Engine(cfg, encdec_scfg(), params=params, device=DEVICE)
+    w["probe_bf16"] = teacher_forced(torch, np, eng, probe, TOL_BF16,
+                                     "whisper served")
+    # the same check in an f32-activation engine
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    eng = Engine(cfg32, encdec_scfg(), params=params, device=DEVICE)
+    for r in encdec_requests(np, cfg32, np.random.default_rng(14), BATCH,
+                             MOE_PROBE_STEP + 4):
+        eng.submit(r)
+    probe32 = {}
+    hook = _snapshot_at(MOE_PROBE_STEP, probe32)
+    while not probe32:
+        eng.step(hook)
+    w["probe_f32"] = teacher_forced(torch, np, eng, probe32, TOL_PROBE,
+                                    "whisper f32")
+    for key in ("probe_bf16", "probe_f32"):
+        check(w[key]["kernel5_launches"] == 2 * cfg.num_layers,
+              f"whisper {key}: kernel 5 ran {w[key]['kernel5_launches']} "
+              f"times in the re-run step")
+    return w
+
+
+def phase_vlm(torch, np, gen):
+    """11b: phi-3-vision-4.2b at published widths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import vlm
+    from repro_torch.nn.module import tree_bytes
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = vlm.init(gen.manual_seed(4), cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(15)
+    n_req, max_new = VLM_SHAPE
+
+    def patches(rng, r):
+        r.patches = rng.standard_normal((cfg.num_patches, vlm.CLIP_DIM),
+                                        dtype=np.float32) * 0.1
+
+    reqs = _requests(rng, cfg.vocab_size, n_req, *VLM_PROMPTS, max_new)
+    for r in reqs:
+        patches(rng, r)
+    v = serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, VLM_ARCH,
+                      reqs=reqs, tag="vlm")
+    v["init_s"] = init_s
+    v["param_bytes"] = tree_bytes(params)
+    k5 = v["launches"]["decode_attn"]
+    check(k5 == cfg.num_layers * v["decode_steps"], f"phi-3-vision: kernel "
+          f"5 {k5} launches for {v['decode_steps']} decode steps, expected "
+          f"{cfg.num_layers} a step")
+    others = {k: n for k, n in v["launches"].items() if k != "decode_attn"}
+    check(not any(others.values()), f"phi-3-vision serve launched {others}")
+    v["probe"] = f32_probe(torch, np,
+                           dataclasses.replace(cfg, dtype="float32"),
+                           params, plain_decode_attention, "phi-3-vision",
+                           decorate=patches, tag="vlm")
+    check(v["probe"]["kernel5_launches"] == [cfg.num_layers, 0],
+          f"phi-3-vision probe: kernel 5 ran "
+          f"{v['probe']['kernel5_launches']} times in the kernel and plain "
+          f"re-runs; expected [{cfg.num_layers}, 0]")
+    return v
+
+
+def phase_encdec_vlm(torch, np):
+    """Phase 11: 11a whisper-tiny, 11b phi-3-vision-4.2b, 11c the reduced
+    models' card tokens against the CPU engine's."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    out = {"whisper": phase_encdec(torch, np, gen)}
+    torch.cuda.empty_cache()
+    out["phi3v"] = phase_vlm(torch, np, gen)
+    torch.cuda.empty_cache()
+    out["reduced"] = {arch: reduced_on_card(torch, np, arch, 3)
+                      for arch in (ENCDEC_ARCH, VLM_ARCH)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"encdec/vlm: reduced {ENCDEC_ARCH} and {VLM_ARCH} tokens equal "
+          f"to the CPU engine's | phase 11 {out['phase_s']:.1f} s")
     return out
 
 
@@ -3464,6 +3717,8 @@ def main(argv=None) -> int:
     rows.update(train_rows)
     torch.cuda.empty_cache()
     moe = phase_moe(torch, np)
+    torch.cuda.empty_cache()
+    encvlm = phase_encdec_vlm(torch, np)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
@@ -3475,7 +3730,9 @@ def main(argv=None) -> int:
              "train": train["ssm"]["launches"],
              "moe": moe["granite"]["launches"],
              "moe_phi4": moe["phi4"]["launches"],
-             "moe_mla": moe["deepseek"]["launches"]}
+             "moe_mla": moe["deepseek"]["launches"],
+             "encdec": encvlm["whisper"]["launches"],
+             "vlm": encvlm["phi3v"]["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
@@ -3574,9 +3831,10 @@ def main(argv=None) -> int:
           f"{train['ssm']['peak_mem_bytes'] / 2 ** 30:.2f} GiB, launches "
           f"{train['ssm']['launches']} | phase 9 {train['phase_s']:.1f} s | "
           f"on {card}")
-    for key in ("granite", "phi4", "deepseek"):
-        m = moe[key]
-        print(f"serve moe {m['arch']} ({m['param_dtype']} params): "
+    for tag, m in [("moe", moe[k]) for k in ("granite", "phi4", "deepseek")
+                   ] + [("encdec", encvlm["whisper"]),
+                        ("vlm", encvlm["phi3v"])]:
+        print(f"serve {tag} {m['arch']} ({m['param_dtype']} params): "
               f"{m['completed']}/{m['requests']} requests, {m['tokens']} "
               f"tokens over {m['decode_steps']} decode steps | "
               f"{m['decode_tokens_per_s']:.2f} tok/s in decode, "
@@ -3601,6 +3859,7 @@ def main(argv=None) -> int:
                        "fleet": fleet, "supervised": supervised,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
                        "train": train, "moe": moe,
+                       "encdec_vlm": encvlm,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()
                                      if "per_layer" in r},

@@ -1,9 +1,11 @@
 """Config registry: ``get_config("smollm-360m")`` etc.
 
 The port serves the paper's own AlexNet and VGG-16, the dense GQA
-language models, the Mamba-2 SSM and the mixture-of-experts models (GQA
-or MLA attention); the reference's other configs come with later slices
-of the port, and naming one raises with the ROADMAP item that ports it.
+language models, the Mamba-2 SSM, the mixture-of-experts models (GQA
+or MLA attention), the encoder-decoder whisper-tiny and the
+vision-language phi-3-vision-4.2b; the reference's hybrid jamba comes
+with a later slice of the port, and naming it raises with the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -19,14 +21,14 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "whisper-tiny": "whisper_tiny",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
 }
 
-# the reference's LM configs that later slices port (ROADMAP Queue 1)
+# the reference's LM configs that a later slice ports (ROADMAP Queue 1)
 _NOT_PORTED = {
     "jamba-v0.1-52b": "item 7c (hybrid: Mamba-2 and attention layers, MoE "
                       "every other layer)",
-    "phi-3-vision-4.2b": "item 7c (VLM)",
-    "whisper-tiny": "item 7c (encoder-decoder)",
 }
 
 CNN_ARCHS = ["alexnet", "vgg16"]

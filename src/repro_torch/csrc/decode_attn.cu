@@ -10,7 +10,14 @@
 //
 // Replaces the TPU kernel _decode_kernel (src/repro/kernels/decode_attn/
 // decode_attn.py:26), the serving engine's hot spot: one launch per layer
-// per decode step, q (B, 1, H, D), caches (B, S, KV, D) in f32 or bf16.
+// per decode step, q (B, 1, H, D), caches (B, S, KV, D) in f32 or bf16,
+// built for D in {8, 16, 32, 64, 96, 128}.  Nothing assumes a power of
+// two: a lane's outputs are (head, d) = divmod(lane + 32 i, D), which
+// needs 4 D % 32 == 0; a staged row is D * sizeof(T) + 16 bytes, a
+// multiple of 16 for cp.async; the bf16 scores take D / 16 mma k-steps.
+// The encoder-decoder's cross decode is the same kernel over the
+// encoder's rows (per-slot lengths: the rows each prefill wrote); an MHA
+// model (G = 1) leaves 3 of a block's 4 query-head rows idle.
 //
 // What bounds it on an H100: bytes.  Each valid K and V element is read
 // once and takes 2 flops per query head of its group (G = 3 for smollm-360m
@@ -137,7 +144,8 @@ __global__ void __launch_bounds__(kThreads)
   // dot products
   constexpr bool kTensor =
       std::is_same<T, __nv_bfloat16>::value && D % 16 == 0;
-  static_assert(kChunks >= 1 && kOut >= 1, "head dim 8..128");
+  static_assert(kChunks >= 1 && kOut >= 1 && D % 8 == 0,
+                "head dim a multiple of 8, 8..128");
   static_assert(kTile == 8 * kWarps, "a warp's 8 rows a tile");
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::kQ);
@@ -439,6 +447,8 @@ int dispatch(const void* q, const void* k, const void* v, const int* lengths,
       return run(launch<T, 32>);
     case 64:
       return run(launch<T, 64>);
+    case 96:
+      return run(launch<T, 96>);
     case 128:
       return run(launch<T, 128>);
     default:

@@ -29,8 +29,8 @@ from .ref import decode_attention_ref, prescale, prescale_factor  # noqa: F401
 launches = 0
 
 # head dims and dtypes the kernel is built for (one 16-byte load per lane
-# covers 8 bf16 or 4 f32 values of a cache row)
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+# covers 8 bf16 or 4 f32 values of a cache row; 96 is phi-3-vision's)
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's blocking (csrc/decode_attn.cu): query heads a block (one warp

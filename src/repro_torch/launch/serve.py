@@ -16,7 +16,11 @@ pre-dispatch slab fingerprints, a bound on |logit|).
 ``--arch granite-moe-1b-a400m`` or ``--arch deepseek-v2-lite-16b`` the
 mixture-of-experts models (kernel 5 in each of granite's GQA layers;
 deepseek's MLA decodes in the absorbed form, with no kernel;
-``--param-dtype bfloat16`` halves a full-width model's parameters).
+``--param-dtype bfloat16`` halves a full-width model's parameters);
+``--arch whisper-tiny`` serves the encoder-decoder (128 random frames a
+request; kernel 5 twice a layer a step, over the self and the cross
+cache) and ``--arch phi-3-vision-4.2b`` the vision-language model (the
+config's patches a request, prepended; kernel 5 at head_dim 96).
 
 ``python -m repro_torch.launch.serve --arch vgg16 --dtype bfloat16
 --workers 2 --kill-worker`` serves the images through a
@@ -205,16 +209,26 @@ def serve_tokens(cfg, args) -> int:
     count."""
     if args.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
-    scfg = ServeConfig(max_batch=args.max_batch, max_len=args.max_len)
+    scfg = ServeConfig(max_batch=args.max_batch, max_len=args.max_len,
+                       cross_len=128 if cfg.family == "audio" else 0)
     eng = Engine(cfg, scfg, seed=args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for _ in range(args.requests):
         plen = int(rng.integers(4, min(64, args.max_len - args.max_new)))
-        reqs.append(Request(
+        req = Request(
             prompt=rng.integers(1, cfg.vocab_size, size=plen).tolist(),
-            max_new=args.max_new))
-        eng.submit(reqs[-1])
+            max_new=args.max_new)
+        # the reference's request shapes: 128 encoder frames, or the
+        # config's patches
+        if cfg.family == "audio":
+            req.frames = rng.standard_normal(
+                (128, cfg.d_model)).astype(np.float32) * 0.1
+        if cfg.family == "vlm":
+            req.patches = rng.standard_normal(
+                (cfg.num_patches, 1024)).astype(np.float32) * 0.1
+        reqs.append(req)
+        eng.submit(req)
     eng.run_until_done()
     done = sum(r.done for r in reqs)
     lat = eng.latency.percentiles_ms()

@@ -119,11 +119,16 @@ def cache_shape(cfg: ArchConfig, batch: int, max_len: int):
 def cache_init(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
     """Zero caches for ``batch`` slots (of ``max_len`` positions for the
     attention layers; an SSM layer's is its conv window and state)."""
+    return zero_caches(cache_shape(cfg, batch, max_len), device)
+
+
+def zero_caches(shapes, device):
+    """Zero buffers of a per-layer cache structure on ``device``."""
     dev = resolve_device(device)
     return [{kind: {name: torch.zeros(shape, dtype=dt, device=dev)
                     for name, (shape, dt) in bufs.items()}
              for kind, bufs in c.items()}
-            for c in cache_shape(cfg, batch, max_len)]
+            for c in shapes]
 
 
 def _readout(params, cfg: ArchConfig, x):

@@ -1,23 +1,36 @@
-"""Attention mixers: GQA with RoPE, and DeepSeek-V2's multi-head latent
-attention (MLA) (the reference's ``repro/nn/attention.py``).
+"""Attention mixers: GQA with RoPE, DeepSeek-V2's multi-head latent
+attention (MLA), and cross-attention into an encoder's output (the
+reference's ``repro/nn/attention.py``).
 
 Modes:
   train   — causal blockwise attention with the flash backward, no cache
             (``banded_attention`` picks the lower-triangle schedule; under
             ``remat_policy="save_attn"`` the layer's checkpoint keeps the
             flash output, ``flash.FLASH_OP``).
+  bidir   — non-causal self-attention with RoPE (an encoder), GQA only.
   prefill — causal, and the layer's cache written from position 0.
   decode  — S new tokens (one, in serving) against the cache at per-slot
             offsets.  GQA's attention is kernel 5 on the card; MLA decodes
             in the absorbed (latent-space) form, plain products that never
             materialise the per-head K/V at cache length.
 
+Cross-attention (``enc_out`` given, or a decode whose cache holds no
+``k``): q from x, K and V from the encoder's output, no RoPE, not
+causal.  Its weights are GQA's even under an MLA config, as in the
+reference.  Prefill writes K and V into the cross cache ``ck``/``cv``
+from row 0; the cross decode is kernel 5 over that cache.
+
 A GQA layer caches K and V, (B, max_len, KV, D) each; an MLA layer the
 normalised latent ``ckv`` (B, max_len, kv_lora) and the roped shared key
-``kpe`` (B, max_len, rope_dim).  The cache is updated in place (the
-serving engine owns it preallocated, as the reference donates its cache
-to the jitted step) and returned.  Cross-attention comes with ROADMAP
-Queue 1, item 7c.
+``kpe`` (B, max_len, rope_dim); a cross layer ``ck``/``cv`` (B,
+cross_len, KV, D) and ``clen`` (B,) int32, the encoder rows each slot's
+prefill wrote.  The cross decode attends to those rows only: the
+reference attends to all ``cross_len`` rows, the unwritten zeros too
+(ROADMAP Queue 3), and the two agree where the frames fill
+``cross_len``.  ``clen`` is the port's own leaf; the reference's cache
+has none.  The cache is updated in place (the serving engine owns it
+preallocated, as the reference donates its cache to the jitted step) and
+returned.
 """
 from __future__ import annotations
 
@@ -31,17 +44,12 @@ from .layers import linear, linear_init, rmsnorm, rmsnorm_init, rope
 from .module import torch_dtype
 
 
-def _check_supported(cfg: ArchConfig, cross: bool = False):
-    if cross or cfg.cross_attention:
-        raise NotImplementedError("cross-attention is not ported yet "
-                                  "(ROADMAP Queue 1, item 7c)")
-
-
 def attn_init(gen, cfg: ArchConfig, cross: bool = False):
-    _check_supported(cfg, cross)
+    """A layer's attention weights: MLA's where the config has it, else
+    GQA's; a cross layer's (``cross``) are always GQA's."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     dtype = torch_dtype(cfg.param_dtype)
-    if cfg.mla is not None:
+    if cfg.mla is not None and not cross:
         m = cfg.mla
         return {
             "wq": linear_init(gen, d, H * (m.qk_nope_head_dim
@@ -62,42 +70,71 @@ def attn_init(gen, cfg: ArchConfig, cross: bool = False):
     }
 
 
-def attn_cache_shape(cfg: ArchConfig, batch: int, max_len: int):
-    """Cache structure of one attention layer: {name: (shape, dtype)}."""
-    _check_supported(cfg)
+def cross_cache_shape(cfg: ArchConfig, batch: int, cross_len: int):
+    """Cache structure of one cross-attention layer: the encoder's K and V
+    and each slot's count of written rows."""
+    shape = (batch, cross_len, cfg.num_kv_heads, cfg.d_head)
+    dt = torch_dtype(cfg.dtype)
+    return {"ck": (shape, dt), "cv": (shape, dt),
+            "clen": ((batch,), torch.int32)}
+
+
+def attn_cache_shape(cfg: ArchConfig, batch: int, max_len: int,
+                     cross_len: int = 0):
+    """Cache structure of one attention layer: {name: (shape, dtype)};
+    with ``cross_len`` the cross cache's entries too."""
     dt = torch_dtype(cfg.dtype)
     if cfg.mla is not None:
         m = cfg.mla
-        return {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
-                "kpe": ((batch, max_len, m.qk_rope_head_dim), dt)}
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.d_head)
-    return {"k": (shape, dt), "v": (shape, dt)}
+        cache = {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
+                 "kpe": ((batch, max_len, m.qk_rope_head_dim), dt)}
+    else:
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.d_head)
+        cache = {"k": (shape, dt), "v": (shape, dt)}
+    if cross_len:
+        cache.update(cross_cache_shape(cfg, batch, cross_len))
+    return cache
 
 
-def gqa_apply(p, cfg: ArchConfig, x, *, mode: str, length=None, cache=None):
-    """x (B, S, d_model) -> (y (B, S, d_model), cache)."""
-    _check_supported(cfg)
+def gqa_apply(p, cfg: ArchConfig, x, *, mode: str, length=None, cache=None,
+              enc_out=None):
+    """x (B, S, d_model) -> (y (B, S, d_model), cache); ``enc_out`` (B,
+    T, d_model): cross-attention into it."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     q = linear(p["wq"], x).reshape(B, S, H, hd)
-    k = linear(p["wk"], x).reshape(B, S, KV, hd)
-    v = linear(p["wv"], x).reshape(B, S, KV, hd)
-    if mode in ("train", "prefill"):
-        pos = torch.arange(S, device=x.device)[None, :]
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
-        o = flash.flash_attention(q, k, v, causal=True,
-                                  banded=cfg.banded_attention)
+    if mode in ("train", "bidir", "prefill"):
+        src = x if enc_out is None else enc_out
+        T = src.shape[1]
+        k = linear(p["wk"], src).reshape(B, T, KV, hd)
+        v = linear(p["wv"], src).reshape(B, T, KV, hd)
+        if enc_out is None:
+            pos = torch.arange(S, device=x.device)[None, :]
+            q = rope(q, pos, cfg.rope_theta)
+            k = rope(k, pos, cfg.rope_theta)
+        o = flash.flash_attention(
+            q, k, v, causal=enc_out is None and mode != "bidir",
+            banded=cfg.banded_attention)
         if mode == "prefill" and cache is not None:
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
-    elif mode == "decode":
+            if enc_out is None:
+                cache["k"][:, :S] = k
+                cache["v"][:, :S] = v
+            else:
+                cache["ck"][:, :T] = k
+                cache["cv"][:, :T] = v
+                cache["clen"].fill_(T)
+    elif mode == "decode" and enc_out is None and "k" in cache:
+        k = linear(p["wk"], x).reshape(B, S, KV, hd)
+        v = linear(p["wv"], x).reshape(B, S, KV, hd)
         posv = pos_of(length, S, x.device)
         q = rope(q, posv, cfg.rope_theta)
         k = rope(k, posv, cfg.rope_theta)
         cache_write(cache["k"], k, length)
         cache_write(cache["v"], v, length)
         o = flash.decode_attention(q, cache["k"], cache["v"], length + S)
+    elif mode == "decode":              # cross decode over the encoder's rows
+        o = flash.decode_attention(q, cache["ck"], cache["cv"],
+                                   cache["clen"])
     else:
         raise ValueError(mode)
     y = linear(p["wo"], o.reshape(B, S, H * hd))
@@ -228,10 +265,12 @@ def mla_decode_materialised(p, cfg: ArchConfig, q_nope, q_pe, ckv, kpe,
 
 
 def attn_apply(p, cfg: ArchConfig, x, *, mode: str, length=None,
-               cache=None):
-    """The layer's mixer: MLA where the config has it, else GQA."""
-    if cfg.mla is not None:
+               cache=None, enc_out=None):
+    """The layer's mixer: MLA where the config has it, else GQA; a cross
+    layer (``enc_out`` given) is GQA."""
+    if cfg.mla is not None and enc_out is None:
         if mode == "bidir":
             raise ValueError("MLA encoder not supported")
         return mla_apply(p, cfg, x, mode=mode, length=length, cache=cache)
-    return gqa_apply(p, cfg, x, mode=mode, length=length, cache=cache)
+    return gqa_apply(p, cfg, x, mode=mode, length=length, cache=cache,
+                     enc_out=enc_out)

@@ -8,9 +8,14 @@ loop over a list of per-layer parameter dicts in layer order
 (``models.lm.params_from_reference`` unstacks the reference's).  A
 layer's mixer is attention (GQA or MLA) or the Mamba-2 SSM, its FFN a
 dense MLP, a mixture of experts (``nn/moe.py``) or none: deepseek's layer
-0 is ("attn", "mlp"), layers 1-26 ("attn", "moe").
+0 is ("attn", "mlp"), layers 1-26 ("attn", "moe").  Under
+``cross_attention`` (a decoder of the encoder-decoder family) each layer
+has a cross-attention sublayer (``normx``, ``xattn``) between the mixer
+and the FFN, run when ``enc_out`` is given or the layer's cache holds
+``xattn``: mode ``decode`` in a decode, else ``prefill`` (which writes
+the cross cache where there is one).
 
-Under ``cfg.remat`` in train mode each layer runs inside
+Under ``cfg.remat`` in train and bidir mode each layer runs inside
 ``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations are
 recomputed in the backward, one layer at a time, as the reference's
 ``jax.checkpoint`` of its period-1 scan group does.  With
@@ -26,7 +31,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..config import ArchConfig
-from .attention import attn_apply, attn_cache_shape, attn_init
+from .attention import (attn_apply, attn_cache_shape, attn_init,
+                        cross_cache_shape)
 from .flash import FLASH_OP
 from .layers import norm, norm_init
 from .mlp import mlp_apply, mlp_init
@@ -47,6 +53,9 @@ def block_init(gen, cfg: ArchConfig, mixer: str, ffn: str):
         p["attn"] = attn_init(gen, cfg)
     else:
         p["ssm"] = mamba_init(gen, cfg)
+    if cfg.cross_attention:
+        p["normx"] = norm_init(cfg.norm_type, cfg.d_model, dtype)
+        p["xattn"] = attn_init(gen, cfg, cross=True)
     if ffn != "none":
         p["norm2"] = norm_init(cfg.norm_type, cfg.d_model, dtype)
         p[ffn] = mlp_init(gen, cfg) if ffn == "mlp" else moe_init(gen, cfg)
@@ -54,7 +63,8 @@ def block_init(gen, cfg: ArchConfig, mixer: str, ffn: str):
 
 
 def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
-                length=None, cache=None, collect_aux: bool = False):
+                length=None, cache=None, enc_out=None,
+                collect_aux: bool = False):
     """x (B, S, d_model) -> (x, cache, aux); aux is the MoE router loss
     under ``collect_aux``, else 0.  ``stack_kinds`` has checked the
     kind."""
@@ -63,9 +73,21 @@ def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
         h, c = attn_apply(p["attn"], cfg, h, mode=mode, length=length,
                           cache=None if cache is None else cache["attn"])
     else:       # the SSM carries its own position in its state
-        h, c = mamba_apply(p["ssm"], cfg, h, mode=mode,
+        h, c = mamba_apply(p["ssm"], cfg, h,
+                           mode="train" if mode == "bidir" else mode,
                            cache=None if cache is None else cache["ssm"])
     x = x + h
+    new_cache = None if cache is None else {mixer: c}
+    xc = None if cache is None else cache.get("xattn")
+    if cfg.cross_attention and "xattn" in p and (enc_out is not None
+                                                 or xc is not None):
+        h, xc = attn_apply(p["xattn"], cfg,
+                           norm(cfg.norm_type, p["normx"], x),
+                           mode="decode" if mode == "decode" else "prefill",
+                           length=length, cache=xc, enc_out=enc_out)
+        x = x + h
+        if new_cache is not None and xc is not None:
+            new_cache["xattn"] = xc
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "mlp":
         x = x + mlp_apply(p["mlp"], cfg, norm(cfg.norm_type, p["norm2"], x))
@@ -75,7 +97,7 @@ def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
         x = x + h
         if a is not None:
             aux = a
-    return x, (None if cache is None else {mixer: c}), aux
+    return x, new_cache, aux
 
 
 def stack_kinds(cfg: ArchConfig):
@@ -92,14 +114,17 @@ def stack_init(gen, cfg: ArchConfig):
 
 
 def block_cache_shape(cfg: ArchConfig, mixer: str, batch: int,
-                      max_len: int):
-    if mixer == "attn":
-        return {"attn": attn_cache_shape(cfg, batch, max_len)}
-    return {"ssm": ssm_cache_shape(cfg, batch)}
+                      max_len: int, cross_len: int = 0):
+    c = ({"attn": attn_cache_shape(cfg, batch, max_len)} if mixer == "attn"
+         else {"ssm": ssm_cache_shape(cfg, batch)})
+    if cfg.cross_attention and cross_len:
+        c["xattn"] = cross_cache_shape(cfg, batch, cross_len)
+    return c
 
 
-def stack_cache_shape(cfg: ArchConfig, batch: int, max_len: int):
-    return [block_cache_shape(cfg, mixer, batch, max_len)
+def stack_cache_shape(cfg: ArchConfig, batch: int, max_len: int,
+                      cross_len: int = 0):
+    return [block_cache_shape(cfg, mixer, batch, max_len, cross_len)
             for mixer, _ in stack_kinds(cfg)]
 
 
@@ -112,9 +137,9 @@ def _remat_context():
     return create_selective_checkpoint_contexts(_save_attn)
 
 
-def _remat_block(bp, x, cfg, mixer, ffn, collect_aux):
-    x, _, aux = block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode="train",
-                            collect_aux=collect_aux)
+def _remat_block(bp, x, enc_out, cfg, mixer, ffn, mode, collect_aux):
+    x, _, aux = block_apply(bp, cfg, x, mixer=mixer, ffn=ffn, mode=mode,
+                            enc_out=enc_out, collect_aux=collect_aux)
     return x, aux
 
 
@@ -128,23 +153,25 @@ def _remat_kwargs(cfg: ArchConfig) -> dict:
 
 
 def stack_apply(params, cfg: ArchConfig, x, *, mode: str, length=None,
-                caches=None, collect_aux: bool = False):
+                caches=None, enc_out=None, collect_aux: bool = False):
     """Every layer in order -> (x, caches, aux); aux, the MoE router loss
-    summed over the layers under ``collect_aux``, is 0 otherwise."""
+    summed over the layers under ``collect_aux``, is 0 otherwise;
+    ``enc_out`` goes to every layer's cross-attention."""
     new_caches = None if caches is None else []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    remat = (cfg.remat and mode in ("train", "bidir")
+             and torch.is_grad_enabled())
     kw = _remat_kwargs(cfg) if remat else None
     for i, ((mixer, ffn), bp) in enumerate(zip(stack_kinds(cfg), params)):
         if remat:
             x, aux = checkpoint(functools.partial(
-                _remat_block, cfg=cfg, mixer=mixer, ffn=ffn,
-                collect_aux=collect_aux), bp, x, **kw)
+                _remat_block, cfg=cfg, mixer=mixer, ffn=ffn, mode=mode,
+                collect_aux=collect_aux), bp, x, enc_out, **kw)
         else:
             x, c, aux = block_apply(
                 bp, cfg, x, mixer=mixer, ffn=ffn, mode=mode, length=length,
                 cache=None if caches is None else caches[i],
-                collect_aux=collect_aux)
+                enc_out=enc_out, collect_aux=collect_aux)
             if new_caches is not None:
                 new_caches.append(c)
         aux_total = aux_total + aux

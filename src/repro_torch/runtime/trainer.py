@@ -88,6 +88,11 @@ class Trainer:
         self.cfg, self.tcfg = cfg, tcfg
         self.device = resolve_device(device)
         self.mod = model_for(cfg)
+        if cfg.family in ("audio", "vlm"):
+            raise NotImplementedError(
+                f"Trainer: training the {cfg.family!r} family (its frames or "
+                "patches through the trainer's batches) is not ported yet "
+                "(ROADMAP Queue 1, item 7d)")
         if self.mod is not lm:
             raise NotImplementedError(
                 f"Trainer trains the LM families; family {cfg.family!r} "

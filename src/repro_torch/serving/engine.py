@@ -12,20 +12,31 @@ prefill runs kernels 7 and 6 in every layer), and its one-row cache is
 copied into the request's slot, buffer by buffer.  The mixture-of-experts
 models serve the same way: their pad tokens are routed and take expert
 capacity as in the reference, and an MLA layer decodes in the absorbed
-form, with no kernel.
+form, with no kernel.  The encoder-decoder (``audio``) prefills with the
+request's ``frames`` (zeros of (cross_len, d_model) when it has none),
+which fill each layer's cross cache, and decodes with kernel 5 twice a
+layer, over the self cache and over the slot's encoder rows.  The
+vision-language model (``vlm``) prefills with the request's ``patches``
+(zeros of (num_patches, 1024) when it has none) before the prompt, so a
+slot's length counts the patch prefix.
 
 Slot and queue bookkeeping is the shared :class:`SlotScheduler`, as for
 :class:`CnnEngine`; this module owns the decode state: per-layer caches
 (GQA: (max_batch, max_len, KV, D) K and V in ``cfg.dtype``; MLA: the
 latent (max_batch, max_len, kv_lora) and the rope key (max_batch,
-max_len, rope_dim); SSM: the conv windows and the f32 state),
+max_len, rope_dim); SSM: the conv windows and the f32 state; a cross
+layer's encoder K and V (max_batch, cross_len, KV, D) and rows written;
+VLM: num_patches + max_len positions),
 preallocated and updated in place, the slots' lengths (on the host,
 uploaded with the active mask once a step) and their last tokens (on the
 device).  The engine runs eagerly; each step ends in one host sync, the
 fetch of the new tokens.
 
 Request lifecycle: submit() -> queued -> admitted (prefill) -> decoding ->
-finished (max_new, max_len or eos).
+finished (max_new, max_len or eos).  The max_len test counts text
+positions, the length less a VLM's patch prefix: the reference counts
+the prefix too, and so retires a VLM request early once the prefix
+passes max_len (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ class ServeConfig:
     max_len: int = 512
     prefill_bucket: int = 64          # prompts padded to multiples
     eos_id: int = -1                  # -1: disabled
+    cross_len: int = 0                # enc-dec: encoder rows (0: 128)
 
 
 @dataclass
@@ -56,6 +68,8 @@ class Request:
     prompt: List[int]
     max_new: int = 16
     uid: int = field(default_factory=itertools.count().__next__)
+    frames: Optional[np.ndarray] = None       # audio family: (T, d_model)
+    patches: Optional[np.ndarray] = None      # vlm family: (P, 1024)
     # outputs
     generated: List[int] = field(default_factory=list)
     done: bool = False
@@ -75,8 +89,13 @@ class Engine:
         self.params = (params if params is not None
                        else self.mod.init(seed, cfg, device=self.device))
         B = scfg.max_batch
+        self._cache_kw = ({"cross_len": scfg.cross_len or 128}
+                          if cfg.family == "audio" else {})
+        # positions of a slot before its text: a VLM's patch prefix
+        self._prefix = cfg.num_patches if cfg.family == "vlm" else 0
         self.cache = self.mod.cache_init(cfg, B, scfg.max_len,
-                                         device=self.device)
+                                         device=self.device,
+                                         **self._cache_kw)
         self.lengths = np.zeros(B, np.int32)
         self.last_tokens = torch.zeros((B, 1), dtype=torch.long,
                                        device=self.device)
@@ -119,27 +138,42 @@ class Engine:
             toks = np.zeros((1, self._pad_len(plen)), np.int64)
             toks[0, :plen] = prompt
             one = self.mod.cache_init(self.cfg, 1, self.scfg.max_len,
-                                      device=self.device)
+                                      device=self.device, **self._cache_kw)
             logits, one, _ = self.mod.apply(
                 self.params, self.cfg, torch.from_numpy(toks).to(self.device),
-                mode="prefill", caches=one)
-            # insert: every cache of the one-row prefill into the slot;
-            # prefill over the padded tail also wrote attention entries
-            # past plen, which lengths masks
+                mode="prefill", caches=one, **self._extras(req))
+            # insert: every cache of the one-row prefill into the slot (a
+            # cross layer's too); prefill over the padded tail also wrote
+            # attention entries past plen, which lengths masks
             for full, row in zip(self.cache, one):
                 for kind, bufs in full.items():
                     for name, buf in bufs.items():
                         buf[slot] = row[kind][name][0]
-            self.lengths[slot] = plen
+            self.lengths[slot] = self._prefix + plen
             first_tok = int(logits[0, plen - 1].argmax())
             self.last_tokens[slot, 0] = first_tok
             req.generated.append(first_tok)
             self.tokens_generated += 1
 
+    def _extras(self, req: Request) -> dict:
+        """The prefill's frames or patches, one row, on the device."""
+        if self.cfg.family == "audio":
+            fr = req.frames if req.frames is not None else np.zeros(
+                (self._cache_kw["cross_len"], self.cfg.d_model), np.float32)
+            return {"frames": torch.from_numpy(np.asarray(fr))[None].to(
+                self.device)}
+        if self.cfg.family == "vlm":
+            pa = req.patches if req.patches is not None else np.zeros(
+                (self.cfg.num_patches, 1024), np.float32)
+            return {"patches": torch.from_numpy(np.asarray(pa))[None].to(
+                self.device)}
+        return {}
+
     def _retire(self):
         for slot, req in self.sched.occupied():
+            text = int(self.lengths[slot]) - self._prefix
             limit = (len(req.generated) >= req.max_new or
-                     int(self.lengths[slot]) >= self.scfg.max_len - 1)
+                     text >= self.scfg.max_len - 1)
             eos = (self.scfg.eos_id >= 0 and req.generated and
                    req.generated[-1] == self.scfg.eos_id)
             if limit or eos:

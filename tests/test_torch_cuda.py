@@ -1625,3 +1625,80 @@ def test_mla_engine_on_the_card_matches_the_cpu(card):
         out[str(dev)] = [r.generated for r in reqs]
         assert decode_attn.launches == n0
     assert out["cpu"] == out[str(card)]
+
+
+# kernel 5 at head_dim 96, in MHA (G = 1) and over an encoder's cache ---------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", [(3, 77, 4, 4, 96), (2, 300, 8, 2, 96),
+                                        (4, 100, 6, 6, 64),
+                                        (8, 448, 6, 6, 64),
+                                        (8, 1500, 6, 6, 64),
+                                        (2, 1088, 32, 32, 96)])
+def test_decode_attn_head_dim_96_and_mha(card, dtype, B, S, H, KV, D):
+    """D = 96 (phi-3-vision-4.2b's, no power of two; G = 4 and 1) and MHA
+    at whisper-tiny's D = 64: small shapes, the self cache of 448
+    positions, the cross cache of 1,500 rows (no multiple of the split)
+    and phi-3-vision's 1,088 positions; ragged lengths with S and 1;
+    two calls bit-equal."""
+    q, k, v, lens = _decode_inputs(B + S + D, B, S, H, KV, D, dtype, card)
+    got = _decode_check(q, k, v, lens, dtype)
+    again = decode_attn.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_per_slot_cross_lengths(card, dtype):
+    """The cross decode's lengths: one slot at 1,500 encoder rows, the rest
+    at 750 (and one at 1); each slot's output equals the kernel over its
+    own rows alone, whatever the rows past them hold."""
+    B, S, H, KV, D = 8, 1500, 6, 6, 64
+    q, k, v, _ = _decode_inputs(21, B, S, H, KV, D, dtype, card)
+    lens = torch.tensor([S] + [750] * 6 + [1], dtype=torch.int32,
+                        device=card)
+    got = _decode_check(q, k, v, lens, dtype)
+    for b in (0, 1, 7):
+        n = int(lens[b])
+        alone = decode_attn.decode_attention(
+            q[b:b + 1], k[b:b + 1, :n].contiguous(),
+            v[b:b + 1, :n].contiguous(),
+            torch.tensor([n], dtype=torch.int32, device=card))
+        _decode_close(got[b:b + 1], alone, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
+def test_encdec_and_vlm_engines_on_the_card_match_the_cpu(card, arch):
+    """The reduced models served on the card (f32): the CPU engine's
+    greedy tokens; kernel 5 once a layer a decode step, twice for the
+    encoder-decoder (the self and the cross cache).  Whisper's requests
+    carry 16, 8 and 3 frames over a cross cache of 16 rows."""
+    from repro_torch.models import model_for
+    cfg = get_config(arch).reduced()
+    mod = model_for(cfg)
+    params = mod.init(0, cfg, device="cpu")
+    audio = cfg.family == "audio"
+    scfg = ServeConfig(max_batch=3, max_len=64, prefill_bucket=16,
+                       cross_len=16 if audio else 0)
+    rng = np.random.default_rng(4)
+    extras = [({"frames": (rng.standard_normal((T, cfg.d_model)) * 0.5)
+                .astype(np.float32)} if audio else
+               {"patches": (rng.standard_normal((cfg.num_patches, 1024))
+                            * 0.1).astype(np.float32)})
+              for T in (16, 8, 3, 16)]
+    out = {}
+    for dev in ("cpu", card):
+        eng = Engine(cfg, scfg, params=lm.to_device(params, dev), device=dev)
+        reqs = [Request(prompt=list(range(1, n + 1)), max_new=5, **x)
+                for n, x in zip((5, 12, 3, 20), extras)]
+        for r in reqs:
+            eng.submit(r)
+        n0 = decode_attn.launches
+        eng.run_until_done()
+        out[str(dev)] = [r.generated for r in reqs]
+        if dev == card:
+            assert decode_attn.launches - n0 == \
+                cfg.num_layers * (2 if audio else 1) * eng.decode_steps
+    assert out["cpu"] == out[str(card)]

@@ -28,9 +28,11 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
 
 # the reference's sweep, a group of 3 (smollm-360m's and llama3.2-3b's G)
-# and D = 64 (smollm-360m's head dim)
+# and D = 64 (smollm-360m's head dim); MHA (G = 1) at whisper-tiny's D = 64
+# over 150 encoder rows and at phi-3-vision-4.2b's D = 96
 GEOMETRIES = [(3, 64, 4, 2, 16), (2, 100, 8, 8, 32), (1, 33, 6, 3, 8),
-              (2, 40, 6, 2, 16), (2, 96, 15, 5, 64)]
+              (2, 40, 6, 2, 16), (2, 96, 15, 5, 64), (2, 150, 6, 6, 64),
+              (2, 72, 4, 4, 96)]
 
 
 def _inputs(seed, B, S, H, KV, D, dtype):

@@ -79,8 +79,7 @@ def test_configs_match_reference(arch):
             [j_cfg.layer_kind(i) for i in range(j_cfg.num_layers)]
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b",
-                                  "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
 def test_unported_archs_raise_with_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
         get_config(arch)
@@ -102,7 +101,7 @@ def test_pattern_periodicity_on_the_ports_configs():
     assert model_for(d) is lm and model_for(g) is lm
 
 
-@pytest.mark.parametrize("family", ["hybrid", "audio", "vlm"])
+@pytest.mark.parametrize("family", ["hybrid"])
 def test_unported_families_raise_with_their_roadmap_item(family):
     cfg = dataclasses.replace(get_config("smollm-360m"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):

@@ -11,7 +11,6 @@ the absorbed decode within 1e-5 * max of the materialised one (per-head
 K and V at cache length, ``attention.mla_decode_materialised``, which
 ``chip_smoke.py`` holds the card's absorbed route against).
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -165,6 +164,11 @@ def test_attn_apply_dispatches_mla_and_refuses_bidir():
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="MLA encoder"):
         attention.attn_apply(p, cfg, x, mode="bidir")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        attention.attn_init(torch.Generator(), dataclasses.replace(
-            cfg, cross_attention=True))
+    # a cross layer has GQA weights under an MLA config, as in the
+    # reference's attn_init(cross=True)
+    cross = attention.attn_init(torch.Generator().manual_seed(0), cfg,
+                                cross=True)
+    j_cross = j_attn.attn_init(jax.random.PRNGKey(0), j_cfg, cross=True)
+    assert sorted(cross) == sorted(j_cross) == ["wk", "wo", "wq", "wv"]
+    for name in cross:
+        assert tuple(cross[name]["w"].shape) == j_cross[name]["w"].shape

@@ -229,7 +229,9 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2x2"], "item 7d"),
     (["--arch", "granite-moe-1b-a400m"], "item 7c"),
-    (["--arch", "deepseek-v2-lite-16b"], "item 7c")])
+    (["--arch", "deepseek-v2-lite-16b"], "item 7c"),
+    (["--arch", "whisper-tiny"], "item 7d"),
+    (["--arch", "phi-3-vision-4.2b"], "item 7d")])
 def test_train_cli_refusals(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(argv + ["--device", "cpu", "--steps", "1"])

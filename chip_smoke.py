@@ -151,7 +151,9 @@ Phases:
                ``F.conv1d`` and the bound; (b) smollm-360m at published
                widths (f32 params, bf16 compute, remat) trained 30 steps of
                8 x 256 tokens through ``Trainer``: finite losses and grad
-               norms, the loss falls; step ms, tokens/s, peak memory, one
+               norms, the loss falls, and so does the loss on step 0's
+               batch from before the run to after it; step ms, tokens/s,
+               peak memory, one
                traced step's device busy ms and idle share; (c) mamba2-2.7b
                at published widths (64 layers), 1 x 512 tokens: one loss
                and gradient on the kernel route against the plain route,
@@ -165,7 +167,16 @@ Phases:
                (d) recovery: smollm-360m's
                widths at 4 layers, 20 steps, a checkpoint every 10, a
                failure at step 15: one recovery that restored, the final
-               params within rtol 1e-4, atol 1e-5 of an uninterrupted run.
+               params within rtol 1e-4, atol 1e-5 of an uninterrupted run;
+               (e) granite-moe-1b-a400m at published widths (f32 params,
+               bf16 compute, remat) trained 10 steps of 8 x 256 tokens
+               through ``Trainer``, the router loss in every step: finite
+               losses, router losses and grad norms, the loss on step 0's
+               batch lower after the run than before it; step ms,
+               tokens/s, peak memory, one traced step's idle share; (f)
+               deepseek-v2-lite-16b's widths cut to its dense first layer
+               and 3 MoE layers, 4 steps of 1 x 512: finite, and step 0's
+               batch's loss falls too.
   10. moe    — (a) granite-moe-1b-a400m at published widths (f32
                parameters drawn on the card, bf16 activations) through
                ``Engine(max_batch=8, max_len=512, prefill_bucket=64)``: 24
@@ -202,6 +213,28 @@ Phases:
                attention within 1e-4 * max|logit|; (c) reduced whisper and
                phi-3-vision: the card's greedy tokens equal the CPU
                engine's.
+  12. hybrid — (a) jamba-v0.1-52b at published widths cut to two periods
+               of 8 layers (2 attention, 14 Mamba-2 at d_state 16, 8 MoE
+               of 16 experts top-2; 26.0 B bf16 parameters drawn on the
+               card) through ``Engine(max_batch=8, max_len=512)``: 16
+               requests of 8-200 prompt tokens, 16 new tokens each, every
+               one delivered; kernel 5 launched 2 times a decode step,
+               kernels 6 and 7 14 times a prefill; tok/s, p50/p99, peak
+               memory, one traced decode step; (b) an f32-activation
+               engine's decode step re-run with kernel 5 and with the
+               plain decode attention, and a 200-token prefill with
+               kernels 6 and 7 and on the plain route: logits within 1e-4
+               * max|logit|, every MoE layer routed alike; (c) all 32
+               layers as the reference's bfp8 serving weights (each layer
+               drawn in bf16 on the card and compressed by
+               ``quantize_linear_tree`` before the next; at the reduced
+               config that build equals ``lm.init``'s tree compressed,
+               bit for bit): resident and peak memory, 8 requests of 8-32 tokens, 8 new each, kernel
+               5 4 times a step, kernels 6 and 7 28 times a prefill; (d)
+               the reduced model as it is and BFP-compressed: the card's
+               greedy tokens equal the CPU engine's.  Phases 5 and 7 hold
+               and time kernel 5 at jamba's decode (G = 4) and kernels 6
+               (N = 16) and 7 (8,192 channels) at its prefill shapes.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -253,7 +286,8 @@ PEAK_BF16_FLOPS = 989e12
 # split); granite's and phi4-mini's; whisper-tiny's self cache (its 448
 # positions full) and its cross cache of 1,500 encoder rows (all full, and
 # one slot full with the rest at 750), MHA at D = 64; phi-3-vision-4.2b's
-# 576 patches + 512 text positions, full, MHA at D = 96
+# 576 patches + 512 text positions, full, MHA at D = 96; jamba-v0.1-52b's
+# GQA (G = 4, D = 128) over the served max_len
 DECODE_GEOMETRIES = (("smollm-360m", 8, 512, 15, 5, 64, None),
                      ("llama3.2-3b", 8, 2048, 24, 8, 128, None),
                      ("llama3.2-3b skewed", 8, 2048, 24, 8, 128,
@@ -264,7 +298,8 @@ DECODE_GEOMETRIES = (("smollm-360m", 8, 512, 15, 5, 64, None),
                      ("whisper-tiny cross", 8, 1500, 6, 6, 64, (1500,) * 8),
                      ("whisper-tiny cross skewed", 8, 1500, 6, 6, 64,
                       (1500,) + (750,) * 7),
-                     ("phi-3-vision-4.2b", 8, 1088, 32, 32, 96, (1088,) * 8))
+                     ("phi-3-vision-4.2b", 8, 1088, 32, 32, 96, (1088,) * 8),
+                     ("jamba-v0.1-52b", 8, 512, 32, 8, 128, None))
 LM_ARCH = "smollm-360m"
 LM_REQUESTS = 24
 LM_MAX_NEW = 32
@@ -278,17 +313,25 @@ BF16_STEP = 2.0 ** -7
 # (name, B, L, H, P, G, N, chunk, dtype): mamba2-2.7b's heads at a served
 # prefill length of one chunk (200 rows), at a served one of two chunks
 # with a ragged last chunk (472 = 256 + 216, the state carried), and over
-# 8 chunks (a long prompt, past the served max_len)
+# 8 chunks (a long prompt, past the served max_len); jamba-v0.1-52b's 128
+# heads at d_state 16 (under every state slice) at a served prefill and
+# over 8 chunks
 SSD_GEOMETRIES = (("served", 1, 200, 80, 64, 1, 128, 256, "bfloat16"),
                   ("served", 1, 200, 80, 64, 1, 128, 256, "float32"),
                   ("served 2 chunks", 1, 472, 80, 64, 1, 128, 256,
                    "bfloat16"),
-                  ("8 chunks", 1, 2048, 80, 64, 1, 128, 256, "bfloat16"))
-# (name, B, L, C, dtype): mamba2-2.7b's x stream (C = d_inner)
+                  ("8 chunks", 1, 2048, 80, 64, 1, 128, 256, "bfloat16"),
+                  ("jamba served", 1, 200, 128, 64, 1, 16, 256, "bfloat16"),
+                  ("jamba 8 chunks", 1, 2048, 128, 64, 1, 16, 256,
+                   "bfloat16"))
+# (name, B, L, C, dtype): mamba2-2.7b's x stream (C = d_inner), and
+# jamba-v0.1-52b's (C = 8192)
 DW1D_GEOMETRIES = (("served", 1, 200, 5120, "bfloat16"),
                    ("served", 1, 200, 5120, "float32"),
                    ("long", 1, 2048, 5120, "bfloat16"),
-                   ("long", 1, 2048, 5120, "float32"))
+                   ("long", 1, 2048, 5120, "float32"),
+                   ("jamba served", 1, 200, 8192, "bfloat16"),
+                   ("jamba long", 1, 2048, 8192, "bfloat16"))
 # the mamba probe: with f32 activations the kernels' route and the plain
 # route (pallas=False: the pure-torch Winograd and chunked twins) are one
 # function summed in other orders, <= TOL_SSM_F32 * max|logit| (the CPU
@@ -324,6 +367,18 @@ TRAIN_SSM_LAYERS = 64                 # all of mamba2-2.7b's
 # (phase 8's rule)
 TOL_TRAIN_LOSS = 1e-3                 # relative
 TOL_TRAIN_GRAD = 2e-2                 # of each leaf's max|g|
+# 9e, 9f: MoE training through Trainer at published widths (f32 params,
+# bf16 compute, remat): granite-moe-1b-a400m whole, deepseek-v2-lite-16b
+# cut to its dense first layer and 3 MoE layers; (batch, seq, steps)
+TRAIN_MOE_SHAPE = (8, 256, 10)
+TRAIN_MLA_SHAPE = (1, 512, 4)
+TRAIN_MLA_LAYERS = 4
+# their schedule: the trainer's default warmup (20 steps) is longer than
+# these runs.  It was set after granite's stream loss rose at the default
+# schedule (119.22 -> 119.68 in 10 steps); that loss is read on a new
+# batch each step, whose patterns are new too, so both runs are held to
+# the loss on step 0's batch before and after the run instead
+TRAIN_MOE_SCHEDULE = {"base_lr": 3e-3, "warmup": 2}
 # phase 10 (mixture of experts and MLA): granite-moe-1b-a400m (GQA + MoE
 # on every layer: kernel 5 in each), phi4-mini-3.8b (dense GQA, 128-wide
 # heads) and deepseek-v2-lite-16b (MLA + MoE after one dense layer: no
@@ -366,6 +421,22 @@ ENCDEC_CROSS = 1500
 VLM_ARCH = "phi-3-vision-4.2b"
 VLM_SHAPE = (16, 32)
 VLM_PROMPTS = (8, 200)
+# phase 12 (the hybrid family): jamba-v0.1-52b at published widths.  (a)
+# bf16 parameters drawn on the card, depth cut to HYBRID_PERIODS periods of
+# 8 layers (2 attention, 14 Mamba, 8 MoE), through Engine(max_batch=8,
+# max_len=512): (requests, new tokens), prompts of HYBRID_PROMPTS tokens;
+# (b) an f32-activation engine's decode step and one prefill re-run on
+# the plain routes (TOL_PROBE, every MoE layer routed alike); (c) all 32
+# layers with every large linear BFP-compressed as the reference's bfp8
+# serving dtype builds them (bf16, then quantize_linear_tree), each layer
+# drawn and compressed before the next; (d) the reduced model's tokens
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_PERIODS = 2
+HYBRID_SHAPE = (16, 16)
+HYBRID_PROMPTS = (8, 200)
+HYBRID_PROBE_PROMPT = 200
+HYBRID_BFP_SHAPE = (8, 8)
+HYBRID_BFP_PROMPTS = (8, 32)
 # ABFT: seeded single-bit flips a layer, beside one each in a checksum row,
 # in padding, in a sign bit and in an exponent bit
 ABFT_FLIPS = 32
@@ -2879,41 +2950,79 @@ def _train_report(hist, tokens):
             "tokens_per_s": tokens / step_ms * 1e3}
 
 
-def phase_train_smollm(torch, np, card):
-    """9b: smollm-360m at published widths (f32 params, bf16 compute,
-    remat) trained through ``Trainer`` on the card, then one step traced."""
-    from repro_torch.configs import get_config
+def held_batch_loss(torch, cfg, params, batch) -> float:
+    """The cross entropy of ``params`` on ``batch``, no gradient."""
     from repro_torch.models import lm
+    with torch.no_grad():
+        return float(lm.loss_fn(params, cfg, batch)[1]["loss"])
+
+
+def train_through_trainer(torch, np, card, cfg, shape, *, falls=True,
+                          schedule=None):
+    """``cfg`` (published widths, f32 params drawn on the card, bf16
+    compute, remat) trained ``shape`` = (batch, seq, steps) through
+    ``Trainer`` (``schedule``: its base_lr and warmup, else the
+    trainer's): finite losses and grad norms (and router losses), the
+    loss on the first step's batch lower after the run than before it,
+    and the stream's loss falling when ``falls`` (each step's batch has
+    patterns of its own, so that loss falls only over a long run); then
+    one step traced."""
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.models import lm
+    from repro_torch.nn.module import count_params
     from repro_torch.runtime import Trainer, TrainerConfig
-    cfg = get_config(TRAIN_DENSE_ARCH)
-    B, S, steps = TRAIN_DENSE_SHAPE
+    B, S, steps = shape
     params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
                      device="cuda")
+    n_params = count_params(params)
+    tcfg = TrainerConfig(steps=steps, batch=B, seq_len=S, log_every=1,
+                         **(schedule or {}))
+    # the trainer's step-keyed stream at step 0
+    held = {k: torch.from_numpy(v).to("cuda") for k, v in next(
+        synthetic_batches(batch=B, seq_len=S, vocab=cfg.vocab_size,
+                          seed=tcfg.seed, steps=1)).items()}
+    before = held_batch_loss(torch, cfg, params, held)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tr = Trainer(cfg, TrainerConfig(steps=steps, batch=B, seq_len=S,
-                                    log_every=1), params=params,
-                 device="cuda")
+    tr = Trainer(cfg, tcfg, params=params, device="cuda")
     hist = tr.run()
     peak = torch.cuda.max_memory_allocated()
     check(len(hist) == steps and all(
         math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-        for h in hist), f"train {TRAIN_DENSE_ARCH}: a non-finite loss or "
-        f"grad norm: {[(h['loss'], h['grad_norm']) for h in hist]}")
-    check(hist[-1]["loss"] < hist[0]["loss"], f"train {TRAIN_DENSE_ARCH}: "
-          f"the loss did not fall ({hist[0]['loss']} -> {hist[-1]['loss']})")
+        and math.isfinite(h["aux_loss"]) for h in hist),
+        f"train {cfg.name}: a non-finite loss, router loss or grad norm: "
+        f"{[(h['loss'], h['aux_loss'], h['grad_norm']) for h in hist]}")
+    check(abs(before - hist[0]["loss"]) <= TOL_TRAIN_LOSS * abs(before),
+          f"train {cfg.name}: the held batch's loss {before} is not step "
+          f"0's {hist[0]['loss']}")
+    after = held_batch_loss(torch, cfg, tr.state["params"], held)
+    check(after < before, f"train {cfg.name}: the loss on step 0's batch "
+          f"did not fall over {steps} steps ({before} -> {after})")
+    check(not falls or hist[-1]["loss"] < hist[0]["loss"], f"train "
+          f"{cfg.name}: the loss did not fall ({hist[0]['loss']} -> "
+          f"{hist[-1]['loss']})")
+    check(cfg.moe is None or all(h["aux_loss"] > 0 for h in hist),
+          f"train {cfg.name}: no router loss in a step")
     rep = _train_report(hist, B * S)
     batch = next(tr.data)
     wall, busy, events, _, top = profile_decode(
         torch, lambda: tr.train_step(batch), steps=2, marks=())
-    rep.update(arch=TRAIN_DENSE_ARCH, batch=B, seq_len=S,
-               peak_mem_bytes=peak, traced_wall_ms=wall,
-               device_busy_ms=busy, device_events=events, top=top,
+    rep.update(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+               batch=B, seq_len=S, peak_mem_bytes=peak,
+               held_loss_before=before, held_loss_after=after,
+               aux_losses=[h["aux_loss"] for h in hist],
+               traced_wall_ms=wall, device_busy_ms=busy,
+               device_events=events, top=top,
                idle_share=None if busy is None else 1.0 - busy / wall)
-    print(f"train {TRAIN_DENSE_ARCH} (published widths, batch {B} x {S}, "
-          f"remat, {steps} steps): loss {hist[0]['loss']:.4f} -> "
-          f"{hist[-1]['loss']:.4f}, grad norm {hist[0]['grad_norm']:.3f} -> "
-          f"{hist[-1]['grad_norm']:.3f} | step {rep['step_ms']:.2f} ms "
+    aux = ("" if cfg.moe is None else
+           f" | router loss {hist[0]['aux_loss']:.5f} -> "
+           f"{hist[-1]['aux_loss']:.5f}")
+    print(f"train {cfg.name} (published widths, {cfg.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B params, batch {B} x {S}, remat, {steps} "
+          f"steps): loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, "
+          f"on step 0's batch {before:.4f} -> {after:.4f}, "
+          f"grad norm {hist[0]['grad_norm']:.3f} -> "
+          f"{hist[-1]['grad_norm']:.3f}{aux} | step {rep['step_ms']:.2f} ms "
           f"median (first {rep['first_step_ms']:.1f} ms), "
           f"{rep['tokens_per_s']:.1f} tokens/s | peak mem "
           f"{peak / 2 ** 30:.2f} GiB | traced step: {wall:.2f} ms wall, "
@@ -2925,6 +3034,32 @@ def phase_train_smollm(torch, np, card):
     del tr, params
     torch.cuda.empty_cache()
     return rep
+
+
+def phase_train_smollm(torch, np, card):
+    """9b: smollm-360m at published widths (f32 params, bf16 compute,
+    remat) trained through ``Trainer`` on the card, then one step traced."""
+    from repro_torch.configs import get_config
+    return train_through_trainer(torch, np, card,
+                                 get_config(TRAIN_DENSE_ARCH),
+                                 TRAIN_DENSE_SHAPE)
+
+
+def phase_train_moe(torch, np, card):
+    """9e, 9f: the mixture-of-experts family through ``Trainer`` (its
+    router loss in every step's loss): granite-moe-1b-a400m at published
+    widths, and deepseek-v2-lite-16b's widths cut to its dense first layer
+    and 3 MoE layers."""
+    from repro_torch.configs import get_config
+    granite = train_through_trainer(torch, np, card, get_config(MOE_ARCH),
+                                    TRAIN_MOE_SHAPE, falls=False,
+                                    schedule=TRAIN_MOE_SCHEDULE)
+    cut = dataclasses.replace(get_config(MLA_ARCH),
+                              num_layers=TRAIN_MLA_LAYERS)
+    deepseek = train_through_trainer(torch, np, card, cut, TRAIN_MLA_SHAPE,
+                                     falls=False,
+                                     schedule=TRAIN_MOE_SCHEDULE)
+    return {"granite": granite, "deepseek": deepseek}
 
 
 def phase_train_mamba(torch, np, card):
@@ -3127,16 +3262,17 @@ def phase_train_recovery(torch, np, card):
 
 
 def phase_train(torch, np, card):
-    """Phase 9: 9a-9d."""
+    """Phase 9: 9a-9f."""
     t0 = time.perf_counter()
     rows = phase_train_kernels(torch, np)
     dense = phase_train_smollm(torch, np, card)
     ssm = phase_train_mamba(torch, np, card)
     recovery = phase_train_recovery(torch, np, card)
+    moe = phase_train_moe(torch, np, card)
     seconds = time.perf_counter() - t0
     print(f"train: phase 9 {seconds:.1f} s")
     return rows, {"dense": dense, "ssm": ssm, "recovery": recovery,
-                  "phase_s": seconds}
+                  "moe": moe, "phase_s": seconds}
 
 
 # --- phase 10: mixture-of-experts and MLA serving ---------------------------
@@ -3204,7 +3340,9 @@ def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label, *,
     max_len=512, prefill_bucket=64)`` (or ``scfg``) after a warm-up; the
     launch counts of the run, its numbers, and one decode step (step
     ``max_new // 2``, on a copy of its cache) traced as ``phase_lm``
-    traces smollm-360m's; ``keep`` receives that step's snapshot."""
+    traces smollm-360m's; ``keep`` receives that step's snapshot.  A MoE
+    model's run must pad a MoE group in some prefill where a prefill is
+    longer than one group."""
     from repro_torch.serving import Engine, ServeConfig
     if scfg is None:
         scfg = ServeConfig(max_batch=BATCH, max_len=512, prefill_bucket=64)
@@ -3238,12 +3376,11 @@ def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label, *,
           f"{max_new // 2}")
     # prefills whose padded length is no multiple of the MoE's group: their
     # last group holds zero rows, routed like tokens (the pad-row ties)
-    padded = 0 if cfg.moe is None else sum(
-        eng._pad_len(len(r.prompt)) % min(cfg.moe.group_size,
-                                          eng._pad_len(len(r.prompt))) > 0
-        for r in reqs)
-    check(cfg.moe is None or padded > 0, f"{label}: no prefill padded a "
-          "MoE group")
+    lens = [eng._pad_len(len(r.prompt)) for r in reqs]
+    group = cfg.moe.group_size if cfg.moe is not None else max(lens)
+    padded = sum(n > group and n % group > 0 for n in lens)
+    check(max(lens) <= group or padded > 0, f"{label}: no prefill padded "
+          "a MoE group")
     steps = eng.decode_steps
     step_ms = eng.decode_seconds / steps * 1e3
     probe_ms, busy_ms, events, marks, top = profile_decode(
@@ -3347,16 +3484,19 @@ def f32_probe(torch, np, cfg, params, alt, label, *, decorate=None,
             "moe_layers_equal": same, "kernel5_launches": [k_got, k_ref]}
 
 
-def reduced_on_card(torch, np, arch, seed):
+def reduced_on_card(torch, np, arch, seed, quantized=False):
     """A reduced model's greedy tokens on the card equal the CPU
-    engine's (f32).  The encoder-decoder's requests carry 16, 8, 3, 16
-    and 12 frames over a cross cache of 16 rows; the VLM's carry
-    patches."""
+    engine's (f32); ``quantized``: with every linear BFP-compressed
+    (``lm.quantize_linear_tree`` at a ``min_size`` of 256).  The
+    encoder-decoder's requests carry 16, 8, 3, 16 and 12 frames over a
+    cross cache of 16 rows; the VLM's carry patches."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm, model_for
     from repro_torch.serving import Engine, Request, ServeConfig
     small = get_config(arch).reduced()
     sp = model_for(small).init(seed, small, device="cpu")
+    if quantized:
+        sp = lm.quantize_linear_tree(sp, small, min_size=256)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, small.vocab_size, size=n).tolist()
                for n in (5, 17, 20, 9, 12)]
@@ -3620,6 +3760,209 @@ def phase_encdec_vlm(torch, np):
     return out
 
 
+# --- phase 12: the hybrid family --------------------------------------------
+def hybrid_prefill_probe(torch, np, cfg, params, label):
+    """One prefill of HYBRID_PROBE_PROMPT tokens with f32 activations, on
+    the served route (kernels 6 and 7 in every Mamba layer) and on the
+    plain route (``plain_ssm_route``): logits within TOL_PROBE *
+    max|logit|, every MoE layer routed alike; each route's launches."""
+    from repro_torch.models import lm
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(21)
+    toks = torch.as_tensor(rng.integers(
+        1, cfg.vocab_size, (1, HYBRID_PROBE_PROMPT)), device=DEVICE)
+    runs = []
+    for ctx in (contextlib.nullcontext(), plain_ssm_route()):
+        routes = []
+        n0 = launch_counts()
+        with ctx, recorded_routing(routes):
+            logits = lm.apply(params, cfg32, toks, mode="prefill",
+                              caches=lm.cache_init(cfg32, 1, 512,
+                                                   device=DEVICE))[0]
+        torch.cuda.synchronize()
+        n1 = launch_counts()
+        runs.append((logits, routes, {k: n1[k] - n0[k]
+                                      for k in ("ssd", "dw1d")}))
+    (got, r_got, k_got), (ref, r_ref, k_ref) = runs
+    check(bool(torch.isfinite(got).all()) and got.shape == (
+        1, HYBRID_PROBE_PROMPT, cfg.vocab_size),
+        f"{label} prefill probe: logits malformed")
+    same = sum(int(torch.equal(a, b)) for a, b in zip(r_got, r_ref))
+    dmax = float((got - ref).abs().max())
+    lmax = float(ref.abs().max())
+    n_ssm = sum(m == "ssm" for m, _ in (cfg.layer_kind(i)
+                                        for i in range(cfg.num_layers)))
+    print(f"hybrid probe {label} prefill (f32 activations, "
+          f"{HYBRID_PROBE_PROMPT} tokens): kernels vs plain route max|d| "
+          f"{dmax:.3e} (max|logit| {lmax:.3e}, rel {dmax / lmax:.3e}, tol "
+          f"{TOL_PROBE:g}) | MoE layers routed alike {same}/{len(r_ref)} | "
+          f"launches kernel route {k_got}, plain route {k_ref}")
+    check(k_got == {"ssd": n_ssm, "dw1d": n_ssm}
+          and k_ref == {"ssd": 0, "dw1d": 0}, f"{label} prefill probe: "
+          f"launches {k_got} then {k_ref}; expected {n_ssm} then 0")
+    check(len(r_got) == len(r_ref) > 0 and same == len(r_ref),
+          f"{label} prefill probe: {len(r_ref) - same} MoE layers routed "
+          "otherwise")
+    check(dmax <= TOL_PROBE * lmax, f"{label} prefill probe: logits off: "
+          f"{dmax} > {TOL_PROBE} * {lmax}")
+    return {"max_abs": dmax, "max_logit": lmax, "moe_layers": len(r_ref),
+            "moe_layers_equal": same, "launches": [k_got, k_ref]}
+
+
+def check_hybrid_launches(cfg, run, prefills, label):
+    """Kernel 5 once per attention layer a decode step, kernels 6 and 7
+    once per Mamba layer a prefill, nothing else."""
+    kinds = [cfg.layer_kind(i)[0] for i in range(cfg.num_layers)]
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    got = run["launches"]
+    want = {"decode_attn": n_attn * run["decode_steps"],
+            "ssd": n_ssm * prefills, "dw1d": n_ssm * prefills}
+    check({k: got[k] for k in want} == want, f"{label}: launches "
+          f"{ {k: got[k] for k in want} }, expected {want} ({n_attn} a "
+          f"decode step, {n_ssm} a prefill)")
+    others = {k: n for k, n in got.items() if k not in want}
+    check(not any(others.values()), f"{label} launched {others}")
+    return n_attn, n_ssm
+
+
+def bfp8_hybrid(torch, cfg, gen):
+    """``lm.quantize_linear_tree(lm.init(gen, cfg), cfg)``, the reference's
+    ``bfp8`` serving dtype when ``cfg.param_dtype`` is bf16, drawn on the
+    card one layer at a time, each layer compressed before the next is
+    drawn: no uncompressed copy of the whole model is ever made.  It
+    draws ``lm.init``'s leaves in ``lm.init``'s order, so the two trees
+    are equal (``check_bfp8_hybrid``)."""
+    from repro_torch.core import bfp
+    from repro_torch.models import lm
+    from repro_torch.nn import blocks, layers
+    from repro_torch.nn.module import torch_dtype
+    dtype = torch_dtype(cfg.param_dtype)
+    n_prefix = lm._n_prefix(cfg)
+    groups = (cfg.num_layers - n_prefix) // cfg.pattern_period()
+    params = {"embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                         dtype)}
+    params["stack"] = [
+        bfp.quantize_linear_tree(
+            lm.to_device(blocks.block_init(gen, cfg, *kind), DEVICE),
+            stack=0 if i < n_prefix else groups)
+        for i, kind in enumerate(blocks.stack_kinds(cfg))]
+    params["final_norm"] = layers.norm_init(cfg.norm_type, cfg.d_model,
+                                            dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.linear_init(gen, cfg.d_model,
+                                               cfg.vocab_size, dtype)
+    return lm.quantize_linear_tree(lm.to_device(params, DEVICE), cfg)
+
+
+def check_bfp8_hybrid(torch, cfg, gen):
+    """``bfp8_hybrid`` equal, leaf for leaf and bit for bit, to
+    ``lm.quantize_linear_tree(lm.init(...))`` at ``cfg`` from one seed.
+    Returns the number of compressed weights."""
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_leaves, tree_map
+    got = bfp8_hybrid(torch, cfg, gen.manual_seed(5))
+    want = lm.quantize_linear_tree(
+        lm.init(gen.manual_seed(5), cfg, device=DEVICE), cfg)
+    same = (tree_map(lambda t: None, got) == tree_map(lambda t: None, want)
+            and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                    zip(tree_leaves(got), tree_leaves(want))))
+    n_q = sum(t.dtype == torch.int8 for t in tree_leaves(want)) // 2
+    check(same and n_q > 0, f"bfp8_hybrid at {cfg.name} {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}: not lm.init's tree compressed "
+          f"({n_q} weights compressed)")
+    return n_q
+
+
+def phase_hybrid(torch, np, card):
+    """Phase 12: 12a two periods of jamba-v0.1-52b served, 12b its probes,
+    12c all 32 layers in bfp8 served, 12d the reduced model on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn.module import count_params, tree_bytes, tree_leaves
+    from repro_torch.serving import ServeConfig
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    full = dataclasses.replace(get_config(HYBRID_ARCH),
+                               param_dtype="bfloat16")
+    scfg = ServeConfig(max_batch=BATCH, max_len=512)
+    out = {}
+    # 12a: published widths, two periods, bf16 parameters drawn on the card
+    cfg = dataclasses.replace(full, num_layers=HYBRID_PERIODS
+                              * full.pattern_period())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = lm.init(gen.manual_seed(0), cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    n_params, nbytes = count_params(params), tree_bytes(params)
+    print(f"hybrid {HYBRID_ARCH} at published widths, {cfg.num_layers} "
+          f"layers: {n_params / 1e9:.3f} B bf16 parameters "
+          f"({nbytes / 1e9:.2f} GB) drawn on the card in {init_s:.2f} s")
+    rng = np.random.default_rng(22)
+    n_req, max_new = HYBRID_SHAPE
+    a = serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, "jamba",
+                      scfg=scfg, reqs=_requests(rng, cfg.vocab_size, n_req,
+                                                *HYBRID_PROMPTS, max_new),
+                      tag="hybrid")
+    n_attn, n_ssm = check_hybrid_launches(cfg, a, n_req, "jamba serve")
+    a.update(init_s=init_s, params=n_params, param_bytes=nbytes,
+             layers=cfg.num_layers, attn_layers=n_attn, ssm_layers=n_ssm)
+    # 12b: the probes, f32 activations on the same bf16 weights
+    a["probe"] = f32_probe(torch, np,
+                           dataclasses.replace(cfg, dtype="float32"),
+                           params, plain_decode_attention, "jamba",
+                           tag="hybrid")
+    check(a["probe"]["kernel5_launches"] == [n_attn, 0], f"jamba probe: "
+          f"kernel 5 ran {a['probe']['kernel5_launches']} times in the "
+          f"kernel and plain re-runs; expected [{n_attn}, 0]")
+    a["prefill_probe"] = hybrid_prefill_probe(torch, np, cfg, params,
+                                              "jamba")
+    out["jamba"] = a
+    del params
+    torch.cuda.empty_cache()
+    # 12c: all 32 layers, every large linear BFP-compressed
+    small = dataclasses.replace(full.reduced(), param_dtype="bfloat16")
+    small_q = check_bfp8_hybrid(torch, small, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = bfp8_hybrid(torch, full, gen.manual_seed(1))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    build_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    nbytes = tree_bytes(params)
+    n_q = sum(t.dtype == torch.int8 for t in tree_leaves(params)) // 2
+    print(f"hybrid {HYBRID_ARCH} bfp8, all {full.num_layers} layers: "
+          f"{nbytes / 1e9:.2f} GB of parameters ({n_q} weights "
+          f"compressed) built in {build_s:.2f} s | resident "
+          f"{resident / 1e9:.2f} GB, peak while building "
+          f"{build_peak / 1e9:.2f} GB | at the reduced config equal to "
+          f"lm.init's tree compressed ({small_q} weights) | on {card}")
+    rng = np.random.default_rng(23)
+    n_req, max_new = HYBRID_BFP_SHAPE
+    c = serve_lm_full(torch, np, full, params, n_req, max_new, rng,
+                      "jamba bfp8", scfg=scfg,
+                      reqs=_requests(rng, full.vocab_size, n_req,
+                                     *HYBRID_BFP_PROMPTS, max_new),
+                      tag="hybrid")
+    check_hybrid_launches(full, c, n_req, "jamba bfp8 serve")
+    c.update(build_s=build_s, build_peak_mem_bytes=build_peak,
+             resident_bytes=resident, param_bytes=nbytes,
+             layers=full.num_layers, compressed_weights=n_q)
+    out["jamba_bfp8"] = c
+    del params
+    torch.cuda.empty_cache()
+    # 12d: the reduced model, as it is and BFP-compressed
+    out["reduced"] = {q: reduced_on_card(torch, np, HYBRID_ARCH, 3,
+                                         quantized=q == "bfp8")
+                      for q in ("bf16", "bfp8")}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"hybrid: reduced {HYBRID_ARCH} tokens equal to the CPU engine's, "
+          f"as it is and BFP-compressed | phase 12 {out['phase_s']:.1f} s")
+    return out
+
+
 def summary(row):
     """A kernel row's numbers for the ``kernels`` line (``bound_by`` its
     layers' when they agree, else ``mixed``)."""
@@ -3719,6 +4062,8 @@ def main(argv=None) -> int:
     moe = phase_moe(torch, np)
     torch.cuda.empty_cache()
     encvlm = phase_encdec_vlm(torch, np)
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid(torch, np, card)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
@@ -3732,7 +4077,9 @@ def main(argv=None) -> int:
              "moe_phi4": moe["phi4"]["launches"],
              "moe_mla": moe["deepseek"]["launches"],
              "encdec": encvlm["whisper"]["launches"],
-             "vlm": encvlm["phi3v"]["launches"]}
+             "vlm": encvlm["phi3v"]["launches"],
+             "hybrid": hybrid["jamba"]["launches"],
+             "hybrid_bfp8": hybrid["jamba_bfp8"]["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
@@ -3829,11 +4176,17 @@ def main(argv=None) -> int:
           f"{train['dense']['peak_mem_bytes'] / 2 ** 30:.2f} GiB | {SSM_ARCH} "
           f"{train['ssm']['step_ms']:.1f} ms a step, peak "
           f"{train['ssm']['peak_mem_bytes'] / 2 ** 30:.2f} GiB, launches "
-          f"{train['ssm']['launches']} | phase 9 {train['phase_s']:.1f} s | "
-          f"on {card}")
+          f"{train['ssm']['launches']} | "
+          + " | ".join(f"{r['arch']} {r['step_ms']:.1f} ms a step, "
+                       f"{r['tokens_per_s']:.1f} tokens/s, peak "
+                       f"{r['peak_mem_bytes'] / 2 ** 30:.2f} GiB"
+                       for r in train["moe"].values())
+          + f" | phase 9 {train['phase_s']:.1f} s | on {card}")
     for tag, m in [("moe", moe[k]) for k in ("granite", "phi4", "deepseek")
                    ] + [("encdec", encvlm["whisper"]),
-                        ("vlm", encvlm["phi3v"])]:
+                        ("vlm", encvlm["phi3v"]),
+                        ("hybrid", hybrid["jamba"]),
+                        ("hybrid", hybrid["jamba_bfp8"])]:
         print(f"serve {tag} {m['arch']} ({m['param_dtype']} params): "
               f"{m['completed']}/{m['requests']} requests, {m['tokens']} "
               f"tokens over {m['decode_steps']} decode steps | "
@@ -3859,7 +4212,7 @@ def main(argv=None) -> int:
                        "fleet": fleet, "supervised": supervised,
                        "lm_serve": lm_serve, "mamba_serve": mamba,
                        "train": train, "moe": moe,
-                       "encdec_vlm": encvlm,
+                       "encdec_vlm": encvlm, "hybrid": hybrid,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()
                                      if "per_layer" in r},

@@ -1,11 +1,10 @@
 """Config registry: ``get_config("smollm-360m")`` etc.
 
-The port serves the paper's own AlexNet and VGG-16, the dense GQA
-language models, the Mamba-2 SSM, the mixture-of-experts models (GQA
-or MLA attention), the encoder-decoder whisper-tiny and the
-vision-language phi-3-vision-4.2b; the reference's hybrid jamba comes
-with a later slice of the port, and naming it raises with the ROADMAP
-item that ports it.
+The port serves every config of the reference: the paper's own AlexNet
+and VGG-16, the dense GQA language models, the Mamba-2 SSM, the
+mixture-of-experts models (GQA or MLA attention), the hybrid jamba
+(attention and Mamba-2 layers, MoE in every other layer), the
+encoder-decoder whisper-tiny and the vision-language phi-3-vision-4.2b.
 """
 from __future__ import annotations
 
@@ -21,21 +20,13 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "jamba-v0.1-52b": "jamba_v0p1_52b",
     "whisper-tiny": "whisper_tiny",
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
 }
 
-# the reference's LM configs that a later slice ports (ROADMAP Queue 1)
-_NOT_PORTED = {
-    "jamba-v0.1-52b": "item 7c (hybrid: Mamba-2 and attention layers, MoE "
-                      "every other layer)",
-}
-
 CNN_ARCHS = ["alexnet", "vgg16"]
 LM_ARCHS = [n for n in _MODULES if n not in CNN_ARCHS]
-# every LM config of the reference, ported or not (get_config names the
-# item that ports the rest)
-ALL_LM_ARCHS = LM_ARCHS + list(_NOT_PORTED)
 
 
 def list_configs():
@@ -43,10 +34,7 @@ def list_configs():
 
 
 def get_config(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet "
-                                  f"(ROADMAP Queue 1, {_NOT_PORTED[name]})")
     if name not in _MODULES:
         raise KeyError(f"unknown or not yet ported arch {name!r}; ported: "
-                       f"{list(_MODULES)} (see ROADMAP.md for the rest)")
+                       f"{list(_MODULES)}")
     return import_module(f"repro_torch.configs.{_MODULES[name]}").config()

@@ -17,6 +17,10 @@ pre-dispatch slab fingerprints, a bound on |logit|).
 mixture-of-experts models (kernel 5 in each of granite's GQA layers;
 deepseek's MLA decodes in the absorbed form, with no kernel;
 ``--param-dtype bfloat16`` halves a full-width model's parameters);
+``--arch jamba-v0.1-52b`` the hybrid (kernel 5 in its attention layers,
+kernels 7 and 6 in its Mamba layers' prefills; at published widths it
+needs more than one card unless compressed, ``models.lm.
+quantize_linear_tree``, as ``chip_smoke.py`` phase 12 serves it);
 ``--arch whisper-tiny`` serves the encoder-decoder (128 random frames a
 request; kernel 5 twice a layer a step, over the self and the cross
 cache) and ``--arch phi-3-vision-4.2b`` the vision-language model (the

@@ -12,13 +12,13 @@ from __future__ import annotations
 
 import argparse
 
-from ..configs import ALL_LM_ARCHS, get_config
+from ..configs import LM_ARCHS, get_config
 from ..runtime import Trainer, TrainerConfig
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m", choices=ALL_LM_ARCHS)
+    ap.add_argument("--arch", default="smollm-360m", choices=LM_ARCHS)
     ap.add_argument("--full", action="store_true",
                     help="the published widths; default reduced")
     ap.add_argument("--steps", type=int, default=200)

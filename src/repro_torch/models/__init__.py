@@ -1,8 +1,7 @@
 """Model families of the port: the CNN path, the decoder-only LM families
-(dense, SSM and mixture-of-experts), the encoder-decoder (``audio``) and
-the vision-language model (``vlm``)."""
-
-_NOT_PORTED = {"hybrid": "7c"}
+(dense, SSM, mixture-of-experts and the hybrid of attention and Mamba-2
+layers), the encoder-decoder (``audio``) and the vision-language model
+(``vlm``)."""
 
 
 def model_for(cfg):
@@ -10,7 +9,7 @@ def model_for(cfg):
     if cfg.family == "cnn":
         from . import alexnet
         return alexnet
-    if cfg.family in ("dense", "ssm", "moe"):
+    if cfg.family in ("dense", "ssm", "moe", "hybrid"):
         from . import lm
         return lm
     if cfg.family == "audio":
@@ -19,6 +18,4 @@ def model_for(cfg):
     if cfg.family == "vlm":
         from . import vlm
         return vlm
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP Queue 1, "
-        f"item {_NOT_PORTED.get(cfg.family, '7')})")
+    raise ValueError(f"unknown model family {cfg.family!r}")

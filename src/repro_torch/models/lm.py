@@ -1,5 +1,5 @@
-"""Decoder-only language model, the dense, SSM and mixture-of-experts
-families (the reference's ``repro/models/lm.py``).
+"""Decoder-only language model, the dense, SSM, mixture-of-experts and
+hybrid families (the reference's ``repro/models/lm.py``).
 
 tokens (B, S) -> logits (B, S, V) f32 through embed, the layer stack, the
 final norm and the readout: tied (``embed_attend``), an untied
@@ -11,8 +11,11 @@ dicts; :func:`params_from_reference` carries the reference's parameters
 :func:`to_reference_layout` /
 :func:`from_reference_layout` convert any params-shaped tree (params,
 grads, AdamW moments) to and from the reference's stacked layout, which
-the trainer's checkpoints use.  :func:`loss_fn` is the reference's
-masked cross entropy with its metrics.
+the trainer's checkpoints use.  :func:`quantize_linear_tree` compresses
+the large linears to shared-exponent int8 blocks (the reference's
+``bfp8`` serving weights), which ``nn.layers.linear`` and
+``core.bfp.weight_of`` dequantize.  :func:`loss_fn` is the reference's
+masked cross entropy with its metrics (plus the MoE router loss).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import ArchConfig
+from ..core import bfp
 from ..core.device import resolve_device
 from ..kernels.bfp_matmul.ops import bfp_linear
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
@@ -73,6 +77,11 @@ def _stack(trees, device):
     return torch.stack([t.detach().to(device or t.device) for t in trees])
 
 
+def _n_prefix(cfg: ArchConfig) -> int:
+    """The dense-prefix layers the reference runs unstacked."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else 0
+
+
 def to_reference_layout(tree, cfg: ArchConfig, *, device=None) -> dict:
     """A params-shaped tree (params, grads, AdamW moments) in the
     reference's layout: the first ``first_k_dense`` layers in "prefix",
@@ -81,7 +90,7 @@ def to_reference_layout(tree, cfg: ArchConfig, *, device=None) -> dict:
     ``device`` (the host, for a checkpoint) or on each leaf's own
     device."""
     period = cfg.pattern_period()
-    n_prefix = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    n_prefix = _n_prefix(cfg)
     layers = tree["stack"]
     prefix = [tree_map(lambda t: t.detach().to(device or t.device,
                                                copy=True), layer)
@@ -95,6 +104,26 @@ def from_reference_layout(tree, cfg: ArchConfig) -> dict:
     """The inverse of :func:`to_reference_layout`: the layer list of
     views into the stacked leaves (no copy)."""
     return dict(tree, stack=_reference_layers(tree["stack"], cfg))
+
+
+def quantize_linear_tree(params, cfg: ArchConfig, *,
+                         min_size: int = 1 << 16) -> dict:
+    """The reference's ``quantize_linear_tree`` of the params in its
+    layout (its ``bfp8`` serving weights: blocks of 64, 8 bits, the
+    widths ``linear`` and ``weight_of`` dequantize at), on the port's
+    layer list: the same leaves quantize, to the same bits.  A layer the
+    reference stacks into its scan groups is judged as that stacked leaf
+    (``core.bfp.quantizable``'s ``stack``); its blocks run along K either
+    way.  Each layer is compressed on its own, so no second copy of the
+    model is made."""
+    n_prefix = _n_prefix(cfg)
+    groups = (cfg.num_layers - n_prefix) // cfg.pattern_period()
+    out = {k: bfp.quantize_linear_tree(v, min_size=min_size)
+           for k, v in params.items() if k != "stack"}
+    out["stack"] = [bfp.quantize_linear_tree(
+        layer, min_size=min_size, stack=0 if i < n_prefix else groups)
+        for i, layer in enumerate(params["stack"])]
+    return out
 
 
 def _tensors(tree, device):

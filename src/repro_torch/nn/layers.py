@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.bfp import weight_of
 from .module import param
 
 
@@ -18,13 +19,12 @@ def linear_init(gen, d_in: int, d_out: int, dtype, bias: bool = False):
 
 def linear(p, x, dtype=None):
     """Matmul in the activation dtype: the f32 master weight is cast to
-    ``x.dtype`` (or ``dtype``), as in the reference's mixed precision."""
-    if "w_q" in p:
-        raise NotImplementedError(
-            "BFP-compressed linear weights (quantize_linear_tree) are not "
-            "ported yet (ROADMAP Queue 1, item 7c)")
+    ``x.dtype`` (or ``dtype``), as in the reference's mixed precision.  A
+    BFP-compressed weight (``core.bfp.quantize_linear_tree``'s ``w_q``,
+    ``w_e``) is dequantized to f32 first, then cast, as the reference
+    does."""
     dt = dtype if dtype is not None else x.dtype
-    y = x.to(dt) @ p["w"].to(dt)
+    y = x.to(dt) @ weight_of(p, "w", dtype=dt)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

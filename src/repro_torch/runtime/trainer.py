@@ -5,16 +5,19 @@ Fault model:
   * step failure (node loss, injected in tests) -> restore the last
     checkpoint and go on; the data stream is keyed by step, so the
     replayed batches are identical;
-  * preemption (SIGTERM) -> a final checkpoint, then a clean exit; a
+  * preemption (SIGTERM, caught for the length of ``run``, the previous
+    handler put back after) -> a final checkpoint, then a clean exit; a
     restart resumes from it;
   * stragglers -> a z-score of each step's time against the history past
     the two warm-up steps, with a pluggable hook (recorded and logged).
 
-A step is autograd through ``loss_fn`` and :func:`optim.adamw_step`, which
-updates the state in place.  Its time ``dt`` is taken after
-``torch.cuda.synchronize()``, as the reference takes it after
-``block_until_ready``.  The state is ``{"step", "params", "m", "v"}`` as
-in the reference; its checkpoints are written in the reference's layout
+A step is autograd through ``loss_fn`` (for the mixture-of-experts and
+hybrid families with the router's load-balance loss) and
+:func:`optim.adamw_step`, which updates the state in place.  Its time
+``dt`` is taken after ``torch.cuda.synchronize()``, as the reference
+takes it after ``block_until_ready``.  The state is ``{"step", "params",
+"m", "v"}`` as in the reference; its checkpoints are written in the
+reference's layout
 (the layers stacked under ``params/stack/scan/b<j>``, the same leaf names,
 shapes and dtypes), so each package restores the other's.  The mesh and
 ``reshard_state`` (elastic re-placement) come with ROADMAP Queue 1 item
@@ -97,11 +100,6 @@ class Trainer:
             raise NotImplementedError(
                 f"Trainer trains the LM families; family {cfg.family!r} "
                 "has no loss_fn in the port")
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "Trainer: training a mixture-of-experts model (its router "
-                "loss through the trainer) is not ported yet (ROADMAP Queue "
-                "1, item 7c)")
         self.events = TrainerEvents()
         self._failure_injector = failure_injector
         self._straggler_hook = straggler_hook
@@ -146,12 +144,18 @@ class Trainer:
 
     # -- fault handling -----------------------------------------------------
     def _install_sigterm(self):
+        """Flag SIGTERM for the step loop.  Returns a function that puts
+        the replaced handler back: the handler holds the trainer, and
+        left installed it would keep the trainer and its state alive
+        after ``run``."""
         def handler(signum, frame):
             self._sigterm = True
         try:
-            signal.signal(signal.SIGTERM, handler)
+            previous = signal.signal(signal.SIGTERM, handler)
         except ValueError:      # not in main thread
-            pass
+            return lambda: None
+        return lambda: signal.signal(
+            signal.SIGTERM, signal.SIG_DFL if previous is None else previous)
 
     def checkpoint_state(self) -> dict:
         """The state as the reference lays it out, on the host."""
@@ -238,7 +242,13 @@ class Trainer:
 
     # -- main loop ------------------------------------------------------------
     def run(self) -> list:
-        self._install_sigterm()
+        restore = self._install_sigterm()
+        try:
+            return self._run()
+        finally:
+            restore()
+
+    def _run(self) -> list:
         tc = self.tcfg
         step = int(self.state["step"])
         if self.data is None:

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import torch_one_thread  # noqa: E402,F401  (fixture)
 
 from repro.core import autotune as j_at  # noqa: E402
 from repro.nn import conv as j_conv  # noqa: E402

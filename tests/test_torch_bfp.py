@@ -34,6 +34,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import torch_one_thread  # noqa: E402,F401  (fixture)
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.core import bfp as j_bfp  # noqa: E402
 from repro.kernels.bfp_matmul import bfp_matmul as j_bk  # noqa: E402

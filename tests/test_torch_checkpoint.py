@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import torch_one_thread  # noqa: E402,F401  (fixture)
 
 from repro import checkpoint as j_ckpt  # noqa: E402
 from repro_torch import checkpoint as ckpt  # noqa: E402

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import torch_one_thread  # noqa: E402,F401  (fixture)
 
 from repro.core import winograd as j_wg  # noqa: E402
 from repro.kernels.conv import ops as j_ops  # noqa: E402

@@ -707,10 +707,12 @@ def test_decode_attn_kernel_matches_plain(card, dtype, D, G, S):
                                         (1, 33, 6, 3, 8), (2, 33, 6, 3, 8),
                                         (2, 40, 12, 2, 64),
                                         (8, 512, 15, 5, 64),
-                                        (2, 2048, 24, 8, 128)])
+                                        (2, 2048, 24, 8, 128),
+                                        (8, 512, 32, 8, 128)])
 def test_decode_attn_kernel_geometries(card, dtype, B, S, H, KV, D):
     """The JAX package's sweep, a group of 6 (two blocks of query heads per
-    KV head), and the smollm-360m and llama3.2-3b decode geometries."""
+    KV head), and the smollm-360m, llama3.2-3b and jamba-v0.1-52b (G = 4)
+    decode geometries."""
     q, k, v, lens = _decode_inputs(B * S, B, S, H, KV, D, dtype, card)
     got = dec_ops.decode_attention(q, k, v, lens)
     _decode_close(got, decode_attention_f32_ref(q, k, v, lens), dtype)
@@ -903,11 +905,14 @@ def _ssd_card_inputs(seed, B, L, H, P, G, N, dtype, card):
 
 # (B, L, H, P, G, N, chunk): mamba2-2.7b's served geometry (one ragged
 # chunk of 200) and three chunks with a ragged tail; groups > 1; L = 1;
-# N = 256 (the kernel's largest); the JAX package's sweep
+# N = 256 (the kernel's largest); the JAX package's sweep; jamba-v0.1-52b's
+# heads (N = 16, under every state slice) at a served and a long prompt
 SSD_CARD_CASES = [(1, 200, 80, 64, 1, 128, 256), (1, 600, 8, 64, 1, 128, 256),
                   (2, 100, 4, 8, 2, 16, 32), (2, 37, 6, 16, 3, 32, 16),
                   (1, 1, 4, 64, 1, 128, 256), (2, 300, 4, 64, 2, 256, 128),
-                  (2, 64, 4, 8, 2, 16, 16), (2, 16, 8, 16, 1, 4, 16)]
+                  (2, 64, 4, 8, 2, 16, 16), (2, 16, 8, 16, 1, 4, 16),
+                  (1, 200, 128, 64, 1, 16, 256),
+                  (1, 2048, 128, 64, 1, 16, 256)]
 
 
 @pytest.mark.cuda
@@ -990,6 +995,40 @@ def test_ssd_kernel_decays_reach_the_clip(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L", [200, 2048])
+def test_ssd_kernel_masks_state_rows_past_n(card, monkeypatch, L):
+    """jamba-v0.1-52b's heads (H = 128, N = 16): every row tile and state
+    slice (32 or 64 state rows a block, more than N) gives the same bits,
+    within the gate of the plain version, and a NaN stored just past B
+    and C (where an unmasked state row would read) stays out of y and the
+    state."""
+    H, N = 128, 16
+    args = list(_ssd_card_inputs(L + 5, 1, L, H, 64, 1, N, torch.bfloat16,
+                                 card))
+    for i in (3, 4):        # B and C, each followed by NaNs in memory
+        t = args[i]
+        buf = torch.full((t.numel() + 4096,), float("nan"), dtype=t.dtype,
+                         device=card)
+        buf[:t.numel()] = t.reshape(-1)
+        args[i] = buf[:t.numel()].view(t.shape)
+    ref = ssd.ssd_chunked_pallas(*args, chunk=256)
+    assert all(bool(torch.isfinite(r).all()) for r in ref)
+    y_ref, st_ref = ssd.ssd_chunked_plain(*args, chunk=256)
+    _f32_close(ref[0], y_ref, torch.bfloat16, rel_step=True)
+    _f32_close(ref[1], st_ref, torch.bfloat16)
+    one_chunk = L <= 256
+    for rt in ssd.ROW_TILES:
+        for ns in ((rt,) if one_chunk else ssd.STATE_SLICES):
+            assert ns > N
+            monkeypatch.setattr(ssd, "row_tile", lambda *a, rt=rt: rt)
+            monkeypatch.setattr(ssd, "state_slice", lambda *a, ns=ns: ns)
+            y, st = ssd.ssd_chunked_pallas(*args, chunk=256)
+            torch.cuda.synchronize()
+            assert torch.equal(y, ref[0]) and torch.equal(st, ref[1]), \
+                (rt, ns)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("L", [200, 472])
 def test_ssd_kernel_bit_equal_across_tiles(card, monkeypatch, L):
     """Every row tile and state slice the kernel takes gives the same bits
@@ -1009,7 +1048,8 @@ def test_ssd_kernel_bit_equal_across_tiles(card, monkeypatch, L):
 
 
 DW1D_CARD_CASES = [(1, 200, 5120), (1, 2048, 5120), (2, 7, 128), (2, 33, 5),
-                   (3, 100, 96), (1, 1, 8), (1, 2, 130), (2, 64, 8)]
+                   (3, 100, 96), (1, 1, 8), (1, 2, 130), (2, 64, 8),
+                   (1, 200, 8192), (1, 2048, 8192)]
 
 
 @pytest.mark.cuda
@@ -1702,3 +1742,84 @@ def test_encdec_and_vlm_engines_on_the_card_match_the_cpu(card, arch):
             assert decode_attn.launches - n0 == \
                 cfg.num_layers * (2 if audio else 1) * eng.decode_steps
     assert out["cpu"] == out[str(card)]
+
+
+# the hybrid family, BFP-compressed linears and MoE training ------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_hybrid_engine_on_the_card_matches_the_cpu(card, quantized):
+    """Reduced jamba-v0.1-52b served on the card, as it is and with every
+    linear BFP-compressed: the CPU engine's greedy tokens; kernels 6 and 7
+    once per Mamba layer a prefill, kernel 5 once per attention layer a
+    decode step."""
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    params = lm.init(0, cfg, device="cpu")
+    if quantized:
+        params = lm.quantize_linear_tree(params, cfg, min_size=256)
+    n_ssm = sum(m == "ssm" for m, _ in
+                (cfg.layer_kind(i) for i in range(cfg.num_layers)))
+    scfg = ServeConfig(max_batch=3, max_len=64)
+    prompts = [list(range(1, n + 1)) for n in (5, 3, 20, 9)]
+    out = {}
+    for dev in ("cpu", card):
+        eng = Engine(cfg, scfg, params=lm.to_device(params, dev), device=dev)
+        reqs = [Request(prompt=p, max_new=5) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        n5, n6, n7 = (decode_attn.launches, ssd.launches,
+                      winograd.dw1d_launches)
+        eng.run_until_done()
+        out[str(dev)] = [r.generated for r in reqs]
+        if dev == card:
+            assert ssd.launches - n6 == n_ssm * len(prompts)
+            assert winograd.dw1d_launches - n7 == n_ssm * len(prompts)
+            assert decode_attn.launches - n5 == \
+                (cfg.num_layers - n_ssm) * eng.decode_steps
+    assert out["cpu"] == out[str(card)]
+
+
+@pytest.mark.cuda
+def test_quantize_linear_tree_on_the_card_is_the_cpus(card):
+    """quantize_linear_tree on the card gives the CPU's bits (powers of
+    two from their bits on both), and the dequantized weights equal."""
+    from repro_torch.core import bfp as core_bfp
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    params = lm.init(2, cfg, device="cpu")
+    a = lm.quantize_linear_tree(params, cfg, min_size=256)
+    b = lm.quantize_linear_tree(lm.to_device(params, card), cfg,
+                                min_size=256)
+    from repro_torch.nn.module import tree_leaves
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        assert torch.equal(x, y.cpu())
+    w = a["stack"][1]["moe"]["experts"]
+    wc = b["stack"][1]["moe"]["experts"]
+    assert torch.equal(core_bfp.dequantize_linear(w, "w1"),
+                       core_bfp.dequantize_linear(wc, "w1").cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b"])
+def test_moe_trainer_on_the_card_matches_the_cpu(card, arch):
+    """Reduced granite (MoE every layer) and jamba (the hybrid: kernel 7
+    forward and backward in every Mamba layer) trained 4 steps on the
+    card: the router loss in every step, the params within the
+    reference's restart bound of a CPU run."""
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = get_config(arch).reduced()
+    params = lm.init(0, cfg, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tcfg = TrainerConfig(steps=4, batch=2, seq_len=32, log_every=1,
+                             warmup=1)
+        tr = Trainer(cfg, tcfg, params=lm.to_device(params, dev),
+                     device=dev)
+        runs[dev] = (tr, tr.run())
+    tr, hist = runs["cuda"]
+    assert len(hist) == 4 and all(h["aux_loss"] > 0 for h in hist)
+    for h, c in zip(hist, runs["cpu"][1]):
+        np.testing.assert_allclose(h["loss"], c["loss"], rtol=1e-4)
+    for x, y in zip(tree_leaves(tr.state["params"]),
+                    tree_leaves(runs["cpu"][0].state["params"])):
+        np.testing.assert_allclose(x.detach().cpu().numpy(),
+                                   y.detach().numpy(), rtol=1e-4, atol=1e-5)

@@ -16,6 +16,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_one_thread  # noqa: F401  (fixture)
 
 from repro.kernels.decode_attn import ops as j_ops
 from repro.nn import flash as j_flash

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_one_thread  # noqa: F401  (fixture)
 from test_torch_bfp import exact_jax_exp2  # noqa: F401  (fixture)
 
 from repro.configs import get_config as j_get_config
@@ -81,8 +82,11 @@ def test_configs_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
 def test_unported_archs_raise_with_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        get_config(arch)
+    """The last config the port refused (item 7c) is ported: it is the
+    reference's and the LM serves it."""
+    cfg, j_cfg = get_config(arch), j_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_cfg)
+    assert model_for(cfg) is lm
 
 
 def test_pattern_periodicity_on_the_ports_configs():
@@ -103,9 +107,12 @@ def test_pattern_periodicity_on_the_ports_configs():
 
 @pytest.mark.parametrize("family", ["hybrid"])
 def test_unported_families_raise_with_their_roadmap_item(family):
+    """The last family the port refused (item 7c) goes to the LM; a name
+    no package knows is refused."""
     cfg = dataclasses.replace(get_config("smollm-360m"), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        model_for(cfg)
+    assert model_for(cfg) is lm
+    with pytest.raises(ValueError, match="unknown model family"):
+        model_for(dataclasses.replace(cfg, family="graph"))
 
 
 def test_default_device_is_the_card():

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_one_thread  # noqa: F401  (fixture)
 
 from repro.configs import get_config as j_get_config
 from repro.models import lm as j_lm
@@ -80,9 +81,11 @@ def test_config_matches_reference():
 
 
 def test_ssm_family_is_the_lm_and_hybrid_still_raises():
+    """The SSM family and the hybrid (no longer refused since item 7c)
+    are both the LM."""
     assert model_for(get_config(ARCH)) is lm
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        model_for(dataclasses.replace(get_config(ARCH), family="hybrid"))
+    assert model_for(dataclasses.replace(get_config(ARCH),
+                                         family="hybrid")) is lm
 
 
 def test_init_and_caches_match_reference_structure():

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import torch_one_thread  # noqa: E402,F401  (fixture)
 
 import repro.serving as j_serving  # noqa: E402
 import repro_torch.serving as t_serving  # noqa: E402

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import torch_one_thread  # noqa: E402,F401  (fixture)
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.kernels.conv import dma as j_dma  # noqa: E402

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_one_thread  # noqa: F401  (fixture)
 
 from repro.configs import get_config as j_get_config
 from repro.core import winograd as j_wg
@@ -200,13 +201,16 @@ def test_ssd_staged_twin_matches_plain_and_pallas_kernel(L, H, P, G, N,
 
 
 # (B, L, H, P, G, N, chunk): the card cases of tests/test_torch_cuda.py,
-# and mamba2-2.7b's heads at the served lengths and a long prompt
+# and mamba2-2.7b's heads at the served lengths and a long prompt;
+# jamba-v0.1-52b's (N = 16) at the same lengths
 SSD_CARD_SHAPES = [(1, 200, 80, 64, 1, 128, 256), (1, 600, 8, 64, 1, 128, 256),
                    (2, 100, 4, 8, 2, 16, 32), (2, 37, 6, 16, 3, 32, 16),
                    (1, 1, 4, 64, 1, 128, 256), (2, 300, 4, 64, 2, 256, 128),
                    (2, 64, 4, 8, 2, 16, 16), (2, 16, 8, 16, 1, 4, 16),
                    (1, 472, 80, 64, 1, 128, 256),
-                   (1, 2048, 80, 64, 1, 128, 256)]
+                   (1, 2048, 80, 64, 1, 128, 256),
+                   (1, 200, 128, 64, 1, 16, 256),
+                   (1, 2048, 128, 64, 1, 16, 256)]
 
 
 @pytest.mark.parametrize("B,L,H,P,G,N,chunk", SSD_CARD_SHAPES)
@@ -238,6 +242,16 @@ def test_ssd_launch_geometry_and_scratch(B, L, H, P, G, N, chunk):
     assert parts["cb"] >= B * G * nc * Qp * Qp
     assert parts["states"] == (B * H * nc * N * P if nc > 1 else 0)
     assert ssd_k.scratch_numel(B, L, H, P, G, N, Q) == sum(parts.values())
+
+
+@pytest.mark.parametrize("L,nslice", [(200, 64), (472, 32), (2048, 64)])
+def test_ssd_tiles_at_jamba_heads(L, nslice):
+    """jamba-v0.1-52b's 128 heads at N = 16: 64-row tiles, and state slices
+    of 64 rows (32 where two chunks give 256 state blocks, under
+    MIN_BLOCKS), more than N, so a state block masks the rows past N."""
+    Q = min(256, L)
+    assert ssd_k.row_tile(1, L, 128, Q) == 64
+    assert ssd_k.state_slice(1, L, 128, 16, Q) == nslice > 16
 
 
 def test_ssd_scratch_at_a_served_prefill():

@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_one_thread  # noqa: F401  (fixture)
 
 from repro.configs import get_config as j_get_config
 from repro.runtime import Trainer as JTrainer
@@ -127,6 +128,41 @@ def test_straggler_detection():
     assert seen == tr.events.stragglers
 
 
+def test_run_puts_the_sigterm_handler_back():
+    """After ``run`` the process's SIGTERM handler is the one it had, and
+    nothing holds the finished trainer: its state is freed with it."""
+    import gc
+    import signal
+    import weakref
+    before = signal.getsignal(signal.SIGTERM)
+    tr = _trainer(TrainerConfig(steps=2, batch=2, seq_len=8, log_every=0))
+    tr.run()
+    assert signal.getsignal(signal.SIGTERM) is before
+    gone = weakref.ref(tr)
+    del tr
+    gc.collect()
+    assert gone() is None
+
+
+def test_reference_trainer_keeps_its_sigterm_handler():
+    """The fault the port does not copy: the reference's ``run`` leaves
+    its SIGTERM handler installed, and the handler's closure holds the
+    trainer, so a finished trainer's state lives on until another
+    trainer replaces it."""
+    import signal
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        jt = JTrainer(j_get_config("smollm-360m").reduced(),
+                      JTrainerConfig(steps=1, batch=2, seq_len=8,
+                                     log_every=0))
+        jt.run()
+        handler = signal.getsignal(signal.SIGTERM)
+        assert handler is not before
+        assert jt in [c.cell_contents for c in handler.__closure__]
+    finally:
+        signal.signal(signal.SIGTERM, before)
+
+
 def test_mesh_and_cuda_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 7d"):
         Trainer(_tiny(), TrainerConfig(), mesh=object(), device="cpu")
@@ -160,6 +196,7 @@ def _j_params_np(jt):
 
 
 def _assert_close_to_reference(port_params, j_state_params, cfg):
+    """Every leaf within the restart bound of the reference's."""
     ref = lm.params_from_reference(
         jax.tree_util.tree_map(np.asarray, j_state_params), cfg,
         device="cpu")
@@ -228,13 +265,57 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2x2"], "item 7d"),
-    (["--arch", "granite-moe-1b-a400m"], "item 7c"),
-    (["--arch", "deepseek-v2-lite-16b"], "item 7c"),
+    # the mixture-of-experts family, once refused naming item 7c, trains
+    pytest.param(["--arch", "granite-moe-1b-a400m"], None,
+                 id="argv1-item 7c"),
+    pytest.param(["--arch", "deepseek-v2-lite-16b"], None,
+                 id="argv2-item 7c"),
     (["--arch", "whisper-tiny"], "item 7d"),
     (["--arch", "phi-3-vision-4.2b"], "item 7d")])
 def test_train_cli_refusals(argv, match):
+    """What the CLI still refuses names its ROADMAP item; the MoE configs
+    it refused until item 7c train (their router loss in every step)."""
+    argv = argv + ["--device", "cpu", "--steps", "2", "--batch", "2",
+                   "--seq-len", "16"]
+    if match is None:
+        hist = train_cli.main(argv)
+        assert [h["step"] for h in hist] == [1, 2]
+        assert all(np.isfinite(h["loss"]) and h["aux_loss"] > 0
+                   for h in hist)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(argv + ["--device", "cpu", "--steps", "1"])
+        train_cli.main(argv)
+
+
+# --- the mixture-of-experts and hybrid families ---
+MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+             "jamba-v0.1-52b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_and_hybrid_trainer_steps_match_reference(arch):
+    """Both trainers take 3 steps from one set of params on the same
+    step-keyed batches: each step's loss, router loss and grad norm agree
+    (1e-5 relative) and the params after them within the file's restart
+    bound (rtol 1e-4, atol 1e-5).  Reduced granite (MoE every layer),
+    deepseek (a dense prefix layer, MLA) and jamba (the hybrid)."""
+    j_cfg, cfg = j_get_config(arch).reduced(), get_config(arch).reduced()
+    kw = dict(steps=3, batch=2, seq_len=16, log_every=1, warmup=1)
+    params = lm.init(0, cfg, device="cpu")
+    j_params = jax.tree_util.tree_map(
+        lambda t: jax.numpy.asarray(t.detach().numpy()),
+        lm.to_reference_layout(params, cfg, device="cpu"))
+    jt = JTrainer(j_cfg, JTrainerConfig(**kw), params=j_params)
+    j_hist = jt.run()
+    tr = Trainer(cfg, TrainerConfig(**kw), device="cpu", params=params)
+    hist = tr.run()
+    assert [h["step"] for h in hist] == [h["step"] for h in j_hist] == \
+        [1, 2, 3]
+    for h, jh in zip(hist, j_hist):
+        assert h["aux_loss"] > 0
+        for k in ("loss", "aux_loss", "grad_norm"):
+            np.testing.assert_allclose(h[k], jh[k], rtol=1e-5)
+    _assert_close_to_reference(tr.state["params"], jt.state["params"], cfg)
 
 
 def test_train_100m_example_config_matches_reference():

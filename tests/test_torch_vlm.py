@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_one_thread  # noqa: F401  (fixture)
 
 from repro.configs import get_config as j_get_config
 from repro.models import vlm as j_vlm

@@ -22,7 +22,7 @@ Phases:
                ``direct`` route), then with ``fc_bfp`` and ``conv_bfp``
                (agreement with the f32 model within the BFP error); each
                with launch counts and bit-equality to ``apply`` at the
-               served bucket; then one more f32 batch of 8 traced with
+               served bucket; then one more batch of 8 traced with
                ``torch.profiler`` (device busy ms, the conv kernels' device
                ms, the Winograd kernels' by stage, the device idle share);
   4b. sdc    — the ABFT/SDC defense at full width (f32, route ``pallas``):
@@ -235,6 +235,52 @@ Phases:
                greedy tokens equal the CPU engine's.  Phases 5 and 7 hold
                and time kernel 5 at jamba's decode (G = 4) and kernels 6
                (N = 16) and 7 (8,192 channels) at its prefill shapes.
+Slice 17's phases, in the order they run:
+  3e. kernels-bf16-bfp — 3b's checks on a bf16 model's ``conv_bfp``
+               slabs, which the reference dequantizes to f32: kernel 1
+               with bf16 x on an f32 slab, kernels 2-3 on the BFP slabs,
+               each bit-equal at every tile, armed and unarmed, to the f32
+               kernel on the widened inputs rounded to bf16;
+  3f. bfp-bf16 — kernel 4 at fc6-fc8 on a bf16 BFP model's activations:
+               the pre-pass reads bf16 x, bit-equal to the f32 kernel on
+               ``x.float()`` and to the plain version; timed beside the
+               bf16 ``x @ w`` and the int8 stream's bound;
+  3d. winograd-m — kernels 2-3 at AlexNet's conv3-conv5 (batch 8) at
+               F(m,3), m in WINO_MS: within max(TOL_KERNEL, 3 e(m)) of the
+               plain version (e(m) its own error against ``conv2d_ref`` in
+               float64), every tile bit-equal to the default armed and
+               unarmed, a flipped slab bit's verdict the plain count, the
+               bf16 rule; timed in f32 and bf16 beside ``F.conv2d`` and the
+               bound at F(4,3)'s operation count;
+  4h. serve-bf16-bfp — full-width AlexNet and VGG-16 in bf16 with
+               ``fc_bfp`` and ``conv_bfp`` through ``CnnEngine(max_batch=
+               8)``, 32 requests each: delivered, finite, bit-equal to
+               ``apply``, within TOL_BF16 of the f32 model with the same
+               quantization, and within TOL_BFP of the f32 model where
+               the quantization's own error, measured by the kernels'
+               plain versions on the CPU, is under it (else within that
+               error + TOL_BF16: VGG-16); the card held to that witness
+               layer by layer; kernels 1-4's launches, one traced batch;
+               an armed bf16 BFP AlexNet's verdict 0 on clean slabs,
+               bit-equal to unarmed;
+  3d (after 8). kernel 7 at DW1D_TAPS taps (the reference's m for each)
+               at mamba2-2.7b's (1,200,5120) and (1,2048,5120) bf16: the
+               forward, dx (bit-equal to flip(kernel 7(flip(dy)))) and
+               dw/db against their plain versions, timed beside
+               ``F.conv1d`` (its autograd backward) and the bound; a
+               reduced mamba2-2.7b at ``conv_kernel=3``: the card's tokens
+               equal the CPU engine's, a training step's loss and
+               gradients on the kernel route equal the plain route's
+               within 9c's tolerances;
+  9g. train-audio-vlm — whisper-tiny at published widths (4 + 4 layers)
+               and phi-3-vision-4.2b's widths cut to 8 of 32 layers through
+               ``Trainer`` (f32 params, bf16 compute, remat; whisper-tiny
+               at lr 3e-3, phi-3-vision at TRAIN_VLM_SCHEDULE's 3e-4,
+               each after 2 warmup steps), on batches with 128 frames or
+               576 x 1,024
+               patches a row: finite losses and grad norms, step 0's
+               batch's loss lower after the run; step ms, tokens/s, peak
+               memory, one traced step's idle share.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -439,6 +485,28 @@ HYBRID_BFP_SHAPE = (8, 8)
 HYBRID_BFP_PROMPTS = (8, 32)
 # ABFT: seeded single-bit flips a layer, beside one each in a checksum row,
 # in padding, in a sign bit and in an exponent bit
+# slice 17 (3d): kernels 2-3 at F(m,3) beside the served F(4,3), kernel 7
+# at r taps beside the served 4 (the reference's m for each), and the
+# reduced Mamba-2 served and trained at MAMBA_TAPS taps; within
+# max(TOL_KERNEL, 3 e(m)) of max|y| of the plain version, e(m) the plain
+# version's own error against conv2d_ref in float64 (the transform's
+# conditioning grows with m)
+WINO_MS = (2, 3, 6, 8, 10)
+DW1D_TAPS = (2, 3, 5, 8, 11)
+MAMBA_TAPS = 3
+# 9g: whisper-tiny at published widths (batch, seq, steps; 128 frames a
+# row, min(seq, 128)) and phi-3-vision-4.2b's widths cut to
+# VLM_TRAIN_LAYERS layers (576 x 1,024 patches a row)
+TRAIN_ENCDEC_SHAPE = (8, 256, 10)
+TRAIN_VLM_SHAPE = (1, 512, 4)
+VLM_TRAIN_LAYERS = 8
+# phi-3-vision's widths (d_model 3,072) at 9e's lr 3e-3 took step 0's
+# batch's loss from 10.77 up to 14.13 on an H100: its lr is scaled down
+# with the width, as smollm-360m's 1e-3 is at d_model 960
+TRAIN_VLM_SCHEDULE = {"base_lr": 3e-4, "warmup": 2}
+# 4h's witness of the BFP quantization's own error: images of the f32 BFP
+# model run by the kernels' plain versions on the host's CPU
+WITNESS_IMAGES = 4
 ABFT_FLIPS = 32
 SDC_SEED = 0
 ARRIVALS = (1, 3, 8, 5, 2, 7, 6)   # 32 requests in mixed group sizes
@@ -793,12 +861,19 @@ def conv_launches_per_forward(cfg):
     return counts
 
 
-def phase_serve(torch, np, cfg, params, *, cfg_f32=None, params_f32=None,
-                tol=TOL_BFP, arrivals=ARRIVALS, label=None):
+def phase_serve(*args, **kw):
+    """``serve_and_check``'s numbers."""
+    return serve_and_check(*args, **kw)[0]
+
+
+def serve_and_check(torch, np, cfg, params, *, cfg_f32=None,
+                    params_f32=None, tol=TOL_BFP, arrivals=ARRIVALS,
+                    label=None):
     """Serve ``arrivals`` requests; with ``cfg_f32`` (a BFP or bf16
     config's f32 twin, on ``params_f32``, by default ``params``) the logits
     are held against that model within ``tol`` * max|logit|, else against
-    the ``direct`` route, and one more batch is traced."""
+    the ``direct`` route, and one more batch is traced.  Returns (numbers,
+    the served logits, their images), the last two as numpy arrays."""
     from repro_torch.models import alexnet
     from repro_torch.serving import CnnEngine, CnnServeConfig, ImageRequest
     rng = np.random.default_rng(1)
@@ -880,8 +955,7 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None, params_f32=None,
     if cfg_f32 is not None:
         check(dmax > 0, f"{label} logits equal the f32 model's: the "
               "quantized or bf16 path did not run")
-    trace = (profile_batch(torch, eng, requests, label) if cfg_f32 is None
-             else {})
+    trace = profile_batch(torch, eng, requests, label)
     lat = s["latency_ms"]
     return {**trace, "completed": acc["completed"], "batches": nb,
             "bucket_counts": s["bucket_counts"],
@@ -890,7 +964,8 @@ def phase_serve(torch, np, cfg, params, *, cfg_f32=None, params_f32=None,
             "launches": counts, "per_forward": per_forward,
             "tuned_layers": s["tuned_layers"],
             "requests": len(reqs), "served_vs_reference": what,
-            "served_vs_reference_max_abs": dmax, "max_abs_logit": lmax}
+            "served_vs_reference_max_abs": dmax,
+            "max_abs_logit": lmax}, served, images.cpu().numpy()
 
 
 def profile_batch(torch, eng, requests, label="f32"):
@@ -1435,7 +1510,9 @@ def phase_kernels_bf16(torch, np, cfg, params):
     the bf16 rule at every tile of each launcher's grid, armed and
     unarmed; within one bf16 step of the plain version; the armed direct
     kernels' verdicts for seeded flips of their bf16 slabs; timed beside
-    bf16 ``F.conv2d`` and the bound."""
+    bf16 ``F.conv2d`` and the bound.  Under ``cfg.conv_bfp`` (3e) every
+    slab is the reference's f32 BFP slab, kernel 1's too (bf16 x on an f32
+    slab), and the flips are left to 3b."""
     from repro_torch.kernels.conv import direct, winograd
     from repro_torch.nn.conv import pack_conv_weights
     rng = np.random.default_rng(SDC_SEED + 1)
@@ -1447,16 +1524,17 @@ def phase_kernels_bf16(torch, np, cfg, params):
         lrn = spec.lrn if spec.fuse_lrn else None
         pool = (spec.pool_window, spec.pool_stride) if spec.fuse_pool else None
         entry = conv_entry(kname, spec)
-        want_slab = torch.bfloat16 if kname == "conv_direct" else \
-            torch.float32
+        want_slab = (torch.bfloat16 if kname == "conv_direct"
+                     and not cfg.conv_bfp else torch.float32)
         check(x.dtype is torch.bfloat16 and slab.dtype is want_slab,
               f"{layer}: x {x.dtype}, slab {slab.dtype}; the reference "
               f"packs {want_slab}")
-        armed = pack_conv_weights(spec, tuple(x.shape), w, abft=True).data
+        armed = pack_conv_weights(spec, tuple(x.shape), w, abft=True,
+                                  bfp_pack=cfg.conv_bfp).data
         tiles = [t for t in mod.TILES
                  if t in mod.ANY_SLAB_TILES or plan.Kb % 4 == 0]
         bf16_rule(torch, entry, x, w, b, slab, armed, tiles, layer)
-        if kname == "conv_direct":
+        if kname == "conv_direct" and not cfg.conv_bfp:
             armed_plan = dataclasses.replace(plan, checksum=True)
             flips.append(sdc_layer(torch, np, kname, layer, spec, x, w, b,
                                    slab, armed, armed_plan, rng, "bf16"))
@@ -1485,8 +1563,9 @@ def phase_kernels_bf16(torch, np, cfg, params):
             time_ms(torch, library))
         flops, nbytes = flops_bytes(kname, x, got, plan, slab)
         bound, bound_by = conv_bound(kname, x, flops, nbytes)
+        kind = "conv_bfp slab" if cfg.conv_bfp else "slab"
         print(f"kernel {kname} {layer} (bf16 x, {str(slab.dtype)[6:]} "
-              f"slab): bf16 rule bit-equal at tiles {tiles}, armed and "
+              f"{kind}): bf16 rule bit-equal at tiles {tiles}, armed and "
               f"unarmed | max_abs_err {err:.3e} vs plain (within one bf16 "
               f"step; vs bf16 F.conv2d {lib_err:.3e}) | kernel_ms {ms:.4f} "
               f"plain_ms {plain_ms:.4f} library_ms(bf16 F.conv2d, cuDNN) "
@@ -2445,14 +2524,13 @@ def ssd_work(B, L, H, P, G, N, Q, itemsize):
     return flops, nbytes
 
 
-def dw1d_work(B, L, C, itemsize):
-    """(operations, bytes) of one F(3,4) depthwise conv: per tile of 3
-    outputs 36 multiply-adds for B^T d, 6 products, 18 multiply-adds for
-    A^T, and 3 bias adds; bytes: x and out in x's dtype, w (4, C) and b in
-    f32."""
-    nt = -(-L // 3)
-    flops = B * C * nt * (2 * 36 + 6 + 2 * 18 + 3)
-    nbytes = 2 * itemsize * B * L * C + 4 * 5 * C
+def dw1d_work(B, L, C, itemsize, r=4):
+    """(operations, bytes) of one depthwise causal conv of r taps: the
+    function's work, r multiply-adds and a bias add an output (2 r + 1
+    operations), not the Winograd transforms that compute it; bytes: x
+    and out in x's dtype, w (r, C) and b in f32."""
+    flops = (2 * r + 1) * B * L * C
+    nbytes = 2 * itemsize * B * L * C + 4 * (r + 1) * C
     return flops, nbytes
 
 
@@ -2805,14 +2883,15 @@ def phase_mamba(torch, np):
 # ---------------------------------------------------------------------------
 # phase 9: training
 # ---------------------------------------------------------------------------
-def dw1d_bwd_work(B, L, C, itemsize, kind):
+def dw1d_bwd_work(B, L, C, itemsize, kind, r=4):
     """(operations, bytes) of the backward's dx (kernel 7 on the reversed
     cotangent: the forward's work, dy read and dx written once) or of its
-    wgrad (x and dy read once, dw and db written in f32; 9 operations an
-    element: four multiply-adds and an add)."""
+    wgrad (x and dy read once, dw and db written in f32; 2 r + 1
+    operations an element: r multiply-adds and an add)."""
     if kind == "dx":
-        return dw1d_work(B, L, C, itemsize)
-    return 9 * B * L * C, 2 * itemsize * B * L * C + 4 * 5 * C
+        return dw1d_work(B, L, C, itemsize, r)
+    return ((2 * r + 1) * B * L * C,
+            2 * itemsize * B * L * C + 4 * (r + 1) * C)
 
 
 def _wgrad_excess(got, ref, rel_step):
@@ -2952,9 +3031,9 @@ def _train_report(hist, tokens):
 
 def held_batch_loss(torch, cfg, params, batch) -> float:
     """The cross entropy of ``params`` on ``batch``, no gradient."""
-    from repro_torch.models import lm
+    from repro_torch.models import model_for
     with torch.no_grad():
-        return float(lm.loss_fn(params, cfg, batch)[1]["loss"])
+        return float(model_for(cfg).loss_fn(params, cfg, batch)[1]["loss"])
 
 
 def train_through_trainer(torch, np, card, cfg, shape, *, falls=True,
@@ -2966,21 +3045,24 @@ def train_through_trainer(torch, np, card, cfg, shape, *, falls=True,
     loss on the first step's batch lower after the run than before it,
     and the stream's loss falling when ``falls`` (each step's batch has
     patterns of its own, so that loss falls only over a long run); then
-    one step traced."""
+    one step traced.  The audio and vlm families' batches carry their
+    frames or patches, as the trainer's stream makes them."""
     from repro_torch.data.pipeline import synthetic_batches
-    from repro_torch.models import lm
+    from repro_torch.models import model_for
     from repro_torch.nn.module import count_params
     from repro_torch.runtime import Trainer, TrainerConfig
     B, S, steps = shape
-    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
-                     device="cuda")
+    params = model_for(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     n_params = count_params(params)
     tcfg = TrainerConfig(steps=steps, batch=B, seq_len=S, log_every=1,
                          **(schedule or {}))
     # the trainer's step-keyed stream at step 0
     held = {k: torch.from_numpy(v).to("cuda") for k, v in next(
         synthetic_batches(batch=B, seq_len=S, vocab=cfg.vocab_size,
-                          seed=tcfg.seed, steps=1)).items()}
+                          seed=tcfg.seed, steps=1, family=cfg.family,
+                          d_model=cfg.d_model, num_patches=cfg.num_patches,
+                          frames_len=min(S, 128))).items()}
     before = held_batch_loss(torch, cfg, params, held)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3009,6 +3091,8 @@ def train_through_trainer(torch, np, card, cfg, shape, *, falls=True,
         torch, lambda: tr.train_step(batch), steps=2, marks=())
     rep.update(arch=cfg.name, layers=cfg.num_layers, params=n_params,
                batch=B, seq_len=S, peak_mem_bytes=peak,
+               extra_rows={k: list(v.shape[1:]) for k, v in held.items()
+                           if k in ("frames", "patches")},
                held_loss_before=before, held_loss_after=after,
                aux_losses=[h["aux_loss"] for h in hist],
                traced_wall_ms=wall, device_busy_ms=busy,
@@ -3262,17 +3346,18 @@ def phase_train_recovery(torch, np, card):
 
 
 def phase_train(torch, np, card):
-    """Phase 9: 9a-9f."""
+    """Phase 9: 9a-9g."""
     t0 = time.perf_counter()
     rows = phase_train_kernels(torch, np)
     dense = phase_train_smollm(torch, np, card)
     ssm = phase_train_mamba(torch, np, card)
     recovery = phase_train_recovery(torch, np, card)
     moe = phase_train_moe(torch, np, card)
+    audio_vlm = phase_train_audio_vlm(torch, np, card)
     seconds = time.perf_counter() - t0
     print(f"train: phase 9 {seconds:.1f} s")
     return rows, {"dense": dense, "ssm": ssm, "recovery": recovery,
-                  "moe": moe, "phase_s": seconds}
+                  "moe": moe, "audio_vlm": audio_vlm, "phase_s": seconds}
 
 
 # --- phase 10: mixture-of-experts and MLA serving ---------------------------
@@ -3484,16 +3569,17 @@ def f32_probe(torch, np, cfg, params, alt, label, *, decorate=None,
             "moe_layers_equal": same, "kernel5_launches": [k_got, k_ref]}
 
 
-def reduced_on_card(torch, np, arch, seed, quantized=False):
+def reduced_on_card(torch, np, arch, seed, quantized=False, cfg=None):
     """A reduced model's greedy tokens on the card equal the CPU
     engine's (f32); ``quantized``: with every linear BFP-compressed
     (``lm.quantize_linear_tree`` at a ``min_size`` of 256).  The
     encoder-decoder's requests carry 16, 8, 3, 16 and 12 frames over a
-    cross cache of 16 rows; the VLM's carry patches."""
+    cross cache of 16 rows; the VLM's carry patches.  ``cfg``: that
+    reduced config instead of ``arch``'s."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm, model_for
     from repro_torch.serving import Engine, Request, ServeConfig
-    small = get_config(arch).reduced()
+    small = cfg or get_config(arch).reduced()
     sp = model_for(small).init(seed, small, device="cpu")
     if quantized:
         sp = lm.quantize_linear_tree(sp, small, min_size=256)
@@ -3963,6 +4049,641 @@ def phase_hybrid(torch, np, card):
     return out
 
 
+# --- slice 17: BFP in bf16, F(m,3) at every m, kernel 7 at every tap count,
+# --- training the audio and vlm families ------------------------------------
+def phase_bfp_bf16(torch, np, cfg16, params16):
+    """3f: kernel 4 at fc6, fc7 and fc8, M = 8, on a bf16 BFP model's
+    activations (its conv features on the ``direct`` route, then the
+    classifier's chain: each layer's f32 output plus the f32 bias,
+    rounded to bf16): the pre-pass reads bf16 x, bit-equal to the f32
+    kernel on ``x.float()`` and to the plain version; timed beside the
+    bf16 ``x @ w`` a bf16 model without ``fc_bfp`` runs and the bound (the
+    int8 stream's bytes)."""
+    from repro_torch.kernels.bfp_matmul import bfp_matmul as bfp
+    from repro_torch.kernels.bfp_matmul.ops import fc_block, \
+        quantize_weights
+    from repro_torch.models import alexnet
+    rng = np.random.default_rng(2)
+    card = card_line()
+    x = torch.as_tensor(rng.standard_normal(
+        (BATCH, cfg16.image_size, cfg16.image_size, cfg16.in_channels)),
+        dtype=torch.bfloat16, device="cuda")
+    cfg_d = dataclasses.replace(cfg16, use_winograd=False, use_pallas=False)
+    x = alexnet.features(params16, cfg_d, x)
+    row = new_row("bfp_matmul")
+    for j in range(len(cfg16.fc_dims)):
+        layer = f"fc{j + 6}"
+        w, b = params16[layer]["w"], params16[layer]["b"]
+        K, N = w.shape
+        block = fc_block(K)
+        wq, we = quantize_weights(w, block=block)
+        check(x.dtype is torch.bfloat16 and w.dtype is torch.bfloat16,
+              f"{layer}: x {x.dtype}, w {w.dtype}")
+
+        def kern():
+            return bfp.bfp_matmul(x, wq, we, block=block)
+
+        def plain():
+            return bfp.bfp_matmul_plain(x, wq, we, block=block)
+
+        def library():
+            return x @ w
+
+        got, scratch = bfp._bfp_matmul_cuda(x, wq, we, block=block)
+        got32 = bfp.bfp_matmul(x.float(), wq, we, block=block)
+        torch.cuda.synchronize()
+        ref = plain()
+        words, exps = bfp.quantize_activations(x, block)
+        check(torch.equal(scratch[:words.numel()].view(words.shape), words)
+              and torch.equal(scratch[words.numel():].view(exps.shape), exps),
+              f"{layer} bf16: the pre-pass's bytes differ from "
+              "quantize_activations")
+        check(torch.equal(got, got32) and torch.equal(got, ref),
+              f"{layer} bf16: the kernel on bf16 x is not bit-equal to the "
+              "f32 kernel on x.float() and to its plain version")
+        check(bool(torch.isfinite(got).all()), f"{layer}: non-finite output")
+        lib_err = float((got - library().float()).abs().max())
+        scale = float(ref.abs().max())
+        (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
+            time_ms(torch, kern), time_ms(torch, plain),
+            time_ms(torch, library))
+        flops = 2 * BATCH * K * N
+        nbytes = (2 * x.numel() + wq.numel() + we.numel()
+                  + 4 * got.numel())
+        bound = max(flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        bound_by = ("operations" if flops / PEAK_INT8_OPS
+                    >= nbytes / PEAK_BYTES_PER_S else "bytes")
+        print(f"kernel bfp_matmul {layer} (bf16 x): x {tuple(x.shape)} w "
+              f"({K}, {N}) block {block} | bit-equal to the f32 kernel on "
+              f"x.float() and to plain (max|plain| {scale:.3e}; vs bf16 "
+              f"x @ w {lib_err:.3e}) | kernel_ms {ms:.4f} (host enqueue "
+              f"{host_ms:.4f} ms) plain_ms {plain_ms:.4f} library_ms(bf16 "
+              f"x @ w, the FC of a bf16 model without fc_bfp) {lib_ms:.4f} "
+              f"bound_ms {bound:.4f} ({bound_by}: {nbytes:.3e} B) | on "
+              f"{card}")
+        add_layer(row, layer, max_abs_err=0.0, ms=ms, host_ms=host_ms,
+                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                  bound_by=bound_by, flop=flops, bytes=nbytes)
+        x = (ref + b.float()).to(torch.bfloat16)
+        if j < len(cfg16.fc_dims) - 1:
+            x = torch.relu(x)
+    return row
+
+
+def on_cpu(torch, obj):
+    """A copy on the CPU of params or ``pack_serving_slabs``' dict (slabs,
+    FC streams)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: on_cpu(torch, v) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        return tuple(on_cpu(torch, v) for v in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, data=on_cpu(torch, obj.data))
+    return obj
+
+
+def phase_serve_bf16_bfp(torch, np, cfg_alex, params_alex16, cfg_vgg,
+                         params_vgg16):
+    """4h: full-width AlexNet and VGG-16 in bf16 with ``fc_bfp`` and
+    ``conv_bfp`` through ``CnnEngine(max_batch=8)``: 32 requests each in
+    groups of 1-8, every request delivered, bit-equal to ``apply``, within
+    TOL_BF16 of the f32 model with the same quantization (the bf16 gate:
+    bf16 against the same function in f32), launches per forward (kernels
+    1-4), one batch traced.  Against the f32 model without quantization
+    (the direct route, no kernel) the served logits are held to TOL_BFP
+    where the quantization's own error allows it: that error is measured
+    on the first WITNESS_IMAGES images by the same f32 BFP function with
+    every kernel replaced by its plain version on the host's CPU, on the
+    card's slabs and FC streams (packed once, so both quantize alike).
+    The card is held to that witness layer by layer: its conv features
+    within TOL_ROUTE of the plain versions', and its FC layers on the
+    plain features bit-equal to theirs.  (Whole-model logits are printed,
+    not held: the FC layers quantize their activations to 8-bit
+    mantissas, so an f32 difference in the last bits of a feature can
+    move it a whole step.)  Where the quantization's own error exceeds
+    TOL_BFP no port could meet that gate, and the served logits are held
+    to it plus TOL_BF16 instead.  The plain route's BFP (raw filters
+    quantized, no Winograd-domain slab) is measured beside it.  Then an
+    armed bf16 BFP AlexNet on clean slabs: verdict 0 and bit-equal to the
+    unarmed model."""
+    from repro_torch.models import alexnet
+    out = {}
+    card = card_line()
+    rng = np.random.default_rng(SDC_SEED + 3)
+    for name, cfg, params16 in (("alexnet", cfg_alex, params_alex16),
+                                ("vgg16", cfg_vgg, params_vgg16)):
+        quant = dict(fc_bfp=True, conv_bfp=True)
+        plain_route = dict(use_pallas=False, use_winograd=False)
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16", **quant)
+        cfg_q32 = dataclasses.replace(cfg, **quant)
+        params32 = to_f32(params16)
+        res, served, images = serve_and_check(
+            torch, np, cfg16, params16, cfg_f32=cfg_q32, params_f32=params32,
+            tol=TOL_BF16, label=f"{name} bf16 bfp")
+        images = torch.as_tensor(images, device="cuda")
+        f32 = alexnet.apply(params32, dataclasses.replace(
+            cfg, **plain_route), images).cpu().numpy()
+        d, lmax = float(np.abs(served - f32).max()), float(np.abs(f32).max())
+        xw = images[:WITNESS_IMAGES]
+        slabs = alexnet.pack_serving_slabs(params32, cfg_q32,
+                                           WITNESS_IMAGES)
+        params_c, slabs_c = on_cpu(torch, params32), on_cpu(torch, slabs)
+        feats = alexnet.features(params32, cfg_q32, xw, packed=slabs)
+        feats_c = alexnet.features(params_c, cfg_q32, xw.cpu(),
+                                   packed=slabs_c)
+        q_cpu = alexnet.classifier(params_c, cfg_q32, feats_c,
+                                   packed=slabs_c)
+        fc_card = alexnet.classifier(params32, cfg_q32, feats_c.cuda(),
+                                     packed=slabs).cpu()
+        q_card = alexnet.classifier(params32, cfg_q32, feats,
+                                    packed=slabs).cpu()
+        q_route = alexnet.apply(params32, dataclasses.replace(
+            cfg_q32, **plain_route), xw).cpu()
+        fw = torch.as_tensor(f32[:WITNESS_IMAGES])
+        lw = float(fw.abs().max())
+        d_feat = float((feats.cpu() - feats_c).abs().max())
+        f_max = float(feats_c.abs().max())
+        d_route = float((q_card - q_cpu).abs().max())
+        e_q = float((q_cpu - fw).abs().max()) / lw
+        e_route = float((q_route - fw).abs().max()) / lw
+        gate = TOL_BFP if e_q <= TOL_BFP else e_q + TOL_BF16
+        print(f"serve {name} bf16 bfp: served vs the f32 model (direct "
+              f"route) max|d| {d:.3e} (max|logit| {lmax:.3e}, rel "
+              f"{d / lmax:.3e}, tol {gate:.4g}"
+              + ("" if gate == TOL_BFP else
+                 f": the quantization's own {e_q:.3e} + TOL_BF16") + ") | "
+              f"on {WITNESS_IMAGES} images, the f32 BFP model on the card vs "
+              f"its kernels' plain versions on the CPU: features max|d| "
+              f"{d_feat:.3e} (tol {TOL_ROUTE:g} of {f_max:.3e}), FC layers "
+              f"on the same features bit-equal, logits max|d| {d_route:.3e}"
+              f" (rel {d_route / lw:.3e}); the quantization's own error vs "
+              f"f32 (plain versions) {e_q:.3e}, the plain route's BFP (raw "
+              f"filters) {e_route:.3e} | on {card}")
+        check(d_feat <= TOL_ROUTE * f_max, f"{name}: the f32 BFP model's "
+              f"conv features on the card are {d_feat} off its plain "
+              "versions'")
+        check(torch.equal(fc_card, q_cpu), f"{name}: the f32 BFP model's FC "
+              "layers on the card differ from their plain versions on the "
+              "same features")
+        check(d <= gate * lmax, f"{name} bf16 bfp: served logits off the "
+              f"f32 model: {d} > {gate} * {lmax}")
+        out[name] = res | {"vs_f32": {
+            "max_abs": d, "max_abs_logit": lmax, "tol": gate},
+            "witness": {"images": WITNESS_IMAGES,
+                        "features_card_vs_plain_max_abs": d_feat,
+                        "logits_card_vs_plain_max_abs": d_route,
+                        "quantization_rel": e_q,
+                        "plain_route_quantization_rel": e_route}}
+    cfg16 = dataclasses.replace(cfg_alex, dtype="bfloat16", fc_bfp=True,
+                                conv_bfp=True)
+    x = torch.as_tensor(rng.standard_normal(
+        (BATCH, cfg16.image_size, cfg16.image_size, cfg16.in_channels)),
+        dtype=torch.float32, device="cuda")
+    plain = alexnet.apply(params_alex16, cfg16, x)
+    logits, sdc = alexnet.apply(params_alex16, dataclasses.replace(
+        cfg16, sdc_abft=True), x)
+    torch.cuda.synchronize()
+    check(int(sdc) == 0 and torch.equal(logits, plain),
+          f"armed bf16 BFP AlexNet: verdict {int(sdc)} on clean slabs, or "
+          "its logits differ from the unarmed model's")
+    print(f"serve alexnet bf16 bfp armed: verdict 0 on clean slabs, logits "
+          f"bit-equal to unarmed | on {card_line()}")
+    out["armed_clean"] = {"verdict": int(sdc), "bit_equal": True}
+    return out
+
+
+def _wino_case(winograd, x, w, spec, m, armed=False):
+    """(plan, slab) of one Winograd layer at F(m,3)."""
+    lrn = spec.lrn if spec.fuse_lrn else None
+    pool = (spec.pool_window, spec.pool_stride) if spec.fuse_pool else None
+    p = winograd.plan(tuple(x.shape), tuple(w.shape), m=m,
+                      groups=spec.groups, lrn=lrn, pool=pool,
+                      checksum=armed)
+    return p, winograd.pack_weights(w, p)
+
+
+def phase_winograd_m(torch, np, cfg, params):
+    """3d (kernels 2-3): AlexNet's conv3-conv5 at batch 8 at F(m,3), m in
+    WINO_MS, f32 and bf16 x.  f32: within max(TOL_KERNEL, 3 e(m)) of
+    max|y| of the plain version, e(m) the plain version's own error
+    against ``conv2d_ref`` in float64 on the same layer; every tile
+    bit-equal to the default, armed and unarmed, verdict 0 on a clean slab
+    and the plain count (1) for a flipped slab bit; timed beside
+    ``F.conv2d`` (TF32 off) and the bound at F(4,3)'s operation count, so
+    the rows compare.  bf16 x: the bf16 rule at the default tile, timed
+    beside bf16 ``F.conv2d``."""
+    from repro_torch.kernels.conv import dma, winograd
+    from repro_torch.kernels.conv.ref import conv2d_ref
+    card = card_line()
+    rows = {}
+    for kname, layer, spec, x, w, b, slab4, plan4 in layer_cases(
+            torch, np, cfg, params):
+        if kname == "conv_direct":
+            continue
+        lrn = spec.lrn if spec.fuse_lrn else None
+        pool = (spec.pool_window, spec.pool_stride) if spec.fuse_pool else None
+        entry = conv_entry(kname, spec)
+        ref64 = conv2d_ref(x.double(), w.double(), b.double(),
+                           padding=spec.padding, groups=spec.groups,
+                           relu=True, lrn=lrn, pool=pool)
+        x16, b16 = x.to(torch.bfloat16), b.to(torch.bfloat16)
+        flops, nbytes = flops_bytes(kname, x, entry(x, w, b, slab4), plan4,
+                                    slab4)
+        flops16, nbytes16 = flops_bytes(kname, x16, entry(x16, w, b16, slab4),
+                                        plan4, slab4)
+        for m in WINO_MS:
+            p, slab = _wino_case(winograd, x, w, spec, m)
+            _, armed = _wino_case(winograd, x, w, spec, m, armed=True)
+
+            def kern(x=x, b=b, slab=slab, m=m):
+                return entry(x, w, b, slab, m=m)
+
+            def plain(x=x, b=b, slab=slab, p=p):
+                return winograd.conv2d_winograd_plain(
+                    x, slab, b, p, relu=True, lrn=lrn, pool=pool)
+
+            def library():
+                return conv2d_ref(x, w, b, padding=spec.padding,
+                                  groups=spec.groups, relu=True, lrn=lrn,
+                                  pool=pool)
+
+            def library16():
+                return library_conv(torch, x16, w.to(torch.bfloat16), b16,
+                                    spec)
+
+            got = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            scale = float(ref.abs().max())
+            e_m = float((ref.double() - ref64).abs().max()) / float(
+                ref64.abs().max())
+            err = float((got - ref).abs().max())
+            tol = max(TOL_KERNEL, 3 * e_m)
+            check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+                  f"{layer} F({m},3): kernel off its plain version: {err} "
+                  f"> {tol:.3e} * {scale} (e(m) {e_m:.3e})")
+            base = got.view(torch.int32)
+            tiles = [t for t in winograd.TILES
+                     if t in winograd.ANY_SLAB_TILES or p.Kb % 4 == 0]
+            for tile in tiles:
+                kw = dict(m=m, tile_rows=tile[0], tile_cols=tile[1])
+                y = entry(x, w, b, slab, **kw)
+                y_arm, v = entry(x, w, b, armed, checksum=True, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(y.view(torch.int32), base)
+                      and torch.equal(y_arm.view(torch.int32), base)
+                      and int(v) == 0,
+                      f"{layer} F({m},3) tile {tile}: not the default "
+                      f"tile's bits armed or unarmed, or verdict {int(v)}")
+            bad = armed.clone()
+            bad.view(-1).view(torch.int32)[7 * armed.numel() // 11] ^= 1 << 9
+            _, v = entry(x, w, b, bad, checksum=True, m=m)
+            want_v = int(dma.checksum_mismatches(bad.cpu()))
+            check(int(v) == want_v == 1, f"{layer} F({m},3): a flipped "
+                  f"slab bit gave verdict {int(v)}, the plain count "
+                  f"{want_v}")
+            # bf16 x: the bf16 rule at the default tile
+            y16 = entry(x16, w, b16, slab, m=m)
+            want16 = entry(x16.float(), w, b16.float(), slab, m=m)
+            torch.cuda.synchronize()
+            check(torch.equal(y16.view(torch.int16),
+                              want16.to(torch.bfloat16).view(torch.int16)),
+                  f"{layer} F({m},3) bf16: not the f32 kernel on the "
+                  "widened x rounded to bf16")
+            (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
+                time_ms(torch, kern), time_ms(torch, plain),
+                time_ms(torch, library))
+            (ms16, _), (plain16, _), (lib16, _) = (
+                time_ms(torch, lambda: kern(x16, b16)),
+                time_ms(torch, lambda: plain(x16, b16)),
+                time_ms(torch, library16))
+            bound = max(flops / PEAK_FP32_FLOPS,
+                        nbytes / PEAK_BYTES_PER_S) * 1e3
+            bound16 = max(flops16 / PEAK_FP32_FLOPS,
+                          nbytes16 / PEAK_BYTES_PER_S) * 1e3
+            print(f"kernel {kname} {layer} F({m},3): n {m + 2}, T "
+                  f"{winograd.num_tiles(p, BATCH)}, grid "
+                  f"{winograd.gemm_grid(p, BATCH)} | max_abs_err {err:.3e} "
+                  f"(max|plain| {scale:.3e}, rel {err / scale:.3e}; tol "
+                  f"{tol:.3e} = max({TOL_KERNEL:g}, 3 e(m)), e(m) "
+                  f"{e_m:.3e}) | tiles {tiles} bit-equal armed and unarmed,"
+                  f" flip verdict 1 | f32 kernel_ms {ms:.4f} (host "
+                  f"{host_ms:.4f}) plain_ms {plain_ms:.4f} library_ms"
+                  f"(F.conv2d TF32 off) {lib_ms:.4f} bound_ms {bound:.4f} "
+                  f"(operations at F(4,3)'s count {flops:.3e}) | bf16 x: "
+                  f"rule bit-equal, kernel_ms {ms16:.4f} plain_ms "
+                  f"{plain16:.4f} library_ms(bf16 F.conv2d) {lib16:.4f} "
+                  f"bound_ms {bound16:.4f} | on {card}")
+            add_layer(rows.setdefault(f"{kname} m={m}",
+                                      new_row(f"{kname} m={m}")), layer,
+                      max_abs_err=err, ms=ms, host_ms=host_ms,
+                      plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                      bound_by="operations", flop=flops, bytes=nbytes,
+                      e_m=e_m, tol=tol, tiles=[list(t) for t in tiles],
+                      ms_bf16=ms16, plain_ms_bf16=plain16,
+                      library_ms_bf16=lib16, bound_ms_bf16=bound16, m=m)
+    return rows
+
+
+def phase_dw1d_taps(torch, np):
+    """3d (kernel 7): mamba2-2.7b's x stream, (1,200,5120) and
+    (1,2048,5120) bf16, at r in DW1D_TAPS taps (the reference's m for
+    each): the forward against its plain version, dx bit-equal to
+    flip(kernel 7(flip(dy))) and within one bf16 step of its plain
+    version, dw and db against theirs and two runs bit-equal; each timed
+    beside its plain version, ``F.conv1d`` (its autograd backward for dx
+    and wgrad) and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv import winograd as wino
+    rng = np.random.default_rng(17)
+    card = card_line()
+    rows = {}
+    for r in DW1D_TAPS:
+        m = wino.dw1d_m(r)
+        for B, L, C in ((1, 200, 5120), (1, 2048, 5120)):
+            def dev(a, dt=torch.bfloat16):
+                return torch.as_tensor(a, dtype=torch.float32,
+                                       device="cuda").to(dt)
+            x = dev(rng.standard_normal((B, L, C)))
+            dy = dev(rng.standard_normal((B, L, C)))
+            w = dev(rng.standard_normal((r, C)) * r ** -0.5, torch.float32)
+            b = dev(rng.standard_normal((C,)) * 0.1, torch.float32)
+            zero = torch.zeros((C,), device="cuda")
+            y = wino.conv1d_depthwise_causal(x, w, b)
+            dx = wino.conv1d_depthwise_causal_dx(dy, w)
+            flip = wino.conv1d_depthwise_causal(dy.flip(1).contiguous(), w,
+                                                zero).flip(1)
+            dw, db = wino.conv1d_depthwise_causal_wgrad(x, dy, r)
+            dw2, db2 = wino.conv1d_depthwise_causal_wgrad(x, dy, r)
+            torch.cuda.synchronize()
+            ex_y, err_y, max_y = _excess(
+                y, wino.conv1d_depthwise_causal_plain(x, w, b), True)
+            ex_x, err_x, max_x = _excess(
+                dx, wino.conv1d_depthwise_causal_dx_plain(dy, w), True)
+            pdw, pdb = wino.conv1d_depthwise_causal_wgrad_plain(x, dy, r)
+            ex_w, err_w, max_w = _wgrad_excess(dw, pdw, False)
+            ex_b, err_b, max_b = _wgrad_excess(db, pdb, True)
+            tag = f"F({m},{r}) ({B},{L},{C}) bf16"
+            check(torch.equal(dx, flip) and torch.equal(dw, dw2)
+                  and torch.equal(db, db2),
+                  f"dw1d {tag}: dx is not flip(kernel 7(flip(dy))) or two "
+                  "wgrad runs differ")
+            check(max(ex_y, ex_x, ex_w, ex_b) <= 0, f"dw1d {tag}: off its "
+                  f"plain versions: y {ex_y}, dx {ex_x}, dw {ex_w}, db "
+                  f"{ex_b}")
+            xt = x.transpose(1, 2)
+            wl = w.T[:, None, :].to(torch.bfloat16)
+            bl = b.to(torch.bfloat16)
+
+            def lib_fwd():
+                with torch.backends.cudnn.flags(enabled=True,
+                                                allow_tf32=False):
+                    return F.conv1d(xt, wl, bl, padding=r - 1,
+                                    groups=C)[..., :L]
+            xg = xt.detach().requires_grad_(True)
+            wg = wl.detach().requires_grad_(True)
+            bg = bl.detach().requires_grad_(True)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                yl = F.conv1d(xg, wg, bg, padding=r - 1, groups=C)[..., :L]
+            gy = dy.transpose(1, 2)
+
+            def lib_bwd():
+                with torch.backends.cudnn.flags(enabled=True,
+                                                allow_tf32=False):
+                    return torch.autograd.grad(yl, (xg, wg, bg), gy,
+                                               retain_graph=True)
+            times = {
+                "fwd": (time_ms(torch, lambda: wino.conv1d_depthwise_causal(
+                    x, w, b))[0], time_ms(torch, lambda:
+                    wino.conv1d_depthwise_causal_plain(x, w, b))[0],
+                    time_ms(torch, lib_fwd)[0]),
+                "dx": (time_ms(torch, lambda: wino.conv1d_depthwise_causal_dx(
+                    dy, w))[0], time_ms(torch, lambda:
+                    wino.conv1d_depthwise_causal_dx_plain(dy, w))[0], None),
+                "wgrad": (time_ms(torch, lambda:
+                          wino.conv1d_depthwise_causal_wgrad(x, dy, r))[0],
+                          time_ms(torch, lambda:
+                          wino.conv1d_depthwise_causal_wgrad_plain(
+                              x, dy, r))[0], None)}
+            lib_b = time_ms(torch, lib_bwd)[0]
+            for kind, kname, err, scale in (
+                    ("fwd", "dw1d", err_y, max_y),
+                    ("dx", "dw1d_bwd", err_x, max_x),
+                    ("wgrad", "dw1d_wgrad", max(err_w, err_b),
+                     max(max_w, max_b))):
+                ms, plain_ms, lib_ms = times[kind]
+                lib_ms = lib_b if lib_ms is None else lib_ms
+                lib = ("F.conv1d" if kind == "fwd" else
+                       "F.conv1d autograd backward: dx, dw, db")
+                flops, nbytes = (dw1d_work(B, L, C, 2, r) if kind == "fwd"
+                                 else dw1d_bwd_work(B, L, C, 2, kind, r))
+                bound, bound_by = _bound(flops, nbytes)
+                print(f"kernel {kname} {tag}: max_abs_err {err:.3e} "
+                      f"(max|plain| {scale:.3e})"
+                      + (" | dx bit-equal to flip(kernel 7(flip(dy)))"
+                         if kind == "dx" else "")
+                      + (" | two runs bit-equal" if kind == "wgrad" else "")
+                      + f" | kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                      f"library_ms({lib}) {lib_ms:.4f} bound_ms "
+                      f"{bound:.4f} ({bound_by}: {flops:.3e} flop, "
+                      f"{nbytes:.3e} B) | on {card}")
+                row = rows.setdefault(f"{kname} r={r}", {
+                    "name": f"{kname} r={r}", "geometries": [],
+                    "max_abs_err": 0.0})
+                row["geometries"].append({
+                    "B": B, "L": L, "C": C, "r": r, "m": m,
+                    "dtype": "bfloat16", "max_abs_err": err,
+                    "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "flop": flops, "bytes": nbytes})
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+            del xg, wg, bg, yl
+    for row in rows.values():
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+            row[key] = row["geometries"][0][key]
+    return rows
+
+
+def phase_mamba_taps(torch, np):
+    """3d (the model): a reduced mamba2-2.7b with ``conv_kernel=3``
+    (kernel 7 at F(4,3)): the card's greedy tokens through ``Engine``
+    equal the CPU engine's, and one training loss and gradient on the
+    kernel route (kernel 7 forward twice a layer with remat, its backward
+    once) equal the plain route's within phase 9c's tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.conv.winograd import dw1d_m
+    from repro_torch.models import lm
+    base = get_config(SSM_ARCH).reduced()
+    cfg = dataclasses.replace(base, remat=True, ssm=dataclasses.replace(
+        base.ssm, conv_kernel=MAMBA_TAPS))
+    reset_launch_counts()
+    n = reduced_on_card(torch, np, SSM_ARCH, 3, cfg=cfg)
+    served = launch_counts()
+    check(served["dw1d"] > 0 and served["ssd"] > 0, f"reduced mamba at "
+          f"{MAMBA_TAPS} taps: kernels 6 and 7 not launched: {served}")
+    params = lm.init(torch.Generator(device="cuda").manual_seed(2), cfg,
+                     device="cuda")
+    batch = _train_batch(torch, np, cfg.vocab_size, 2, 40, seed=4)
+    reset_launch_counts()
+    loss_k, grads_k = _loss_and_grads(torch, params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with plain_ssm_route():
+        loss_p, grads_p = _loss_and_grads(torch, params, cfg, batch)
+    L = cfg.num_layers
+    check((counts["dw1d"], counts["dw1d_bwd"], counts["dw1d_wgrad"])
+          == (2 * L, L, L), f"reduced mamba at {MAMBA_TAPS} taps: kernel 7 "
+          f"launches in a training step {counts}")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(float((g - r).abs().max()) / max(float(r.abs().max()),
+                                                 1e-30)
+                for g, r in zip(grads_k, grads_p))
+    check(rel <= TOL_TRAIN_LOSS and worst <= TOL_TRAIN_GRAD,
+          f"reduced mamba at {MAMBA_TAPS} taps: kernel route vs plain "
+          f"route loss rel {rel}, worst gradient {worst}")
+    print(f"mamba {MAMBA_TAPS} taps (reduced, F({dw1d_m(MAMBA_TAPS)},"
+          f"{MAMBA_TAPS})): {n} requests' card tokens = CPU tokens, kernels "
+          f"6/7 launched {served['ssd']}/{served['dw1d']} | a training step"
+          f": loss {float(loss_k):.6f} vs plain route {float(loss_p):.6f} "
+          f"(rel {rel:.2e}, tol {TOL_TRAIN_LOSS:g}), worst gradient leaf "
+          f"{worst:.2e} of its max|g| (tol {TOL_TRAIN_GRAD:g}), kernel 7 "
+          f"{counts['dw1d']} forward, {counts['dw1d_bwd']} dx, "
+          f"{counts['dw1d_wgrad']} wgrad | on {card_line()}")
+    return {"requests": n, "serve_launches": served,
+            "train_launches": counts, "loss_rel": rel,
+            "worst_grad_rel": worst}
+
+
+def phase_train_audio_vlm(torch, np, card):
+    """9g: whisper-tiny at published widths (4 + 4 layers) and
+    phi-3-vision-4.2b's widths cut to VLM_TRAIN_LAYERS layers through
+    ``Trainer`` (f32 params, bf16 compute, remat) on batches with their
+    frames (min(seq, 128) a row) or patches (576 x 1,024): whisper-tiny
+    at 9e's schedule (lr 3e-3 after 2 warmup steps), phi-3-vision at
+    TRAIN_VLM_SCHEDULE."""
+    from repro_torch.configs import get_config
+    whisper = train_through_trainer(torch, np, card, get_config(ENCDEC_ARCH),
+                                    TRAIN_ENCDEC_SHAPE, falls=False,
+                                    schedule=TRAIN_MOE_SCHEDULE)
+    cut = dataclasses.replace(get_config(VLM_ARCH),
+                              num_layers=VLM_TRAIN_LAYERS)
+    phi3v = train_through_trainer(torch, np, card, cut, TRAIN_VLM_SHAPE,
+                                  falls=False, schedule=TRAIN_VLM_SCHEDULE)
+    return {"whisper": whisper, "phi3v": phi3v}
+
+
+def _digest(torch, t) -> str:
+    """The first 16 hex digits of sha256 over ``t``'s bytes."""
+    import hashlib
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256(t.view(-1).view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def dump_bits(torch, np, path) -> int:
+    """``--bits OUT``: every output of kernels 1-4 and 7 at the main path's
+    shapes hashed, and each kernel's device time, into the JSON file OUT.
+    Run from another tree (a copy of this script beside its ``src``), it
+    holds that tree's kernels to this one's with ``--compare-bits``.
+    Cases: AlexNet conv1-conv5 at batch 8 (``layer_cases``) in f32 and
+    bf16 at every block tile, armed and unarmed; fc6-fc8 (f32 x); kernel
+    7's forward, dx and wgrad at mamba2-2.7b's (1,200,5120) and
+    (1,2048,5120) bf16 and (1,512,5120) f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bfp_matmul import bfp_matmul as bfp
+    from repro_torch.kernels.bfp_matmul.ops import quantize_weights
+    from repro_torch.kernels.conv import direct, winograd
+    from repro_torch.models import alexnet
+    from repro_torch.nn.conv import pack_conv_weights
+    hashes, times = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("alexnet"), use_pallas=True,
+                                  dtype=dtype)
+        params = alexnet.init(0, cfg, device="cuda")
+        for kname, layer, spec, x, w, b, slab, plan in layer_cases(
+                torch, np, cfg, params):
+            mod = direct if kname == "conv_direct" else winograd
+            entry = conv_entry(kname, spec)
+            armed = pack_conv_weights(spec, tuple(x.shape), w,
+                                      abft=True).data
+            for tile in mod.TILES:
+                if tile not in mod.ANY_SLAB_TILES and plan.Kb % 4:
+                    continue
+                kw = dict(tile_rows=tile[0], tile_cols=tile[1])
+                key = f"{layer} {dtype} {tile[0]}x{tile[1]}"
+                hashes[key] = _digest(torch, entry(x, w, b, slab, **kw))
+                y, v = entry(x, w, b, armed, checksum=True, **kw)
+                hashes[f"{key} armed"] = f"{_digest(torch, y)} v{int(v)}"
+            times[f"{layer} {dtype}"] = time_ms(
+                torch, lambda: entry(x, w, b, slab))[0]
+    rng = np.random.default_rng(27)
+
+    def dev(shape, scale=1.0, dt=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32, device="cuda").to(dt)
+    x = dev((BATCH, 9216))
+    for name, (K, N) in (("fc6", (9216, 4096)), ("fc7", (4096, 4096)),
+                         ("fc8", (4096, 1000))):
+        wq, we = quantize_weights(dev((K, N), K ** -0.5), block=32)
+        xk = x[:, :K].contiguous()
+        hashes[name] = _digest(torch, bfp.bfp_matmul(xk, wq, we, block=32))
+        times[name] = time_ms(
+            torch, lambda: bfp.bfp_matmul(xk, wq, we, block=32))[0]
+    for B, L, C, dt in ((1, 200, 5120, torch.bfloat16),
+                        (1, 2048, 5120, torch.bfloat16),
+                        (1, 512, 5120, torch.float32)):
+        x, dy = dev((B, L, C), dt=dt), dev((B, L, C), dt=dt)
+        w, b = dev((4, C), 0.5), dev((C,), 0.1)
+        tag = f"({B},{L},{C}) {str(dt)[6:]}"
+        calls = {
+            "dw1d": lambda: winograd.conv1d_depthwise_causal(x, w, b),
+            "dw1d_bwd": lambda: winograd.conv1d_depthwise_causal_dx(dy, w),
+            "dw1d_wgrad": lambda: winograd.conv1d_depthwise_causal_wgrad(
+                x, dy, 4)}
+        for kname, fn in calls.items():
+            out = fn()
+            hashes[f"{kname} {tag}"] = "".join(
+                _digest(torch, t) for t in (out if isinstance(out, tuple)
+                                            else (out,)))
+            times[f"{kname} {tag}"] = time_ms(torch, fn)[0]
+    torch.cuda.synchronize()
+    card = card_line()
+    with open(path, "w") as f:
+        json.dump({"card": card, "hashes": hashes, "times_ms": times}, f,
+                  indent=1)
+    print(f"bits: {len(hashes)} outputs, {len(times)} timings -> {path} | "
+          f"on {card}")
+    return 0
+
+
+def compare_bits(paths) -> int:
+    """``--compare-bits A B [B A ...]``: ``--bits`` files of two trees run
+    in turns in one call (A, B, B, A, ...).  Every output of the first file
+    must have the second's hash; each timing prints in every file with the
+    ratio of the B side's median to the A side's (one stray sample does
+    not move it).  Exits 1 on a mismatch."""
+    import statistics
+    runs = [json.load(open(p)) for p in paths]
+    a, b = runs[0], runs[1]
+    bad = [k for k in a["hashes"] if a["hashes"][k] != b["hashes"].get(k)]
+    print(f"bits: {len(a['hashes']) - len(bad)}/{len(a['hashes'])} outputs "
+          f"bit-equal ({paths[0]} vs {paths[1]}) | on {a['card']}")
+    for k in bad:
+        print(f"  DIFFERS: {k}: {a['hashes'][k]} vs {b['hashes'].get(k)}")
+    side_a = [r for i, r in enumerate(runs) if i % 4 in (0, 3)]
+    side_b = [r for i, r in enumerate(runs) if i % 4 in (1, 2)]
+    for k in a["times_ms"]:
+        ta = [r["times_ms"][k] for r in side_a]
+        tb = [r["times_ms"][k] for r in side_b if k in r["times_ms"]]
+        print(f"  {k}: A {' / '.join(f'{t:.4f}' for t in ta)} ms, B "
+              f"{' / '.join(f'{t:.4f}' for t in tb)} ms, B/A "
+              f"{statistics.median(tb) / statistics.median(ta):.4f}")
+    return 1 if bad else 0
+
+
 def summary(row):
     """A kernel row's numbers for the ``kernels`` line (``bound_by`` its
     layers' when they agree, else ``mixed``)."""
@@ -3981,7 +4702,15 @@ def main(argv=None) -> int:
                     "this JSON file")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the fleet phase's open-loop trace")
+    ap.add_argument("--bits", metavar="OUT", help="only hash every output "
+                    "of kernels 1-4 and 7 and time each into OUT (see "
+                    "dump_bits)")
+    ap.add_argument("--compare-bits", nargs="+", metavar="FILE",
+                    help="only compare --bits files of two trees run in "
+                    "turns: A B [B A ...]")
     args = ap.parse_args(argv)
+    if args.compare_bits:
+        return compare_bits(args.compare_bits)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3999,6 +4728,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    if args.bits:
+        return dump_bits(torch, np, args.bits)
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -4029,8 +4760,12 @@ def main(argv=None) -> int:
     cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
     params16 = alexnet.init(0, cfg16, device="cuda")
     rows_bf16, bf16_flips = phase_kernels_bf16(torch, np, cfg16, params16)
+    cfg16_bfp = dataclasses.replace(cfg16, fc_bfp=True, conv_bfp=True)
+    rows_bf16_bfp, _ = phase_kernels_bf16(torch, np, cfg16_bfp, params16)
+    rows_bf16_bfp["bfp_matmul"] = phase_bfp_bf16(torch, np, cfg16_bfp,
+                                                 params16)
+    rows_m = phase_winograd_m(torch, np, cfg, params)
     alex16 = phase_alexnet_bf16(torch, np, cfg, params16)
-    del params16
     cfg_vgg = dataclasses.replace(get_config("vgg16"), use_pallas=True)
     params_vgg = alexnet.init(1, cfg_vgg, device="cuda")
     params_vgg16 = alexnet.init(1, dataclasses.replace(
@@ -4038,8 +4773,13 @@ def main(argv=None) -> int:
     rows_vgg, vgg_passes = phase_kernels_vgg(torch, np, cfg_vgg, params_vgg,
                                              params_vgg16)
     vgg = phase_vgg(torch, np, cfg_vgg, params_vgg, params_vgg16)
+    bf16_bfp = phase_serve_bf16_bfp(torch, np, cfg, params16, cfg_vgg,
+                                    params_vgg16)
+    del params16
     serves.update({"bf16": alex16["serve"], "vgg": vgg["f32"],
-                   "vgg_bf16": vgg["bf16"]})
+                   "vgg_bf16": vgg["bf16"],
+                   "bf16_bfp": bf16_bfp["alexnet"],
+                   "vgg_bf16_bfp": bf16_bfp["vgg16"]})
     fleet = phase_fleet(torch, np, {"alexnet": cfg, "vgg16": cfg_vgg},
                         {"alexnet": params, "vgg16": params_vgg}, args.seed)
     del params_vgg
@@ -4055,6 +4795,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows.update(phase_ssm(torch, np))
     mamba = phase_mamba(torch, np)
+    torch.cuda.empty_cache()
+    rows_taps = phase_dw1d_taps(torch, np)
+    mamba_taps = phase_mamba_taps(torch, np)
     torch.cuda.empty_cache()
     train_rows, train = phase_train(torch, np, card)
     rows.update(train_rows)
@@ -4072,6 +4815,7 @@ def main(argv=None) -> int:
              "supervised": supervised["launches"],
              "lm": lm_serve["launches"],
              "mamba": mamba["launches"],
+             "mamba_taps": mamba_taps["serve_launches"],
              "train": train["ssm"]["launches"],
              "moe": moe["granite"]["launches"],
              "moe_phi4": moe["phi4"]["launches"],
@@ -4140,6 +4884,21 @@ def main(argv=None) -> int:
         if kname in rows_vgg["float32"]:
             entry["vgg"] = {dt: summary(r[kname])
                             for dt, r in rows_vgg.items()}
+        if kname in rows_bf16_bfp:
+            entry["bf16_bfp"] = (summary(rows_bf16_bfp[kname])
+                                 if kname != "bfp_matmul" else
+                                 summary(rows_bf16_bfp[kname]) | {
+                                     "x": "bfloat16"})
+        by_m = {m: summary(rows_m[f"{kname} m={m}"]) for m in WINO_MS
+                if f"{kname} m={m}" in rows_m}
+        if by_m:
+            entry["by_m"] = by_m
+        by_taps = {r: {k: rows_taps[f"{kname} r={r}"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "geometries")} for r in DW1D_TAPS
+            if f"{kname} r={r}" in rows_taps}
+        if by_taps:
+            entry["by_taps"] = by_taps
         if kname in rows_bfp_slabs:
             entry["max_abs_err_bfp_slabs"] = \
                 rows_bfp_slabs[kname]["max_abs_err"]
@@ -4195,6 +4954,13 @@ def main(argv=None) -> int:
               f"{m['p50_ms']:.3f} ms p99 {m['p99_ms']:.3f} ms | peak mem "
               f"{m['peak_mem_bytes'] / 2 ** 30:.2f} GiB | kernel 5 "
               f"{m['launches']['decode_attn']} | on {card}")
+    for r in (train["audio_vlm"]["whisper"], train["audio_vlm"]["phi3v"]):
+        print(f"train {r['arch']} ({r['layers']} layers, "
+              f"{r['params'] / 1e9:.3f} B params, batch {r['batch']} x "
+              f"{r['seq_len']}, {r['extra_rows']}): {r['step_ms']:.2f} ms "
+              f"a step, {r['tokens_per_s']:.1f} tokens/s, peak "
+              f"{r['peak_mem_bytes'] / 2 ** 30:.2f} GiB, idle share "
+              f"{r['idle_share']} | on {card}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -4219,6 +4985,13 @@ def main(argv=None) -> int:
                        "per_layer_bfp_slabs": {
                            k: r["per_layer"]
                            for k, r in rows_bfp_slabs.items()},
+                       "bf16_bfp": {"per_layer": {
+                           k: r["per_layer"]
+                           for k, r in rows_bf16_bfp.items()},
+                           "serve": bf16_bfp},
+                       "winograd_m": {k: r["per_layer"]
+                                      for k, r in rows_m.items()},
+                       "dw1d_taps": rows_taps, "mamba_taps": mamba_taps,
                        "build_seconds": lib.build_seconds,
                        "ptxas": ptxas}, f, indent=1)
     print(card)

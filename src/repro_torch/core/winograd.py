@@ -1,6 +1,7 @@
 """General Cook–Toom Winograd transforms F(m, r), the pure-torch
 F(m, 3) x F(m, 3) convolution (the port's ``winograd`` route) and the
-pure-torch F(3, 4) depthwise causal 1-D convolution (Mamba-2's conv).
+pure-torch F(m, r) depthwise causal 1-D convolution (Mamba-2's conv, F(3,
+4) at its 4 taps).
 
 ``WinogradTransform``/``winograd_transform`` are numpy and identical to the
 reference (``repro/core/winograd.py``), so both packages use the same
@@ -97,14 +98,15 @@ def tiles_1d(x, m: int, n: int, r: int):
     return xp.unfold(1, n, m).permute(0, 1, 3, 2)
 
 
-def conv1d_depthwise_causal(x, w, b=None):
-    """Winograd depthwise causal conv in x's dtype (the reference's pure-jnp
-    twin of its kernel).  x (B,L,C); w (r,C); returns (B,L,C).
+def conv1d_depthwise_causal(x, w, b=None, m: int | None = None):
+    """Winograd depthwise causal conv by F(m, r) in x's dtype (the
+    reference's pure-jnp twin of its kernel).  x (B,L,C); w (r,C); returns
+    (B,L,C); ``m`` defaults to the reference's {3: 4, 4: 3}.get(r, 2).
 
     Output o[t, c] = sum_k w[k, c] * x[t - r + 1 + k, c]  (left-padded).
     """
     r = w.shape[0]
-    m = {3: 4, 4: 3}.get(r, 2)
+    m = m or {3: 4, 4: 3}.get(r, 2)
     t = winograd_transform(m, r)
     B, L, C = x.shape
     tiles = tiles_1d(x, t.m, t.n, r)

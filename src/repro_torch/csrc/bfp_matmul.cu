@@ -1,6 +1,7 @@
-// Shared-exponent block-floating-point matmul: out (M, N) f32 = x (M, K) f32
-// @ W (K, N), with W streamed as int8 mantissas plus one int8 exponent per
-// (K-block, column) and x quantized here, per (row, K-block), the same way.
+// Shared-exponent block-floating-point matmul: out (M, N) f32 = x (M, K)
+// f32 or bf16 @ W (K, N), with W streamed as int8 mantissas plus one int8
+// exponent per (K-block, column) and x quantized here, per (row, K-block),
+// the same way.
 //
 // Replaces the TPU kernel _bfp_kernel (src/repro/kernels/bfp_matmul/
 // bfp_matmul.py:29): AlexNet's fc6 (9216 -> 4096), fc7 (4096 -> 4096) and
@@ -15,7 +16,11 @@
 //      word as (ceil(M / 8), K / 4, 8) int32 (8 rows of one k-word side by
 //      side), and exponents (ceil(M / 8), K / BLOCK, 8) int32, zeros for
 //      the rows past M; kernels/bfp_matmul/bfp_matmul.py
-//      quantize_activations is its plain twin;
+//      quantize_activations is its plain twin.  A bf16 x (a bf16 model's
+//      activations, as the reference's bfp_linear casts them to f32) is
+//      read as bf16 and widened in registers: widening is exact, so the
+//      mantissas and exponents, and the output, are bit for bit those of
+//      the f32 kernel on x.float(), with no cast launch;
 //   2. a GEMM, launched programmatically dependent on the pre-pass so it
 //      loads its first weights before it waits for x.  A block owns 8 rows
 //      by C = 8 or 16 columns (bfp_matmul.tile_cols: the wider if its grid
@@ -43,6 +48,7 @@
 // or an infinity makes that row's outputs NaN, so a poisoned input stays
 // visible downstream.  Build without --use_fast_math: it would flush the
 // subnormal scales of near-zero blocks to zero.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,10 +92,24 @@ __device__ __forceinline__ void pdl_trigger() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
 }
 
-// 1. one thread per (row of the padded 8-row tiles, K-block)
-template <int BLOCK>
+// four consecutive values of x from a 16-byte (f32) or 8-byte (bf16)
+// aligned address, widened to f32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+// 1. one thread per (row of the padded 8-row tiles, K-block); XT: x's
+// element type
+template <int BLOCK, typename XT>
 __global__ void __launch_bounds__(kPrepThreads)
-    bfp_quantize_kernel(const float* __restrict__ x, int* __restrict__ xq,
+    bfp_quantize_kernel(const XT* __restrict__ x, int* __restrict__ xq,
                         int* __restrict__ xe, int M, int K) {
   pdl_trigger();   // the GEMM may start streaming weights; it waits for x
   constexpr int kWords = BLOCK / 4;
@@ -100,11 +120,10 @@ __global__ void __launch_bounds__(kPrepThreads)
   if (mt >= (M + kRows - 1) / kRows) return;
   const int m = mt * kRows + r;
   float4 v[kWords];
-  const float4* xp =
-      reinterpret_cast<const float4*>(x + (size_t)m * K + (size_t)kb * BLOCK);
+  const XT* xp = x + (size_t)m * K + (size_t)kb * BLOCK;
 #pragma unroll
   for (int j = 0; j < kWords; ++j)
-    v[j] = m < M ? xp[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[j] = m < M ? load4(xp + 4 * j) : make_float4(0.f, 0.f, 0.f, 0.f);
   float amax = 0.0f;
   int finite = 1;
 #pragma unroll
@@ -323,14 +342,14 @@ int launch_gemm(const int* xq, const int* xe, const int* wq, const int8_t* we,
                                  we, out, M, K, N);
 }
 
-template <int BLOCK>
-int launch(const float* x, const int* wq, const int8_t* we, int* scratch,
+template <int BLOCK, typename XT>
+int launch(const XT* x, const int* wq, const int8_t* we, int* scratch,
            float* out, int M, int K, int N, int cols, cudaStream_t stream) {
   const int Mt = (M + kRows - 1) / kRows;
   int* xq = scratch;                                   // (Mt, K/4, 8)
   int* xe = scratch + (size_t)Mt * (K / 4) * kRows;    // (Mt, K/BLOCK, 8)
   const long long threads = (long long)Mt * kRows * (K / BLOCK);
-  bfp_quantize_kernel<BLOCK>
+  bfp_quantize_kernel<BLOCK, XT>
       <<<(unsigned)((threads + kPrepThreads - 1) / kPrepThreads),
          kPrepThreads, 0, stream>>>(x, xq, xe, M, K);
   const cudaError_t e = cudaGetLastError();
@@ -345,23 +364,40 @@ int launch(const float* x, const int* wq, const int8_t* we, int* scratch,
   }
 }
 
-}  // namespace
-
-// scratch: int32, ceil(M / 8) * 8 * (K / 4 + K / block) words (the
-// pre-pass's x words, then its exponents); cols: output columns a block
-extern "C" int repro_bfp_matmul(const float* x, const int8_t* wq,
-                                const int8_t* we, int* scratch, float* out,
-                                int M, int K, int N, int block, int cols,
-                                cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || block <= 0 || K % block ||
-      (M + kRows - 1) / kRows > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int* w = reinterpret_cast<const int*>(wq);
+template <typename XT>
+int launch_block(const XT* x, const int* w, const int8_t* we, int* scratch,
+                 float* out, int M, int K, int N, int block, int cols,
+                 cudaStream_t stream) {
   switch (block) {
     case 16:
       return launch<16>(x, w, we, scratch, out, M, K, N, cols, stream);
     case 32:
       return launch<32>(x, w, we, scratch, out, M, K, N, cols, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// x (M, K) in xdt's element type (0 = float32, 1 = bfloat16), 16-byte
+// aligned; scratch: int32, ceil(M / 8) * 8 * (K / 4 + K / block) words (the
+// pre-pass's x words, then its exponents); cols: output columns a block
+extern "C" int repro_bfp_matmul(const void* x, const int8_t* wq,
+                                const int8_t* we, int* scratch, float* out,
+                                int M, int K, int N, int block, int cols,
+                                int xdt, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || block <= 0 || K % block ||
+      (M + kRows - 1) / kRows > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int* w = reinterpret_cast<const int*>(wq);
+  switch (xdt) {
+    case 0:
+      return launch_block(static_cast<const float*>(x), w, we, scratch, out,
+                          M, K, N, block, cols, stream);
+    case 1:
+      return launch_block(static_cast<const __nv_bfloat16*>(x), w, we,
+                          scratch, out, M, K, N, block, cols, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

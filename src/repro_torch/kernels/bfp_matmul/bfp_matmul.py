@@ -2,10 +2,11 @@
 ``_bfp_kernel`` (``repro/kernels/bfp_matmul/bfp_matmul.py``), AlexNet's
 fc6-fc8 under ``fc_bfp``.
 
-x (M, K) f32 is quantized per (row, K-block) to int8 mantissas with a
-shared exponent; each K-block's integer dot with the pre-quantized weight
-mantissas is rescaled by 2^(e_x + e_w - 14) into one f32 sum per
-output, over the K-blocks in ascending order.
+x (M, K) f32 (or bf16, which the pre-pass widens exactly as it reads it:
+the bits of the f32 kernel on ``x.float()``) is quantized per (row,
+K-block) to int8 mantissas with a shared exponent; each K-block's integer
+dot with the pre-quantized weight mantissas is rescaled by 2^(e_x + e_w -
+14) into one f32 sum per output, over the K-blocks in ascending order.
 
 The staged weight stream has the port's own layout: ``wq`` (K/G, N, G) int8
 holds G = gcd(block, 4) consecutive k of one column together (4 for every
@@ -34,6 +35,9 @@ from .. import build
 
 # launches of the CUDA kernel (the plain version does not count)
 launches = 0
+
+# x's element types the pre-pass reads, and their codes in the C entry
+X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # exponent-block sizes the kernel is built for; mantissas are int8
 KERNEL_BLOCKS = (16, 32)
@@ -153,7 +157,10 @@ def _check_cuda_args(x, wq, we, block: int):
     if block not in KERNEL_BLOCKS:
         raise ValueError(f"bfp_matmul: the kernel takes blocks "
                          f"{KERNEL_BLOCKS}; got block={block}")
-    for t, dtype in ((x, torch.float32), (wq, torch.int8), (we, torch.int8)):
+    if x.dtype not in X_DTYPES:
+        raise ValueError(f"bfp_matmul: x must be one of {list(X_DTYPES)}; "
+                         f"got {x.dtype}")
+    for t, dtype in ((x, x.dtype), (wq, torch.int8), (we, torch.int8)):
         if t.device != x.device or t.dtype != dtype \
                 or not t.is_contiguous():
             raise ValueError(f"bfp_matmul: expected a contiguous {dtype} "
@@ -172,7 +179,7 @@ def _bfp_matmul_cuda(x, wq, we, *, block: int):
     exponents (:func:`scratch_shapes`)."""
     global launches
     _check_cuda_args(x, wq, we, block)
-    if x.data_ptr() % 16:           # the kernel reads x as float4
+    if x.data_ptr() % 16:           # the kernel reads x 4 values at a time
         x = x.clone()
     M, K = x.shape
     N = wq.shape[1]
@@ -182,7 +189,7 @@ def _bfp_matmul_cuda(x, wq, we, *, block: int):
                           device=x.device, dtype=torch.int32)
     err = build.library().lib.repro_bfp_matmul(
         x.data_ptr(), wq.data_ptr(), we.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), M, K, N, block, tile_cols(M, N),
+        out.data_ptr(), M, K, N, block, tile_cols(M, N), X_DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "bfp_matmul")
     launches += 1
@@ -190,8 +197,8 @@ def _bfp_matmul_cuda(x, wq, we, *, block: int):
 
 
 def bfp_matmul(x, wq, we, *, block: int = 32):
-    """x (M, K) f32; ``wq``/``we`` from :func:`quantize_weights` with the
-    same ``block``.  -> (M, N) f32."""
+    """x (M, K) f32 or bf16; ``wq``/``we`` from :func:`quantize_weights`
+    with the same ``block``.  -> (M, N) f32."""
     M, K = x.shape
     kg, N, g = wq.shape
     if kg * g != K or K % block or tuple(we.shape) != (K // block, N):

@@ -35,13 +35,19 @@ def bfp_matmul(x, w, *, block: int = 32, quantized=None):
 
 
 def bfp_linear(x, w, *, block: int = 32, quantized=None):
-    """(..., K) @ (K, N) f32 with the weight stream in int8 BFP (§3.6).
+    """(..., K) @ (K, N) -> f32, with the weight stream in int8 BFP (§3.6).
 
-    The exponent block resolves via :func:`fc_block`.  ``quantized`` is a
-    staged ``quantize_weights(w, block=fc_block(K, block))`` pair; the
+    x and w are taken as f32, as the reference casts them: a bf16 x goes
+    to the kernel as it is (its pre-pass widens it exactly, with no cast
+    launch), a bf16 w is widened before it is quantized.  The exponent
+    block resolves via :func:`fc_block`.  ``quantized`` is a staged
+    ``quantize_weights(w, block=fc_block(K, block))`` pair; the
     quantization is then skipped."""
     k = x.shape[-1]
-    y = bfp_matmul(x.reshape(-1, k).to(torch.float32), w.to(torch.float32),
+    x2 = x.reshape(-1, k)
+    if x2.dtype not in _k.X_DTYPES:
+        x2 = x2.to(torch.float32)
+    y = bfp_matmul(x2, w if quantized is not None else w.to(torch.float32),
                    block=fc_block(k, block), quantized=quantized)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 

@@ -17,17 +17,17 @@ scratches among them), the rows and columns per thread of the block tile
 of their GEMM stage (the direct one's conv stage, the Winograd one's
 batched GEMM; the launcher refuses a tile it is not built for), and the
 CUDA stream (the Winograd launcher also a host pointer to its transform
-matrices);
+matrices and its tile's outputs m);
 the BFP matmul, decode-attention, SSD and depthwise-conv launchers take
 their pointers (the BFP matmul's, decode attention's and the SSD scan's
 f32 scratches, and decode attention's merge tickets, among them), their
 extents as ints and the stream (the BFP matmul also its block tile's
-columns, decode attention q's scale factor and its cache rows a split,
-the SSD scan its rows of y a block and state rows a block, the depthwise
-conv a host pointer to its transform matrices, its Winograd tiles a block
-and its time-reversal flag, its backward's reduction its f32 partials and
-time steps a block).  Each function returns
-the ``cudaError_t`` of its launches (0 on success).  A failed build and a
+columns and x's element type, decode attention q's scale factor and its
+cache rows a split, the SSD scan its rows of y a block and state rows a
+block, the depthwise conv a host pointer to its transform matrices, its
+tile's (m, r), its Winograd tiles a block and its time-reversal flag,
+its backward's reduction its f32 partials, r and time steps a block).
+Each function returns the ``cudaError_t`` of its launches (0 on success).  A failed build and a
 nonzero ``cudaError_t`` both raise :class:`KernelError`, which the serving
 engines never retry or degrade around.
 """
@@ -139,13 +139,14 @@ def _declare(lib: ctypes.CDLL):
     lib.repro_conv_direct.argtypes = [ctypes.POINTER(ConvArgs), p, p, p, p,
                                       p, i, i, p]
     lib.repro_conv_direct.restype = ctypes.c_int
-    # (args, mats, x, slab, bias, u, m, y, out, rows and columns per
-    # thread, stream)
-    lib.repro_conv_winograd.argtypes = [ctypes.POINTER(ConvArgs), p, p, p,
-                                        p, p, p, p, p, i, i, p]
+    # (args, mats, tile outputs m, x, slab, bias, u, m, y, out, rows and
+    # columns per thread, stream)
+    lib.repro_conv_winograd.argtypes = [ctypes.POINTER(ConvArgs), p, i, p,
+                                        p, p, p, p, p, p, i, i, p]
     lib.repro_conv_winograd.restype = ctypes.c_int
-    # (x, wq, we, scratch, out, M, K, N, block, columns a block, stream)
-    lib.repro_bfp_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    # (x, wq, we, scratch, out, M, K, N, block, columns a block, x's
+    # dtype, stream)
+    lib.repro_bfp_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_bfp_matmul.restype = ctypes.c_int
     # (q, k, v, lengths, scratch, tickets, out, D**-0.5 in q's dtype, B, S,
     # H, KV, D, rows a split, dtype, stream)
@@ -157,12 +158,12 @@ def _declare(lib: ctypes.CDLL):
     lib.repro_ssd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                               i, i, p]
     lib.repro_ssd.restype = ctypes.c_int
-    # (x, w, bias, mats, out, B, L, C, tiles a block, reverse, dtype,
-    # stream)
-    lib.repro_dw1d.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    # (x, w, bias, mats, out, B, L, C, m, r, tiles a block, reverse,
+    # dtype, stream)
+    lib.repro_dw1d.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_dw1d.restype = ctypes.c_int
-    # (x, dy, partials, dw, db, B, L, C, rows a block, dtype, stream)
-    lib.repro_dw1d_wgrad.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    # (x, dy, partials, dw, db, B, L, C, r, rows a block, dtype, stream)
+    lib.repro_dw1d_wgrad.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_dw1d_wgrad.restype = ctypes.c_int
 
 

@@ -17,9 +17,11 @@ bits (each output is one thread's ordered FMA chain), so the measured
 autotuner (``core/autotune.py``) picks one per layer on speed alone.
 
 Element types (the reference's bf16 model): x and the bias are float32 or
-bfloat16, the slab is x's type (:func:`check_cuda_inputs`); the kernel
-widens them to f32 as it loads them, computes and keeps the conv map in
-f32 and rounds only its output to x's type, as the plain version does.
+bfloat16, the slab is x's type, or float32 under a bfloat16 x (a
+``conv_bfp`` slab, which the reference dequantizes to f32;
+:func:`check_cuda_inputs`); the kernel widens them to f32 as it loads
+them, computes and keeps the conv map in f32 and rounds only its output
+to x's type, as the plain version does.
 
 ABFT (``checksum=True``, the reference's armed variant): the slab carries
 a checksum row in every tile, the kernel checks the whole slab once a
@@ -298,19 +300,22 @@ def check_cuda_inputs(name: str, x, w_tiles, bias, kfull: int,
     runs before it hands raw pointers to a kernel (the plan already ties
     the input's and the slab's shapes to the launch geometry), and of an
     armed call's verdict: one int32 on the same device.  x is float32 or
-    bfloat16, the bias x's type, the slab ``slab_dtype`` (None: x's type,
-    as the reference packs the direct slab)."""
+    bfloat16, the bias x's type, the slab ``slab_dtype`` (a dtype or a
+    tuple of them; None: x's type, as the reference packs the direct
+    slab)."""
     if x.dtype not in X_DTYPES:
         raise ValueError(f"{name}: x must be float32 or bfloat16; got "
                          f"{x.dtype}")
-    want = {"x": x.dtype, "bias": x.dtype,
-            "slab": x.dtype if slab_dtype is None else slab_dtype}
+    want = {"x": (x.dtype,), "bias": (x.dtype,),
+            "slab": ((x.dtype,) if slab_dtype is None
+                     else tuple(slab_dtype) if isinstance(slab_dtype, tuple)
+                     else (slab_dtype,))}
     for what, t in (("x", x), ("slab", w_tiles), ("bias", bias)):
-        if t.device != x.device or t.dtype != want[what] \
+        if t.device != x.device or t.dtype not in want[what] \
                 or not t.is_contiguous():
             raise ValueError(f"{name}: the {what} must be a contiguous "
-                             f"{want[what]} tensor on {x.device}; got "
-                             f"{t.dtype} on {t.device}, "
+                             f"{' or '.join(map(str, want[what]))} tensor "
+                             f"on {x.device}; got {t.dtype} on {t.device}, "
                              f"contiguous={t.is_contiguous()}")
     if tuple(bias.shape) != (kfull,):
         raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != "
@@ -335,7 +340,10 @@ def new_verdict(x, verdict=None):
 def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
                         pool, verdict=None, tile=None):
     global launches
-    check_cuda_inputs("conv_direct", x, w_tiles, bias, p.Kfull, verdict)
+    # the slab is x's type, or f32 (a conv_bfp slab, dequantized to f32 as
+    # the reference does) under a bf16 x
+    check_cuda_inputs("conv_direct", x, w_tiles, bias, p.Kfull, verdict,
+                      slab_dtype=(x.dtype, torch.float32))
     tile = conv_tile(p, *(tile or (None, None)))
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,

@@ -3,12 +3,15 @@
 (``repro/kernels/conv/winograd.py``).
 
 :func:`conv1d_depthwise_causal` is kernel 7, Mamba-2's depthwise causal
-1-D conv by F(3,4) (``csrc/dw1d.cu`` on a CUDA tensor, the plain version
-:func:`conv1d_depthwise_causal_plain` on a CPU tensor), and
+1-D conv by F(m, r) for r = 2..11 taps at the reference's m = {3: 4, 4:
+3}.get(r, 2) (F(3,4) for Mamba-2's 4; ``csrc/dw1d.cu`` on a CUDA tensor,
+the plain version :func:`conv1d_depthwise_causal_plain`, any m, on a CPU
+tensor), and
 :func:`conv1d_depthwise_causal_dx` / :func:`conv1d_depthwise_causal_wgrad`
 its backward: kernel 7 time-reversed on the cotangent, and a
 deterministic two-pass reduction for dw and db.  The rest is the
-F(m,3) x F(m,3) conv layers, AlexNet conv3-conv5 on the ``pallas`` route.
+F(m,3) x F(m,3) conv layers for m = 2..10 (:data:`CONV_MS`), AlexNet
+conv3-conv5 and VGG-16's layers on the ``pallas`` route.
 
 ``plan``/``pack_weights`` mirror the reference, so the packed slab (the
 G w G^T-transformed filters in the tile layout) matches it.
@@ -67,11 +70,13 @@ STAGES = 3                  # cp.async ring depth
 
 
 # ---------------------------------------------------------------------------
-# 1D depthwise causal (Mamba conv, k=4 -> F(3,4))
+# 1D depthwise causal (Mamba conv, k taps -> F(m, k))
 # ---------------------------------------------------------------------------
 _DW1D_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tap counts csrc/dw1d.cu is built for, each at the reference's m
+DW1D_TAPS = tuple(range(2, 12))
 # csrc/dw1d.cu's blocking: channels a block (128 lanes, two channels each)
-# and the Winograd tiles (3 output rows each) of a block it is built for.
+# and the Winograd tiles (m output rows each) of a block it is built for.
 # The wrapper takes the most tiles a block whose blocks number at least
 # DW1D_MIN_BLOCKS (two an SM on the H100's 132), else one tile
 DW1D_CHANNELS = 256
@@ -79,41 +84,47 @@ DW1D_TILES = (4, 2, 1)
 DW1D_MIN_BLOCKS = 264
 
 
-def dw1d_runs(L: int, tiles: int) -> int:
-    """Runs of ``tiles`` Winograd tiles that cover L rows."""
-    return math.ceil(math.ceil(L / 3) / tiles)
+def dw1d_m(r: int, m: int | None = None) -> int:
+    """The Winograd tile's outputs for ``r`` taps: ``m``, or the
+    reference's default {3: 4, 4: 3}.get(r, 2)."""
+    return m or {3: 4, 4: 3}.get(r, 2)
 
 
-def dw1d_grid(B: int, L: int, C: int, tiles: int) -> tuple:
+def dw1d_runs(L: int, tiles: int, m: int = 3) -> int:
+    """Runs of ``tiles`` Winograd tiles of ``m`` rows that cover L rows."""
+    return math.ceil(math.ceil(L / m) / tiles)
+
+
+def dw1d_grid(B: int, L: int, C: int, tiles: int, m: int = 3) -> tuple:
     """(channel blocks, runs, batch): csrc/dw1d.cu's grid, one run of
-    ``tiles`` tiles a block."""
-    return math.ceil(C / DW1D_CHANNELS), dw1d_runs(L, tiles), B
+    ``tiles`` tiles of ``m`` rows a block."""
+    return math.ceil(C / DW1D_CHANNELS), dw1d_runs(L, tiles, m), B
 
 
 @functools.lru_cache(maxsize=None)
-def dw1d_launch(B: int, L: int, C: int) -> int:
-    """Tiles a block: a function of the shape only; the output does not
-    depend on it."""
+def dw1d_launch(B: int, L: int, C: int, m: int = 3) -> int:
+    """Tiles a block: a function of the shape and m only; the output does
+    not depend on it."""
     cx = math.ceil(C / DW1D_CHANNELS) * B
     return next((t for t in DW1D_TILES
-                 if dw1d_runs(L, t) * cx >= DW1D_MIN_BLOCKS), 1)
+                 if dw1d_runs(L, t, m) * cx >= DW1D_MIN_BLOCKS), 1)
 
 
-def conv1d_depthwise_causal_plain(x, w, b):
-    """Kernel 7's function in PyTorch: the pure-torch Winograd on f32
-    copies (tiles, transforms, products and the bias in f32), then one
+def conv1d_depthwise_causal_plain(x, w, b, m: int | None = None):
+    """Kernel 7's function in PyTorch: the pure-torch Winograd F(m, r) on
+    f32 copies (tiles, transforms, products and the bias in f32), then one
     rounding to x's dtype.  x (B,L,C); w (r,C); b (C,)."""
-    return conv1d_depthwise_causal_f32(x.float(), w.float(),
-                                       b.float()).to(x.dtype)
+    return conv1d_depthwise_causal_f32(x.float(), w.float(), b.float(),
+                                       m=m).to(x.dtype)
 
 
-def conv1d_depthwise_causal_dx_plain(dy, w):
+def conv1d_depthwise_causal_dx_plain(dy, w, m: int | None = None):
     """The backward's dx in PyTorch, the reference's formula: kernel 7's
     function on the time-reversed cotangent, no bias, reversed back.
     dx[s] = sum_k w[k] dy[s + r-1-k]; dy (B,L,C) -> (B,L,C) in dy's
     dtype."""
     zero = torch.zeros((w.shape[1],), dtype=torch.float32, device=w.device)
-    return conv1d_depthwise_causal_plain(dy.flip(1), w, zero).flip(1)
+    return conv1d_depthwise_causal_plain(dy.flip(1), w, zero, m).flip(1)
 
 
 def conv1d_depthwise_causal_wgrad_plain(x, dy, r: int):
@@ -128,18 +139,24 @@ def conv1d_depthwise_causal_wgrad_plain(x, dy, r: int):
     return dw, dy.sum(dim=(0, 1)).float()
 
 
-def _dw1d_mats() -> np.ndarray:
-    t = winograd_transform(3, 4)
+@functools.lru_cache(maxsize=None)
+def _dw1d_mats(m: int = 3, r: int = 4) -> np.ndarray:
+    """B^T (n x n), G (n x r) and A^T (m x n) of F(m, r) as one f32 host
+    array (F(3,4) by default, Mamba-2's 4 taps); cached, so it outlives
+    the launch that reads it through its address."""
+    t = winograd_transform(m, r)
     return np.ascontiguousarray(np.concatenate(
         [t.BT.reshape(-1), t.G.reshape(-1), t.AT.reshape(-1)]).astype(
             np.float32))
 
 
-def _check_dw1d_cuda(r: int, *xs):
-    if r != 4:
-        raise NotImplementedError(
-            f"the CUDA depthwise kernel implements F(3,4) (4 taps) only, "
-            f"not {r} taps (ROADMAP Queue 2, part d)")
+def _check_dw1d_cuda(r: int, m: int, *xs):
+    """The kernel's (m, r) and the inputs' dtypes, layout and devices."""
+    if r not in DW1D_TAPS or m != dw1d_m(r):
+        raise ValueError(
+            f"conv1d_depthwise_causal: the CUDA kernel is built for r in "
+            f"{DW1D_TAPS[0]}..{DW1D_TAPS[-1]} taps at the reference's m "
+            f"({{3: 4, 4: 3}}.get(r, 2)); got F({m},{r})")
     for x in xs:
         if x.dtype not in _DW1D_DTYPE_CODE or not x.is_contiguous():
             raise ValueError(f"conv1d_depthwise_causal: the kernel takes a "
@@ -151,11 +168,14 @@ def _check_dw1d_cuda(r: int, *xs):
                              "dtype, shape or device")
 
 
-def _conv1d_depthwise_causal_cuda(x, w, b, *, reverse: bool = False):
+def _conv1d_depthwise_causal_cuda(x, w, b, *, m: int | None = None,
+                                  reverse: bool = False):
     """Kernel 7; ``reverse`` reads and writes the rows time-reversed (the
     backward's dx, counted in :data:`dw1d_bwd_launches`)."""
     global dw1d_launches, dw1d_bwd_launches
-    _check_dw1d_cuda(w.shape[0], x)
+    r = w.shape[0]
+    m = dw1d_m(r, m)
+    _check_dw1d_cuda(r, m, x)
     w = w.to(torch.float32).contiguous()
     b = b.to(torch.float32).contiguous()
     for t in (w, b):
@@ -164,11 +184,11 @@ def _conv1d_depthwise_causal_cuda(x, w, b, *, reverse: bool = False):
                              f"{t.device}, x on {x.device}")
     B, L, C = x.shape
     out = torch.empty_like(x)
-    mats = _dw1d_mats()
+    mats = _dw1d_mats(m, r)
     err = build.library().lib.repro_dw1d(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), mats.ctypes.data,
-        out.data_ptr(), B, L, C, dw1d_launch(B, L, C), int(reverse),
-        _DW1D_DTYPE_CODE[x.dtype],
+        out.data_ptr(), B, L, C, m, r, dw1d_launch(B, L, C, m),
+        int(reverse), _DW1D_DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "dw1d_bwd" if reverse else "dw1d")
     if reverse:
@@ -197,22 +217,23 @@ def dw1d_wgrad_rows(B: int, L: int, C: int) -> int:
     return math.ceil(L / splits)
 
 
-def dw1d_wgrad_scratch_shape(B: int, L: int, C: int) -> tuple:
-    """The f32 partial sums: (batch row x split, 5 sums, C)."""
-    return (B * math.ceil(L / dw1d_wgrad_rows(B, L, C)), 5, C)
+def dw1d_wgrad_scratch_shape(B: int, L: int, C: int, r: int = 4) -> tuple:
+    """The f32 partial sums: (batch row x split, r + 1 sums (the r taps'
+    and dy's), C)."""
+    return (B * math.ceil(L / dw1d_wgrad_rows(B, L, C)), r + 1, C)
 
 
 def _conv1d_depthwise_causal_wgrad_cuda(x, dy, r: int):
     global dw1d_wgrad_launches
-    _check_dw1d_cuda(r, x, dy)
+    _check_dw1d_cuda(r, dw1d_m(r), x, dy)
     B, L, C = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty(dw1d_wgrad_scratch_shape(B, L, C), **f32)
+    part = torch.empty(dw1d_wgrad_scratch_shape(B, L, C, r), **f32)
     dw = torch.empty((r, C), **f32)
     db = torch.empty((C,), **f32)
     err = build.library().lib.repro_dw1d_wgrad(
         x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), B, L, C, dw1d_wgrad_rows(B, L, C),
+        db.data_ptr(), B, L, C, r, dw1d_wgrad_rows(B, L, C),
         _DW1D_DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "dw1d_wgrad")
@@ -220,10 +241,12 @@ def _conv1d_depthwise_causal_wgrad_cuda(x, dy, r: int):
     return dw, db
 
 
-def conv1d_depthwise_causal(x, w, b=None):
+def conv1d_depthwise_causal(x, w, b=None, *, m: int | None = None):
     """x (B,L,C); w (r,C); b (C,) or None -> (B,L,C) in x's dtype: the
-    left-padded causal depthwise conv by F(m, r) Winograd (F(3,4) for
-    Mamba-2's 4 taps), f32 inside."""
+    left-padded causal depthwise conv by F(m, r) Winograd, f32 inside.
+    ``m`` defaults to the reference's {3: 4, 4: 3}.get(r, 2) (F(3,4) for
+    Mamba-2's 4 taps); the CUDA kernel takes r = 2..11 at that m, the
+    plain version any m."""
     if x.ndim != 3 or w.ndim != 2 or w.shape[1] != x.shape[2]:
         raise ValueError(f"conv1d_depthwise_causal: x {tuple(x.shape)} is "
                          f"not (B, L, C) or w {tuple(w.shape)} not (r, C)")
@@ -233,9 +256,9 @@ def conv1d_depthwise_causal(x, w, b=None):
         raise ValueError(f"conv1d_depthwise_causal: bias {tuple(b.shape)} "
                          f"is not ({w.shape[1]},)")
     if x.device.type == "cpu":
-        return conv1d_depthwise_causal_plain(x, w, b)
+        return conv1d_depthwise_causal_plain(x, w, b, m)
     _check_cuda_device(x)
-    return _conv1d_depthwise_causal_cuda(x, w, b)
+    return _conv1d_depthwise_causal_cuda(x, w, b, m=m)
 
 
 def _check_cuda_device(x):
@@ -268,8 +291,13 @@ def conv1d_depthwise_causal_wgrad(x, dy, r: int):
 
 
 # ---------------------------------------------------------------------------
-# 2D conv (AlexNet 3x3 -> F(4,3) x F(4,3))
+# 2D conv (AlexNet 3x3 -> F(m,3) x F(m,3), m = 4 by default)
 # ---------------------------------------------------------------------------
+# the tile outputs m the CUDA kernels are built for at r = 3 (n = m + 2 <=
+# 12, as far as winograd_transform's points reach)
+CONV_MS = tuple(range(2, 11))
+
+
 @dataclass(frozen=True)
 class WinogradPlan:
     """Every derived extent of one call; pure function of shapes.  ``fused``
@@ -285,6 +313,18 @@ class WinogradPlan:
     out_w: int
     ph_pad: int             # SAME halo pad (both sides)
     tw: int                 # tile columns
+    # the reference's row blocking (it sizes the slab's channel block; the
+    # CUDA kernels cover every tile row of the m-grid in one launch)
+    Rt: int                 # tile rows per row step
+    row_step: int           # tile rows advanced per row step
+    npr: int                # row steps
+    rows_out: int           # output rows written per row step
+    w_out: int              # output cols written per row step
+    thp: int                # total tile rows the slab must cover
+    Hp: int
+    Wp: int
+    Bb: int
+    Bp: int
     Cb: int
     Cp: int
     ncb: int
@@ -316,9 +356,11 @@ def plan(x_shape, w_shape, *, m: int = 4, padding: str = "SAME",
          pool_row_block: int | None = None, c_block: int | None = None,
          k_block: int = 128, batch_block: int = 8,
          checksum: bool = False) -> WinogradPlan:
-    """Derive the plan from shapes + static params.  The channel and K
-    blocks follow the reference's rules (its row blocking sizes the input
-    block its ``auto_c_block`` budget sees), so the slab matches its
+    """Derive the plan from shapes + static params, every field the
+    reference's at every m (the fused pool's row block a multiple of q =
+    m / gcd(ps, m), so each row step starts on the m-grid).  The channel
+    and K blocks follow the reference's rules (its row blocking sizes the
+    input block its ``auto_c_block`` budget sees), so the slab matches its
     slab; the armed plan blocks as the unarmed one does."""
     r = w_shape[0]
     t = winograd_transform(m, r)
@@ -336,7 +378,7 @@ def plan(x_shape, w_shape, *, m: int = 4, padding: str = "SAME",
         ph_pad = 0
         out_h, out_w = H - r + 1, W - r + 1
     tw = -(-out_w // mm)
-    Bb, _ = batch_blocks(B, batch_block)
+    Bb, Bp = batch_blocks(B, batch_block)
     fused = lrn is not None or pool is not None
 
     ph_out, pw_out = out_h, out_w
@@ -355,11 +397,13 @@ def plan(x_shape, w_shape, *, m: int = 4, padding: str = "SAME",
         row_step = ps * Pb // mm
         Rt = -(-(ps * (Pb - 1) + pwin) // mm)
         npr = -(-ph_out // Pb)
+        rows_out, w_out = Pb, pw_out
         thp = (npr - 1) * row_step + Rt
     else:
         th = -(-out_h // mm)
         Rt = row_step = min(row_block, th)
         npr = -(-th // Rt)
+        rows_out, w_out = Rt * mm, tw * mm
         thp = (npr - 1) * row_step + Rt if fused else npr * Rt
     Hp = thp * mm + r - 1
     Wp = tw * mm + r - 1
@@ -373,9 +417,12 @@ def plan(x_shape, w_shape, *, m: int = 4, padding: str = "SAME",
         Kb = min(k_block, K)
         Kp = K + (-K) % Kb
     return WinogradPlan(fused=fused, m=m, r=r, g=g, C=C, K=K, out_h=out_h,
-                        out_w=out_w, ph_pad=ph_pad, tw=tw, Cb=Cb, Cp=Cp,
-                        ncb=Cp // Cb, Kb=Kb, Kp=Kp, nkb=Kp // Kb,
-                        ph_out=ph_out, pw_out=pw_out, checksum=checksum)
+                        out_w=out_w, ph_pad=ph_pad, tw=tw, Rt=Rt,
+                        row_step=row_step, npr=npr, rows_out=rows_out,
+                        w_out=w_out, thp=thp, Hp=Hp, Wp=Wp, Bb=Bb, Bp=Bp,
+                        Cb=Cb, Cp=Cp, ncb=Cp // Cb, Kb=Kb, Kp=Kp,
+                        nkb=Kp // Kb, ph_out=ph_out, pw_out=pw_out,
+                        checksum=checksum)
 
 
 def pack_weights(w, p: WinogradPlan):
@@ -423,7 +470,7 @@ def conv2d_winograd_plain(x, w_tiles, bias, p: WinogradPlan, *, relu: bool,
 
 
 def num_tiles(p: WinogradPlan, B: int) -> int:
-    """Winograd tiles of the 4-grid over B images: the GEMM's rows T."""
+    """Winograd tiles of the m-grid over B images: the GEMM's rows T."""
     return B * -(-p.out_h // p.m) * p.tw
 
 
@@ -458,7 +505,7 @@ def gemm_tile(p: WinogradPlan, rows: int | None = None,
 
 
 def gemm_grid(p: WinogradPlan, B: int, tile=None) -> tuple[int, int, int]:
-    """The batched GEMM's grid: (T tiles, K tiles, 36 positions x g) for
+    """The batched GEMM's grid: (T tiles, K tiles, n^2 positions x g) for
     ``tile`` ((rows, columns), None sides default; :func:`gemm_tile`)."""
     rows, cols = gemm_tile(p, *(tile or (None, None)))
     return -(-num_tiles(p, B) // rows), -(-p.K // cols), p.n * p.n * p.g
@@ -475,8 +522,8 @@ def smem_bytes(p: WinogradPlan, tile=None) -> int:
 
 
 def scratch_shapes(p: WinogradPlan, B: int, lrn, pool) -> dict:
-    """The f32 scratches a call allocates (whatever x's type): U (36, g,
-    T, Cu) from the input transform, M (36, g, T, K) from the GEMMs and,
+    """The f32 scratches a call allocates (whatever x's type): U (n^2, g,
+    T, Cu) from the input transform, M (n^2, g, T, K) from the GEMMs and,
     when an LRN or a pool follows, the conv map (B, out_h, out_w, g*K) the
     inverse transform writes for the epilogue launch (else None: it
     writes the output)."""
@@ -488,7 +535,14 @@ def scratch_shapes(p: WinogradPlan, B: int, lrn, pool) -> dict:
 
 
 def _mats(p: WinogradPlan) -> np.ndarray:
-    t = winograd_transform(p.m, p.r)
+    """B^T (n x n) then A^T (m x n) as one f32 host array: cached, so the
+    array outlives the launch that reads it through its address."""
+    return _wino_mats(p.m, p.r)
+
+
+@functools.lru_cache(maxsize=None)
+def _wino_mats(m: int, r: int) -> np.ndarray:
+    t = winograd_transform(m, r)
     return np.ascontiguousarray(np.concatenate(
         [t.BT.reshape(-1), t.AT.reshape(-1)]).astype(np.float32))
 
@@ -496,10 +550,9 @@ def _mats(p: WinogradPlan) -> np.ndarray:
 def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
                           pool, verdict=None, tile=None):
     global launches, fused_launches
-    if (p.m, p.r) != (4, 3):
-        raise NotImplementedError(
-            f"the CUDA Winograd kernels implement F(4,3) only, not "
-            f"F({p.m},{p.r}) (ROADMAP Queue 2, part d)")
+    if p.r != 3 or p.m not in CONV_MS:
+        raise ValueError(f"conv_winograd: the CUDA kernels are built for "
+                         f"F(m,3), m in {CONV_MS}; got F({p.m},{p.r})")
     check_cuda_inputs("conv_winograd", x, w_tiles, bias, p.Kfull, verdict,
                       slab_dtype=torch.float32)
     tile = gemm_tile(p, *(tile or (None, None)))
@@ -519,8 +572,9 @@ def _conv2d_winograd_cuda(x, w_tiles, bias, p: WinogradPlan, *, relu, lrn,
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool, PT=1,
                      pad=(p.ph_pad, p.ph_pad), out_hw=(p.ph_out, p.pw_out),
                      slab_dtype=w_tiles.dtype, verdict=verdict)
+    mats = _mats(p)     # held: the launcher reads it through its address
     err = build.library().lib.repro_conv_winograd(
-        ctypes.byref(args), _mats(p).ctypes.data, x.data_ptr(),
+        ctypes.byref(args), mats.ctypes.data, p.m, x.data_ptr(),
         w_tiles.data_ptr(), bias.data_ptr(), u, m, y, out.data_ptr(),
         tile[0] // 16, tile[1] // 16,
         torch.cuda.current_stream(x.device).cuda_stream)

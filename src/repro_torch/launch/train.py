@@ -6,7 +6,9 @@ default, the published widths with ``--full``.  Runs on the card unless
 ``--device cpu`` is given (the kernels' plain versions then run).
 ``--ckpt-dir`` resumes from the newest checkpoint there, the reference's
 or the port's (one layout).  ``--mesh`` is refused: the port trains on one
-device (ROADMAP Queue 1, item 7d's parallel part).
+device (ROADMAP Queue 1, item 7d's parallel part).  Every token family
+trains, whisper-tiny on the batches' frames and phi-3-vision-4.2b on
+their patches.
 """
 from __future__ import annotations
 

@@ -11,12 +11,15 @@ last conv's output is flattened in NHWC order before fc6.
 
 ``dtype="bfloat16"`` is the reference's bf16 model: parameters and
 activations in bf16, the conv kernels f32 inside with one rounding of
-each layer's output, the FC layers in bf16.  Parameters cross the numpy
+each layer's output, the FC layers in bf16 (under ``fc_bfp`` the BFP
+matmul on the activations taken as f32, the f32 bias added, then one
+rounding to bf16, as the reference does).  Parameters cross the numpy
 boundary as float32 arrays (exact for bf16 values), so no bf16 numpy type
 is needed.
 
 §3.6 block floating point: ``conv_bfp`` quantizes the staged conv slabs
-(the kernels then read BFP-quantized filters), and ``fc_bfp`` runs fc6-fc8
+(the kernels then read BFP-quantized filters, dequantized to f32 in a
+bf16 model too, as in the reference), and ``fc_bfp`` runs fc6-fc8
 through the BFP matmul kernel (``csrc/bfp_matmul.cu``) on int8 weight
 streams, whatever the conv route.
 
@@ -83,17 +86,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: AlexNetConfig):
-    """Raise for the config features later slices port."""
+    """Raise for a config the reference rejects too."""
     if cfg.arch not in ("alexnet", "vgg"):
         raise ValueError(f"unknown CNN arch {cfg.arch!r}; the reference's "
                          f"are 'alexnet' and 'vgg'")
     if cfg.dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {cfg.dtype!r}; the CNN path "
                          f"takes {list(DTYPES)}")
-    if cfg.dtype != "float32" and (cfg.fc_bfp or cfg.conv_bfp):
-        raise NotImplementedError(
-            f"fc_bfp/conv_bfp with dtype={cfg.dtype!r} are not ported yet: "
-            "kernel 4 and the BFP slabs in bf16 are ROADMAP Queue 2, part f")
 
 
 def layer_specs(cfg: AlexNetConfig) -> List[ConvSpec]:
@@ -348,7 +347,8 @@ def classifier(params, cfg: AlexNetConfig, feats, *, stager=None,
                packed=None):
     """FC layers fc6-fc8 with ReLU between: plain ``x @ w + b`` (the
     reference leaves them to XLA), or under ``cfg.fc_bfp`` the BFP matmul
-    kernel on each layer's int8 weight stream (§3.6), plus the bias.  A
+    kernel on each layer's int8 weight stream (§3.6), plus the bias in
+    f32, rounded to the activations' dtype, as the reference does.  A
     layer's stream comes from ``packed`` (:func:`pack_serving_slabs`), else
     from the ``stager`` (fc6, staged by conv5's hook), else is quantized
     now — the same values each way."""
@@ -361,7 +361,8 @@ def classifier(params, cfg: AlexNetConfig, feats, *, stager=None,
         if cfg.fc_bfp:
             source = packed if packed is not None else stager
             q = source.get(name) if source is not None else None
-            x = bfp_linear(x, p["w"], quantized=q) + p["b"]
+            x = (bfp_linear(x, p["w"], quantized=q)
+                 + p["b"].float()).to(x.dtype)
         else:
             x = x @ p["w"] + p["b"]
         if j < n_fc - 1:

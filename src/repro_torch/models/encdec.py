@@ -63,6 +63,25 @@ def params_from_reference(np_params, cfg: ArchConfig, *, device="cuda"):
     return lm._tensors(p, device)
 
 
+def to_reference_layout(tree, cfg: ArchConfig, *, device=None) -> dict:
+    """A params-shaped tree (params, grads, AdamW moments) in the
+    reference's layout: each stack laid out as ``lm.to_reference_layout``
+    lays an LM's (the encoder's at :func:`enc_cfg`)."""
+    def stacked(key, c):
+        return lm.to_reference_layout({"stack": tree[key]}, c,
+                                      device=device)["stack"]
+    return dict(tree, enc_stack=stacked("enc_stack", enc_cfg(cfg)),
+                dec_stack=stacked("dec_stack", cfg))
+
+
+def from_reference_layout(tree, cfg: ArchConfig) -> dict:
+    """The inverse of :func:`to_reference_layout` (views, no copy)."""
+    return dict(tree,
+                enc_stack=lm._reference_layers(tree["enc_stack"],
+                                               enc_cfg(cfg)),
+                dec_stack=lm._reference_layers(tree["dec_stack"], cfg))
+
+
 def cache_shape(cfg: ArchConfig, batch: int, max_len: int,
                 cross_len: int = CROSS_LEN_DEFAULT):
     """The decoder's per-layer caches: self-attention's K and V of

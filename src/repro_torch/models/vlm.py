@@ -45,6 +45,11 @@ def params_from_reference(np_params, cfg: ArchConfig, *, device="cuda"):
     return lm.params_from_reference(np_params, cfg, device=device)
 
 
+# the reference lays the stack out as an LM's, the patch projection beside
+to_reference_layout = lm.to_reference_layout
+from_reference_layout = lm.from_reference_layout
+
+
 def cache_shape(cfg: ArchConfig, batch: int, max_len: int):
     """Per-layer caches of the patch prefix and ``max_len`` text
     positions."""

@@ -41,8 +41,9 @@ from .module import torch_dtype
 def causal_conv1d(w, b, x, use_winograd: bool = False):
     """x (B, L, ch); w (k, ch); left-padded causal depthwise conv.
 
-    ``use_winograd`` routes through kernel 7's entry (F(3,4) Winograd, f32
-    inside); otherwise the shift-multiply sum in x's dtype."""
+    ``use_winograd`` routes through kernel 7's entry (F(m, k) Winograd at
+    the reference's m for k taps, f32 inside); otherwise the
+    shift-multiply sum in x's dtype."""
     if use_winograd:
         return conv_ops.conv1d_depthwise_causal(x, w, b)
     return conv1d_depthwise_causal_ref(x, w, b)

@@ -11,15 +11,19 @@ Fault model:
   * stragglers -> a z-score of each step's time against the history past
     the two warm-up steps, with a pluggable hook (recorded and logged).
 
-A step is autograd through ``loss_fn`` (for the mixture-of-experts and
-hybrid families with the router's load-balance loss) and
-:func:`optim.adamw_step`, which updates the state in place.  Its time
+A step is autograd through the family's ``loss_fn`` (``models.lm``'s,
+for the mixture-of-experts and hybrid families with the router's
+load-balance loss; ``models.encdec``'s on the batch's ``frames`` and
+``models.vlm``'s on its ``patches``, as the reference's trainer calls
+``model_for(cfg).loss_fn``) and :func:`optim.adamw_step`, which updates
+the state in place.  Its time
 ``dt`` is taken after ``torch.cuda.synchronize()``, as the reference
 takes it after ``block_until_ready``.  The state is ``{"step", "params",
 "m", "v"}`` as in the reference; its checkpoints are written in the
 reference's layout
-(the layers stacked under ``params/stack/scan/b<j>``, the same leaf names,
-shapes and dtypes), so each package restores the other's.  The mesh and
+(the layers stacked under ``params/stack/scan/b<j>``, an encoder-decoder's
+under ``enc_stack`` and ``dec_stack``; the same leaf names, shapes and
+dtypes), so each package restores the other's.  The mesh and
 ``reshard_state`` (elastic re-placement) come with ROADMAP Queue 1 item
 7d's parallel part.
 """
@@ -38,7 +42,7 @@ from ..config import ArchConfig
 from ..core.device import resolve_device
 from ..core.streambuf import StreamBuffer
 from ..data.pipeline import synthetic_batches
-from ..models import lm, model_for
+from ..models import encdec, lm, model_for, vlm
 from ..nn.module import tree_leaves, tree_map
 from ..optim import adamw_step, init_state, lr_schedule
 
@@ -91,15 +95,11 @@ class Trainer:
         self.cfg, self.tcfg = cfg, tcfg
         self.device = resolve_device(device)
         self.mod = model_for(cfg)
-        if cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(
-                f"Trainer: training the {cfg.family!r} family (its frames or "
-                "patches through the trainer's batches) is not ported yet "
-                "(ROADMAP Queue 1, item 7d)")
-        if self.mod is not lm:
-            raise NotImplementedError(
-                f"Trainer trains the LM families; family {cfg.family!r} "
-                "has no loss_fn in the port")
+        if self.mod not in (lm, encdec, vlm):
+            raise ValueError(
+                f"Trainer trains the token families (the reference's feeds "
+                f"every family token batches); family {cfg.family!r} takes "
+                "images")
         self.events = TrainerEvents()
         self._failure_injector = failure_injector
         self._straggler_hook = straggler_hook
@@ -161,7 +161,8 @@ class Trainer:
         """The state as the reference lays it out, on the host."""
         st = self.state
         return {"step": st["step"].clone(),
-                **{k: lm.to_reference_layout(st[k], self.cfg, device="cpu")
+                **{k: self.mod.to_reference_layout(st[k], self.cfg,
+                                                   device="cpu")
                    for k in ("params", "m", "v")}}
 
     def save(self):
@@ -182,7 +183,7 @@ class Trainer:
             self._ckpt.wait()
         # the reference layout's structure, with empty host leaves: restore
         # loads each file onto the host
-        empty = lm.to_reference_layout(
+        empty = self.mod.to_reference_layout(
             tree_map(lambda t: torch.empty(0), self.state["params"]), self.cfg,
             device="cpu")
         like = {"step": torch.zeros((), dtype=torch.int32), "params": empty,
@@ -190,7 +191,8 @@ class Trainer:
         got = ckpt_lib.restore(self.tcfg.ckpt_dir, like)
         with torch.no_grad():
             for k in ("params", "m", "v"):
-                src = tree_leaves(lm.from_reference_layout(got[k], self.cfg))
+                src = tree_leaves(self.mod.from_reference_layout(got[k],
+                                                                 self.cfg))
                 dst = tree_leaves(self.state[k])
                 for d, s in zip(dst, src, strict=True):
                     if s.shape != d.shape:

@@ -146,16 +146,6 @@ def test_packed_and_staged_forwards_are_bit_equal(reduced):
     assert stager.misses == 5 and stager.hits >= 5
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(dtype="bfloat16", fc_bfp=True), "ROADMAP Queue 2, part f"),
-    (dict(dtype="bfloat16", conv_bfp=True), "ROADMAP Queue 2, part f")])
-def test_unported_config_features_raise(change, match):
-    """VGG and bf16 are ported; BFP in bf16 is refused by name."""
-    cfg = dataclasses.replace(get_config("alexnet").reduced(), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        alexnet.layer_specs(cfg)
-
-
 def test_tuned_plans_are_refused_not_ignored():
     """Plans tuned for the TPU kernels never steer the CUDA kernels: the
     reference's cache (keyed ``cpu-interpret``) loads nothing, on the CPU

@@ -11,8 +11,9 @@ one bf16 step (|diff| <= 2**-7 * |ref| + 1e-5 * max|ref|: both round f32
 values that differ by f32 noise).  Reduced bf16 models, served or not,
 within 5e-2 * max|logit| of the reference's (its own bf16 bound,
 ``tests/test_serve_fleet.py``).  Parameters cross between the packages as
-float32 numpy arrays, exact for bf16 values.  BFP in bf16 stays refused
-by name.  Every input is made with numpy from a seed.
+float32 numpy arrays, exact for bf16 values.  BFP in bf16 is
+``tests/test_torch_bfp_bf16.py``'s.  Every input is made with numpy from a
+seed.
 """
 import dataclasses
 
@@ -326,19 +327,6 @@ def test_staging_buffer_uses_config_dtype(reduced16):
     # bit-equal to the port's own apply at the served bucket
     want = alexnet.apply(params, cfg16, torch.from_numpy(imgs)).float()
     assert np.array_equal(got, want.numpy())
-
-
-@pytest.mark.parametrize("flag", ["fc_bfp", "conv_bfp"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_bf16_bfp_is_refused_by_name(arch, flag):
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16",
-                              use_pallas=True, **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, part f"):
-        alexnet.apply(alexnet.init(0, dataclasses.replace(
-            cfg, fc_bfp=False, conv_bfp=False), device="cpu"), cfg,
-            torch.zeros((1, cfg.image_size, cfg.image_size, 3)))
-    with pytest.raises(NotImplementedError, match="part f"):
-        CnnEngine(cfg, CnnServeConfig(max_batch=1), device="cpu")
 
 
 def test_bf16_params_cross_numpy_as_f32(reduced16):

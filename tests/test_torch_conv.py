@@ -9,7 +9,6 @@ float32, summed in different orders, Winograd transforms included); the
 direct slab is a pure re-layout and must match exactly; the Winograd slab
 (G w G^T, an f32 product) to atol 1e-6.
 """
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -557,30 +556,3 @@ def test_winograd_grid_fills_the_card(name, blocks):
     assert nt * nn * npg == blocks and 132 <= blocks <= 4 * 132
 
 
-@pytest.mark.parametrize("which", ["winograd_m", "dw1d_taps",
-                                   "alexnet_dtype"])
-def test_refusals_name_their_roadmap_items(which):
-    """Each refusal of a feature the port does not have yet names the
-    ROADMAP item that brings it."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import alexnet
-    if which == "winograd_m":
-        x, w, b = _t(*_layer_inputs(dict(kernel=3), 9, 6, 8))
-        p = t_winograd.plan(tuple(x.shape), tuple(w.shape), m=2)
-        slab = t_winograd.pack_weights(w, p)
-        with pytest.raises(NotImplementedError,
-                           match=r"F\(2,3\).*ROADMAP Queue 2, part d"):
-            t_winograd._conv2d_winograd_cuda(x, slab, b, p, relu=True,
-                                             lrn=None, pool=None)
-    elif which == "dw1d_taps":
-        x = torch.zeros((1, 8, 4))
-        with pytest.raises(NotImplementedError,
-                           match=r"3 taps.*ROADMAP Queue 2, part d"):
-            t_winograd._conv1d_depthwise_causal_cuda(
-                x, torch.zeros((3, 4)), torch.zeros((4,)))
-    else:
-        cfg = dataclasses.replace(get_config("alexnet"), dtype="bfloat16",
-                                  fc_bfp=True)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 2, part f"):
-            alexnet.check_supported(cfg)

@@ -1823,3 +1823,394 @@ def test_moe_trainer_on_the_card_matches_the_cpu(card, arch):
                     tree_leaves(runs["cpu"][0].state["params"])):
         np.testing.assert_allclose(x.detach().cpu().numpy(),
                                    y.detach().numpy(), rtol=1e-4, atol=1e-5)
+
+
+# --- BFP in bf16: kernel 1 on an f32 slab, kernel 4 on bf16 x -------------
+def _bf16_bfp_layer(kind, kw, r, B, H, c_in, c_out, seed, armed):
+    """(entry, x, w, b, slab, plan) in bf16 with the reference's conv_bfp
+    slab: packed from the bf16 filters, BFP-quantized to f32 (the checksum
+    row taken off and computed again when armed), as
+    ``nn.conv._pack_for_plan`` packs it."""
+    from repro_torch.core import bfp as core_bfp
+    fn, x, w, b, slab = _bf16_layer(kind, kw, r, B, H, c_in, c_out, seed,
+                                    armed)
+    mod = direct if kind == "direct" else winograd
+    p = mod.plan(tuple(x.shape), tuple(w.shape), checksum=armed, **{
+        k: v for k, v in kw.items() if k != "lrn" or mod is winograd})
+    rows = slab[..., :-1, :] if armed else slab
+    slab = core_bfp.quantize_dequantize(rows, block=np.gcd(p.Cb, 32),
+                                        axis=-2)
+    if armed:
+        slab = dma.append_checksum_row(slab)
+    assert slab.dtype is torch.float32
+    return fn, x, w, b, slab, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name,kw,r,B,H,c_in,c_out", BF16_CASES)
+def test_bf16_x_on_bfp_slabs_follows_the_rule_at_every_tile(
+        card, kind, name, kw, r, B, H, c_in, c_out):
+    """A bf16 BFP model's layers: bf16 x and bias on the f32 BFP slab
+    (kernel 1's new pairing, and kernels 2-3's) are bit-equal, at every
+    tile, armed and unarmed, to the f32 kernel on the widened x and bias
+    rounded to bf16; armed verdicts 0 on the clean slab; within one bf16
+    step of the plain version."""
+    mod = direct if kind == "direct" else winograd
+    for armed in (False, True):
+        fn, x, w, b, slab, p = _bf16_bfp_layer(kind, kw, r, B, H, c_in,
+                                               c_out, 9, armed)
+        xc, wc, bc, sc = (t.to(card) for t in (x, w, b, slab))
+        extra = dict(checksum=True) if armed else {}
+        plain = fn(x, w, b, slab, relu=True, **kw, **extra)
+        plain = plain[0] if armed else plain
+        for tile in mod.TILES:
+            if tile not in mod.ANY_SLAB_TILES and p.Kb % 4:
+                continue
+            kwt = dict(kw, tile_rows=tile[0], tile_cols=tile[1])
+            y = fn(xc, wc, bc, sc, relu=True, **kwt, **extra)
+            y32 = fn(xc.float(), wc.float(), bc.float(), sc, relu=True,
+                     **kwt, **extra)
+            if armed:
+                (y, v), (y32, _) = y, y32
+                assert int(v) == 0, tile
+            torch.cuda.synchronize()
+            assert y.dtype is torch.bfloat16
+            assert torch.equal(y.view(torch.int16),
+                               y32.to(torch.bfloat16).view(torch.int16)), \
+                (tile, armed)
+        got, ref = y.float().cpu().numpy(), plain.float().numpy()
+        excess = np.abs(got - ref) - (2.0 ** -7 * np.abs(ref)
+                                      + 1e-5 * np.abs(ref).max())
+        assert excess.max() <= 0, (armed, excess.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv1_full", "conv2_full"])
+def test_bf16_x_bfp_direct_slab_verdict_equals_plain(card, name):
+    """Seeded flips of an armed f32 BFP direct slab under bf16 x: the
+    kernel's verdict is the plain count (32-bit lanes)."""
+    case = next(c for c in BF16_CASES if c[1] == name)
+    fn, x, w, b, slab, _ = _bf16_bfp_layer(*case[:1], *case[2:], seed=3,
+                                           armed=True)
+    kw = case[2]
+    rng = np.random.default_rng(5)
+    xc, wc, bc = x.to(card), w.to(card), b.to(card)
+    for bit in rng.integers(0, slab.numel() * 32, size=6):
+        bad = _flip_bits(slab, [int(bit)])
+        _, v = fn(xc, wc, bc, bad.to(card), relu=True, checksum=True, **kw)
+        assert int(v) == int(dma.checksum_mismatches(bad)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,block", BFP_SHAPES)
+@pytest.mark.parametrize("M", [1, 3, 8, 13])
+def test_bfp_kernel_reads_bf16_x_as_its_widening(card, M, K, N, block):
+    """Kernel 4 on bf16 x: bit-equal to the f32 kernel on x.float() and to
+    the plain version, with the pre-pass's bytes those of
+    quantize_activations; no cast launch (one launch a call)."""
+    x, w = _bfp_inputs(M, M, K, N, block)
+    xc = torch.from_numpy(x).to(card, torch.bfloat16)
+    wq, we = bfp.quantize_weights(torch.from_numpy(w).to(card), block=block)
+    n0 = bfp.launches
+    got, scratch = bfp._bfp_matmul_cuda(xc, wq, we, block=block)
+    torch.cuda.synchronize()
+    assert bfp.launches == n0 + 1
+    assert torch.equal(got, bfp.bfp_matmul(xc.float(), wq, we, block=block))
+    assert torch.equal(got.cpu(), bfp.bfp_matmul_plain(
+        xc.cpu(), wq.cpu(), we.cpu(), block=block))
+    words, exps = bfp.quantize_activations(xc, block)
+    assert torch.equal(scratch[:words.numel()].view(words.shape), words)
+    assert torch.equal(scratch[words.numel():].view(exps.shape), exps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["alexnet", "vgg16"])
+def test_bf16_bfp_engine_on_the_card_matches_the_cpu(card, arch):
+    """A reduced bf16 model with fc_bfp and conv_bfp (armed) served on the
+    card: verdict 0, each request's logits within one bf16 step of the CPU
+    engine's (the plain versions), the launches of kernels 1-4."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_pallas=True,
+                              dtype="bfloat16", fc_bfp=True, conv_bfp=True)
+    if arch == "vgg16":
+        # reduced VGG-16's fc8 (K = 24) takes exponent blocks of 8, which
+        # kernel 4 is not built for (its blocks are 16 and 32; the
+        # reference's kernel does not compile there either: ROADMAP Queue
+        # 3); fc7 32 wide gives fc8 blocks of 32
+        cfg = dataclasses.replace(cfg, fc_dims=(32, 32, 10))
+    params = alexnet.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    imgs = rng.standard_normal((5, cfg.image_size, cfg.image_size,
+                                3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: {n: t.to(dev) for n, t in v.items()}
+             for k, v in params.items()}
+        eng = CnnEngine(dataclasses.replace(cfg, sdc_abft=True),
+                        CnnServeConfig(max_batch=4), params=p, device=dev)
+        ops.reset_launch_counts()
+        bfp_ops.reset_launch_counts()
+        reqs = [ImageRequest(image=im) for im in imgs]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        assert eng.stats()["sdc"]["detections"] == 0
+        out[dev] = np.stack([r.logits for r in reqs])
+        if dev == "cuda":
+            assert bfp_ops.launch_counts()["bfp_matmul"] > 0
+            assert sum(ops.launch_counts().values()) > 0
+    excess = np.abs(out["cuda"] - out["cpu"]) - (
+        BF16_STEP * np.abs(out["cpu"]) + 1e-2 * np.abs(out["cpu"]).max())
+    assert excess.max() <= 0
+
+
+# --- kernels 2-3 at every F(m,3) -------------------------------------------
+WINO_M_CASES = [c for c in WINO_CASES if c[0] in (
+    "conv3_full", "conv5_full", "conv4_reduced", "lrn_pool_kblocks_g2",
+    "ragged_c5_k40_pool", "kb_not_x4_g2")]
+
+
+def _m_tol(x, w, b, kw, m, got_plain):
+    """max(1e-5, 3 e(m)) * max|plain|: e(m) the plain version's error
+    against the direct oracle in float64."""
+    from repro_torch.kernels.conv.ref import conv2d_ref
+    ref64 = conv2d_ref(x.double(), w.double(), b.double(), relu=True,
+                       padding=kw.get("padding", "SAME"),
+                       groups=kw.get("groups", 1), lrn=kw.get("lrn"),
+                       pool=kw.get("pool"))
+    e_m = float((got_plain.double() - ref64).abs().max()) / float(
+        ref64.abs().max())
+    return max(1e-5, 3 * e_m) * float(got_plain.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", list(winograd.CONV_MS))
+@pytest.mark.parametrize("name,kw,B,H,c_in,c_out", WINO_M_CASES)
+def test_winograd_kernels_at_every_m(card, m, name, kw, B, H, c_in, c_out):
+    """F(m,3) for m = 2..10: within max(1e-5, 3 e(m)) of the plain version;
+    every tile bit-equal to the default, armed and unarmed, verdict 0; a
+    flipped slab bit gives the plain count; bf16 x bit-equal to the f32
+    kernel on the widened x, rounded."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs(
+        m, B, H, c_in, c_out, 3, kw.get("groups", 1)))
+    p = winograd.plan(tuple(x.shape), tuple(w.shape), m=m, **kw)
+    pa = winograd.plan(tuple(x.shape), tuple(w.shape), m=m, checksum=True,
+                       **kw)
+    slab, armed = winograd.pack_weights(w, p), winograd.pack_weights(w, pa)
+    plain = winograd.conv2d_winograd(x, w, b, slab, m=m, relu=True, **kw)
+    xc, wc, bc, sc, ac = (t.to(card) for t in (x, w, b, slab, armed))
+    base = winograd.conv2d_winograd(xc, wc, bc, sc, m=m, relu=True, **kw)
+    torch.cuda.synchronize()
+    err = float((base.cpu() - plain).abs().max())
+    assert err <= _m_tol(x, w, b, kw, m, plain), err
+    for tile in winograd.TILES:
+        if tile not in winograd.ANY_SLAB_TILES and p.Kb % 4:
+            continue
+        kwt = dict(kw, m=m, relu=True, tile_rows=tile[0], tile_cols=tile[1])
+        y = winograd.conv2d_winograd(xc, wc, bc, sc, **kwt)
+        y_arm, v = winograd.conv2d_winograd(xc, wc, bc, ac, checksum=True,
+                                            **kwt)
+        torch.cuda.synchronize()
+        assert torch.equal(y.view(torch.int32), base.view(torch.int32)), tile
+        assert torch.equal(y_arm.view(torch.int32),
+                           base.view(torch.int32)), tile
+        assert int(v) == 0, tile
+    bad = _flip_bits(armed, [int(armed.numel() * 32 * 0.37)])
+    _, v = winograd.conv2d_winograd(xc, wc, bc, bad.to(card), m=m,
+                                    relu=True, checksum=True, **kw)
+    assert int(v) == int(dma.checksum_mismatches(bad)) == 1
+    x16, b16 = xc.to(torch.bfloat16), bc.to(torch.bfloat16)
+    y16 = winograd.conv2d_winograd(x16, wc, b16, sc, m=m, relu=True, **kw)
+    y32 = winograd.conv2d_winograd(x16.float(), wc, b16.float(), sc, m=m,
+                                   relu=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y16.view(torch.int16),
+                       y32.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 6, 10])
+def test_dispatch_at_winograd_m_serves_a_model(card, m):
+    """A reduced AlexNet whose 3x3 layers run F(m,3) (``ConvSpec``'s
+    winograd_m through ``dispatch_conv``): the card's conv features within
+    the F(m,3) tolerance of the CPU's."""
+    from repro_torch.nn.conv import dispatch_conv
+    cfg = dataclasses.replace(get_config("alexnet").reduced(),
+                              use_pallas=True)
+    params = alexnet.init(0, cfg, device="cpu")
+    specs = [dataclasses.replace(s.with_route("pallas"), winograd_m=m)
+             for s in alexnet.layer_specs(cfg)]
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (2, cfg.image_size, cfg.image_size, 3)).astype(np.float32))
+    xs = {"cpu": x, "cuda": x.to(card)}
+    for i, spec in enumerate(specs):
+        pw = params[f"conv{i + 1}"]
+        for dev in xs:
+            xs[dev] = dispatch_conv(spec, xs[dev], pw["w"].to(dev),
+                                    pw["b"].to(dev))
+        if spec.winograd_eligible:
+            ref = xs["cpu"]
+            err = float((xs["cuda"].cpu() - ref).abs().max())
+            assert err <= 1e-3 * float(ref.abs().max()), (i, err)
+            xs["cuda"] = ref.to(card)
+
+
+# --- kernel 7 at every tap count -------------------------------------------
+DW1D_TAP_CASES = [(1, 200, 5120), (2, 33, 5), (3, 100, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", list(winograd.DW1D_TAPS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,C", DW1D_TAP_CASES)
+def test_dw1d_at_every_tap_count(card, monkeypatch, r, dtype, B, L, C):
+    """F(m, r) at r = 2..11 (the reference's m): the forward within
+    max(1e-5, 3 e(r)) of max|plain| (e(r): the plain version's own error
+    against the direct shift-sum in float64), one bf16 step more in bf16,
+    bit-equal at every tiles-a-block; dx bit-equal to flip(kernel
+    7(flip(dy))); dw and db against their plain versions, two runs
+    bit-equal; the autograd entry's gradients against the CPU's."""
+    from repro_torch.kernels.conv.ref import conv1d_depthwise_causal_ref
+    rng = np.random.default_rng(r * 100 + L)
+    x = torch.from_numpy(rng.standard_normal((B, L, C)).astype(
+        np.float32)).to(card, dtype)
+    dy = torch.from_numpy(rng.standard_normal((B, L, C)).astype(
+        np.float32)).to(card, dtype)
+    w = torch.from_numpy((rng.standard_normal((r, C)) * r ** -0.5).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy((rng.standard_normal(C) * 0.1).astype(
+        np.float32)).to(card)
+    n0 = winograd.dw1d_launches
+    y = winograd.conv1d_depthwise_causal(x, w, b)
+    torch.cuda.synchronize()
+    assert winograd.dw1d_launches == n0 + 1 and y.dtype == dtype
+    plain = winograd.conv1d_depthwise_causal_plain(x, w, b)
+    exact = conv1d_depthwise_causal_ref(x.double(), w.double(), b.double())
+    plain32 = winograd.conv1d_depthwise_causal_plain(x.float(), w, b)
+    e_r = float((plain32.double() - exact).abs().max()) / float(
+        exact.abs().max())
+    bound = max(1e-5, 3 * e_r) * float(plain.float().abs().max())
+    diff = (y.float() - plain.float()).abs()
+    if dtype == torch.bfloat16:
+        diff = diff - BF16_STEP * plain.float().abs()
+    assert float(diff.max()) <= bound, (e_r, float(diff.max()))
+    for t in winograd.DW1D_TILES:
+        monkeypatch.setattr(winograd, "dw1d_launch", lambda *a, t=t: t)
+        assert torch.equal(winograd.conv1d_depthwise_causal(x, w, b), y), t
+    monkeypatch.undo()
+    zero = torch.zeros((C,), device=card)
+    dx = winograd.conv1d_depthwise_causal_dx(dy, w)
+    flip = winograd.conv1d_depthwise_causal(dy.flip(1).contiguous(), w,
+                                            zero).flip(1)
+    dw, db = winograd.conv1d_depthwise_causal_wgrad(x, dy, r)
+    dw2, db2 = winograd.conv1d_depthwise_causal_wgrad(x, dy, r)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, flip)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    pdw, pdb = winograd.conv1d_depthwise_causal_wgrad_plain(x, dy, r)
+    _wgrad_close(dw, pdw, dtype, rel_step=False)
+    _wgrad_close(db, pdb, dtype, rel_step=True)
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    ops.conv1d_depthwise_causal(*leaves).backward(dy)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (x, w, b)]
+    ops.conv1d_depthwise_causal(*cpu).backward(dy.cpu())
+    for got, ref in zip(leaves, cpu):
+        g, rg = got.grad.float().cpu(), ref.grad.float()
+        tol = max(1e-4, 3 * e_r) * float(rg.abs().max())
+        if dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * rg.abs()
+        assert float(((g - rg).abs() - tol).max()) <= 0
+
+
+@pytest.mark.cuda
+def test_dw1d_refuses_an_unbuilt_m_before_launching(card):
+    x = torch.ones((1, 9, 4), device=card)
+    n0 = winograd.dw1d_launches
+    with pytest.raises(ValueError, match="built for r in 2..11"):
+        winograd.conv1d_depthwise_causal(x, torch.ones((4, 4), device=card),
+                                         m=2)
+    assert winograd.dw1d_launches == n0
+
+
+@pytest.mark.cuda
+def test_mamba_at_three_taps_on_the_card_matches_the_cpu(card):
+    """A reduced mamba2-2.7b at conv_kernel=3: the Engine's greedy tokens
+    on the card equal the CPU's, and a training step's loss and gradients
+    (kernel 7 forward twice a layer, its backward once) agree."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, conv_kernel=3), remat=True)
+    params = lm.init(0, cfg, device="cpu")
+    prompts = [[5, 6, 7, 8], list(range(1, 20)), [9, 3, 4]]
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        e = Engine(cfg, ServeConfig(max_batch=2, max_len=48,
+                                    prefill_bucket=8),
+                   params=lm.to_device(params, dev), device=dev)
+        rs = [Request(prompt=p, max_new=5) for p in prompts]
+        for r in rs:
+            e.submit(r)
+        e.run_until_done()
+        toks[dev] = [r.generated for r in rs]
+    assert toks["cpu"] == toks["cuda"]
+    rng = np.random.default_rng(0)
+    t = rng.integers(0, cfg.vocab_size, (2, 41))
+    batch = {"inputs": torch.from_numpy(t[:, :-1]),
+             "targets": torch.from_numpy(t[:, 1:])}
+    ops.reset_launch_counts()
+    got = _train_loss_grads(lm.to_device(params, card), cfg,
+                            {k: v.to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    L = cfg.num_layers
+    assert (n["dw1d"], n["dw1d_bwd"], n["dw1d_wgrad"]) == (2 * L, L, L)
+    ref = _train_loss_grads(params, cfg, batch)
+    np.testing.assert_allclose(float(got[0]), float(ref[0]), rtol=1e-5)
+    for g, r in zip(got[1], ref[1]):
+        assert float((g.cpu() - r).abs().max()) <= 1e-4 * float(
+            r.abs().max())
+
+
+# --- training the audio and vlm families -------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
+def test_audio_and_vlm_trainer_on_the_card_matches_the_cpu(card, arch,
+                                                           tmp_path):
+    """Reduced whisper-tiny and phi-3-vision trained 4 steps on the card
+    (frames or patches through the stream buffer) with a checkpoint: finite
+    losses, and the params within the restart bound of a CPU run but the
+    key biases (AdamW steps their float noise, up to lr a step)."""
+    from repro_torch.models import model_for
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = get_config(arch).reduced()
+    params = model_for(cfg).init(0, cfg, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tcfg = TrainerConfig(steps=4, batch=2, seq_len=16, log_every=1,
+                             warmup=1, ckpt_every=2,
+                             ckpt_dir=str(tmp_path / dev))
+        tr = Trainer(cfg, tcfg, params=lm.to_device(params, dev),
+                     device=dev)
+        runs[dev] = (tr, tr.run())
+    tr, hist = runs["cuda"]
+    assert len(hist) == 4 and all(np.isfinite(h["loss"]) for h in hist)
+    lr = TrainerConfig().base_lr
+    for (name, x), y in zip(_named_leaves(tr.state["params"]),
+                            tree_leaves(runs["cpu"][0].state["params"])):
+        x, y = x.detach().cpu().numpy(), y.detach().numpy()
+        if name.endswith("attn/wk/b"):
+            assert np.abs(x - y).max() <= 2 * lr * 4, name
+        else:
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5,
+                                       err_msg=name)
+
+
+def _named_leaves(tree, name=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{name}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{name}[{i}]")
+    else:
+        yield name, tree

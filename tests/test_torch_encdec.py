@@ -36,7 +36,6 @@ from repro_torch.kernels.decode_attn import ops as dec_ops
 from repro_torch.launch import serve
 from repro_torch.models import encdec, lm, model_for
 from repro_torch.nn import attention, module
-from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.serving import Engine, Request, ServeConfig
 
 ARCH = "whisper-tiny"
@@ -484,12 +483,6 @@ def test_remat_carries_enc_out_bit_equal():
     (l0, g0), (l1, g1) = out
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
-
-
-def test_trainer_refuses_the_family_naming_its_item():
-    cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        Trainer(cfg, TrainerConfig(), device="cpu")
 
 
 # --- the Engine --------------------------------------------------------------

@@ -31,7 +31,6 @@ from repro_torch.kernels.decode_attn import ops as dec_ops
 from repro_torch.launch import serve
 from repro_torch.models import lm, model_for, vlm
 from repro_torch.nn import module
-from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.serving import Engine, Request, ServeConfig
 
 ARCH = "phi-3-vision-4.2b"
@@ -242,11 +241,6 @@ def test_loss_fn_and_gradients_match_reference():
     i = next(i for i, t in enumerate(leaves)
              if t is params["patch_proj"]["w"])
     assert float(grads[i].abs().max()) > 0
-
-
-def test_trainer_refuses_the_family_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        Trainer(get_config(ARCH).reduced(), TrainerConfig(), device="cpu")
 
 
 # --- the Engine --------------------------------------------------------------

@@ -251,7 +251,7 @@ Slice 17's phases, in the order they run:
                float64), every tile bit-equal to the default armed and
                unarmed, a flipped slab bit's verdict the plain count, the
                bf16 rule; timed in f32 and bf16 beside ``F.conv2d`` and the
-               bound at F(4,3)'s operation count;
+               bound at F(m,3)'s own count;
   4h. serve-bf16-bfp — full-width AlexNet and VGG-16 in bf16 with
                ``fc_bfp`` and ``conv_bfp`` through ``CnnEngine(max_batch=
                8)``, 32 requests each: delivered, finite, bit-equal to
@@ -280,7 +280,21 @@ Slice 17's phases, in the order they run:
                576 x 1,024
                patches a row: finite losses and grad norms, step 0's
                batch's loss lower after the run; step ms, tokens/s, peak
-               memory, one traced step's idle share.
+               memory, one traced step's idle share;
+  13. model — the analytic model (``core/roofline.py``, ``core/dse.py``,
+               ``core/winograd.py::conv2d_hbm_bytes``/``conv_flops``)
+               against what this run measured, launching nothing (the
+               paper's Fig. 9 check on the card): each AlexNet conv layer's
+               roofline at batch 8 beside phase 3's kernel_ms (its
+               t_compute equal to phase 3's operation bound, the kernel no
+               faster than the model); the served forward (conv1-5 and
+               fc6-8) beside phase 4's traced batch and its img/s as a
+               share of the FP32 peak; smollm-360m's and
+               granite-moe-1b-a400m's decode step by ``dse.lm_cost``
+               beside their served steps (device ms at least the model's);
+               smollm-360m's phase-9 step by ``model_flops_estimate`` as a
+               share of the bf16 peak over its host and device ms (in
+               (0, 1]).  One ``model:`` line an item.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -298,11 +312,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FP32_FLOPS = 67e12
-PEAK_INT8_OPS = 1.979e15
-PEAK_BYTES_PER_S = 3.35e12
+sys.path.insert(0, os.path.join(ROOT, "src"))
+try:
+    # the card's peaks, in the port's one place for them
+    from repro_torch.core.roofline import H100_SXM as HW
+except ImportError:     # no repository around the script: main() exits 2
+    HW = None
 # kernel vs its plain version: both FP32 with different summation orders;
 # a TF32 or other lower-precision body would miss this by far
 TOL_KERNEL = 1e-5           # max|diff| <= TOL_KERNEL * max|plain|
@@ -325,7 +340,6 @@ TOL_DECODE_F32P = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 1e-2)}
 # served decode logits with kernel 5 vs the plain decode attention on the
 # same cache: <= TOL_LM * max|logit| (bf16 activations through 32 layers)
 TOL_LM = 2e-2
-PEAK_BF16_FLOPS = 989e12
 # (name, B, S, H, KV, D, lengths): smollm-360m's and llama3.2-3b's decode
 # geometry with random lengths in [1, S], and llama3.2-3b's with one slot
 # at S and the rest at 1 (the longest slot sets the time unless it is
@@ -602,16 +616,14 @@ def flops_bytes(kname, x, out, plan, slab=None):
     bias and output byte once (the slab's real entries, not its channel or
     K padding, which no kernel reads; at the slab's element size, 4 bytes
     when None), x, bias and output at their element size; multiply-adds
-    count 2 operations, in the Winograd domain for the Winograd
-    kernels."""
-    B = x.shape[0]
-    if kname == "conv_direct":
-        taps = plan.r * plan.r
-        madds = B * plan.out_h * plan.out_w * plan.Kfull * plan.C * taps
-    else:
-        taps = plan.n * plan.n
-        tiles = -(-plan.out_h // plan.m) * -(-plan.out_w // plan.m)
-        madds = B * tiles * taps * plan.C * plan.Kfull
+    count 2 operations, in the Winograd domain for the Winograd kernels
+    at the plan's F(m,3) (``core.winograd.conv_flops``)."""
+    from repro_torch.core.winograd import conv_flops
+    m = None if kname == "conv_direct" else plan.m
+    direct, wino = conv_flops(plan.out_h, plan.out_w, plan.C, plan.Kfull,
+                              plan.r, m)
+    madds = x.shape[0] * (direct if m is None else wino)
+    taps = plan.r * plan.r if m is None else plan.n * plan.n
     weights = taps * plan.C * plan.Kfull
     wsize = 4 if slab is None else slab.element_size()
     nbytes = (x.element_size() * (x.numel() + plan.Kfull)
@@ -681,9 +693,7 @@ def phase_kernels(torch, np, cfg, params):
         flops, nbytes = flops_bytes(kname, x, got, plan, slab)
         smem = (direct.smem_bytes if kname == "conv_direct"
                 else winograd.smem_bytes)(plan)
-        bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        bound_by = ("operations" if flops / PEAK_FP32_FLOPS
-                    >= nbytes / PEAK_BYTES_PER_S else "bytes")
+        bound, bound_by = _bound(flops, nbytes)
         print(f"kernel {kname} {layer} ({slab_kind} slab): in "
               f"{tuple(x.shape)} out "
               f"{tuple(got.shape)} slab {tuple(slab.shape)} | max_abs_err "
@@ -777,9 +787,7 @@ def phase_bfp(torch, np, cfg, params):
         flops = 2 * BATCH * K * N
         nbytes = (4 * x.numel() + wq.numel() + we.numel()
                   + 4 * got.numel())
-        bound = max(flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        bound_by = ("operations" if flops / PEAK_INT8_OPS
-                    >= nbytes / PEAK_BYTES_PER_S else "bytes")
+        bound, bound_by = _bound(flops, nbytes, "int8")
         print(f"kernel bfp_matmul {layer}: x {tuple(x.shape)} w ({K}, {N}) "
               f"block {block} grid {bfp.bfp_grid(BATCH, N)} (pre-pass bytes "
               f"= quantize_activations) | max_abs_err {err:.3e} (max|plain| "
@@ -1498,11 +1506,8 @@ def conv_bound(kname, x, flops, nbytes):
     """(bound ms, bound_by): kernel 1 in bf16 at the bf16 tensor-core peak
     (its products are bf16 x bf16, exact in an f32 accumulator), the rest
     at the FP32 peak (a Winograd-domain V is not bf16-representable)."""
-    peak = (PEAK_BF16_FLOPS if kname == "conv_direct"
-            and x.element_size() == 2 else PEAK_FP32_FLOPS)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound(flops, nbytes, "bfloat16" if kname == "conv_direct"
+                  and x.element_size() == 2 else "float32")
 
 
 def phase_kernels_bf16(torch, np, cfg, params):
@@ -2231,9 +2236,7 @@ def phase_decode(torch, np):
         nbytes = (2 * valid * KV * D * k.element_size()
                   + 2 * q.numel() * q.element_size() + 4 * B)
         flops = 4 * valid * H * D
-        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        bound_by = ("operations" if flops / PEAK_BF16_FLOPS
-                    >= nbytes / PEAK_BYTES_PER_S else "bytes")
+        bound, bound_by = _bound(flops, nbytes, "bfloat16")
         print(f"kernel decode_attn {name} bfloat16: kernel_ms {ms:.4f} (host "
               f"enqueue {host_ms:.4f} ms) plain_ms {plain_ms:.4f} "
               f"library_ms(SDPA, enable_gqa, length mask) {lib_ms:.4f} "
@@ -2472,6 +2475,7 @@ def phase_lm(torch, np):
 
     lat = eng.latency.percentiles_ms()
     return {"arch": LM_ARCH, "completed": sum(r.done for r in reqs),
+            "max_len": scfg.max_len,
             "tokens": eng.tokens_generated, "decode_steps": steps,
             "decode_tokens_per_s": eng.decode_tokens_per_s,
             "wall_tokens_per_s": eng.tokens_generated / wall,
@@ -2500,10 +2504,12 @@ def _excess(got, ref, rel_step):
     return float((diff - bound).max()), float(diff.max()), scale
 
 
-def _bound(flops, nbytes):
-    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-    return bound, ("operations" if flops / PEAK_FP32_FLOPS
-                   >= nbytes / PEAK_BYTES_PER_S else "bytes")
+def _bound(flops, nbytes, dtype="float32"):
+    """(bound ms, bound_by): the larger of ``flops`` at the card's
+    ``dtype`` peak and ``nbytes`` at its memory rate."""
+    t_ops, t_bytes = flops / HW.peak(dtype), nbytes / HW.hbm_bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def ssd_work(B, L, H, P, G, N, Q, itemsize):
@@ -3474,7 +3480,7 @@ def serve_lm_full(torch, np, cfg, params, n_req, max_new, rng, label, *,
     idle = None if busy_ms is None else 1.0 - busy_ms / probe_ms
     lat = eng.latency.percentiles_ms()
     out = {"arch": cfg.name, "param_dtype": cfg.param_dtype,
-           "dtype": cfg.dtype, "requests": n_req,
+           "dtype": cfg.dtype, "requests": n_req, "max_len": scfg.max_len,
            "completed": sum(r.done for r in reqs),
            "tokens": eng.tokens_generated, "decode_steps": steps,
            "decode_tokens_per_s": eng.decode_tokens_per_s,
@@ -4110,9 +4116,7 @@ def phase_bfp_bf16(torch, np, cfg16, params16):
         flops = 2 * BATCH * K * N
         nbytes = (2 * x.numel() + wq.numel() + we.numel()
                   + 4 * got.numel())
-        bound = max(flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        bound_by = ("operations" if flops / PEAK_INT8_OPS
-                    >= nbytes / PEAK_BYTES_PER_S else "bytes")
+        bound, bound_by = _bound(flops, nbytes, "int8")
         print(f"kernel bfp_matmul {layer} (bf16 x): x {tuple(x.shape)} w "
               f"({K}, {N}) block {block} | bit-equal to the f32 kernel on "
               f"x.float() and to plain (max|plain| {scale:.3e}; vs bf16 "
@@ -4271,14 +4275,14 @@ def phase_winograd_m(torch, np, cfg, params):
     against ``conv2d_ref`` in float64 on the same layer; every tile
     bit-equal to the default, armed and unarmed, verdict 0 on a clean slab
     and the plain count (1) for a flipped slab bit; timed beside
-    ``F.conv2d`` (TF32 off) and the bound at F(4,3)'s operation count, so
-    the rows compare.  bf16 x: the bf16 rule at the default tile, timed
-    beside bf16 ``F.conv2d``."""
+    ``F.conv2d`` (TF32 off) and the bound at F(m,3)'s own count
+    (operations and slab bytes at that m).  bf16 x: the bf16 rule at the
+    default tile, timed beside bf16 ``F.conv2d``."""
     from repro_torch.kernels.conv import dma, winograd
     from repro_torch.kernels.conv.ref import conv2d_ref
     card = card_line()
     rows = {}
-    for kname, layer, spec, x, w, b, slab4, plan4 in layer_cases(
+    for kname, layer, spec, x, w, b, _, _ in layer_cases(
             torch, np, cfg, params):
         if kname == "conv_direct":
             continue
@@ -4289,10 +4293,6 @@ def phase_winograd_m(torch, np, cfg, params):
                            padding=spec.padding, groups=spec.groups,
                            relu=True, lrn=lrn, pool=pool)
         x16, b16 = x.to(torch.bfloat16), b.to(torch.bfloat16)
-        flops, nbytes = flops_bytes(kname, x, entry(x, w, b, slab4), plan4,
-                                    slab4)
-        flops16, nbytes16 = flops_bytes(kname, x16, entry(x16, w, b16, slab4),
-                                        plan4, slab4)
         for m in WINO_MS:
             p, slab = _wino_case(winograd, x, w, spec, m)
             _, armed = _wino_case(winograd, x, w, spec, m, armed=True)
@@ -4359,10 +4359,10 @@ def phase_winograd_m(torch, np, cfg, params):
                 time_ms(torch, lambda: kern(x16, b16)),
                 time_ms(torch, lambda: plain(x16, b16)),
                 time_ms(torch, library16))
-            bound = max(flops / PEAK_FP32_FLOPS,
-                        nbytes / PEAK_BYTES_PER_S) * 1e3
-            bound16 = max(flops16 / PEAK_FP32_FLOPS,
-                          nbytes16 / PEAK_BYTES_PER_S) * 1e3
+            flops, nbytes = flops_bytes(kname, x, got, p, slab)
+            flops16, nbytes16 = flops_bytes(kname, x16, y16, p, slab)
+            bound, bound_by = _bound(flops, nbytes)
+            bound16, _ = _bound(flops16, nbytes16)
             print(f"kernel {kname} {layer} F({m},3): n {m + 2}, T "
                   f"{winograd.num_tiles(p, BATCH)}, grid "
                   f"{winograd.gemm_grid(p, BATCH)} | max_abs_err {err:.3e} "
@@ -4372,7 +4372,8 @@ def phase_winograd_m(torch, np, cfg, params):
                   f" flip verdict 1 | f32 kernel_ms {ms:.4f} (host "
                   f"{host_ms:.4f}) plain_ms {plain_ms:.4f} library_ms"
                   f"(F.conv2d TF32 off) {lib_ms:.4f} bound_ms {bound:.4f} "
-                  f"(operations at F(4,3)'s count {flops:.3e}) | bf16 x: "
+                  f"({bound_by} at F({m},3): {flops:.3e} flop, "
+                  f"{nbytes:.3e} B) | bf16 x: "
                   f"rule bit-equal, kernel_ms {ms16:.4f} plain_ms "
                   f"{plain16:.4f} library_ms(bf16 F.conv2d) {lib16:.4f} "
                   f"bound_ms {bound16:.4f} | on {card}")
@@ -4380,7 +4381,7 @@ def phase_winograd_m(torch, np, cfg, params):
                                       new_row(f"{kname} m={m}")), layer,
                       max_abs_err=err, ms=ms, host_ms=host_ms,
                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                      bound_by="operations", flop=flops, bytes=nbytes,
+                      bound_by=bound_by, flop=flops, bytes=nbytes,
                       e_m=e_m, tol=tol, tiles=[list(t) for t in tiles],
                       ms_bf16=ms16, plain_ms_bf16=plain16,
                       library_ms_bf16=lib16, bound_ms_bf16=bound16, m=m)
@@ -4575,6 +4576,205 @@ def phase_train_audio_vlm(torch, np, card):
     return {"whisper": whisper, "phi3v": phi3v}
 
 
+# --- phase 13: the analytic model against this run's measurements ----------
+def _model_line(text, card):
+    print(f"model: {text} | on {card}")
+
+
+def model_alexnet(cfg, card, rows, serve):
+    """13a-b: the roofline of each served f32 AlexNet conv layer at batch
+    BATCH (the pallas route's traffic at the default plan's blocks, the
+    weight prefetch on; the layer's datapath operations at the FP32 peak)
+    beside phase 3's kernel; the served forward beside phase 4's batch."""
+    from repro_torch.core.dse import ALEXNET_CONV, ALEXNET_FC
+    from repro_torch.core.roofline import (ConvLayerRoofline,
+                                           conv_layer_roofline,
+                                           network_conv_roofline)
+    from repro_torch.core.winograd import conv2d_hbm_bytes, conv_flops
+    from repro_torch.models import alexnet
+    from repro_torch.nn.conv import (MODEL_ROUTES, conv_out_hw, plan_knobs,
+                                     resolve_kernel)
+    knobs = plan_knobs()
+    measured = {p["layer"]: (kname, p) for kname in
+                ("conv_direct", "conv_winograd", "conv_winograd_fused")
+                for p in rows[kname]["per_layer"]}
+    h, c_in = cfg.image_size, cfg.in_channels
+    convs, out = [], {"layers": []}
+    for i, (spec, c_out) in enumerate(zip(alexnet.layer_specs(cfg),
+                                          cfg.conv_channels)):
+        name, spec = f"conv{i + 1}", spec.with_route("pallas")
+        kernel = resolve_kernel(spec, in_hw=h)
+        route, wino = MODEL_ROUTES[kernel]
+        m = spec.winograd_m if wino else None
+        hbm = conv2d_hbm_bytes(
+            BATCH, h, h, c_in, c_out, spec.kernel, m, stride=spec.stride,
+            padding=spec.padding, relu=spec.relu, fuse_lrn=spec.fuse_lrn,
+            fuse_pool=spec.fuse_pool, pool_window=spec.pool_window,
+            pool_stride=spec.pool_stride, groups=spec.groups, route=route,
+            batch_block=knobs.batch_block, k_block=knobs.k_block,
+            c_block=knobs.c_block, pool_row_block=knobs.pool_row_block,
+            weight_prefetch=True, row_parallel=knobs.row_parallel)
+        hw_out = conv_out_hw(h, spec.kernel, spec.stride, spec.padding)
+        direct, wmadds = conv_flops(hw_out, hw_out, c_in // spec.groups,
+                                    c_out, spec.kernel, m)
+        lr = conv_layer_roofline(name, hbm, flops=2 * BATCH * (
+            wmadds if wino else direct), hw=HW, dtype="float32")
+        kname, p = measured[name]
+        t_ms = max(lr.t_compute, lr.t_memory) * 1e3
+        if p["bound_by"] == "operations":
+            check(abs(lr.t_compute * 1e3 - p["bound_ms"])
+                  <= 1e-9 * p["bound_ms"], f"model {name}: t_compute "
+                  f"{lr.t_compute * 1e3} ms is not phase 3's operation "
+                  f"bound {p['bound_ms']} ms")
+        check(p["ms"] >= t_ms, f"model {name}: kernel_ms {p['ms']} is "
+              f"under the model's {t_ms} ms: the model or its count is "
+              "wrong")
+        _model_line(
+            f"{name} ({kname}, {kernel}, route {route}"
+            f"{f', F({m},3)' if wino else ''}) batch {BATCH}: t_compute "
+            f"{lr.t_compute * 1e3:.4f} ms ({lr.flops:.4e} flop at FP32 "
+            f"peak), t_memory {lr.t_memory * 1e3:.4f} ms "
+            f"({lr.exposed_bytes:.4e} B exposed of {lr.total_bytes:.4e}), "
+            f"{lr.bound}-bound "
+            f"{t_ms:.4f} ms | phase 3: bound_ms {p['bound_ms']:.4f} "
+            f"({p['bound_by']}), kernel_ms {p['ms']:.4f} | kernel_ms / "
+            f"model {p['ms'] / t_ms:.3f}", card)
+        out["layers"].append(lr.to_json() | {
+            "kernel": kname, "datapath": kernel, "kernel_ms": p["ms"],
+            "phase3_bound_ms": p["bound_ms"], "model_ms": t_ms,
+            "kernel_over_model": p["ms"] / t_ms})
+        convs.append(lr)
+        h, c_in = spec.out_hw(h), c_out
+    fcs = [ConvLayerRoofline(
+        name, flops=2 * BATCH * k_in * k_out,
+        feature_bytes=4 * BATCH * (k_in + k_out),
+        weight_bytes=4 * k_in * k_out + 4 * k_out,
+        weight_exposed_bytes=4 * k_in * k_out + 4 * k_out, hw=HW,
+        dtype="float32")
+        for name, k_in, k_out in zip(
+            ("fc6", "fc7", "fc8"),
+            (alexnet.fc_input_dim(cfg), *cfg.fc_dims[:-1]), cfg.fc_dims)]
+    net_conv = network_conv_roofline(convs, hw=HW, dtype="float32")
+    net = network_conv_roofline(convs + fcs, hw=HW, dtype="float32")
+    conv_ms = max(net_conv["t_compute"], net_conv["t_memory"]) * 1e3
+    fwd_ms = max(net["t_compute"], net["t_memory"]) * 1e3
+    busy = serve["batch_device_busy_ms"]
+    conv_dev = (None if busy is None else serve["batch_conv_direct_ms"]
+                + serve["batch_conv_winograd_ms"])
+    if busy is not None:
+        check(conv_dev >= conv_ms and busy >= fwd_ms, f"model forward: the "
+              f"traced batch's conv kernels {conv_dev} ms or device busy "
+              f"{busy} ms under the model's {conv_ms} / {fwd_ms} ms")
+    # the paper's count of a forward: direct multiply-adds x 2 an image
+    ops_img = 2 * (sum(k * (c // g) * p * q * r * s_
+                       for _, c, k, p, q, r, s_, _, g in ALEXNET_CONV)
+                   + sum(c * k for _, c, k in ALEXNET_FC))
+    share = ops_img * serve["imgs_per_s"] / HW.peak("float32")
+    check(0 < share <= 1, f"model forward: served share {share} of the "
+          "FP32 peak not in (0, 1]")
+    dev = ("not measured (no device events)" if busy is None else
+           f"conv kernels {conv_dev:.4f} ms ({conv_dev / conv_ms:.3f}x), "
+           f"device busy {busy:.4f} ms ({busy / fwd_ms:.3f}x)")
+    _model_line(
+        f"served f32 AlexNet forward, batch {BATCH}: conv1-5 "
+        f"{net_conv['flops']:.4e} flop on their datapaths, {conv_ms:.4f} ms "
+        f"({net_conv['bound']}); + fc6-8 {net['flops']:.4e} flop, "
+        f"{net['feature_bytes'] + net['weight_exposed_bytes']:.4e} B, "
+        f"{fwd_ms:.4f} ms ({net['bound']}) | phase 4's traced batch: {dev}, "
+        f"wall {serve['batch_wall_ms']:.3f} ms | {ops_img:.4e} flop an image "
+        f"(direct count) x {serve['imgs_per_s']:.2f} img/s = "
+        f"{share:.5f} of the FP32 peak", card)
+    out.update(conv=net_conv | {"model_ms": conv_ms, "device_ms": conv_dev},
+               forward=net | {"model_ms": fwd_ms, "device_busy_ms": busy,
+                              "batch_wall_ms": serve["batch_wall_ms"]},
+               flop_per_image=ops_img, imgs_per_s=serve["imgs_per_s"],
+               share_of_fp32_peak=share)
+    return out
+
+
+def model_decode(card, arch, run):
+    """13c: ``dse.lm_cost`` of one decode step of ``arch`` at the served
+    batch and max_len on one card (all its parameters streamed at the
+    param dtype's bytes, the whole cache in bf16) beside the served
+    step's device ms (a traced step) and host ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dse import ModelInput, lm_cost
+    from repro_torch.core.roofline import (active_param_count,
+                                           total_param_count)
+    cfg = get_config(arch)
+    itemsize = {"float32": 4, "bfloat16": 2}
+    cache_tok = (2 * cfg.num_layers * cfg.num_kv_heads * cfg.d_head
+                 * itemsize[cfg.dtype])
+    inp = ModelInput(n_active=active_param_count(cfg),
+                     n_total=total_param_count(cfg), seq_len=run["max_len"],
+                     global_batch=BATCH, kind="decode", d_model=cfg.d_model,
+                     num_layers=cfg.num_layers,
+                     cache_bytes_per_token=cache_tok)
+    cost = lm_cost(inp, data=1, model=1,
+                   dtype_bytes=itemsize[cfg.param_dtype], hw=HW)
+    t_ms = cost["step_time"] * 1e3
+    busy, host = run["device_busy_ms_per_step"], run["step_ms"]
+    # without device events in the trace the host's step time is the floor
+    # held (it is never under the device's)
+    held = host if busy is None else busy
+    check(held >= t_ms, f"model decode {arch}: {held} ms a step is under "
+          f"the model's {t_ms} ms")
+    _model_line(
+        f"decode {arch} batch {BATCH}, max_len {run['max_len']} "
+        f"({cfg.param_dtype} params {inp.n_total:.4e} of them, "
+        f"{inp.n_active:.4e} active; cache {cache_tok} B a token): "
+        f"t_compute {cost['t_compute'] * 1e3:.4f} ms, t_memory "
+        f"{cost['t_memory'] * 1e3:.4f} ms, {cost['bound']}-bound "
+        f"{t_ms:.4f} ms | served step: device "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} ms ({busy / t_ms:.2f}x)")
+        + f", host {host:.3f} ms ({host / t_ms:.2f}x)", card)
+    return cost | {"arch": arch, "n_active": inp.n_active,
+                   "n_total": inp.n_total, "cache_bytes_per_token": cache_tok,
+                   "model_ms": t_ms, "device_ms": busy, "host_ms": host}
+
+
+def model_train(card, rep):
+    """13d: ``model_flops_estimate`` of smollm-360m's phase-9 step as a
+    share of the bf16 peak over its host-clock and device busy ms."""
+    from repro_torch.config import ShapeCfg
+    from repro_torch.configs import get_config
+    from repro_torch.core.roofline import model_flops_estimate
+    B, S, _ = TRAIN_DENSE_SHAPE
+    flops = model_flops_estimate(get_config(TRAIN_DENSE_ARCH),
+                                 ShapeCfg("phase9", S, B, "train"))
+    shares = {}
+    for key, ms in (("host", rep["step_ms"]), ("device", rep["device_busy_ms"])):
+        share = None if ms is None else flops / (HW.peak("bfloat16") * ms
+                                                 / 1e3)
+        check(share is None or (math.isfinite(share) and 0 < share <= 1),
+              f"model train: {key} share {share} of the bf16 peak not in "
+              "(0, 1]")
+        shares[key] = share
+    _model_line(
+        f"train {TRAIN_DENSE_ARCH} {B} x {S}: 6 N D = {flops:.4e} flop a "
+        f"step | host {rep['step_ms']:.2f} ms -> {shares['host']:.5f} of the "
+        f"bf16 peak; device busy "
+        + ("not measured" if shares["device"] is None else
+           f"{rep['device_busy_ms']:.2f} ms -> {shares['device']:.5f}"), card)
+    return {"arch": TRAIN_DENSE_ARCH, "flops": flops,
+            "host_ms": rep["step_ms"], "device_ms": rep["device_busy_ms"],
+            "share_of_bf16_peak_host": shares["host"],
+            "share_of_bf16_peak_device": shares["device"]}
+
+
+def phase_model(cfg, card, rows, serve, lm_serve, granite, train_dense):
+    """13: the analytic model against this run's numbers; no launch."""
+    t0 = time.perf_counter()
+    out = {"alexnet": model_alexnet(cfg, card, rows, serve),
+           "decode": {LM_ARCH: model_decode(card, LM_ARCH, lm_serve),
+                      MOE_ARCH: model_decode(card, MOE_ARCH, granite)},
+           "train": model_train(card, train_dense)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"model: phase 13 {out['phase_s']:.3f} s")
+    return out
+
+
 def _digest(torch, t) -> str:
     """The first 16 hex digits of sha256 over ``t``'s bytes."""
     import hashlib
@@ -4716,7 +4916,6 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         import numpy as np
 
@@ -4807,6 +5006,8 @@ def main(argv=None) -> int:
     encvlm = phase_encdec_vlm(torch, np)
     torch.cuda.empty_cache()
     hybrid = phase_hybrid(torch, np, card)
+    model = phase_model(cfg, card, rows, serves["f32"], lm_serve,
+                        moe["granite"], train["dense"])
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
@@ -4860,10 +5061,9 @@ def main(argv=None) -> int:
             bound_by, extra = row["bound_by"], {
                 "geometries": row["geometries"]}
         else:
-            peak = (PEAK_INT8_OPS if kname == "bfp_matmul"
-                    else PEAK_FP32_FLOPS)
-            bound_by = ("operations" if row["flop"] / peak
-                        >= row["bytes"] / PEAK_BYTES_PER_S else "bytes")
+            _, bound_by = _bound(row["flop"], row["bytes"],
+                                 "int8" if kname == "bfp_matmul"
+                                 else "float32")
             extra = {"layers": row["layers"]}
         entry = {
             "name": kname, "route": "cuda", "source": sources[kname],
@@ -4992,6 +5192,7 @@ def main(argv=None) -> int:
                        "winograd_m": {k: r["per_layer"]
                                       for k, r in rows_m.items()},
                        "dw1d_taps": rows_taps, "mamba_taps": mamba_taps,
+                       "model": model,
                        "build_seconds": lib.build_seconds,
                        "ptxas": ptxas}, f, indent=1)
     print(card)

@@ -105,6 +105,18 @@ class ArchConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm.head_dim if self.ssm else 0
 
+    @property
+    def attn_supported_long(self) -> bool:
+        """True if the arch can run the 500k-token long-context shape
+        (sub-quadratic / constant-state sequence mixing)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        """Encoder-only archs have no decode step; every config here
+        decodes."""
+        return True
+
     def pattern_period(self) -> int:
         """Length of the repeating layer pattern."""
         p = self.attn_period
@@ -159,3 +171,31 @@ class ArchConfig:
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, d_state=16, head_dim=8, chunk=16)
         return replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells of the LM family: seq_len x global_batch (the
+# reference's; ``model_flops_estimate`` counts a step's work at one)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeCfg) -> Tuple[bool, str]:
+    """Whether a (arch x shape) cell runs, and the reason if not."""
+    if shape.name == "long_500k" and not arch.attn_supported_long:
+        return False, ("full-attention arch: 500k decode needs a "
+                       "sub-quadratic mixer")
+    return True, ""

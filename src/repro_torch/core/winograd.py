@@ -6,11 +6,15 @@ pure-torch F(m, r) depthwise causal 1-D convolution (Mamba-2's conv, F(3,
 ``WinogradTransform``/``winograd_transform`` are numpy and identical to the
 reference (``repro/core/winograd.py``), so both packages use the same
 transform matrices.  ``auto_c_block``/``auto_pool_rows`` are the reference's
-block-sizing rules; the port keeps them only so its packed weight slabs have
-the reference's shapes (the CUDA kernels do not use the TPU budgets).
+block-sizing rules; the port keeps them so its packed weight slabs have
+the reference's shapes (the CUDA kernels do not use the TPU budgets), and
+so ``conv2d_hbm_bytes`` / ``conv_flops``, the reference's per-layer traffic
+and work model, give its numbers (``core/roofline.py`` turns them into
+time on the card).  ``conv2d_direct`` is the f32 direct-conv oracle.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -180,6 +184,15 @@ def conv2d_winograd(x, w, b=None, *, m: int = 4, padding: str = "SAME",
     return y
 
 
+def conv2d_direct(x, w, *, stride: int = 1, padding: str = "SAME"):
+    """Direct conv oracle in f32 (``F.conv2d``, TF32 off), NHWC x, HWIO w,
+    lax's SAME / VALID padding; returns x's dtype.  The reference's lax
+    ``conv2d_direct``; no served path calls it."""
+    # function-level import: kernels sit above core in the package graph
+    from ..kernels.conv.ref import conv2d_ref
+    return conv2d_ref(x, w, stride=stride, padding=padding)
+
+
 def auto_c_block(hp: int, wp: int, c: int, *, batch: int = 1,
                  dtype_bytes: int = 4,
                  budget_bytes: int = 8 * 2 ** 20) -> int:
@@ -204,3 +217,251 @@ def auto_pool_rows(ph_out: int, pwin: int, ps: int, *, align: int = 1,
             break
         Pb -= align
     return Pb
+
+
+def conv2d_hbm_bytes(B: int, H: int, W: int, C: int, K: int, r: int,
+                     m: int | None, *, dtype_bytes: int = 4,
+                     c_block: int | None = None, k_block: int = 128,
+                     row_block: int = 8, pool_row_block: int | None = None,
+                     padding: str = "SAME", stride: int = 1,
+                     relu: bool = True, fuse_lrn: bool = False,
+                     fuse_pool: bool = False, pool_window: int = 3,
+                     pool_stride: int = 2, groups: int = 1,
+                     route: str = "pallas", batch_block: int = 8,
+                     weight_prefetch: bool = True,
+                     row_parallel: bool = False) -> dict:
+    """Modeled HBM traffic for one conv *layer*, per resolved datapath.
+
+    ``route`` is the resolved datapath (``nn.conv.MODEL_ROUTES`` maps
+    ``nn.conv.resolve_kernel``'s names onto these):
+
+    * ``"pallas"`` — the stream-buffered kernels (the port's route of that
+      name: ``cuda-winograd`` / ``cuda-direct``).  ``m`` set models the
+      Winograd kernel's halo-padded tile slab; ``m=None`` models the
+      strided *direct* kernel (AlexNet conv1's 11x11 s4, conv2's 5x5): a
+      ``(npr-1)*s*ps*Pb + s*(Rc-1)+r`` row slab at width ``s*(out_w-1)+r``
+      — the strided-fused layer terms.  Fusion flags are honored
+      *in-kernel*, so the fused layer writes only the final map.
+    * ``"winograd"`` — the pure-tensor path: the overlapping-tile tensor
+      (B, th, tw, n, n, C) is materialized in HBM (written once, read
+      once) on top of the raw read — the ~(n/m)^2 inflation of §3.5.  No
+      on-chip fusion: fused == unfused.
+    * ``"direct"`` / ``"lax"`` — the library conv: raw read once.  The
+      epilogue runs as separate ops, so no fusion credit: fused ==
+      unfused.
+
+    Input re-fetch (pallas): with one channel block (``c_block=None``
+    auto-sizes so AlexNet layers qualify) and no groups, the slab block
+    index is constant across the (row, k) revisits and the repeated copy
+    is elided; grouped layers cycle each group's slab once per row
+    block, and multiple c blocks re-stream the slab per
+    (row-block, k-block) revisit.
+
+    Output side — the unfused baseline is the paper's strawman (§3.5: in
+    prior work "the output of each stage goes to DDR and back"): conv
+    writes the full-resolution map, bias+ReLU / LRN each read+rewrite it,
+    pool reads it and writes the pooled map.  Fused (pallas), only the
+    final normalized/pooled map is written once.
+
+    Weight side (reported separately from the layer totals, which count
+    feature maps only): the batch-innermost filter-cache grid fetches each
+    weight tile once per ``batch_block`` images; ``weight_hbm_nocache_bytes``
+    is the batch-outermost grid's once-per-image stream for comparison.
+    The double-buffered weight stream splits the fetched bytes into
+    *exposed* vs *prefetch-hidden*: with ``weight_prefetch`` only each
+    filter-cache generation's warmup tile (``weight_tile_bytes`` x
+    batch-outer blocks) is exposed — every later fetch is issued one
+    transition early and overlaps compute — while without it all
+    ``weight_fetches`` synchronous copies stall the PEs
+    (``weight_exposed_prefetch_bytes`` / ``weight_exposed_noprefetch_bytes``
+    report both; ``weight_hbm_exposed_bytes`` follows the flag).  With
+    ``row_parallel`` the multi-tile stream restarts per *row block*, so
+    one warmup tile is exposed per (batch-outer, row) block instead of per
+    batch-outer block.  Non-pallas routes have no in-kernel stream:
+    everything is exposed.
+
+    Keys ``layer_unfused_bytes``/``layer_fused_bytes`` compare fused vs
+    unfused *on this route*; ``layer_unfused_direct_bytes`` is the direct
+    stagewise baseline every route is measured against.  The formulas and
+    keys are the reference's (``repro/core/winograd.py``), so both
+    packages model one layer alike.
+    """
+    g = groups
+    if padding == "SAME":
+        out_h, out_w = -(-H // stride), -(-W // stride)
+    else:
+        out_h = (H - r) // stride + 1
+        out_w = (W - r) // stride + 1
+    raw = B * H * W * C * dtype_bytes
+    ph = max((out_h - pool_window) // pool_stride + 1, 0)
+    pw = max((out_w - pool_window) // pool_stride + 1, 0)
+    Cg, Kg = C // g, K // g                     # per-group extents
+
+    Bb = max(1, min(batch_block, B))
+
+    def _blocks(hp, wp):
+        Cb = (auto_c_block(hp, wp, Cg, batch=Bb, dtype_bytes=dtype_bytes)
+              if c_block is None else min(c_block, Cg))
+        ncb = -(-Cg // Cb)
+        Kb = min(k_block, Kg)
+        nkb = Kg // Kb if Kg % Kb == 0 else 1   # kernel widens Kb to Kg
+        return Cb, ncb, nkb
+
+    def _wino_plan(with_pool):
+        t = winograd_transform(m, r)
+        tw = -(-out_w // t.m)
+        if with_pool:
+            q = t.m // math.gcd(pool_stride, t.m)
+            if pool_row_block is None:
+                Pb = auto_pool_rows(ph, pool_window, pool_stride, align=q,
+                                    row_align=t.m, cols=tw * t.m, kfull=K,
+                                    batch=Bb, dtype_bytes=dtype_bytes)
+            else:
+                Pb = q * (-(-max(min(pool_row_block, ph), 1) // q))
+            row_step = pool_stride * Pb // t.m
+            Rt = -(-(pool_stride * (Pb - 1) + pool_window) // t.m)
+            npr = -(-max(ph, 1) // Pb)
+            thp = (npr - 1) * row_step + Rt
+        else:
+            th = -(-out_h // t.m)
+            Rt = min(row_block, th)
+            npr = -(-th // Rt)
+            thp = npr * Rt
+        return thp * t.m + r - 1, tw * t.m + r - 1, npr
+
+    def _direct_plan(with_pool):
+        if with_pool:
+            if pool_row_block is None:
+                Pb = auto_pool_rows(ph, pool_window, pool_stride,
+                                    cols=out_w, kfull=K, batch=Bb,
+                                    dtype_bytes=dtype_bytes)
+            else:
+                Pb = max(min(pool_row_block, ph), 1)
+            Rc = pool_stride * (Pb - 1) + pool_window
+            step_in = stride * pool_stride * Pb
+            npr = -(-max(ph, 1) // Pb)
+        else:
+            Rc = min(row_block, out_h)
+            step_in = stride * Rc
+            npr = -(-out_h // Rc)
+        in_rows = stride * (Rc - 1) + r
+        return (npr - 1) * step_in + in_rows, stride * (out_w - 1) + r, npr
+
+    def _stream(with_pool):
+        hp, wp, npr = (_wino_plan(with_pool) if m is not None
+                       else _direct_plan(with_pool))
+        Cb, ncb, nkb = _blocks(hp, wp)
+        # the slab block index (k // nkb) * ncb + c is constant across every
+        # step only when g == 1 and ncb == 1 (one fetch, the copy elided);
+        # grouped layers cycle the group's slab per row block even with all
+        # of C resident, and multiple c blocks re-stream per (row, k) revisit
+        if ncb > 1:
+            refetch = nkb * npr
+        elif g > 1:
+            refetch = npr
+        else:
+            refetch = 1
+        return (B * hp * wp * (g * ncb * Cb) * dtype_bytes * refetch, npr,
+                (Cb, ncb, nkb))
+
+    # --- input side ---------------------------------------------------------
+    if m is None:
+        tile_tensor = 0
+    else:
+        t = winograd_transform(m, r)
+        th, tw = -(-out_h // t.m), -(-out_w // t.m)
+        tile_tensor = B * th * tw * t.n * t.n * C * dtype_bytes
+    host_tiled = raw + 2 * tile_tensor          # read raw + write/read tiles
+    if route == "pallas":
+        stream, npr_f, blocks_f = _stream(fuse_pool)
+        stream_unfused, npr_u, _ = _stream(False)
+    elif route == "winograd":
+        stream = stream_unfused = host_tiled
+        npr_f = npr_u = 1
+        blocks_f = None
+    else:                                       # library direct
+        stream = stream_unfused = raw
+        npr_f = npr_u = 1
+        blocks_f = None
+
+    # --- output side: stagewise strawman vs in-kernel fused -----------------
+    conv_out = B * out_h * out_w * K * dtype_bytes
+    pooled = B * ph * pw * K * dtype_bytes
+    final = pooled if fuse_pool else conv_out
+    stage_passes = (conv_out + (2 * conv_out if relu else 0)
+                    + (2 * conv_out if fuse_lrn else 0)
+                    + ((conv_out + pooled) if fuse_pool else 0))
+    layer_unfused = stream_unfused + stage_passes
+    layer_fused = (stream + final if route == "pallas" else layer_unfused)
+    layer_unfused_direct = raw + stage_passes
+
+    # --- weight side (filter cache + double-buffered prefetch) ---------------
+    wunit = (winograd_transform(m, r).n ** 2 if m is not None else r * r)
+    weight_bytes = wunit * Cg * Kg * g * dtype_bytes
+    Bo = -(-B // Bb)
+    if route == "pallas":
+        Cb, ncb, nkb = blocks_f
+        Kb = Kg // nkb
+        # the stream moves whole padded tiles; one (wunit, Cb, Kb) tile per
+        # (k, c) transition, the stream re-running per row block and per
+        # filter-cache generation (batch-outer step) — except a
+        # single-tile stream, which the kernels fetch once and keep
+        # resident for the whole launch (the reference's
+        # dma.fetch_weight_tile)
+        tile_bytes = wunit * Cb * Kb * dtype_bytes
+        tiles = g * nkb * ncb
+        fetches = tiles * npr_f * Bo if tiles > 1 else 1
+        weight_hbm = tile_bytes * fetches
+        weight_nocache = tile_bytes * (tiles * npr_f if tiles > 1 else 1) * B
+        # double-buffered: only each stream generation's warmup tile is
+        # exposed — one generation per batch-outer block (batch grid dim
+        # stays parallel), times the row blocks when the row-parallel
+        # restart is on; prefetch off exposes every fetch
+        gens = Bo * (npr_f if row_parallel else 1)
+        exposed_pref = tile_bytes * (gens if tiles > 1 else 1)
+        exposed_nopref = weight_hbm
+    else:
+        weight_hbm = weight_nocache = weight_bytes
+        tile_bytes = weight_bytes
+        fetches = 1
+        exposed_pref = exposed_nopref = weight_bytes
+    weight_exposed = exposed_pref if weight_prefetch else exposed_nopref
+    return {
+        "route": route,
+        "raw_bytes": raw,
+        "host_tiled_bytes": host_tiled,
+        "stream_bytes": stream,
+        "stream_unfused_bytes": stream_unfused,
+        "tile_inflation": tile_tensor / raw,
+        "savings": host_tiled / stream,
+        "conv_out_bytes": conv_out,
+        "pooled_bytes": pooled,
+        "final_out_bytes": final,
+        "stage_pass_bytes": stage_passes,
+        "layer_unfused_bytes": layer_unfused,
+        "layer_fused_bytes": layer_fused,
+        "layer_unfused_direct_bytes": layer_unfused_direct,
+        "fused_savings": layer_unfused / layer_fused,
+        "weight_bytes": weight_bytes,
+        "weight_hbm_bytes": weight_hbm,
+        "weight_hbm_nocache_bytes": weight_nocache,
+        "filter_cache_reuse": weight_nocache / weight_hbm,
+        "weight_tile_bytes": tile_bytes,
+        "weight_fetches": fetches,
+        "weight_exposed_prefetch_bytes": exposed_pref,
+        "weight_exposed_noprefetch_bytes": exposed_nopref,
+        "weight_hbm_exposed_bytes": weight_exposed,
+        "weight_hbm_hidden_bytes": weight_hbm - weight_exposed,
+    }
+
+
+def conv_flops(h_out: int, w_out: int, c: int, k: int, r: int,
+               winograd_m: int | None = None) -> tuple[int, int]:
+    """(direct_madds, winograd_madds) for one image, paper Table 2 style."""
+    direct = h_out * w_out * c * k * r * r
+    if winograd_m is None:
+        return direct, direct
+    t = winograd_transform(winograd_m, r)
+    tiles = -(-h_out // t.m) * (-(-w_out // t.m))
+    wino = tiles * t.n * t.n * c * k
+    return direct, wino

@@ -83,6 +83,15 @@ class ConvPlan:
 
 DEFAULT_PLAN = ConvPlan()
 
+# resolved datapath (:func:`resolve_kernel`) -> (``conv2d_hbm_bytes`` route,
+# uses the Winograd transform): the one place a datapath becomes model terms
+MODEL_ROUTES = {
+    "cuda-winograd": ("pallas", True),
+    "cuda-direct": ("pallas", False),
+    "winograd": ("winograd", True),
+    "direct": ("direct", False),
+}
+
 
 def plan_knobs(plan: "ConvPlan | None" = None, *, batch_block=UNSET,
                k_block=UNSET, c_block=UNSET, pool_row_block=UNSET,

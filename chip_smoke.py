@@ -281,6 +281,23 @@ Slice 17's phases, in the order they run:
                patches a row: finite losses and grad norms, step 0's
                batch's loss lower after the run; step ms, tokens/s, peak
                memory, one traced step's idle share;
+  14. mesh — the mesh on the card (``parallel/``, ``launch/mesh.py``): one
+               NCCL rank (a ``HashStore``) and a (1, 1) ("data",
+               "model") mesh; (a) ``Trainer(mesh=)`` trains smollm-360m
+               at published widths (8 x 256, 3 steps) and mamba2-2.7b's
+               widths cut to 4 layers (1 x 512, 3 steps: kernel 7 forward
+               and backward inside the mesh step, counted), each held to
+               the meshless ``Trainer`` from the same params (rtol 1e-4,
+               atol 1e-5), step ms and peak memory beside the meshless
+               run's; (b) ``reshard_state`` onto the same mesh and one
+               more step, equal to continuing, and a ``save`` /
+               ``restore(shardings=)`` round trip of the params with
+               equal bits and placements; (c) ``CnnEngine(data_parallel=
+               True)`` over the card's one-device mesh serves f32 AlexNet
+               (32 requests in groups of 1-8), logits bit-equal to
+               ``data_parallel=False``, img/s beside it; (d) ``bfp_psum``
+               and ``make_compressed_grad_sync`` on the one-rank group
+               return their input.  ``mesh:`` lines;
   13. model — the analytic model (``core/roofline.py``, ``core/dse.py``,
                ``core/winograd.py::conv2d_hbm_bytes``/``conv_flops``)
                against what this run measured, launching nothing (the
@@ -3366,6 +3383,302 @@ def phase_train(torch, np, card):
                   "moe": moe, "audio_vlm": audio_vlm, "phase_s": seconds}
 
 
+# --- phase 14: the mesh on the card ------------------------------------------
+MESH_DENSE_SHAPE = (8, 256, 3)        # smollm-360m: batch, seq, steps
+MESH_SSM_SHAPE = (1, 512, 3)          # mamba2-2.7b's widths at 4 layers
+MESH_SSM_LAYERS = 4
+# the mesh trainer vs the meshless one: phase 9d's recovery bound
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
+MESH_TIMED_PAIRS = 4      # (meshless, mesh, mesh, meshless) rounds timed
+
+
+def _max_diff(torch, got, want):
+    """(max|got - want| over the leaves, every leaf within the mesh
+    bound)."""
+    worst, close = 0.0, True
+    with torch.no_grad():
+        for a, b in zip(got, want, strict=True):
+            d = (a.float() - b.float()).abs()
+            worst = max(worst, float(d.max()))
+            close &= bool((d <= MESH_ATOL + MESH_RTOL * b.float().abs())
+                          .all())
+    return worst, close
+
+
+def mesh_train_pair(torch, np, card, mesh, cfg, shape, seed, want=None):
+    """``cfg`` trained ``shape`` = (batch, seq, steps) from one set of
+    params drawn on the card, first by the meshless ``Trainer``, then on
+    ``mesh``: losses and params within the mesh bound, each run's peak
+    memory above what was allocated before it (the mesh run's includes
+    its placement's copy of the params, the meshless run's its clone of
+    them), then, after one untimed step of each, 2 x MESH_TIMED_PAIRS
+    more steps of each on one batch in turns (meshless, mesh, mesh,
+    meshless, ...) for their median ms.  ``want``: kernel launches a step of the mesh
+    run (counted from 0 over it).  Returns (the mesh trainer, numbers)."""
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import Trainer, TrainerConfig
+    B, S, steps = shape
+    params = lm.init(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                     device="cuda")
+    tcfg = TrainerConfig(steps=steps, batch=B, seq_len=S, log_every=1)
+
+    def window():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    before = window()
+    plain = Trainer(cfg, tcfg, params=tree_map(
+        lambda t: t.detach().clone(), params), device="cuda")
+    plain_hist = plain.run()
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() - before
+
+    before = window()
+    reset_launch_counts()
+    tr = Trainer(cfg, tcfg, mesh=mesh, params=params, device="cuda")
+    del params
+    hist = tr.run()
+    torch.cuda.synchronize()
+    n = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - before
+    check(all(sh.is_dtensor(t) for t in tree_leaves(tr.state["params"])),
+          f"mesh {cfg.name}: the mesh trainer's params are not DTensors")
+    worst_loss = max(abs(a["loss"] - b["loss"])
+                     for a, b in zip(hist, plain_hist))
+    loss_close = all(abs(a["loss"] - b["loss"])
+                     <= MESH_ATOL + MESH_RTOL * abs(b["loss"])
+                     for a, b in zip(hist, plain_hist))
+    worst, close = _max_diff(
+        torch, [t.full_tensor() for t in tree_leaves(tr.state["params"])],
+        [t.detach() for t in tree_leaves(plain.state["params"])])
+    check(loss_close and close, f"mesh {cfg.name}: off the meshless "
+          f"trainer: losses {worst_loss}, params {worst}")
+    # the step's time, the two trainers in turns on one batch
+    batch = next(plain.data)
+    for trainer in (plain, tr):          # the allocator settles
+        trainer.train_step(batch)
+    times = {"meshless": [], "mesh": []}
+    for _ in range(MESH_TIMED_PAIRS):
+        for kind in ("meshless", "mesh", "mesh", "meshless"):
+            trainer = tr if kind == "mesh" else plain
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    del plain
+    torch.cuda.empty_cache()
+    print(f"mesh {cfg.name} ({cfg.num_layers} layers, batch {B} x {S}, "
+          f"{steps} steps) on the (1, 1) NCCL mesh vs meshless: losses "
+          + " ".join(f"{h['loss']:.5f}" for h in hist)
+          + f" (max|d| {worst_loss:.3e}), params max|d| {worst:.3e} (gate "
+          f"rtol {MESH_RTOL:g} atol {MESH_ATOL:g}) | step in turns "
+          f"{med['mesh']:.2f} ms vs {med['meshless']:.2f} ms (ratio "
+          f"{med['mesh'] / med['meshless']:.4f}; medians of "
+          f"{2 * MESH_TIMED_PAIRS}) | peak {peak / 2 ** 30:.3f} GiB vs "
+          f"{plain_peak / 2 ** 30:.3f} GiB over the allocated | launches "
+          f"{n} | on {card}")
+    if want is not None:
+        total = {k: v * steps for k, v in want.items()}
+        check(all(n[k] == v for k, v in total.items()),
+              f"mesh {cfg.name}: launches {n}, expected {total}")
+    return tr, {
+        "arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+        "seq_len": S, "steps": steps, "losses": [h["loss"] for h in hist],
+        "meshless_losses": [h["loss"] for h in plain_hist],
+        "max_abs_loss_diff": worst_loss, "max_abs_param_diff": worst,
+        "step_ms": med["mesh"], "meshless_step_ms": med["meshless"],
+        "step_ms_turns": times, "run_step_ms": _train_report(
+            hist, B * S)["step_ms"],
+        "meshless_run_step_ms": _train_report(plain_hist, B * S)["step_ms"],
+        "peak_over_bytes": peak, "meshless_peak_over_bytes": plain_peak,
+        "launches": n}
+
+
+def mesh_reshard(torch, np, card, mesh, tr):
+    """14b: the mesh trainer's state resharded onto the same mesh and one
+    more step, against the trainer continuing; then its params saved
+    and restored with ``shardings=``."""
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import Trainer, reshard_state
+    t0 = time.perf_counter()
+    st = reshard_state(tr.state, mesh)
+    step = int(tr.state["step"])
+    tcfg = dataclasses.replace(tr.tcfg, steps=step + 1)
+    again = Trainer(tr.cfg, tcfg, mesh=mesh,
+                    params=tree_map(sh.full, st["params"]), device="cuda")
+    again.state = st
+    tr.tcfg, tr.data = tcfg, None        # its stream realigned to `step`
+    tr.run()
+    again.run()
+    check(int(tr.state["step"]) == int(again.state["step"]) == step + 1,
+          f"mesh reshard: steps {int(tr.state['step'])} and "
+          f"{int(again.state['step'])}, expected {step + 1}")
+    worst, close = _max_diff(
+        torch, [t.full_tensor() for t in tree_leaves(again.state["params"])],
+        [t.full_tensor() for t in tree_leaves(tr.state["params"])])
+    del again, st
+    state = {"step": tr.state["step"], "params": tr.state["params"]}
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        ckpt.save(d, state)
+        t2 = time.perf_counter()
+        with sh.use_mesh_rules(mesh):
+            shard = sh.param_shardings(state["params"], mesh)
+        got = ckpt.restore(d, tree_map(lambda t: torch.empty(0), state),
+                           shardings={"params": shard})
+        t3 = time.perf_counter()
+    bits = all(torch.equal(a.to_local(), b.to_local()) and
+               a.placements == b.placements == s.placements
+               for a, b, s in zip(tree_leaves(got["params"]),
+                                  tree_leaves(state["params"]),
+                                  tree_leaves(shard)))
+    nbytes = sum(t.to_local().numel() * t.to_local().element_size()
+                 for t in tree_leaves(state["params"]))
+    del got
+    print(f"mesh reshard {tr.cfg.name}: resharded onto the (1, 1) mesh + 1 "
+          f"step vs continuing: params max|d| {worst:.3e} | save "
+          f"{(t2 - t1) * 1e3:.0f} ms, restore(shardings=) "
+          f"{(t3 - t2) * 1e3:.0f} ms of {nbytes / 2 ** 30:.2f} GiB params, "
+          f"bits and placements {'equal' if bits else 'DIFFER'} | "
+          f"{time.perf_counter() - t0:.1f} s | on {card}")
+    check(close, f"mesh reshard: off continuing by {worst}")
+    check(bits, "mesh reshard: restore(shardings=) changed bits or "
+          "placements")
+    return {"max_abs_param_diff": worst, "save_ms": (t2 - t1) * 1e3,
+            "restore_ms": (t3 - t2) * 1e3, "param_bytes": nbytes}
+
+
+def mesh_serve(torch, np, card):
+    """14c: f32 AlexNet through ``CnnEngine(data_parallel=True)`` over the
+    card's one-device data mesh, against ``data_parallel=False``: both
+    engines warmed, then served the same requests in turns (single, data
+    parallel, data parallel, single), each round's launches counted from
+    0 over it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import alexnet
+    from repro_torch.serving import CnnEngine, CnnServeConfig, ImageRequest
+    cfg = dataclasses.replace(get_config("alexnet"), use_pallas=True)
+    params = alexnet.init(0, cfg, device="cuda")
+    rng = np.random.default_rng(14)
+    images = rng.standard_normal((sum(ARRIVALS), cfg.image_size,
+                                  cfg.image_size, cfg.in_channels)
+                                 ).astype(np.float32)
+    engines = {}
+    for dp in (False, True):
+        engines[dp] = CnnEngine(cfg, CnnServeConfig(max_batch=BATCH,
+                                                    data_parallel=dp),
+                                params=params, device="cuda")
+        warm_buckets(engines[dp], lambda n: [ImageRequest(image=im)
+                                             for im in images[:n]])
+    per = conv_launches_per_forward(cfg)
+    rounds = []
+    for dp in (False, True, True, False):
+        eng = engines[dp]
+        eng.reset_metrics()
+        reqs = [ImageRequest(image=im) for im in images]
+        reset_launch_counts()
+        i = 0
+        for size in ARRIVALS:
+            for r in reqs[i:i + size]:
+                eng.submit(r)
+            i += size
+            eng.step()
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        s = eng.stats()
+        check(all(r.done for r in reqs) and s["accounting"]["balanced"],
+              f"mesh serve (data_parallel={dp}): {s['accounting']}")
+        check(all(counts[k] == n * s["batches_run"] for k, n in per.items()),
+              f"mesh serve (data_parallel={dp}): launches {counts} for "
+              f"{s['batches_run']} batches, {per} a forward")
+        rounds.append({"data_parallel": dp, "imgs_per_s": s["imgs_per_s"],
+                       "launches": counts, "batches": s["batches_run"],
+                       "logits": np.stack([r.logits for r in reqs])})
+    equal = all(np.array_equal(r["logits"], rounds[0]["logits"])
+                for r in rounds)
+    dp_rounds = [r for r in rounds if r["data_parallel"]]
+    single = [r for r in rounds if not r["data_parallel"]]
+    devices = [str(d) for d in engines[True].devices]
+    print(f"mesh serve alexnet f32 (data_parallel over {devices}): "
+          f"{sum(ARRIVALS)} requests in groups {ARRIVALS}, logits "
+          f"{'bit-equal' if equal else 'DIFFER'} to data_parallel=False | "
+          f"img/s in turns single / dp / dp / single: "
+          + " / ".join(f"{r['imgs_per_s']:.2f}" for r in rounds)
+          + f" | launches a dp round {dp_rounds[0]['launches']} | on {card}")
+    check(equal, "mesh serve: data-parallel logits differ from "
+          "data_parallel=False")
+    return {"devices": devices,
+            "imgs_per_s_turns": [r["imgs_per_s"] for r in rounds],
+            "data_parallel": {k: dp_rounds[0][k] for k in ("launches",
+                                                           "batches")},
+            "single": {k: single[0][k] for k in ("launches", "batches")}}
+
+
+def mesh_collectives(torch, card, mesh):
+    """14d: the reference's n = 1 path of the compressed collectives."""
+    from repro_torch.parallel.collectives import (bfp_psum,
+                                                  make_compressed_grad_sync)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(4096, device="cuda", generator=gen)
+    y = bfp_psum(x, mesh.get_group("data"))
+    grads = {"big": x.reshape(64, 64), "small": x[:100].clone()}
+    synced = make_compressed_grad_sync(mesh)(grads)
+    same = torch.equal(y, x) and all(torch.equal(synced[k], grads[k])
+                                     for k in grads)
+    print(f"mesh collectives on the one-rank NCCL group: bfp_psum and "
+          f"make_compressed_grad_sync return their input: "
+          f"{'yes' if same else 'NO'} | on {card}")
+    check(same, "mesh collectives: a one-rank sum changed its input")
+    return {"identity": same}
+
+
+def phase_mesh(torch, np, card):
+    """Phase 14: 14a-14d on one NCCL rank."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    t0 = time.perf_counter()
+    init_process_group("cuda", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        check(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
+              f"mesh: a {mesh.device_type} mesh on {dist.get_backend()}")
+        dense, dense_rep = mesh_train_pair(
+            torch, np, card, mesh, get_config(TRAIN_DENSE_ARCH),
+            MESH_DENSE_SHAPE, seed=14)
+        reshard = mesh_reshard(torch, np, card, mesh, dense)
+        del dense
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(get_config(SSM_ARCH),
+                                  num_layers=MESH_SSM_LAYERS)
+        L = MESH_SSM_LAYERS
+        ssm, ssm_rep = mesh_train_pair(
+            torch, np, card, mesh, cut, MESH_SSM_SHAPE, seed=15,
+            want={"dw1d": 2 * L, "dw1d_bwd": L, "dw1d_wgrad": L, "ssd": 0})
+        del ssm
+        torch.cuda.empty_cache()
+        serve = mesh_serve(torch, np, card)
+        coll = mesh_collectives(torch, card, mesh)
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    print(f"mesh: phase 14 {seconds:.1f} s")
+    return {"dense": dense_rep, "ssm": ssm_rep, "reshard": reshard,
+            "serve": serve, "collectives": coll, "phase_s": seconds,
+            "launches": ssm_rep["launches"]}
+
+
 # --- phase 10: mixture-of-experts and MLA serving ---------------------------
 @contextlib.contextmanager
 def plain_decode_attention():
@@ -5006,6 +5319,8 @@ def main(argv=None) -> int:
     encvlm = phase_encdec_vlm(torch, np)
     torch.cuda.empty_cache()
     hybrid = phase_hybrid(torch, np, card)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(torch, np, card)
     model = phase_model(cfg, card, rows, serves["f32"], lm_serve,
                         moe["granite"], train["dense"])
     # each path's launches, counted from 0 over its own serve run
@@ -5024,7 +5339,9 @@ def main(argv=None) -> int:
              "encdec": encvlm["whisper"]["launches"],
              "vlm": encvlm["phi3v"]["launches"],
              "hybrid": hybrid["jamba"]["launches"],
-             "hybrid_bfp8": hybrid["jamba_bfp8"]["launches"]}
+             "hybrid_bfp8": hybrid["jamba_bfp8"]["launches"],
+             "mesh": mesh["launches"],
+             "mesh_serve": mesh["serve"]["data_parallel"]["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",
                 "conv_winograd": "src/repro/kernels/conv/winograd.py:297",
@@ -5179,6 +5496,7 @@ def main(argv=None) -> int:
                        "lm_serve": lm_serve, "mamba_serve": mamba,
                        "train": train, "moe": moe,
                        "encdec_vlm": encvlm, "hybrid": hybrid,
+                       "mesh": mesh,
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()
                                      if "per_layer" in r},

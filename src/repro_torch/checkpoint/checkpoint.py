@@ -23,6 +23,13 @@ port writes the same header and the same 16-bit patterns, moved with
 ``view`` (no ml_dtypes needed), and reads a 2-byte void array back as
 bf16 bits.  (The reference cannot restore these leaves itself: ROADMAP
 Queue 3.)
+
+A sharded state (DTensor leaves, ``parallel/sharding.py``) is saved whole:
+every rank of its mesh gathers each leaf, rank 0 alone writes, and
+:func:`save` returns on every rank once the step is published.  The files
+are those of a one-device save of the same values.  :func:`restore` with
+``shardings`` places each restored leaf as a DTensor by its
+``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -38,6 +45,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..nn.module import tree_map_with_path
+from ..parallel.collectives import mesh_barrier
+from ..parallel.sharding import full, is_dtensor, place
 
 __all__ = ["AsyncCheckpointer", "CheckpointCorrupt", "latest_intact_step",
            "latest_step", "restore", "save", "verify_step"]
@@ -64,16 +75,6 @@ def _flatten(tree, path=()):
             yield from _flatten(v, path + (i,))
     else:
         yield path, tree
-
-
-def _tree_map(fn, tree, path=()):
-    """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
 
 
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
@@ -111,16 +112,24 @@ def _read_leaf(fpath: str) -> torch.Tensor:
 def save(ckpt_dir: str, state, *, keep: int = 3) -> str:
     step = int(state["step"]) if isinstance(state, dict) and \
         "step" in state else 0
-    os.makedirs(ckpt_dir, exist_ok=True)
+    leaves = list(_flatten(state))
+    mesh = next((leaf.device_mesh for _, leaf in leaves
+                 if is_dtensor(leaf)), None)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if mesh is not None and any(mesh.get_coordinate()):
+        for _, leaf in leaves:       # rank 0 gathers and writes
+            full(leaf)
+        mesh_barrier(mesh)
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "leaves": []}
-    for path, leaf in _flatten(state):
+    for path, leaf in leaves:
         name = _leaf_name(path)
-        arr, dtype = _host_array(leaf)
+        arr, dtype = _host_array(full(leaf))
         fpath = os.path.join(tmp, name + ".npy")
         _write_leaf(fpath, arr, dtype)
         manifest["leaves"].append({
@@ -132,6 +141,8 @@ def save(ckpt_dir: str, state, *, keep: int = 3) -> str:
         shutil.rmtree(final)
     os.replace(tmp, final)            # atomic publish
     _gc(ckpt_dir, keep)
+    if mesh is not None:
+        mesh_barrier(mesh)
     return final
 
 
@@ -209,17 +220,16 @@ def restore(ckpt_dir: str, state_like, *, step: Optional[int] = None,
     """Restore into the structure of ``state_like``: a tensor leaf comes
     back as a tensor of the file's dtype on the device of ``state_like``'s
     leaf, any other leaf as a Python scalar (a 0-d file) or a numpy
-    array.
+    array.  ``shardings``: a tree of ``state_like``'s structure (a subtree
+    or leaf may be None or left out) whose ``NamedSharding`` leaves place their
+    restored leaves as DTensors on their meshes (an elastic reshard on
+    load).
 
     With ``verify`` (default) the leaf files are checked against the
     manifest's crc32 before any load: with ``step`` None the newest
     *intact* step is restored (a torn latest falls back, with a warning);
     a named corrupt step raises :class:`CheckpointCorrupt`.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) is not ported yet: the port has no "
-            "multi-device state (ROADMAP Queue 1, item 7d)")
     if step is None:
         step = latest_intact_step(ckpt_dir) if verify else latest_step(
             ckpt_dir)
@@ -237,11 +247,24 @@ def restore(ckpt_dir: str, state_like, *, step: Optional[int] = None,
 
     def load(path, like):
         t = _read_leaf(os.path.join(d, _leaf_name(path) + ".npy"))
+        sharding = _at(shardings, path)
+        if sharding is not None:
+            return place(t.to(sharding.mesh.device_type), sharding)
         if isinstance(like, torch.Tensor):
             return t.to(like.device)
         return t.item() if t.dim() == 0 else t.numpy()
 
-    return _tree_map(load, state_like)
+    return tree_map_with_path(load, state_like)
+
+
+def _at(tree, path):
+    """The subtree of ``tree`` at ``path``; None below a None or an absent
+    key."""
+    for k in path:
+        if tree is None:
+            return None
+        tree = tree.get(k) if isinstance(tree, dict) else tree[k]
+    return tree
 
 
 def _snapshot(_path, leaf):
@@ -277,7 +300,7 @@ class AsyncCheckpointer:
     def submit(self, state):
         # snapshot to the host first (a copy even of a CPU tensor), so the
         # caller may go on updating its buffers
-        self._q.put(_tree_map(_snapshot, state))
+        self._q.put(tree_map_with_path(_snapshot, state))
         if self._err:
             raise self._err
 

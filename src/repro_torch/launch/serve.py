@@ -66,10 +66,7 @@ def apply_cnn_route(cfg, route: str):
 
 def cnn_config(cfg, args):
     """The image model's config as the flags set it: route, weight
-    prefetch, dtype.  ``--data-parallel`` is refused."""
-    if getattr(args, "data_parallel", False):
-        raise NotImplementedError("--data-parallel is not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
+    prefetch, dtype."""
     cfg = apply_cnn_route(cfg, getattr(args, "route", "auto"))
     return dataclasses.replace(
         cfg, weight_prefetch=getattr(args, "prefetch", "on") == "on",
@@ -93,6 +90,7 @@ def serve_supervised(cfg, args) -> int:
     failover); ``--chaos`` arms seeded per-worker crashes and stalls."""
     cfg = cnn_config(cfg, args)
     scfg = CnnServeConfig(max_batch=args.max_batch,
+                          data_parallel=getattr(args, "data_parallel", False),
                           slo_ms=getattr(args, "slo_ms", None))
     chaos = None
     if getattr(args, "chaos", False):
@@ -153,7 +151,8 @@ def serve_images(cfg, args) -> int:
     print("conv routes: " + " ".join(f"{n}={r}" for n, r in routes))
     slo_ms = getattr(args, "slo_ms", None)
     scfg = CnnServeConfig(
-        max_batch=args.max_batch, slo_ms=slo_ms,
+        max_batch=args.max_batch,
+        data_parallel=getattr(args, "data_parallel", False), slo_ms=slo_ms,
         dynamic_buckets=bool(slo_ms and getattr(args, "dynamic_buckets",
                                                 False)),
         admission=bool(slo_ms and getattr(args, "admission", False)),
@@ -185,7 +184,8 @@ def serve_images(cfg, args) -> int:
           f"requests; "
           f"{s['imgs_per_s']:.1f} img/s over {s['batches_run']} batches "
           f"(avg occupancy {s['avg_occupancy']:.2f}, "
-          f"buckets {s['bucket_counts']}) on {eng.device}")
+          f"buckets {s['bucket_counts']}) on "
+          f"{', '.join(map(str, eng.devices))}")
     print(f"latency p50={lat['p50']:.1f}ms p90={lat['p90']:.1f}ms "
           f"p99={lat['p99']:.1f}ms")
     acc = s["accounting"]
@@ -288,7 +288,8 @@ def main(argv=None):
                          "also inject slab bit flips and finite logit "
                          "corruption")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported yet")
+                    help="CNN path: split each bucket over every visible "
+                         "card (each worker's, with --workers)")
     ap.add_argument("--workers", type=int, default=0,
                     help="CNN path: >0 serves through a Supervisor owning "
                          "this many worker processes (heartbeats, failover "

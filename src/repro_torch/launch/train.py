@@ -5,14 +5,21 @@ Runs real steps through :class:`runtime.Trainer`: a reduced config by
 default, the published widths with ``--full``.  Runs on the card unless
 ``--device cpu`` is given (the kernels' plain versions then run).
 ``--ckpt-dir`` resumes from the newest checkpoint there, the reference's
-or the port's (one layout).  ``--mesh`` is refused: the port trains on one
-device (ROADMAP Queue 1, item 7d's parallel part).  Every token family
-trains, whisper-tiny on the batches' frames and phi-3-vision-4.2b on
-their patches.
+or the port's (one layout).  Every token family trains, whisper-tiny on
+the batches' frames and phi-3-vision-4.2b on their patches.
+
+``--mesh DxM`` trains on a ("data", "model") mesh of D*M ranks, one
+process each, as ``torchrun --nproc-per-node D*M`` starts them (NCCL on
+the card, gloo with ``--device cpu``); ``--rules`` overrides the logical
+sharding rules (JSON).  NCCL takes one rank a card::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --mesh 2x2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 from ..configs import LM_ARCHS, get_config
 from ..runtime import Trainer, TrainerConfig
@@ -30,16 +37,15 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="'DxM' data x model mesh: not ported (one device)")
+                    help="'DxM' data x model mesh over the D*M ranks "
+                    "torchrun starts")
     ap.add_argument("--rules", default="", help="JSON logical-rule overrides "
-                    "(with --mesh; not ported)")
+                    "(with --mesh)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh or args.rules:
-        raise NotImplementedError(
-            "--mesh / --rules: the port trains on one device; meshes come "
-            "with ROADMAP Queue 1, item 7d's parallel part")
+    if args.rules and not args.mesh:
+        ap.error("--rules needs --mesh")
 
     cfg = get_config(args.arch)
     if not args.full:
@@ -48,10 +54,40 @@ def main(argv=None):
                          seq_len=args.seq_len, base_lr=args.lr,
                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                          log_every=max(args.steps // 20, 1))
-    tr = Trainer(cfg, tcfg, device=args.device)
-    if args.ckpt_dir and tr.restore_latest():
+    if not args.mesh:
+        return _train(Trainer(cfg, tcfg, device=args.device), args)
+    import torch.distributed as dist
+
+    from .mesh import init_process_group, make_mesh
+    try:
+        d, m = (int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh!r}: expected DxM, e.g. 2x2")
+    init_process_group(args.device)
+    try:
+        world = dist.get_world_size()
+        if d * m != world:
+            raise SystemExit(f"--mesh {args.mesh}: {d * m} ranks, but "
+                             f"torchrun started {world}")
+        mesh = make_mesh((d, m), ("data", "model"))
+        rules = json.loads(args.rules) if args.rules else None
+        tr = Trainer(cfg, tcfg, mesh=mesh, rules=rules, device=args.device)
+        quiet = dist.get_rank() != 0
+        if not quiet:
+            print(f"mesh {args.mesh} (data x model): {world} ranks, "
+                  f"{dist.get_backend()}")
+        return _train(tr, args, quiet=quiet)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(tr, args, *, quiet=False):
+    """Resume, run and (unless ``quiet``: a rank other than 0) print."""
+    if args.ckpt_dir and tr.restore_latest() and not quiet:
         print(f"resumed from step {int(tr.state['step'])}")
     hist = tr.run()
+    if quiet:
+        return hist
     for h in hist:
         print(f"step {h['step']:6d} loss {h['loss']:8.4f} "
               f"acc {h['accuracy']:6.3f} gnorm {h['grad_norm']:8.3f} "

@@ -7,7 +7,8 @@ card's for a full-width model); the
 numbers differ from the reference's ``jax.random`` draw, so tests carry the
 reference's params over instead (``models.lm.params_from_reference``).
 There is no ``vmap`` stacking: a layer stack is a list of per-layer dicts.
-:func:`tree_map`, :func:`tree_leaves`, :func:`count_params` and
+:func:`tree_map`, :func:`tree_map_with_path`, :func:`tree_leaves`,
+:func:`count_params` and
 :func:`tree_bytes` walk such trees.
 """
 from __future__ import annotations
@@ -50,6 +51,18 @@ def tree_map(fn, tree):
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` on every leaf of a tree of dicts, lists and
+    tuples; ``path`` is the tuple of keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def tree_leaves(tree) -> list:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..config import ArchConfig, MoECfg
 from ..core.bfp import weight_of
+from ..parallel.sharding import batch_mean
 from .layers import linear, linear_init
 from .mlp import mlp_apply, mlp_init
 from .module import param, torch_dtype
@@ -110,7 +111,8 @@ def moe_apply(p, cfg: ArchConfig, x, *, return_aux: bool = False):
     if not return_aux:
         return y, None
     # load-balance loss (Switch/GShard): E * sum_e f_e * p_e, over the pad
-    # rows too, as the reference averages
-    me = probs.mean(dim=(0, 1))
-    ce = sel.to(torch.float32).sum(2).mean(dim=(0, 1)) / k
+    # rows too, as the reference averages; both means span the global batch
+    # under a data-parallel mesh step
+    me = batch_mean(probs.mean(dim=(0, 1)))
+    ce = batch_mean(sel.to(torch.float32).sum(2).mean(dim=(0, 1))) / k
     return y, E * torch.sum(me * ce) * m.router_aux_coef

@@ -10,6 +10,12 @@ m and v take 43.6 GB, and a second copy of the state would not fit beside
 them on an 80 GB card.  The arithmetic keeps the reference's order: the
 clip scale, the bias corrections ``1 - b**t`` in f32, the update in f32,
 then ``p - lr * update`` in p's dtype.
+
+A sharded state (``runtime/trainer.py``'s mesh step) holds DTensor params
+and moments placed alike; its ``grads`` are the full, averaged gradients,
+identical on every rank.  The norm is then the full gradient's, and each
+rank updates its own block of params, m and v in place with its block of
+the gradient: the same arithmetic, element by element.
 """
 from __future__ import annotations
 
@@ -18,9 +24,12 @@ import math
 import torch
 
 from ..nn.module import tree_leaves, tree_map
+from ..parallel.sharding import local, shard_of
 
 
 def init_state(params) -> dict:
+    """The state of ``params``; DTensor params get DTensor moments placed
+    like them."""
     zeros = lambda: tree_map(  # noqa: E731
         lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     return {"step": torch.zeros((), dtype=torch.int32), "params": params,
@@ -53,8 +62,9 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
                eps: float = 1e-8, weight_decay: float = 0.0,
                clip_norm: float = 1.0):
     """One AdamW step on ``state`` in place; ``grads`` a tree of the
-    params' structure (or the list of its leaves).  Returns ``(state,
-    {"grad_norm": ...})`` like the reference."""
+    params' structure (or the list of its leaves), whole tensors also for
+    DTensor params.  Returns ``(state, {"grad_norm": ...})`` like the
+    reference."""
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0) \
         if clip_norm else 1.0
@@ -67,7 +77,8 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
     # leaves' kernels as scalars
     for p, g, m, v in zip(tree_leaves(state["params"]), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        g = g.to(torch.float32) * scale
+        g = shard_of(g, p).to(torch.float32) * scale
+        p, m, v = local(p), local(m), local(v)
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)

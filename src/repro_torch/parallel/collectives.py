@@ -1,0 +1,152 @@
+"""BFP-compressed gradient collectives (the reference's
+``repro/parallel/collectives.py``, paper §3.6 -> distributed training).
+
+The shared-exponent trick applied to the wire: a ring reduce-scatter whose
+per-hop payload is int8 mantissas + one int8 exponent per block (~1.9x fewer
+bytes than bf16, ~3.8x fewer than f32), with f32 accumulation at every hop so
+error does not compound multiplicatively.  The reference builds it on
+shard_map + ppermute; here each hop is a ``dist.batch_isend_irecv`` pair
+over a process group (a mesh dim's: ``mesh.get_group(axis)``) and the
+all-gather is ``dist.all_gather_into_tensor``, in the reference's order:
+rank d seeds the ring with chunk (d+1) % n, each hop adds chunk (d-s) % n,
+the gathered chunks are rolled by 2.  With the same BFP rounding
+(``core/bfp.py``) the result is the reference's to the bit.  The
+quantization runs in PyTorch ops, as the reference's runs in jnp outside
+any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import bfp
+from ..nn.module import tree_map
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _ring_rs(x, group, *, block: int, bits: int):
+    """Ring reduce-scatter with BFP-compressed hops.
+
+    x: (n * chunk,) this rank's copy.  Returns this rank's reduced chunk:
+    after n-1 hops rank d owns the fully reduced chunk (d+2) % n."""
+    dist = _dist()
+    n, d = dist.get_world_size(group), dist.get_rank(group)
+    chunks = x.reshape(n, -1)
+    nxt = dist.get_global_rank(group, (d + 1) % n)
+    prv = dist.get_global_rank(group, (d - 1) % n)
+
+    # Rank d seeds the ring with its copy of chunk (d+1)%n; each hop the
+    # partial moves d -> d+1 and the receiver adds its local copy.
+    acc = chunks[(d + 1) % n]
+    for s in range(n - 1):
+        m, e, ax = bfp.quantize(acc.reshape(-1), block=block, bits=bits)
+        rm, re_ = torch.empty_like(m), torch.empty_like(e)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, m, nxt, group),
+                dist.P2POp(dist.isend, e, nxt, group),
+                dist.P2POp(dist.irecv, rm, prv, group),
+                dist.P2POp(dist.irecv, re_, prv, group)]):
+            req.wait()
+        recv = bfp.dequantize(rm, re_, bits=bits, axis=ax).reshape(acc.shape)
+        acc = recv + chunks[(d - s) % n]
+    return acc
+
+
+def _all_gather(t, group):
+    """(n,) + t.shape: every rank's ``t``, gathered as bytes (gloo gathers
+    no int16)."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    raw = t.contiguous().view(torch.uint8).reshape(-1)
+    out = torch.empty(n * raw.numel(), dtype=torch.uint8, device=t.device)
+    dist.all_gather_into_tensor(out, raw, group=group)
+    return out.view(t.dtype).reshape((n,) + t.shape)
+
+
+def bfp_psum(x, group=None, *, block: int = 32, bits: int = 8):
+    """All-reduce (sum) of ``x`` over ``group`` (None: the world) =
+    compressed ring reduce-scatter + compressed all-gather; ``x`` as it is
+    on a group of one."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    orig_shape = x.shape
+    size = x.numel()
+    flat = x.reshape(-1)
+    pad = (-size) % (n * block)
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    chunk = _ring_rs(flat, group, block=block, bits=bits)  # this rank's chunk
+    # compressed all-gather of the reduced chunks
+    m, e, ax = bfp.quantize(chunk.reshape(-1), block=block, bits=bits)
+    ms, es = _all_gather(m, group), _all_gather(e, group)  # (n, nb, blk), (n, nb)
+    parts = bfp.dequantize(ms, es, bits=bits, axis=ax + 1)     # (n, chunk)
+    # rank i holds reduced chunk (i+2)%n -> reorder to 0..n-1
+    parts = torch.roll(parts, 2, dims=0)
+    return parts.reshape(-1)[:size].reshape(orig_shape)
+
+
+def make_compressed_grad_sync(mesh, axis: str = "data", *,
+                              block: int = 32, bits: int = 8,
+                              min_size: int = 1024):
+    """Returns grads -> grads averaged over ``axis`` of ``mesh`` with BFP
+    compression for large leaves (small leaves use an exact all-reduce)."""
+    dist = _dist()
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+
+    def one(g):
+        if g.numel() >= min_size and g.numel() % block == 0:
+            s = bfp_psum(g, group, block=block, bits=bits)
+        else:
+            s = g.clone()
+            dist.all_reduce(s, group=group)
+        return s / n
+
+    return lambda grads: tree_map(one, grads)
+
+
+def all_reduce_coalesced(tensors, groups, *, cap: int = 1 << 26):
+    """Sum each of ``tensors`` over every group of ``groups`` in turn, in
+    place: one all-reduce a bucket of consecutive tensors of one dtype and
+    at most ``cap`` elements (a larger tensor alone), as DDP buckets its
+    gradients, in place of one a tensor."""
+    dist = _dist()
+    buckets, size = [], 0
+    for t in tensors:
+        if (not buckets or t.dtype != buckets[-1][0].dtype
+                or size + t.numel() > cap):
+            buckets.append([])
+            size = 0
+        buckets[-1].append(t)
+        size += t.numel()
+    for bucket in buckets:
+        alone = len(bucket) == 1 and bucket[0].is_contiguous()
+        flat = (bucket[0].view(-1) if alone else
+                torch.cat([t.reshape(-1) for t in bucket]))
+        for g in groups:
+            dist.all_reduce(flat, group=g)
+        if not alone:
+            for t, part in zip(bucket, flat.split(
+                    [t.numel() for t in bucket])):
+                t.copy_(part.view_as(t))
+
+
+def wire_bytes_ratio(bits: int = 8, block: int = 32,
+                     baseline_bytes: int = 2) -> float:
+    """Compression ratio vs an uncompressed ring (per hop)."""
+    payload = block * (bits / 8) + 1      # mantissas + shared exponent
+    return payload / (block * baseline_bytes)
+
+
+def mesh_barrier(mesh):
+    """Wait for every rank of ``mesh``: an all-reduce over each of its dims
+    in turn (a rank outside the mesh takes no part)."""
+    dist = _dist()
+    t = torch.zeros(1, device=mesh.device_type)
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(t, group=mesh.get_group(name))

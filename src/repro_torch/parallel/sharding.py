@@ -1,0 +1,408 @@
+"""Logical-axis sharding rules (the reference's
+``repro/parallel/sharding.py``), on ``torch.distributed``'s DeviceMesh.
+
+A rules table maps logical axis names to mesh axes; :func:`_resolve` turns
+a tensor's logical axes into a :class:`PartitionSpec` (one entry a tensor
+dim: None, a mesh axis, or a tuple of axes the dim is split over in mesh
+order), dropping indivisible or absent axes and never using one mesh axis
+twice.  :meth:`PartitionSpec.placements` gives the DTensor placements of a
+spec: for each mesh dim ``Shard(d)`` where tensor dim d names it, else
+``Replicate()``.  The tables are the reference's, letter for letter.
+
+A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh`
+(``launch/mesh.py`` builds them) or, where only the specs are wanted, a
+mesh shape ``{axis name: size}`` in mesh order: the specs need no process
+group.
+
+Parameter paths are the reference layout's keys joined with "/", so the
+regexes match as they do there.  A per-layer leaf of the port's layer list
+(``params["stack"][i]``) has no leading ``"layers"`` dim; the rules map
+that dim to None, so its spec is the reference's without that entry.
+
+:func:`constrain` is the identity on a plain tensor and a ``redistribute``
+on a DTensor; the port's layers do not call it (tensor-parallel compute
+over ``model`` is not ported: ROADMAP).  :func:`batch_mean` is the one
+reduction over the batch inside a model (the MoE router's load-balance
+statistics): under an active DeviceMesh the model runs on the rank's share
+of the global batch (``runtime/trainer.py``'s mesh step), and the mean is
+taken over the ranks of the batch axes too.
+"""
+from __future__ import annotations
+
+import re
+import sys
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..nn.module import tree_map_with_path
+
+# --- default logical -> mesh-axis rules -------------------------------------
+# "pod" composes as an outer data axis by default (multi-pod DP); the
+# pipeline launcher re-purposes it as a stage axis instead.
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_res": "model",        # SP: layer-boundary residual sharded along seq
+    "embed": None,
+    "heads": "model",          # attention heads (activations)
+    "kv_heads": "model",       # kv heads (dropped automatically if indivisible)
+    "head_dim": None,
+    "qkv_flat": "model",       # flattened H*head_dim param dim
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",        # EP: expert dim of MoE weights / dispatch
+    "expert_group": ("pod", "data"),   # MoE token groups stay data-sharded
+    "expert_mlp": None,
+    "ssm_inner": "model",      # mamba d_inner
+    "ssm_heads": "model",
+    "state": None,
+    "kv_lora": None,
+    "cache_seq": "model",      # decode KV cache sharded along sequence (SP)
+    "cache_kv_heads": None,
+    "frames": None,
+    "layers": None,
+    "stage": "pipe",           # pipeline-parallel stage axis (opt-in meshes)
+}
+
+_ACTIVE: dict = {"mesh": None, "rules": dict(DEFAULT_RULES)}
+
+
+class PartitionSpec(tuple):
+    """The reference's ``PartitionSpec``: one entry a tensor dim."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def placements(self, mesh) -> tuple:
+        """DTensor placements on ``mesh``, one a mesh dim.  A tensor dim
+        split over several mesh axes takes one ``Shard`` on each, and
+        DTensor splits it in mesh order, as the reference does for
+        ("pod", "data"); a spec naming them in another order is
+        refused."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = list(axis_sizes(mesh))
+        dim_of = {}
+        for d, entry in enumerate(self):
+            axes = _axes(entry)
+            order = [names.index(a) for a in axes]
+            if order != sorted(order):
+                raise ValueError(f"{self}: dim {d} splits over {axes}, "
+                                 f"not in the mesh's order {names}")
+            dim_of.update((a, d) for a in axes)
+        return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
+                     for a in names)
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``)."""
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return self.spec.placements(self.mesh)
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` in mesh order, of a DeviceMesh or of a mesh
+    shape given as such a dict."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@contextmanager
+def use_mesh_rules(mesh, rules: Optional[dict] = None):
+    prev = dict(_ACTIVE)
+    _ACTIVE["mesh"] = mesh
+    _ACTIVE["rules"] = dict(DEFAULT_RULES, **(rules or {}))
+    try:
+        yield
+    finally:
+        _ACTIVE.update(prev)
+
+
+def active_mesh():
+    return _ACTIVE["mesh"]
+
+
+def _mesh_axes_size(sizes: dict, axes) -> int:
+    size = 1
+    for a in _axes(axes):
+        size *= sizes.get(a, 1)
+    return size
+
+
+def _resolve(mesh, logical_axes, shape) -> PartitionSpec:
+    """Map logical axes -> PartitionSpec, dropping indivisible/absent axes and
+    never using one mesh axis twice."""
+    rules = _ACTIVE["rules"]
+    sizes = axis_sizes(mesh)
+    used: set = set()
+    spec = []
+    for dim, name in zip(shape, logical_axes):
+        target = rules.get(name) if name else None
+        if target is None:
+            spec.append(None)
+            continue
+        axes = tuple(a for a in _axes(target) if a in sizes and a not in used)
+        if not axes or dim % _mesh_axes_size(sizes, axes) != 0:
+            spec.append(None)
+            continue
+        used.update(axes)
+        spec.append(axes if len(axes) > 1 else axes[0])
+    return P(*spec)
+
+
+def logical_sharding(shape, logical_axes, mesh=None) -> NamedSharding:
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        raise ValueError("no active mesh")
+    return NamedSharding(mesh, _resolve(mesh, logical_axes, shape))
+
+
+def constrain(x, logical_axes):
+    """A DTensor redistributed to its logical axes' placements on the
+    active mesh; a plain tensor, or any tensor without a mesh, as it is."""
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    if len(logical_axes) != x.ndim:
+        raise ValueError(f"{logical_axes} vs rank {x.ndim}")
+    if not is_dtensor(x):
+        return x
+    spec = _resolve(mesh, logical_axes, x.shape)
+    return x.redistribute(x.device_mesh, spec.placements(x.device_mesh))
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a mean over the rank's share of the batch, as the mean over
+    the global batch: averaged (autograd-aware) over the ranks of the
+    active DeviceMesh's batch axes; ``x`` itself without one.  Exact when
+    every rank holds as many rows, as the mesh step's even split gives."""
+    mesh = active_mesh()
+    if mesh is None or isinstance(mesh, dict):
+        return x
+    from torch.distributed.nn.functional import all_reduce
+    _, n = batch_share(mesh)
+    for group in batch_groups(mesh):
+        x = all_reduce(x, group=group)
+    return x / n if n > 1 else x
+
+
+def _batch_axes(mesh) -> tuple:
+    """The mesh axes the batch rule splits over."""
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in _axes(_ACTIVE["rules"].get("batch"))
+                 if a in sizes)
+
+
+def batch_share(mesh) -> tuple:
+    """(index, count): this rank's share of the global batch under the
+    active rules' batch axes (row-major over them, as the reference's
+    ``batch_sharding`` splits the batch dim), and their number."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = axis_sizes(mesh)
+    index, count = 0, 1
+    for a in _batch_axes(mesh):
+        index, count = index * sizes[a] + coord[a], count * sizes[a]
+    return index, count
+
+
+def batch_groups(mesh) -> list:
+    """The process groups of the batch axes (a one-rank axis's too: its
+    collectives move nothing)."""
+    return [mesh.get_group(a) for a in _batch_axes(mesh)]
+
+
+# --- parameter sharding by path ----------------------------------------------
+# regex on the parameter path (dict keys joined with '/'); value = logical
+# axes of the *trailing* dims (left-padded with "layers"/None for stacked
+# leaves created by scan-over-layers vmapped init).
+PARAM_RULES = [
+    (r"embedding$", ("vocab", "embed")),
+    (r"(wq|wkv|wk|wv|wuk|wuv|in_proj|wqkv)/w$", ("embed", "qkv_flat")),
+    (r"(wo|out_proj)/w$", ("qkv_flat", "embed")),
+    (r"wdkv/w$", ("embed", None)),                    # MLA down-proj (small)
+    (r"(w1|w3)/w$", ("embed", "mlp")),
+    (r"w2/w$", ("mlp", "embed")),
+    (r"router/w$", ("embed", None)),
+    (r"experts/(w1|w3)$", ("experts", "embed", "expert_mlp")),
+    (r"experts/w2$", ("experts", "expert_mlp", "embed")),
+    (r"conv/w$", (None, "ssm_inner")),
+    (r"(A_log|D|dt_bias)$", ("ssm_heads",)),
+    (r"(patch_proj)/w$", ("embed", None)),
+]
+
+
+def path_str(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def param_logical_axes(path, leaf) -> tuple:
+    s = path_str(path)
+    # BFP-quantized linear weights: w_q (KB, block, N) / w_e (KB, N) inherit
+    # the underlying w (K, N) rule with the block dim unsharded.
+    bfp_kind = None
+    if s.endswith("/w_q") or s.endswith("/w_e"):
+        bfp_kind = s[-1]
+        s = s[:-2]
+    for pat, axes in PARAM_RULES:
+        if re.search(pat, s):
+            if bfp_kind == "q" and len(axes) == 2:
+                axes = (axes[0], None, axes[1])
+            pad = leaf.ndim - len(axes)
+            return ("layers",) * pad + tuple(axes) if pad >= 0 else tuple(axes)[-leaf.ndim:]
+    return (None,) * leaf.ndim   # norms, biases, scalars: replicated
+
+
+def param_shardings(params, mesh):
+    """Tree of :class:`NamedSharding` for a param tree (tensors, or
+    anything with ``ndim`` and ``shape``)."""
+    def one(path, leaf):
+        axes = param_logical_axes(path, leaf)
+        return NamedSharding(mesh, _resolve(mesh, axes, leaf.shape))
+    return tree_map_with_path(one, params)
+
+
+def batch_sharding(mesh, ndim: int = 2) -> NamedSharding:
+    """Inputs: batch dim sharded over (pod, data)."""
+    axes = tuple(a for a in ("pod", "data") if a in axis_sizes(mesh))
+    return NamedSharding(mesh, P(axes if len(axes) > 1 else (axes[0] if axes else None),
+                                 *([None] * (ndim - 1))))
+
+
+def data_parallel_mesh(devices=None) -> tuple:
+    """The 1-axis ("data",) mesh of serving-style pure data parallelism:
+    a tuple of devices, every visible card by default.  One process
+    drives them all, as the reference's one program does; it needs no
+    process group."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = tuple(torch.device(d) for d in devices)
+    if not devices:
+        raise RuntimeError("data_parallel_mesh: no visible card "
+                           "(torch.cuda.device_count() is 0); pass the "
+                           "devices to run elsewhere")
+    return devices
+
+
+def replicated_sharding(mesh) -> NamedSharding:
+    """Fully replicated placement on ``mesh`` (weights under pure DP, or the
+    fallback for batches indivisible by the data axis)."""
+    return NamedSharding(mesh, P())
+
+
+def zero1_shardings(params, mesh):
+    """ZeRO-1: optimizer moments additionally sharded over 'data' on the
+    largest divisible dim that the param sharding leaves unsharded."""
+    dsize = axis_sizes(mesh).get("data", 1)
+
+    def upgrade(path, leaf):
+        ns = NamedSharding(mesh, _resolve(
+            mesh, param_logical_axes(path, leaf), leaf.shape))
+        spec = list(ns.spec) + [None] * (len(leaf.shape) - len(ns.spec))
+        if dsize == 1:
+            return ns
+        # pick the largest unsharded dim divisible by the data axis
+        cands = [(d, i) for i, d in enumerate(leaf.shape)
+                 if spec[i] is None and d % dsize == 0]
+        if not cands:
+            return ns
+        _, i = max(cands)
+        spec[i] = "data"
+        return NamedSharding(mesh, P(*spec))
+
+    return tree_map_with_path(upgrade, params)
+
+
+# --- DTensor placement ---------------------------------------------------------
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (without importing DTensor: no tensor is
+    one before ``torch.distributed.tensor`` is loaded)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def local_slice(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of ``full`` under ``placements`` on ``mesh`` (a
+    view): each ``Shard(d)`` in mesh order cuts dim d into the mesh dim's
+    size and keeps this rank's coordinate, as DTensor lays shards out."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    for size, c, pl in zip(mesh.shape, coord, placements):
+        if pl.is_shard() and size > 1:
+            d = pl.dim
+            if full.shape[d] % size:
+                raise ValueError(f"dim {d} of {tuple(full.shape)} does not "
+                                 f"divide into {size}")
+            full = full.narrow(d, c * (full.shape[d] // size),
+                               full.shape[d] // size)
+    return full
+
+
+def place(full: torch.Tensor, sharding: NamedSharding):
+    """``full`` (every rank's copy alike) as a DTensor laid out by
+    ``sharding``; each rank keeps a copy of its own block only."""
+    from torch.distributed.tensor import DTensor
+    mesh, pl = sharding.mesh, sharding.placements
+    loc = local_slice(full.detach(), mesh, pl).clone(
+        memory_format=torch.contiguous_format)
+    return DTensor.from_local(loc, mesh, pl, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def full(t):
+    """A DTensor gathered whole on every rank (a collective over its
+    mesh; where no mesh dim of more than one rank shards it, its own
+    block, with no call into DTensor's redistribution); any other leaf as
+    it is."""
+    if not is_dtensor(t):
+        return t
+    if all(p.is_replicate() or size == 1
+           for p, size in zip(t.placements, t.device_mesh.shape)):
+        return t.to_local()
+    return t.full_tensor()
+
+
+def local(t):
+    """A DTensor's block on this rank (its storage: an in-place update
+    changes the DTensor); any other tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def shard_of(whole: torch.Tensor, like) -> torch.Tensor:
+    """The block of ``whole`` that this rank holds of ``like`` (a DTensor
+    of ``whole``'s shape), or ``whole`` where ``like`` is no DTensor."""
+    if not is_dtensor(like):
+        return whole
+    return local_slice(whole, like.device_mesh, like.placements)
+
+
+def place_tree(tree, shardings):
+    """Every leaf of ``tree`` placed by the matching :class:`NamedSharding`
+    of ``shardings``."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_tree(v, s) for v, s in zip(tree, shardings,
+                                                           strict=True))
+    return place(tree, shardings)

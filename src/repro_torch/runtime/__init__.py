@@ -1,2 +1,2 @@
 from .trainer import (InjectedFailure, Trainer, TrainerConfig,  # noqa: F401
-                      TrainerEvents)
+                      TrainerEvents, reshard_state)

@@ -23,9 +23,27 @@ takes it after ``block_until_ready``.  The state is ``{"step", "params",
 reference's layout
 (the layers stacked under ``params/stack/scan/b<j>``, an encoder-decoder's
 under ``enc_stack`` and ``dec_stack``; the same leaf names, shapes and
-dtypes), so each package restores the other's.  The mesh and
-``reshard_state`` (elastic re-placement) come with ROADMAP Queue 1 item
-7d's parallel part.
+dtypes), so each package restores the other's.
+
+With a ``mesh`` (a DeviceMesh, ``launch/mesh.py``; every rank of it runs a
+Trainer) the state rests sharded: the params are DTensors placed by
+``parallel.sharding.param_shardings`` under ``rules``, the moments placed
+like them (as the reference's ``init_state`` leaves them).  A step is
+computed data-parallel: each rank gathers every parameter whole, runs the
+forward and backward above on its share of the global batch (the batch
+rule's axes, ("pod", "data"): ranks of one ``model`` group take the same
+rows), all-reduces the gradients over those axes, clips by the norm of the
+full averaged gradient and updates its own blocks of params, m and v in
+place.  The loss is each rank's share of the global masked mean (its sum
+over the global count of valid targets), and the metrics are reduced as
+sums and counts, so ``history`` is a one-device run's; the MoE router's
+load-balance means span the global batch (``sharding.batch_mean``).  Not
+in this slice (ROADMAP): tensor-parallel compute over ``model`` (GSPMD's
+from the reference's ``constrain`` hints) and a per-layer gather in place
+of the whole-model one, which a model larger than one card needs.
+:func:`reshard_state` moves a state onto another mesh of the same world,
+the reference's elastic scaling; checkpoints gather the state and rank 0
+writes it, in the reference's layout as above.
 """
 from __future__ import annotations
 
@@ -45,6 +63,8 @@ from ..data.pipeline import synthetic_batches
 from ..models import encdec, lm, model_for, vlm
 from ..nn.module import tree_leaves, tree_map
 from ..optim import adamw_step, init_state, lr_schedule
+from ..parallel import sharding as shlib
+from ..parallel.collectives import all_reduce_coalesced, mesh_barrier
 
 
 class InjectedFailure(RuntimeError):
@@ -78,22 +98,30 @@ class TrainerEvents:
 
 
 class Trainer:
-    """Trains ``cfg`` on ``device`` (the card unless told otherwise).
-    ``params``: the port's params tree on that device (default: ``init``
-    from ``tcfg.seed``); the trainer owns and updates it in place."""
+    """Trains ``cfg`` on ``device`` (the card unless told otherwise), or
+    on ``mesh``'s device under sharding ``rules`` (overrides of
+    ``sharding.DEFAULT_RULES``).  ``params``: the port's params tree
+    (default: ``init`` from ``tcfg.seed``; under a mesh every rank's
+    alike); the trainer owns and updates it in place."""
 
     def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, *,
                  mesh=None, rules=None, data_it=None,
                  failure_injector: Optional[Callable[[int], bool]] = None,
                  straggler_hook: Optional[Callable] = None,
                  params=None, device="cuda"):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=, rules=): the port trains on one device; "
-                "meshes and sharding rules come with ROADMAP Queue 1, item "
-                "7d's parallel part (parallel/, launch/mesh)")
+        if mesh is None and rules is not None:
+            raise ValueError("Trainer(rules=) needs a mesh")
         self.cfg, self.tcfg = cfg, tcfg
+        self.mesh, self.rules = mesh, rules
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.get_coordinate() is None:
+                raise ValueError("Trainer(mesh=): this rank is not in the "
+                                 "mesh")
+            if self.device.type != mesh.device_type:
+                raise ValueError(f"Trainer(mesh=): a {mesh.device_type} "
+                                 f"mesh, device {device!r}")
+            self.device = torch.device(mesh.device_type)
         self.mod = model_for(cfg)
         if self.mod not in (lm, encdec, vlm):
             raise ValueError(
@@ -109,34 +137,87 @@ class Trainer:
 
         if params is None:
             params = self.mod.init(tcfg.seed, cfg, device=self.device)
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
+        if mesh is None:
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+        else:
+            params = _place_params(params, mesh, rules, self.device)
         self.state = init_state(params)
 
         self._user_data_it = data_it
         self.data = None           # built lazily at run() aligned to `step`
 
+        # under a mesh rank 0 writes the checkpoints
+        self._writer = mesh is None or not any(mesh.get_coordinate())
         self._ckpt = None
-        if tcfg.ckpt_every and tcfg.ckpt_dir and tcfg.async_ckpt:
+        if (tcfg.ckpt_every and tcfg.ckpt_dir and tcfg.async_ckpt
+                and self._writer):
             self._ckpt = ckpt_lib.AsyncCheckpointer(tcfg.ckpt_dir,
                                                     keep=tcfg.keep)
 
     # -- the step -------------------------------------------------------------
     def train_step(self, batch) -> dict:
-        """One optimizer step on ``batch`` (device tensors), in place;
-        returns its metrics as tensors."""
+        """One optimizer step on ``batch`` (device tensors; under a mesh
+        the global batch, alike on every rank), in place; returns its
+        metrics as tensors."""
         tc, state = self.tcfg, self.state
         lr = lr_schedule(state["step"], base_lr=tc.base_lr,
                          warmup=tc.warmup, total=tc.steps)
-        leaves = tree_leaves(state["params"])
-        loss, metrics = self.mod.loss_fn(state["params"], self.cfg, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        del loss
+        if self.mesh is None:
+            leaves = tree_leaves(state["params"])
+            loss, metrics = self.mod.loss_fn(state["params"], self.cfg,
+                                             batch)
+            grads = torch.autograd.grad(loss, leaves)
+            del loss
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            grads, metrics = self._mesh_grads(batch)
         _, om = adamw_step(state, grads, lr=lr,
                            weight_decay=tc.weight_decay,
                            clip_norm=tc.clip_norm)
-        return {**{k: v.detach() for k, v in metrics.items()}, **om,
-                "lr": lr}
+        return {**metrics, **om, "lr": lr}
+
+    def _mesh_grads(self, batch):
+        """(the full gradient averaged over the global batch, its metrics)
+        from this rank's share of ``batch`` and the all-reduces over the
+        batch axes."""
+        mesh = self.mesh
+        with shlib.use_mesh_rules(mesh, self.rules):
+            index, count = shlib.batch_share(mesh)
+            groups = shlib.batch_groups(mesh)
+        rows = batch["inputs"].shape[0]
+        if rows % count:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"{count} data-parallel ranks")
+        rows //= count
+        mine = {k: v[index * rows:(index + 1) * rows]
+                for k, v in batch.items()}
+
+        with torch.no_grad():
+            whole = tree_map(lambda p: shlib.full(p).detach(),
+                             self.state["params"])
+        leaves = tree_leaves(whole)
+        for t in leaves:
+            t.requires_grad_(True)
+        with shlib.use_mesh_rules(mesh, self.rules):
+            _, metrics = self.mod.loss_fn(whole, self.cfg, mine)
+        # this rank's share of the global masked mean: its sum of the
+        # per-token losses (loss x its count) over the global count
+        own = metrics["tokens"].to(torch.float32)
+        sums = torch.stack([metrics["loss"].detach() * own,
+                            metrics["accuracy"].detach() * own,
+                            (mine["targets"] >= 0).sum().to(torch.float32)])
+        all_reduce_coalesced([sums], groups)
+        tokens = torch.clamp(sums[2], min=1)
+        # the router loss is the global batch's on every rank already
+        objective = metrics["loss"] * (own / tokens) \
+            + metrics["aux_loss"] / count
+        grads = torch.autograd.grad(objective, leaves)
+        del objective, whole, leaves
+        all_reduce_coalesced(grads, groups)
+        return grads, {"loss": sums[0] / tokens, "accuracy": sums[1] / tokens,
+                       "tokens": tokens,
+                       "aux_loss": metrics["aux_loss"].detach()}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -158,29 +239,35 @@ class Trainer:
             signal.SIGTERM, signal.SIG_DFL if previous is None else previous)
 
     def checkpoint_state(self) -> dict:
-        """The state as the reference lays it out, on the host."""
+        """The state as the reference lays it out, on the host (under a
+        mesh gathered whole: every rank of it takes part)."""
         st = self.state
         return {"step": st["step"].clone(),
-                **{k: self.mod.to_reference_layout(st[k], self.cfg,
-                                                   device="cpu")
+                **{k: self.mod.to_reference_layout(
+                    tree_map(shlib.full, st[k]), self.cfg, device="cpu")
                    for k in ("params", "m", "v")}}
 
     def save(self):
         if not self.tcfg.ckpt_dir:
             return
+        state = self.checkpoint_state()
+        if not self._writer:
+            return
         if self._ckpt is not None:
-            self._ckpt.submit(self.checkpoint_state())
+            self._ckpt.submit(state)
         else:
-            ckpt_lib.save(self.tcfg.ckpt_dir, self.checkpoint_state(),
-                          keep=self.tcfg.keep)
+            ckpt_lib.save(self.tcfg.ckpt_dir, state, keep=self.tcfg.keep)
 
     def restore_latest(self) -> bool:
+        if self._ckpt is not None:
+            self._ckpt.wait()
+        if self.mesh is not None:
+            # rank 0's writes are on disk before any rank reads
+            mesh_barrier(self.mesh)
         step = ckpt_lib.latest_step(self.tcfg.ckpt_dir) \
             if self.tcfg.ckpt_dir else None
         if step is None:
             return False
-        if self._ckpt is not None:
-            self._ckpt.wait()
         # the reference layout's structure, with empty host leaves: restore
         # loads each file onto the host
         empty = self.mod.to_reference_layout(
@@ -199,7 +286,7 @@ class Trainer:
                         raise ValueError(f"checkpoint leaf of {k}: shape "
                                          f"{tuple(s.shape)}, the model's "
                                          f"{tuple(d.shape)}")
-                    d.copy_(s)
+                    shlib.local(d).copy_(shlib.shard_of(s, d))
         self.state["step"] = torch.as_tensor(got["step"], dtype=torch.int32)
         return True
 
@@ -288,3 +375,62 @@ class Trainer:
         if self._ckpt is not None:
             self._ckpt.wait()
         return self.history
+
+
+def _place_params(params, mesh, rules, device):
+    """``params`` on ``device`` as DTensors placed by the rules'
+    ``param_shardings`` on ``mesh``."""
+    params = tree_map(lambda t: t.detach().to(device), params)
+    with shlib.use_mesh_rules(mesh, rules):
+        return shlib.place_tree(params, shlib.param_shardings(params, mesh))
+
+
+def reshard_state(state, mesh, rules=None):
+    """Elastic re-placement of a state onto ``mesh``, another mesh of the
+    same world, grown or shrunk: each leaf gathered whole on its old mesh,
+    then placed by the new mesh's ``param_shardings`` (the moments like the
+    params); ``step`` stays a host scalar.  Every rank of the world calls
+    it, with its state or None where it holds none; a rank of the new mesh
+    without a state gets rank 0's.  Returns the new state, or None on a
+    rank outside ``mesh``."""
+    import torch.distributed as dist
+    held = [None] * dist.get_world_size()
+    dist.all_gather_object(held, state is not None
+                           or mesh.get_coordinate() is None)
+    whole = None
+    if state is not None:
+        with torch.no_grad():
+            whole = {"step": state["step"].clone(),
+                     **{k: tree_map(lambda t: shlib.full(t).detach(),
+                                    state[k]) for k in ("params", "m", "v")}}
+    if not all(held):
+        whole = _broadcast_state(whole, torch.device(mesh.device_type))
+    if mesh.get_coordinate() is None:
+        return None
+    params = whole.pop("params")
+    return {"step": whole["step"],
+            "params": _place_params(params, mesh, rules, mesh.device_type),
+            **{k: _place_params(whole[k], mesh, rules, mesh.device_type)
+               for k in ("m", "v")}}
+
+
+def _broadcast_state(whole, device):
+    """Rank 0's gathered state on every rank of the world: its structure
+    as an object (a (shape, dtype) tuple a leaf), then each leaf."""
+    import torch.distributed as dist
+    skeleton = [None if whole is None else
+                {"step": int(whole["step"]),
+                 **{k: tree_map(lambda t: (tuple(t.shape), t.dtype),
+                                whole[k]) for k in ("params", "m", "v")}}]
+    dist.broadcast_object_list(skeleton, src=0)
+    skeleton = skeleton[0]
+    if whole is None:
+        whole = {"step": torch.tensor(skeleton["step"], dtype=torch.int32),
+                 **{k: tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1],
+                                                       device=device),
+                                skeleton[k])
+                    for k in ("params", "m", "v")}}
+    for k in ("params", "m", "v"):
+        for t in tree_leaves(whole[k]):
+            dist.broadcast(t, src=0)
+    return whole

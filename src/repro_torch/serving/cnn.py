@@ -52,11 +52,20 @@ kernels when the engine is made.  The ``direct``-route twin a degraded
 bucket falls back to keeps ``fc_bfp`` and ``conv_bfp``: its FC layers still
 run the BFP matmul kernel, and its convolutions quantized raw filters.
 
-Not ported yet (it raises ``NotImplementedError``): ``data_parallel``
-(ROADMAP).
+Data parallelism: with ``data_parallel`` one engine drives the devices of
+a 1-axis ("data",) mesh (``parallel.sharding.data_parallel_mesh``: every
+visible card, or the ``devices`` given), as the reference's one program
+does: a replica of the params (and of the BFP FC streams) on each device,
+and each bucket's slabs packed on each for the rows it runs.  A bucket
+whose batch divides by the device count is split over them, each share
+copied from the pinned buffer straight to its device; any other runs
+whole on the first device (the reference's ``replicated_sharding``
+fallback).  The logits (and the ABFT verdicts, summed) are gathered on the
+first device.  The slab chaos points act on the first device's slabs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from collections import deque
@@ -71,6 +80,8 @@ from ..kernels import build
 from ..kernels.conv.dma import WeightStager
 from ..models import model_for
 from ..nn.conv import verify_packed
+from ..nn.module import tree_map
+from ..parallel.sharding import data_parallel_mesh
 from .clock import MONOTONIC, Clock
 from .faults import EngineCrash, FaultInjector, TransientLaunchError
 from .health import QUARANTINED, HealthMonitor
@@ -88,7 +99,7 @@ _TRANSIENT_LAUNCH = (TransientLaunchError, torch.cuda.OutOfMemoryError)
 class CnnServeConfig:
     max_batch: int = 8          # largest serve bucket (paper's S_batch knob)
     staging_depth: int = 2      # groups staged ahead of compute
-    data_parallel: bool = False  # not ported yet
+    data_parallel: bool = False  # split buckets over the data mesh's devices
     # -- SLO control plane (serving/policy.py) --------------------------
     slo_ms: Optional[float] = None
     dynamic_buckets: bool = False
@@ -139,7 +150,7 @@ class _Group:
     slots: List[int]
     reqs: List[ImageRequest]
     bucket: int
-    images: object              # device tensor (bucket, H, W, C)
+    images: object              # per device used: its rows (r, H, W, C)
     host: object = None         # pinned source of an in-flight H2D copy
     logits: object = None       # device tensor once the forward is issued
     sdc: object = None          # device int32 ABFT verdict (sdc_abft only)
@@ -148,13 +159,23 @@ class _Group:
 
 
 class CnnEngine:
+    """Serves ``cfg`` on ``device`` (the card unless told otherwise); under
+    ``scfg.data_parallel`` on the data mesh of ``devices`` (default: every
+    visible card, or ``device`` itself when it is not a card), the first
+    of them holding ``params``."""
+
     def __init__(self, cfg, scfg: CnnServeConfig, *, params=None,
                  seed: int = 0, faults: Optional[FaultInjector] = None,
-                 clock: Optional[Clock] = None, device="cuda"):
+                 clock: Optional[Clock] = None, device="cuda",
+                 devices=None):
+        if devices is not None and not scfg.data_parallel:
+            raise ValueError("CnnEngine(devices=) needs data_parallel")
+        self.devices = (torch.device(device),)
         if scfg.data_parallel:
-            raise NotImplementedError("data_parallel is not ported yet "
-                                      "(ROADMAP Queue 1, item 6)")
-        self.device = resolve_device(device)
+            if devices is None and torch.device(device).type != "cuda":
+                devices = (device,)
+            self.devices = data_parallel_mesh(devices)
+        self.device = resolve_device(self.devices[0])
         if (cfg.use_pallas or cfg.fc_bfp) and self.device.type == "cuda":
             build.library()     # a kernel that cannot build fails here
         self.cfg, self.scfg = cfg, scfg
@@ -163,6 +184,10 @@ class CnnEngine:
         if params is None:
             params = self.mod.init(seed, cfg, device=self.device)
         self.params = params
+        # a replica of the params on each further device of the data mesh
+        self._replicas = [params] + [
+            tree_map(lambda t, d=d: t.to(resolve_device(d)), params)
+            for d in self.devices[1:]]
         self._buckets = bucket_sizes(scfg.max_batch)
         self._buf_dtype = self.mod.DTYPES[cfg.dtype]
         self.sched = SlotScheduler(scfg.max_batch * scfg.staging_depth)
@@ -192,11 +217,15 @@ class CnnEngine:
         # this config's layers and this card
         self.plans: Dict[str, object] = self.mod.load_tuned_plans(
             cfg, scfg.max_batch, path=scfg.plan_cache, device=self.device)
-        self._packed: Dict[int, dict] = {}
-        self._packed_direct: Dict[int, dict] = {}
+        # per device of the data mesh: bucket -> its packed slabs
+        self._slab_caches: List[Dict[int, dict]] = [
+            {} for _ in self.devices]
+        self._slab_caches_direct: List[Dict[int, dict]] = [
+            {} for _ in self.devices]
+        self._packed = self._slab_caches[0]      # the first device's
         # batch-independent staging (the BFP FC streams), shared by every
-        # bucket and by the degrade twin
-        self._stager = WeightStager()
+        # bucket and by the degrade twin, one a device
+        self._stagers = [WeightStager() for _ in self.devices]
         self._launched: set = set()
         self._launched_direct: set = set()
         self._abft = bool(cfg.sdc_abft)
@@ -302,27 +331,42 @@ class CnnEngine:
             f"group of {n} exceeds max_batch={self.buckets[-1]}; "
             f"admission must cap groups at the largest bucket")
 
+    def _split(self, bucket: int) -> int:
+        """The devices a bucket runs on: all of the data mesh's when its
+        batch divides by their count, else the first alone."""
+        n = len(self.devices)
+        return n if bucket % n == 0 else 1
+
     def _put(self, src: torch.Tensor):
-        """(device tensor, pinned source): an async H2D copy from a pinned
-        buffer on the card; the source must live until the copy is done."""
+        """(per-device tensors, pinned source): each device's rows of the
+        bucket ``src``, async H2D copies from a pinned buffer on the card;
+        the source must live until the copies are done."""
+        k = self._split(src.shape[0])
         if self.device.type != "cuda":
-            return src.to(self.device), None
+            return [p.to(d) for p, d in zip(src.chunk(k), self.devices)], \
+                None
         src = src.pin_memory()
-        return src.to(self.device, non_blocking=True), src
+        return [p.to(d, non_blocking=True)
+                for p, d in zip(src.chunk(k), self.devices)], src
 
-    def _slabs(self, bucket: int):
-        """Pack-once weight slabs for one bucket shape."""
-        if bucket not in self._packed:
-            self._packed[bucket] = self.mod.pack_serving_slabs(
-                self.params, self.cfg, bucket, plans=self.plans,
-                fingerprint=self.scfg.verify_slabs, stager=self._stager)
-        return self._packed[bucket]
+    def _slabs(self, bucket: int, dev: int = 0):
+        """Pack-once weight slabs for one bucket shape, on device ``dev``
+        of the data mesh, for the rows it runs."""
+        cache = self._slab_caches[dev]
+        if bucket not in cache:
+            cache[bucket] = self.mod.pack_serving_slabs(
+                self._replicas[dev], self.cfg, bucket // self._split(bucket),
+                plans=self.plans, fingerprint=self.scfg.verify_slabs,
+                stager=self._stagers[dev])
+        return cache[bucket]
 
-    def _slabs_direct(self, bucket: int):
-        if bucket not in self._packed_direct:
-            self._packed_direct[bucket] = self.mod.pack_serving_slabs(
-                self.params, self._cfg_direct, bucket, stager=self._stager)
-        return self._packed_direct[bucket]
+    def _slabs_direct(self, bucket: int, dev: int = 0):
+        cache = self._slab_caches_direct[dev]
+        if bucket not in cache:
+            cache[bucket] = self.mod.pack_serving_slabs(
+                self._replicas[dev], self._cfg_direct,
+                bucket // self._split(bucket), stager=self._stagers[dev])
+        return cache[bucket]
 
     # -- fault-tolerance internals -------------------------------------
     def _is_expired(self, req: ImageRequest, now: float) -> bool:
@@ -402,10 +446,11 @@ class CnnEngine:
 
     def _inject_bitflip(self, bucket: int):
         """``slab.bitflip`` payload: flip one bit of the bucket's staged
-        slabs — layer, byte and bit drawn from the point's payload stream
-        in that order, as the reference draws them — in a copy on the
-        device, which replaces the cache entry.  The params stay pristine,
-        so the repack after detection restores a clean slab."""
+        slabs (the first device's) — layer, byte and bit drawn from the
+        point's payload stream in that order, as the reference draws them
+        — in a copy on the device, which replaces the cache entry.  The
+        params stay pristine, so the repack after detection restores a
+        clean slab."""
         packed = self._slabs(bucket)
         names = self._slab_entries(packed)
         if not names:
@@ -436,13 +481,12 @@ class CnnEngine:
                 packed[victim], data=packed[donor].data)}
 
     def _slabs_intact(self, bucket: int, degraded: bool) -> bool:
-        """Pre-dispatch fingerprint check of the bucket's staged slabs (a
-        host copy of each); unfingerprinted entries pass."""
-        packed = (self._packed_direct if degraded else self._packed).get(
-            bucket)
-        if packed is None:
-            return True
-        return all(verify_packed(v) for v in packed.values()
+        """Pre-dispatch fingerprint check of the bucket's staged slabs on
+        every device (a host copy of each); unfingerprinted entries
+        pass."""
+        caches = self._slab_caches_direct if degraded else self._slab_caches
+        return all(verify_packed(v) for cache in caches
+                   for v in cache.get(bucket, {}).values()
                    if hasattr(v, "kernel"))
 
     def _fail_batch(self, g: _Group, kind: str, *, repack: bool = False):
@@ -453,8 +497,8 @@ class CnnEngine:
         self.health.record_failure(kind)
         self._note_datapath_failure(g.bucket, kind)
         if repack:
-            self._packed.pop(g.bucket, None)
-            self._packed_direct.pop(g.bucket, None)
+            for cache in self._slab_caches + self._slab_caches_direct:
+                cache.pop(g.bucket, None)
         self._requeue_group(g)
 
     def _screen(self, logits: np.ndarray) -> np.ndarray:
@@ -535,12 +579,28 @@ class CnnEngine:
             self._staged.append(_Group(slots, reqs, bucket, images, host))
 
     def _forward(self, g: _Group, degraded: bool):
-        if degraded:
-            return self.mod.apply(self.params, self._cfg_direct, g.images,
-                                  packed=self._slabs_direct(g.bucket))
-        return self.mod.apply(self.params, self.cfg, g.images,
-                              plans=self.plans,
-                              packed=self._slabs(g.bucket))
+        """The logits of the group's rows (with the ABFT verdict under
+        ``sdc_abft``) on the first device: each device used runs its rows
+        (its kernels launched with it current)."""
+        outs = []
+        for dev, x in enumerate(g.images):
+            d = self.devices[dev]
+            with (torch.cuda.device(d) if d.type == "cuda"
+                  else contextlib.nullcontext()):
+                if degraded:
+                    outs.append(self.mod.apply(
+                        self._replicas[dev], self._cfg_direct, x,
+                        packed=self._slabs_direct(g.bucket, dev)))
+                else:
+                    outs.append(self.mod.apply(
+                        self._replicas[dev], self.cfg, x, plans=self.plans,
+                        packed=self._slabs(g.bucket, dev)))
+        if len(outs) == 1:
+            return outs[0]
+        if self._abft:
+            return (torch.cat([o.to(self.device) for o, _ in outs]),
+                    sum(v.to(self.device) for _, v in outs))
+        return torch.cat([o.to(self.device) for o in outs])
 
     def _launch(self):
         """Issue the forward for the oldest staged group.  Injected launch

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_ranks import one_rank_group  # noqa: E402,F401  (fixture)
 from _torch_threads import torch_one_thread  # noqa: E402,F401  (fixture)
 
 from repro import checkpoint as j_ckpt  # noqa: E402
@@ -122,13 +123,34 @@ def test_reference_cannot_restore_bf16(tmp_path):
 
 
 def test_restore_places_leaves_on_the_like_device_and_refuses_shardings(
-        tmp_path):
+        tmp_path, one_rank_group):
+    """A plain restore lands on the like leaves' device; ``shardings``
+    (once refused) places each restored leaf as a DTensor with the
+    placements asked for, bits equal, and a save of that sharded state
+    writes the plain save's bytes.  The multi-rank case is
+    ``tests/test_torch_mesh_train.py``'s."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as sh
     _, t_state = _states(_np_params(), "float32")
-    ckpt.save(str(tmp_path), t_state)
-    got = ckpt.restore(str(tmp_path), t_state)
+    ckpt.save(str(tmp_path / "plain"), t_state)
+    got = ckpt.restore(str(tmp_path / "plain"), t_state)
     assert got["params"]["fc6"]["w"].device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        ckpt.restore(str(tmp_path), t_state, shardings={})
+    mesh = make_mesh((1,), ("data",))
+    shard = {"params": {name: {"w": sh.NamedSharding(mesh, sh.P("data")),
+                               "b": None}
+                        for name in t_state["params"]}}
+    got = ckpt.restore(str(tmp_path / "plain"), t_state, shardings=shard)
+    for name, sub in got["params"].items():
+        w = sub["w"]
+        assert sh.is_dtensor(w) and not sh.is_dtensor(sub["b"])
+        assert w.placements == shard["params"][name]["w"].placements
+        assert torch.equal(w.full_tensor(), t_state["params"][name]["w"])
+        assert torch.equal(sub["b"], t_state["params"][name]["b"])
+    ckpt.save(str(tmp_path / "sharded"), got)
+    step = "step_0000000001"
+    for f in sorted(os.listdir(tmp_path / "plain" / step)):
+        assert (tmp_path / "sharded" / step / f).read_bytes() == \
+            (tmp_path / "plain" / step / f).read_bytes(), f
 
 
 def test_checkpoint_atomic_and_gc(tmp_path):

@@ -2214,3 +2214,72 @@ def _named_leaves(tree, name=""):
             yield from _named_leaves(v, f"{name}[{i}]")
     else:
         yield name, tree
+
+
+# the mesh (one NCCL rank on the card) ---------------------------------------
+@pytest.fixture
+def nccl_rank(card):
+    """A one-rank NCCL default process group on the card (a ``HashStore``),
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+    init_process_group("cuda", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-2.7b"])
+def test_mesh_trainer_on_the_card_matches_the_meshless(nccl_rank, arch):
+    """A reduced model trained 3 steps on a (1, 1) ("data", "model") NCCL
+    mesh: its DTensor state on the card, the losses and params within
+    rtol 1e-4 / atol 1e-5 of the meshless trainer's from the same params
+    (mamba2-2.7b through kernel 7 forward and backward)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = get_config(arch).reduced()
+    params = lm.init(0, cfg, device="cpu")
+    tcfg = TrainerConfig(steps=3, batch=4, seq_len=32, log_every=1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    assert mesh.device_type == "cuda"
+    meshed = Trainer(cfg, tcfg, mesh=mesh, params=params)
+    plain = Trainer(cfg, tcfg, params=lm.to_device(params, "cuda"))
+    leaf = tree_leaves(meshed.state["params"])[0]
+    assert sh.is_dtensor(leaf) and leaf.to_local().is_cuda
+    h_mesh, h_plain = meshed.run(), plain.run()
+    np.testing.assert_allclose([h["loss"] for h in h_mesh],
+                               [h["loss"] for h in h_plain], rtol=1e-4,
+                               atol=1e-5)
+    for a, b in zip(tree_leaves(meshed.state["params"]),
+                    tree_leaves(plain.state["params"])):
+        np.testing.assert_allclose(a.full_tensor().cpu().numpy(),
+                                   b.detach().cpu().numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_data_parallel_engine_on_the_card_is_bit_equal(card):
+    """``CnnEngine(data_parallel=True)`` over the visible cards serves the
+    logits of ``data_parallel=False``, bit for bit, every request
+    retired."""
+    cfg = dataclasses.replace(get_config("alexnet").reduced(),
+                              use_pallas=True)
+    params = alexnet.init(0, cfg, device=card)
+    imgs = np.random.default_rng(5).standard_normal(
+        (7, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    logits = {}
+    for dp in (True, False):
+        eng = CnnEngine(cfg, CnnServeConfig(max_batch=4, data_parallel=dp),
+                        params=params, device=card)
+        reqs = [ImageRequest(image=im) for im in imgs]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        assert all(r.done for r in reqs) and eng.accounting()["balanced"]
+        logits[dp] = np.stack([r.logits for r in reqs])
+    assert np.array_equal(logits[True], logits[False])

@@ -267,11 +267,44 @@ def test_export_state_is_numpy(served):
 
 @pytest.mark.parametrize("scfg,faults", [(dict(data_parallel=True), None)])
 def test_unported_engine_options_raise(served, scfg, faults):
+    """``data_parallel`` (once refused) over a two-device mesh: buckets of
+    2 and 4 split over the devices, a bucket of 1 runs whole on the first;
+    the logits are those of ``data_parallel=False`` within 1e-5 of
+    max|logit|, and every request retires."""
     cfg, params = served
     inj = FaultInjector(0, faults) if faults else None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CnnEngine(cfg, CnnServeConfig(**scfg), params=params, faults=inj,
-                  device="cpu")
+    images = _images(cfg, 7, seed=3)
+
+    def serve(groups, **kw):
+        eng = CnnEngine(cfg, CnnServeConfig(max_batch=4, **kw),
+                        params=params, faults=inj, device="cpu",
+                        devices=(("cpu", "cpu") if kw else None))
+        reqs = [ImageRequest(image=im) for im in images]
+        it = iter(reqs)
+        for n in groups:                 # one admitted group a step
+            for _ in range(n):
+                eng.submit(next(it))
+            eng.step()
+        eng.run_until_done()
+        return eng, reqs
+
+    groups = (4, 1, 2)                   # buckets 4, 1 and 2
+    dp, got = serve(groups, **scfg)
+    _, want = serve(groups)
+    assert dp.devices == (torch.device("cpu"),) * 2
+    assert dp.bucket_counts == {4: 1, 1: 1, 2: 1}
+    assert dp._split(4) == dp._split(2) == 2 and dp._split(1) == 1
+    assert all(r.done for r in got) and dp.accounting()["balanced"]
+    assert dp.accounting()["completed"] == len(images)
+    amax = max(float(np.abs(r.logits).max()) for r in want)
+    for a, b in zip(got, want):
+        assert np.abs(a.logits - b.logits).max() <= 1e-5 * amax
+    # the second device packed slabs for the split buckets only
+    assert set(dp._slab_caches[1]) == {4, 2}
+    assert set(dp._slab_caches[0]) == {4, 2, 1}
+    with pytest.raises(ValueError, match="data_parallel"):
+        CnnEngine(cfg, CnnServeConfig(), params=params, device="cpu",
+                  devices=("cpu",))
 
 
 def test_default_device_is_the_card(served, monkeypatch):

@@ -460,5 +460,10 @@ def test_launcher_serves_supervised_on_the_cpu(capsys):
     assert "worker w1: cpu restarts=0" in out
     if "failover bit-parity" in out:
         assert " 0 mismatched" in out
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.main(["--workers", "2", "--data-parallel", "--device", "cpu"])
+    # --data-parallel reaches each worker's engine (its mesh: the worker's
+    # one device here)
+    serve.main(["--arch", "alexnet", "--workers", "1", "--data-parallel",
+                "--route", "pallas", "--requests", "4", "--max-batch", "2",
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "completed 4/4" in out and "balanced=yes" in out

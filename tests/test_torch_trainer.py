@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_ranks import one_rank_group  # noqa: F401  (fixture)
 from _torch_threads import torch_one_thread  # noqa: F401  (fixture)
 
 from repro.configs import get_config as j_get_config
@@ -163,9 +164,37 @@ def test_reference_trainer_keeps_its_sigterm_handler():
         signal.signal(signal.SIGTERM, before)
 
 
-def test_mesh_and_cuda_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        Trainer(_tiny(), TrainerConfig(), mesh=object(), device="cpu")
+def test_mesh_and_cuda_refusals(monkeypatch, one_rank_group):
+    """``Trainer(mesh=)`` (once refused) on a one-rank ("data", "model")
+    mesh: the state rests as DTensors, and three steps equal the meshless
+    trainer's to the bit (a one-rank all-reduce and a unit share of the
+    loss change nothing); ``rules`` need a mesh, a CPU mesh a CPU trainer.
+    Without a card, no trainer."""
+    from repro_torch.launch.mesh import (make_host_mesh, make_mesh,
+                                         make_production_mesh)
+    from repro_torch.parallel import sharding as sh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    # the named meshes need a world of their size
+    with pytest.raises(ValueError, match="world of 4 ranks; it is 1"):
+        make_host_mesh()
+    with pytest.raises(ValueError, match="world of 256"):
+        make_production_mesh()
+    tc = TrainerConfig(steps=3, batch=2, seq_len=16, log_every=1)
+    params = lm.init(0, _tiny(), device="cpu")
+    plain = _trainer(tc, params=lm.to_device(params, "cpu"))
+    meshed = _trainer(tc, mesh=mesh, rules={"mlp": None},
+                      params=lm.to_device(params, "cpu"))
+    assert all(sh.is_dtensor(t) for k in ("params", "m", "v")
+               for t in tree_leaves(meshed.state[k]))
+    h_plain, h_mesh = plain.run(), meshed.run()
+    assert [h["loss"] for h in h_mesh] == [h["loss"] for h in h_plain]
+    for a, b in zip(tree_leaves(meshed.state["params"]),
+                    tree_leaves(plain.state["params"])):
+        assert torch.equal(a.full_tensor(), b.detach())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        _trainer(tc, rules={"mlp": None})
+    with pytest.raises(ValueError, match="cpu mesh"):
+        Trainer(_tiny(), tc, mesh=mesh, device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         Trainer(_tiny(), TrainerConfig())
@@ -264,7 +293,9 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2x2"], "item 7d"),
+    # --mesh, once refused naming item 7d, needs torchrun's ranks
+    # (tests/test_torch_mesh_train.py runs it under torchrun)
+    pytest.param(["--mesh", "2x2"], "torchrun", id="argv0-item 7d"),
     # the mixture-of-experts family, once refused naming item 7c, trains
     pytest.param(["--arch", "granite-moe-1b-a400m"], None,
                  id="argv1-item 7c"),
@@ -276,10 +307,10 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     pytest.param(["--arch", "phi-3-vision-4.2b"], None,
                  id="argv4-item 7d")])
 def test_train_cli_refusals(argv, match):
-    """What the CLI still refuses names its ROADMAP item; the MoE configs
-    it refused until item 7c train (their router loss in every step), and
-    the audio and vlm configs it refused until item 7d's one-card rest
-    train too."""
+    """``--mesh`` outside torchrun is refused with what to do; the MoE
+    configs the CLI refused until item 7c train (their router loss in
+    every step), and the audio and vlm configs it refused until item 7d's
+    one-card rest train too."""
     argv = argv + ["--device", "cpu", "--steps", "2", "--batch", "2",
                    "--seq-len", "16"]
     if match is None:
@@ -289,7 +320,7 @@ def test_train_cli_refusals(argv, match):
         assert all(np.isfinite(h["loss"]) and (h["aux_loss"] > 0) == moe
                    for h in hist)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match=match):
         train_cli.main(argv)
 
 

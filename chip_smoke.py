@@ -311,7 +311,22 @@ Slice 17's phases, in the order they run:
                beside their served steps (device ms at least the model's);
                smollm-360m's phase-9 step by ``model_flops_estimate`` as a
                share of the bf16 peak over its host and device ms (in
-               (0, 1]).  One ``model:`` line an item.
+               (0, 1]).  One ``model:`` line an item;
+  15. dryrun — the dry run (``launch/specs.py``, ``launch/dryrun.py``,
+               ``core/opcount.py``), last: (a) ``python -m
+               repro_torch.launch.dryrun`` on three cells at once
+               (smollm-360m ``train_4k`` on 16x16, mamba2-2.7b
+               ``decode_32k`` on 2x16x16, jamba-v0.1-52b ``decode_32k``
+               in ``bfp8`` on 16x16: meta tensors in a fake world, no
+               card), each record ``ok``; (b) smollm-360m's and
+               mamba2-2.7b's decode steps and mamba2-2.7b's prefill at 8 x
+               512, smollm-360m's train step at 8 x 256 (the steps of
+               ``launch/specs.py``), each counted on meta, then run on the
+               card from a seed: kernel launches by kernel equal to
+               ``launch_counts()``, the counted peak over the arguments
+               within 10% of ``max_memory_allocated()`` over the step's
+               start, the modelled step ms beside the device ms.
+               ``dryrun:`` lines.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -331,8 +346,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 try:
-    # the card's peaks, in the port's one place for them
+    # the card's peaks, in the port's one place for them, and each kernel's
+    # work function, the one the dry run counts with
     from repro_torch.core.roofline import H100_SXM as HW
+    from repro_torch.kernels.conv.winograd import dw1d_bwd_work, dw1d_work
+    from repro_torch.kernels.decode_attn.decode_attn import decode_work
+    from repro_torch.kernels.ssd.ssd import ssd_work
 except ImportError:     # no repository around the script: main() exits 2
     HW = None
 # kernel vs its plain version: both FP32 with different summation orders;
@@ -2250,9 +2269,7 @@ def phase_decode(torch, np):
             time_ms(torch, kern), time_ms(torch, plain),
             time_ms(torch, library))
         valid = int(lens.clamp(max=S).sum())
-        nbytes = (2 * valid * KV * D * k.element_size()
-                  + 2 * q.numel() * q.element_size() + 4 * B)
-        flops = 4 * valid * H * D
+        flops, nbytes = decode_work(B, H, KV, D, valid, k.element_size())
         bound, bound_by = _bound(flops, nbytes, "bfloat16")
         print(f"kernel decode_attn {name} bfloat16: kernel_ms {ms:.4f} (host "
               f"enqueue {host_ms:.4f} ms) plain_ms {plain_ms:.4f} "
@@ -2527,34 +2544,6 @@ def _bound(flops, nbytes, dtype="float32"):
     t_ops, t_bytes = flops / HW.peak(dtype), nbytes / HW.hbm_bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
-
-
-def ssd_work(B, L, H, P, G, N, Q, itemsize):
-    """(operations, bytes) one SSD scan needs, 2 operations a multiply-add:
-    per batch row and chunk of q real rows (the last chunk may be short;
-    padded rows are not counted), C.B^T once per group over the causal
-    triangle (q(q+1)/2 x N), and per head the causal M @ x (q(q+1)/2 x P),
-    the carried state's term (C e) @ S (q x N x P, from the second chunk
-    on: the first starts from a zero state) and the state update
-    B_dec^T @ x (q x N x P); the exponentials and the mask are not
-    counted.  Bytes: x, B, C and y in x's dtype, dt, A and the final
-    state in f32, once each."""
-    rows = [min(Q, L - c * Q) for c in range(-(-L // Q))]
-    tri = sum(q * (q + 1) // 2 for q in rows)
-    flops = 2 * B * (G * tri * N + H * (tri * P + (2 * L - rows[0]) * N * P))
-    nbytes = (itemsize * (2 * B * L * H * P + 2 * B * L * G * N)
-              + 4 * (B * L * H + H + B * H * N * P))
-    return flops, nbytes
-
-
-def dw1d_work(B, L, C, itemsize, r=4):
-    """(operations, bytes) of one depthwise causal conv of r taps: the
-    function's work, r multiply-adds and a bias add an output (2 r + 1
-    operations), not the Winograd transforms that compute it; bytes: x
-    and out in x's dtype, w (r, C) and b in f32."""
-    flops = (2 * r + 1) * B * L * C
-    nbytes = 2 * itemsize * B * L * C + 4 * (r + 1) * C
-    return flops, nbytes
 
 
 def stream_copy(x):
@@ -2906,17 +2895,6 @@ def phase_mamba(torch, np):
 # ---------------------------------------------------------------------------
 # phase 9: training
 # ---------------------------------------------------------------------------
-def dw1d_bwd_work(B, L, C, itemsize, kind, r=4):
-    """(operations, bytes) of the backward's dx (kernel 7 on the reversed
-    cotangent: the forward's work, dy read and dx written once) or of its
-    wgrad (x and dy read once, dw and db written in f32; 2 r + 1
-    operations an element: r multiply-adds and an add)."""
-    if kind == "dx":
-        return dw1d_work(B, L, C, itemsize, r)
-    return ((2 * r + 1) * B * L * C,
-            2 * itemsize * B * L * C + 4 * (r + 1) * C)
-
-
 def _wgrad_excess(got, ref, rel_step):
     """(worst excess over 1e-4 * max|ref| (+ one bf16 step of |ref| where
     ``rel_step``), max|diff|, max|ref|)."""
@@ -5208,6 +5186,211 @@ def summary(row):
                                 for p in row["per_layer"]) else "mixed")}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run
+# ---------------------------------------------------------------------------
+DRYRUN_CELLS = (
+    ("smollm-360m", "train_4k", ["--mesh", "single"]),
+    ("mamba2-2.7b", "decode_32k", ["--mesh", "multi"]),
+    ("jamba-v0.1-52b", "decode_32k", ["--mesh", "single", "--serve-dtype",
+                                      "bfp8"]),
+)
+DRYRUN_TIMEOUT = 300
+# 15b's steps: the served engines' batch and length, phase 9's training
+# length
+DRYRUN_BATCH = 8
+DRYRUN_LEN = 512
+DRYRUN_TRAIN_SEQ = 256
+# the counted peak over the arguments against the card's over the step's
+# start
+TOL_DRYRUN_PEAK = 0.10
+# the kernels whose meta branches 15b holds against the card's launches
+DRYRUN_KERNELS = {"decode_attn", "ssd", "dw1d", "dw1d_bwd", "dw1d_wgrad"}
+
+
+def phase_dryrun_cli():
+    """15a: ``python -m repro_torch.launch.dryrun`` for three cells, each
+    in its own process (a fake world of 256 or 512 ranks on meta tensors,
+    no card), all at once: every record ``ok``."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for arch, shape, extra in DRYRUN_CELLS:
+            out = os.path.join(tmp, f"{arch}_{shape}.jsonl")
+            procs.append((out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--out", out, *extra],
+                cwd=tmp, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        recs = []
+        try:
+            for out, p in procs:
+                log, _ = p.communicate(timeout=DRYRUN_TIMEOUT)
+                for line in log.splitlines():
+                    if line.startswith("["):
+                        print("dryrun:", line.strip())
+                check(p.returncode == 0,
+                      f"dryrun cli: exit {p.returncode}: {log[-2000:]}")
+                with open(out) as f:
+                    recs += [json.loads(line) for line in f]
+        finally:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for r in recs:
+        check(r["status"] == "ok", f"dryrun {r['arch']} {r['shape']}: "
+              f"{r['status']}: {r.get('error')}")
+        t, mem = r["roofline"], r["memory"]
+        print(f"dryrun: {r['arch']} {r['shape']} {r['mesh']} "
+              f"serve_dtype {r['serve_dtype']}: t_count_s {r['t_count_s']} "
+              f"ops {r['ops']} launches {r['launches']} | modelled "
+              f"(H100_SXM data sheet at 700 W, counted on meta, no card "
+              f"time): step {t['step_time'] * 1e3:.2f} ms, bound "
+              f"{t['bound']}, useful_flops_ratio "
+              f"{t['useful_flops_ratio']:.4f}, per-rank memory "
+              f"{(mem['argument_size'] + mem['temp_size']) / 2 ** 30:.2f}"
+              " GiB")
+    return recs
+
+
+def _dryrun_steps(torch):
+    """15b's steps: (label, cfg, shape, step, meta arguments, card
+    arguments from a generator on the card)."""
+    from repro_torch.config import ShapeCfg
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as sp
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_map
+    from repro_torch.optim import init_state
+
+    def serve(arch, kind):
+        cfg = get_config(arch)
+        shape = ShapeCfg(kind, DRYRUN_LEN, DRYRUN_BATCH, kind)
+        step = (sp.make_decode_step(cfg, shape) if kind == "decode"
+                else sp.make_prefill_step(cfg))
+        S = 1 if kind == "decode" else DRYRUN_LEN
+
+        def args(dev, gen=None):
+            params = lm.init(gen if dev == "cuda" else 0, cfg, device=dev)
+            tokens = (torch.randint(0, cfg.vocab_size, (DRYRUN_BATCH, S),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32) if dev == "cuda"
+                      else torch.empty((DRYRUN_BATCH, S), dtype=torch.int32,
+                                       device=dev))
+            return (params, {"tokens": tokens},
+                    lm.cache_init(cfg, DRYRUN_BATCH, DRYRUN_LEN, device=dev))
+        return (f"{arch} {kind} {DRYRUN_BATCH} x {DRYRUN_LEN}", cfg, shape,
+                step, args)
+
+    def train(arch, B=DRYRUN_BATCH, S=DRYRUN_TRAIN_SEQ, layers=None):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        shape = ShapeCfg("train", S, B, "train")
+        step = sp.make_train_step(cfg)
+
+        def args(dev, gen=None):
+            if dev == "meta":
+                state = sp.state_specs(cfg)
+            else:
+                state = init_state(lm.init(gen, cfg, device=dev))
+            batch = tree_map(
+                lambda t: (torch.randint(0, cfg.vocab_size, tuple(t.shape),
+                                         generator=gen, device=dev,
+                                         dtype=t.dtype)
+                           if dev == "cuda" else t),
+                sp.batch_specs(cfg, shape))
+            return state, batch
+        cut = "" if layers is None else f" at {layers} layers"
+        return (f"{arch} train {B} x {S}{cut}", cfg, shape, step, args)
+
+    # mamba2-2.7b's train step at phase 14's size: kernel 7's forward, dx
+    # and wgrad on the main path's shapes
+    B, S, _ = MESH_SSM_SHAPE
+    return [serve("smollm-360m", "decode"), serve("mamba2-2.7b", "decode"),
+            serve("mamba2-2.7b", "prefill"), train("smollm-360m"),
+            train("mamba2-2.7b", B, S, MESH_SSM_LAYERS)]
+
+
+def phase_dryrun_card(torch, card):
+    """15b: each step counted on meta (``launch/dryrun.py::count_step``),
+    then run on the card from a seed (once to warm, once measured):
+    launches by kernel equal to ``launch_counts()``, the counted peak over
+    the arguments within 10% of ``max_memory_allocated()`` over the step's
+    start, and the modelled step time beside the step's device ms."""
+    from repro_torch.core import roofline as rl
+    from repro_torch.launch.dryrun import count_step
+    rows = []
+    for label, cfg, shape, step, args in _dryrun_steps(torch):
+        meta_args = args("meta")
+        counter, _, memory = count_step(
+            step, *meta_args,
+            outputs=(lambda a, r: (a[0], r)) if shape.kind == "train"
+            else None)
+        terms = rl.from_counted(counter, arch=cfg.name, shape=label,
+                                mesh="1", chips=1,
+                                model_flops=rl.model_flops_estimate(
+                                    cfg, shape), memory=memory)
+        del meta_args
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        card_args = args("cuda", gen)
+        step(*card_args)                     # warm: workspaces, tickets
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        step(*card_args)
+        t1.record()
+        torch.cuda.synchronize()
+        device_ms = t0.elapsed_time(t1)
+        peak = torch.cuda.max_memory_allocated() - start
+        launched = {k: v for k, v in launch_counts().items() if v}
+        counted = dict(counter.launches)
+        temp = memory["temp_size"]
+        err = abs(temp - peak) / max(peak, 1)
+        ratio = device_ms / (terms.step_time * 1e3)
+        print(f"dryrun: {label}: launches counted {counted} card "
+              f"{launched} | peak over the start counted "
+              f"{temp / 2 ** 20:.2f} MiB card {peak / 2 ** 20:.2f} MiB "
+              f"(off {err:.4f}) | modelled step {terms.step_time * 1e3:.4f} "
+              f"ms bound {terms.bound} (H100_SXM data sheet at 700 W, "
+              f"counted on meta) vs device {device_ms:.4f} ms: ratio "
+              f"{ratio:.3f} | on {card}")
+        check(counted == launched, f"dryrun {label}: counted launches "
+              f"{counted} != the card's {launched}")
+        check(err <= TOL_DRYRUN_PEAK, f"dryrun {label}: counted peak "
+              f"{temp} B vs the card's {peak} B (off {err:.4f})")
+        rows.append({"step": label, "launches": counted,
+                     "card_launches": launched, "counted_peak_bytes": temp,
+                     "card_peak_bytes": peak, "peak_off": err,
+                     "device_ms": device_ms,
+                     "modelled_step_ms": terms.step_time * 1e3,
+                     "modelled_bound": terms.bound, "ratio": ratio,
+                     "ops": counter.ops, "memory": memory,
+                     "roofline": terms.to_json()})
+        del card_args
+        torch.cuda.empty_cache()
+    seen = set().union(*(r["launches"] for r in rows))
+    check(DRYRUN_KERNELS <= seen, f"dryrun: kernels never counted against "
+          f"the card: {sorted(DRYRUN_KERNELS - seen)}")
+    return rows
+
+
+def phase_dryrun(torch, card):
+    """15: the dry run (15a on the host, 15b against the card)."""
+    t0 = time.perf_counter()
+    cells = phase_dryrun_cli()
+    steps = phase_dryrun_card(torch, card)
+    took = time.perf_counter() - t0
+    print(f"dryrun: phase 15 {took:.1f} s")
+    return {"cells": cells, "steps": steps, "phase_s": took}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke run of the "
                                  "PyTorch/CUDA port.")
@@ -5323,6 +5506,8 @@ def main(argv=None) -> int:
     mesh = phase_mesh(torch, np, card)
     model = phase_model(cfg, card, rows, serves["f32"], lm_serve,
                         moe["granite"], train["dense"])
+    torch.cuda.empty_cache()
+    dryrun = phase_dryrun(torch, card)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
@@ -5510,7 +5695,7 @@ def main(argv=None) -> int:
                        "winograd_m": {k: r["per_layer"]
                                       for k, r in rows_m.items()},
                        "dw1d_taps": rows_taps, "mamba_taps": mamba_taps,
-                       "model": model,
+                       "model": model, "dryrun": dryrun,
                        "build_seconds": lib.build_seconds,
                        "ptxas": ptxas}, f, indent=1)
     print(card)

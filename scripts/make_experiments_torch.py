@@ -1,0 +1,113 @@
+"""The dry run's tables from the port's dry-run JSONL (the twin of
+``scripts/make_experiments.py`` for ``repro_torch.launch.dryrun``): one of
+each cell's counts and memory, one of the roofline terms (an arch a row,
+a shape a column), modelled from ``repro_torch.core.roofline.H100_SXM``'s
+data-sheet peaks.
+
+    PYTHONPATH=src python scripts/make_experiments_torch.py \\
+        results/dryrun_torch.jsonl
+"""
+import json
+import os
+import sys
+from collections import OrderedDict
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+from repro_torch.core.roofline import H100_SXM     # noqa: E402
+
+HW = (f"{H100_SXM.name} data sheet at 700 W: "
+      f"{H100_SXM.peak_bf16 / 1e12:.0f} TFLOP/s bf16, "
+      f"{H100_SXM.hbm_bw / 1e12:.2f} TB/s HBM, "
+      f"{H100_SXM.link_bw / 1e9:.0f} GB/s NVLink")
+
+
+def load(path):
+    recs = OrderedDict()
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            recs[(r["arch"], r["shape"], r["mesh"])] = r
+    return recs
+
+
+def fmt_bytes(b):
+    return f"{b/2**30:.2f}"
+
+
+def dryrun_table(recs):
+    out = ["| arch | shape | mesh | status | count s | args GiB/dev | "
+           "temp GiB/dev | flops/dev | HBM bytes/dev | coll bytes/dev | "
+           "#colls (in-loop) | ops | launches |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    skipped = {}
+    for (a, s, m), r in recs.items():
+        if r["status"] == "skipped":
+            skipped.setdefault(r["reason"], []).append(f"{a} {s} {m}")
+            continue
+        if r["status"] != "ok":
+            out.append(f"| {a} | {s} | {m} | {r['status']}: "
+                       f"{r.get('error', '')[:60]} | | | | | | | | | |")
+            continue
+        t = r["roofline"]
+        cb = t["coll_breakdown"]
+        launches = ", ".join(f"{k} {v}" for k, v in
+                             sorted(r.get("launches", {}).items())) or "-"
+        out.append(
+            f"| {a} | {s} | {m} | ok | {r['t_count_s']} "
+            f"| {fmt_bytes(r['memory']['argument_size'])} "
+            f"| {fmt_bytes(r['memory']['temp_size'])} "
+            f"| {t['flops_per_device']:.2e} "
+            f"| {t['hbm_bytes_per_device']:.2e} "
+            f"| {t['coll_bytes_per_device']:.2e} "
+            f"| {cb.get('count', 0)} ({cb.get('in_loop_count', 0)}) "
+            f"| {r['ops']} | {launches} |")
+    for why, cells in skipped.items():
+        out.append(f"\nSkipped ({why}): {', '.join(cells)}.")
+    return "\n".join(out)
+
+
+def roofline_table(recs):
+    """One row an (arch, mesh), one column a shape: t_compute / t_memory
+    / t_collective in ms, the bound, and the useful share of the counted
+    FLOPs."""
+    shapes = list(dict.fromkeys(s for _, s, _ in recs))
+    rows = list(dict.fromkeys((a, m) for a, _, m in recs))
+    out = ["| arch | mesh | " + " | ".join(shapes) + " |",
+           "|---|---|" + "---|" * len(shapes)]
+    for a, m in rows:
+        cells = []
+        for s in shapes:
+            r = recs.get((a, s, m))
+            if r is None or r["status"] != "ok":
+                cells.append(r["status"] if r else "")
+                continue
+            t = r["roofline"]
+            cells.append(f"{t['t_compute']*1e3:.4g} / {t['t_memory']*1e3:.4g}"
+                         f" / {t['t_collective']*1e3:.4g} **{t['bound']}**"
+                         f" {t['useful_flops_ratio']*100:.2f}%")
+        out.append(f"| {a} | {m} | " + " | ".join(cells) + " |")
+    return "\n".join(out)
+
+
+def main(path):
+    recs = load(path)
+    ok = sum(1 for r in recs.values() if r["status"] == "ok")
+    sk = sum(1 for r in recs.values() if r["status"] == "skipped")
+    er = len(recs) - ok - sk
+    print("## Dry run (the port)\n")
+    print(f"Modelled, {HW}; counted on meta tensors, no card time.  "
+          f"Meshes: 16x16 (256 ranks) and 2x16x16 (512 ranks) of a fake "
+          f"world.  Cells: {ok} ok, {sk} skipped, {er} errors.\n")
+    print(dryrun_table(recs))
+    print("\n## Roofline (the port)\n")
+    print("Each cell: t_compute / t_memory / t_collective in ms (counted "
+          "FLOPs / bf16 peak, HBM bytes / HBM rate, wire bytes / NVLink "
+          "rate, one rank's), the bound, and MODEL_FLOPS over the counted "
+          "FLOPs of all ranks.\n")
+    print(roofline_table(recs))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1] if len(sys.argv) > 1 else "results/dryrun_torch.jsonl")

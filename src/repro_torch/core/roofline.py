@@ -3,9 +3,11 @@ roofline of the paper's Table 2/3 regime, and a model's count of work.
 
 The reference's ``repro/core/roofline.py`` reads its terms off compiled
 XLA text (``analyze_hlo``, ``collective_wire_bytes``, ``from_compiled``);
-the port's counterpart of those counts its own step and comes with its
-dryrun (ROADMAP item 7d).  What is here is the part that needs no
-compiler, with the card's rates taken from a :class:`Hardware` record:
+the port counts its own step instead (``core/opcount.py::OpCounter``, on
+meta tensors, the dry run's ``launch/dryrun.py``), and
+:func:`from_counted` turns such a count into :class:`RooflineTerms`, with
+:func:`wire_bytes` the reference's ring factors.  The card's rates come
+from a :class:`Hardware` record:
 
   compute    = FLOPs / (chips * peak FLOP/s of the dtype)
   memory     = HBM bytes / (chips * HBM bytes/s)
@@ -45,6 +47,29 @@ H100_SXM = Hardware(name="H100 SXM", peak_fp32=67e12, peak_tf32=495e12,
 PEAK_FLOPS_BF16 = H100_SXM.peak_bf16
 HBM_BW = H100_SXM.hbm_bw
 LINK_BW = H100_SXM.link_bw          # NVLink; the reference's ICI_BW
+
+
+# collective kinds, as the reference's parsers name them
+COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+              "collective-permute")
+
+
+def wire_bytes(kind: str, result_bytes: float, group_size: int) -> float:
+    """Wire bytes a device sends for one collective of ``kind`` whose
+    result is ``result_bytes`` over a group of ``group_size``, by the
+    reference's ring factors (``_line_wire_bytes``): all-gather and
+    all-to-all R (g-1)/g, all-reduce 2 R (g-1)/g, reduce-scatter R (g-1),
+    collective-permute R."""
+    g = group_size
+    if kind in ("all-gather", "all-to-all"):
+        return result_bytes * (g - 1) / max(g, 1)
+    if kind == "all-reduce":
+        return 2 * result_bytes * (g - 1) / max(g, 1)
+    if kind == "reduce-scatter":
+        return result_bytes * (g - 1)
+    if kind == "collective-permute":
+        return result_bytes
+    raise ValueError(f"unknown collective kind {kind!r}")
 
 
 @dataclass
@@ -113,6 +138,30 @@ class RooflineTerms:
                  peak_flops=self.hw.peak_bf16, hbm_bw=self.hw.hbm_bw,
                  link_bw=self.hw.link_bw)
         return d
+
+
+def from_counted(count, *, arch: str, shape: str, mesh: str, chips: int,
+                 model_flops: float, memory: dict | None = None,
+                 hw: Hardware = H100_SXM) -> RooflineTerms:
+    """:class:`RooflineTerms` of one rank's counted step (an
+    ``OpCounter``'s ``flops``, ``hbm_bytes`` and ``coll``), the
+    counterpart of the reference's ``from_compiled``.  The peak memory is
+    ``memory``'s arguments + outputs + temporaries, as there.  The
+    reference's ``xla_flops_raw`` and ``xla_bytes_raw`` (XLA's own cost
+    analysis) have no counterpart and are left out of
+    ``coll_breakdown``."""
+    coll = dict(count.coll)
+    mem = memory or {}
+    return RooflineTerms(
+        arch=arch, shape=shape, mesh=mesh, chips=chips,
+        flops_per_device=float(count.flops),
+        hbm_bytes_per_device=float(count.hbm_bytes),
+        coll_bytes_per_device=float(sum(coll[k] for k in COLL_KINDS)),
+        coll_breakdown=coll,
+        peak_memory_bytes=float(mem.get("temp_size", 0)
+                                + mem.get("argument_size", 0)
+                                + mem.get("output_size", 0)),
+        model_flops=model_flops, hw=hw)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from ...core.winograd import auto_pool_rows, tiles_2d, transform_tensors, \
     winograd_transform
 from ...core.winograd import conv1d_depthwise_causal as \
     conv1d_depthwise_causal_f32
+from ...core import opcount
 from ...nn.pooling import apply_epilogue
 from .. import build
 from . import dma
@@ -139,6 +140,27 @@ def conv1d_depthwise_causal_wgrad_plain(x, dy, r: int):
     return dw, dy.sum(dim=(0, 1)).float()
 
 
+def dw1d_work(B, L, C, itemsize, r=4):
+    """(operations, bytes) of one depthwise causal conv of r taps: the
+    function's work, r multiply-adds and a bias add an output (2 r + 1
+    operations), not the Winograd transforms that compute it; bytes: x
+    and out in x's dtype, w (r, C) and b in f32."""
+    flops = (2 * r + 1) * B * L * C
+    nbytes = 2 * itemsize * B * L * C + 4 * (r + 1) * C
+    return flops, nbytes
+
+
+def dw1d_bwd_work(B, L, C, itemsize, kind, r=4):
+    """(operations, bytes) of the backward's dx (kernel 7 on the reversed
+    cotangent: the forward's work, dy read and dx written once) or of its
+    wgrad (x and dy read once, dw and db written in f32; 2 r + 1
+    operations an element: r multiply-adds and an add)."""
+    if kind == "dx":
+        return dw1d_work(B, L, C, itemsize, r)
+    return ((2 * r + 1) * B * L * C,
+            2 * itemsize * B * L * C + 4 * (r + 1) * C)
+
+
 @functools.lru_cache(maxsize=None)
 def _dw1d_mats(m: int = 3, r: int = 4) -> np.ndarray:
     """B^T (n x n), G (n x r) and A^T (m x n) of F(m, r) as one f32 host
@@ -184,6 +206,10 @@ def _conv1d_depthwise_causal_cuda(x, w, b, *, m: int | None = None,
                              f"{t.device}, x on {x.device}")
     B, L, C = x.shape
     out = torch.empty_like(x)
+    if x.device.type == "meta":
+        opcount.record_kernel("dw1d_bwd" if reverse else "dw1d",
+                              *dw1d_work(B, L, C, x.element_size(), r))
+        return out
     mats = _dw1d_mats(m, r)
     err = build.library().lib.repro_dw1d(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), mats.ctypes.data,
@@ -231,6 +257,10 @@ def _conv1d_depthwise_causal_wgrad_cuda(x, dy, r: int):
     part = torch.empty(dw1d_wgrad_scratch_shape(B, L, C, r), **f32)
     dw = torch.empty((r, C), **f32)
     db = torch.empty((C,), **f32)
+    if x.device.type == "meta":
+        opcount.record_kernel("dw1d_wgrad", *dw1d_bwd_work(
+            B, L, C, x.element_size(), "wgrad", r))
+        return dw, db
     err = build.library().lib.repro_dw1d_wgrad(
         x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
         db.data_ptr(), B, L, C, r, dw1d_wgrad_rows(B, L, C),
@@ -262,7 +292,9 @@ def conv1d_depthwise_causal(x, w, b=None, *, m: int | None = None):
 
 
 def _check_cuda_device(x):
-    if x.device.type != "cuda":
+    """The kernel's devices: the card, or meta (the dry run: the CUDA
+    path's outputs and scratch, the launch recorded)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"conv1d_depthwise_causal: unsupported device "
                          f"{x.device}")
 

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ...core import opcount
 from .. import build
 from .ref import decode_attention_ref, prescale, prescale_factor  # noqa: F401
 
@@ -89,6 +90,19 @@ def _tickets(device, stream: int, n: int):
     return t
 
 
+def decode_work(B: int, H: int, KV: int, D: int, valid_rows: int,
+                itemsize: int) -> tuple:
+    """(operations, bytes) of one decode attention, 2 operations a
+    multiply-add: q.k and p.v for each of ``valid_rows`` cache rows (summed
+    over the slots) and query head (4 D); bytes: those rows of k and v
+    read once, q read and the output written in the caches' dtype
+    (``itemsize``), the int32 lengths."""
+    flops = 4 * valid_rows * H * D
+    nbytes = (2 * valid_rows * KV * D * itemsize + 2 * B * H * D * itemsize
+              + 4 * B)
+    return flops, nbytes
+
+
 def split_bounds(length: int, S: int, R: int) -> list:
     """The [lo, hi) cache rows of each split that reads any, as the kernel
     bounds them: n = S for length <= 0 (uniform attention), else
@@ -136,10 +150,15 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths):
         raise ValueError(f"decode_attention: lengths on {lengths.device}, "
                          f"q on {q.device}")
     G = H // KV
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
     part = torch.empty(scratch_shape(B, S, KV, G, D), dtype=torch.float32,
                        device=q.device)
+    if q.device.type == "meta":
+        # the lengths are not known on meta: every cache row counts
+        opcount.record_kernel("decode_attn", *decode_work(
+            B, H, KV, D, B * S, q.element_size()))
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets = _tickets(q.device, stream,
                        B * KV * math.ceil(G / HEADS_PER_BLOCK))
     err = build.library().lib.repro_decode_attn(
@@ -154,10 +173,14 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths):
 
 def decode_attention(q, k_cache, v_cache, lengths):
     """q (B, 1, H, D); caches (B, S, KV, D) in q's dtype; lengths (B,)
-    int -> (B, 1, H, D) in q's dtype."""
+    int -> (B, 1, H, D) in q's dtype.  On meta tensors (the dry run) the
+    CUDA path's outputs and scratch, and its launch recorded with
+    :func:`decode_work` over every cache row: the lengths are not known
+    there (the dry run's decode step fills the cache to all but its last
+    row, so the count is exact to within one row a slot)."""
     _check_args(q, k_cache, v_cache, lengths)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     return _decode_attention_cuda(q, k_cache, v_cache, lengths)

@@ -25,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ...core import opcount
 from .. import build
 
 # launches of the CUDA kernel (the plain version does not count)
@@ -272,6 +273,24 @@ def ssd_chunked_staged(x, dt, A, B_, C_, *, chunk: int = 256):
     return y.reshape(Bb, nc * Q, H, P)[:, :L].to(x.dtype), state
 
 
+def ssd_work(B, L, H, P, G, N, Q, itemsize):
+    """(operations, bytes) one SSD scan needs, 2 operations a multiply-add:
+    per batch row and chunk of q real rows (the last chunk may be short;
+    padded rows are not counted), C.B^T once per group over the causal
+    triangle (q(q+1)/2 x N), and per head the causal M @ x (q(q+1)/2 x P),
+    the carried state's term (C e) @ S (q x N x P, from the second chunk
+    on: the first starts from a zero state) and the state update
+    B_dec^T @ x (q x N x P); the exponentials and the mask are not
+    counted.  Bytes: x, B, C and y in x's dtype, dt, A and the final
+    state in f32, once each."""
+    rows = [min(Q, L - c * Q) for c in range(-(-L // Q))]
+    tri = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2 * B * (G * tri * N + H * (tri * P + (2 * L - rows[0]) * N * P))
+    nbytes = (itemsize * (2 * B * L * H * P + 2 * B * L * G * N)
+              + 4 * (B * L * H + H + B * H * N * P))
+    return flops, nbytes
+
+
 def _ssd_cuda(x, dt, A, B_, C_, chunk: int):
     global launches
     Bb, L, H, P = x.shape
@@ -296,6 +315,10 @@ def _ssd_cuda(x, dt, A, B_, C_, chunk: int):
     state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
     scratch = torch.empty(scratch_numel(Bb, L, H, P, G, N, Q),
                           dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        opcount.record_kernel("ssd", *ssd_work(Bb, L, H, P, G, N, Q,
+                                               x.element_size()))
+        return y, state
     err = build.library().lib.repro_ssd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
         C_.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
@@ -309,12 +332,14 @@ def _ssd_cuda(x, dt, A, B_, C_, chunk: int):
 
 def ssd_chunked_pallas(x, dt, A, B_, C_, *, chunk: int = 256):
     """x (B,L,H,P); dt (B,L,H) post-softplus; A (H,); B_,C_ (B,L,G,N).
-    Returns (y (B,L,H,P) in x's dtype, final_state (B,H,N,P) f32)."""
+    Returns (y (B,L,H,P) in x's dtype, final_state (B,H,N,P) f32).  On
+    meta tensors (the dry run): the CUDA path's outputs and scratch, its
+    launch recorded with :func:`ssd_work`."""
     _check_args(x, dt, A, B_, C_)
     if chunk < 1:
         raise ValueError(f"ssd_chunked: chunk {chunk} < 1")
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, B_, C_, chunk=chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_chunked: unsupported device {x.device}")
     return _ssd_cuda(x, dt, A, B_, C_, chunk)

@@ -2,7 +2,8 @@
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
 ranks of the default process group, one process a device: NCCL on the
-card, gloo on the CPU, never the one for the other.  Functions, not
+card, gloo on the CPU, never the one for the other, or a fake world of
+any size for the dry run (:func:`init_fake_world`).  Functions, not
 module-level constants: importing this module starts nothing.
 
 :func:`init_process_group` starts the group from ``torchrun``'s
@@ -54,6 +55,26 @@ def init_process_group(device_type: str = "cuda", *, store=None,
         torch.cuda.set_device(dev)
         kw["device_id"] = dev
     dist.init_process_group(**kw)
+
+
+def init_fake_world(world_size: int, rank: int = 0):
+    """Start a fake default process group of ``world_size`` ranks, this
+    process being ``rank``: PyTorch's ``fake`` backend, whose collectives
+    move nothing (the counterpart of the reference's
+    ``--xla_force_host_platform_device_count``).  Meshes of any size then
+    build over it with ``device_type="cpu"``, for the dry run's counts on
+    meta tensors.  One fake world a process at a time:
+    ``torch.distributed.destroy_process_group()`` ends it."""
+    import torch.distributed as dist
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "init_fake_world: this PyTorch has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg); the dry run's "
+            "mesh cells need it") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
 
 
 def make_mesh(shape, axes, *, device_type: str | None = None):

@@ -21,7 +21,7 @@ from ..config import ArchConfig
 from ..core.device import resolve_device
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
 from ..nn.layers import embed, embed_init, linear_init, norm, norm_init
-from ..nn.module import torch_dtype
+from ..nn.module import shapes_only, torch_dtype
 from . import lm
 
 CROSS_LEN_DEFAULT = 1500   # whisper: 30 s of audio -> 1,500 frames
@@ -42,13 +42,15 @@ def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(seed_or_generator))
     dtype = torch_dtype(cfg.param_dtype)
-    p = {"enc_stack": stack_init(gen, enc_cfg(cfg)),
-         "enc_norm": norm_init(cfg.norm_type, cfg.d_model, dtype),
-         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
-         "dec_stack": stack_init(gen, cfg),
-         "final_norm": norm_init(cfg.norm_type, cfg.d_model, dtype)}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    with shapes_only(dev):
+        p = {"enc_stack": stack_init(gen, enc_cfg(cfg)),
+             "enc_norm": norm_init(cfg.norm_type, cfg.d_model, dtype),
+             "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+             "dec_stack": stack_init(gen, cfg),
+             "final_norm": norm_init(cfg.norm_type, cfg.d_model, dtype)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
+                                       dtype)
     return lm.to_device(p, dev)
 
 

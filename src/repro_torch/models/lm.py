@@ -29,7 +29,7 @@ from ..kernels.bfp_matmul.ops import bfp_linear
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
 from ..nn.layers import (embed, embed_attend, embed_init, linear,
                          linear_init, norm, norm_init)
-from ..nn.module import torch_dtype, tree_map
+from ..nn.module import shapes_only, torch_dtype, tree_map
 
 
 def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
@@ -37,17 +37,20 @@ def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
     fan_in^-0.5, embedding std 1, zero biases, unit norm scales) drawn from
     a ``torch.Generator`` (an int seed: the host's), then moved to
     ``device``.  A generator on the card draws a full-width model there,
-    with other numbers than the host's."""
+    with other numbers than the host's.  On ``meta`` the leaves are shapes
+    and dtypes only: nothing is drawn (the dry run's params)."""
     dev = resolve_device(device)
     gen = seed_or_generator
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(seed_or_generator))
     dtype = torch_dtype(cfg.param_dtype)
-    p = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
-         "stack": stack_init(gen, cfg),
-         "final_norm": norm_init(cfg.norm_type, cfg.d_model, dtype)}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    with shapes_only(dev):
+        p = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+             "stack": stack_init(gen, cfg),
+             "final_norm": norm_init(cfg.norm_type, cfg.d_model, dtype)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
+                                       dtype)
     return to_device(p, dev)
 
 
@@ -115,14 +118,21 @@ def quantize_linear_tree(params, cfg: ArchConfig, *,
     reference stacks into its scan groups is judged as that stacked leaf
     (``core.bfp.quantizable``'s ``stack``); its blocks run along K either
     way.  Each layer is compressed on its own, so no second copy of the
-    model is made."""
+    model is made.  An encoder-decoder's two layer lists are judged as the
+    reference stacks them."""
     n_prefix = _n_prefix(cfg)
     groups = (cfg.num_layers - n_prefix) // cfg.pattern_period()
+    # (unstacked prefix layers, scan groups) of each layer list: an
+    # encoder-decoder's encoder is one group a layer, its decoder as an LM
+    stacks = {"stack": (n_prefix, groups), "dec_stack": (n_prefix, groups),
+              "enc_stack": (0, cfg.encoder_layers)}
     out = {k: bfp.quantize_linear_tree(v, min_size=min_size)
-           for k, v in params.items() if k != "stack"}
-    out["stack"] = [bfp.quantize_linear_tree(
-        layer, min_size=min_size, stack=0 if i < n_prefix else groups)
-        for i, layer in enumerate(params["stack"])]
+           for k, v in params.items() if k not in stacks}
+    for k in stacks.keys() & params.keys():
+        prefix, n = stacks[k]
+        out[k] = [bfp.quantize_linear_tree(
+            layer, min_size=min_size, stack=0 if i < prefix else n)
+            for i, layer in enumerate(params[k])]
     return out
 
 

@@ -16,7 +16,7 @@ from ..config import ArchConfig
 from ..core.device import resolve_device
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
 from ..nn.layers import embed, embed_init, linear, linear_init, norm, norm_init
-from ..nn.module import torch_dtype
+from ..nn.module import shapes_only, torch_dtype
 from . import lm
 
 CLIP_DIM = 1024
@@ -30,12 +30,14 @@ def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(seed_or_generator))
     dtype = torch_dtype(cfg.param_dtype)
-    p = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
-         "patch_proj": linear_init(gen, CLIP_DIM, cfg.d_model, dtype),
-         "stack": stack_init(gen, cfg),
-         "final_norm": norm_init(cfg.norm_type, cfg.d_model, dtype)}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    with shapes_only(dev):
+        p = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+             "patch_proj": linear_init(gen, CLIP_DIM, cfg.d_model, dtype),
+             "stack": stack_init(gen, cfg),
+             "final_norm": norm_init(cfg.norm_type, cfg.d_model, dtype)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
+                                       dtype)
     return lm.to_device(p, dev)
 
 

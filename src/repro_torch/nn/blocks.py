@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..config import ArchConfig
+from ..core.opcount import marks_layer
 from .attention import (attn_apply, attn_cache_shape, attn_init,
                         cross_cache_shape)
 from .flash import FLASH_OP
@@ -62,6 +63,7 @@ def block_init(gen, cfg: ArchConfig, mixer: str, ffn: str):
     return p
 
 
+@marks_layer
 def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
                 length=None, cache=None, enc_out=None,
                 collect_aux: bool = False):

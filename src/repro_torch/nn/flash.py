@@ -16,7 +16,9 @@ KV head; KV heads are never repeated.
 The forward and backward are one ``torch.library`` op
 (``repro_torch::flash_fwd``) with an autograd rule, so selective
 activation checkpointing can keep its output (``remat_policy="save_attn"``,
-``nn/blocks.py``).
+``nn/blocks.py``).  On meta tensors the op gives its outputs' shapes
+(a fake implementation), and the dry run's counter counts the ops of
+``_fwd`` (``core/opcount.py``).
 
 :func:`decode_attention` runs kernel 5 (``csrc/decode_attn.cu``) on a CUDA
 tensor and its plain version on a CPU tensor.
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import opcount
 from ..kernels.decode_attn import ops as _decode_ops
 from ..kernels.decode_attn.ref import NEG_INF, prescale
 
@@ -191,8 +194,20 @@ def _flash_backward(ctx, do, _dlse):
 
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, q_offset, q_chunk, k_chunk, kv_valid,
+                banded):
+    """(o, lse) of ``_fwd``'s shapes on meta (or fake) tensors, computing
+    nothing; the dry run's counter counts ``_fwd``'s own ops instead."""
+    B, Sq, H, D = q.shape
+    return (q.new_empty((B, Sq, H, D), dtype=torch.float32),
+            q.new_empty((B, Sq, H), dtype=torch.float32))
+
 # the op whose output remat_policy="save_attn" keeps
 FLASH_OP = torch.ops.repro_torch.flash_fwd.default
+# the card runs the op's body op by op: the dry run counts those ops
+opcount.open_op(FLASH_OP, _fwd)
 
 
 def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,

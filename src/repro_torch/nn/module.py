@@ -13,6 +13,8 @@ There is no ``vmap`` stacking: a layer stack is a list of per-layer dicts.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 
 
@@ -27,10 +29,27 @@ def torch_dtype(name: str) -> torch.dtype:
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
                      dtype=torch.float32):
     """2-sigma truncated normal, as the reference's initializers, drawn on
-    the generator's device."""
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    the generator's device (under :func:`shapes_only`, a meta tensor:
+    nothing is drawn)."""
+    t = torch.empty(shape, dtype=torch.float32, device=draw_device(gen))
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * stddev).to(dtype)
+
+
+def shapes_only(device):
+    """A context in which an init builds ``meta`` tensors when ``device``
+    is ``meta`` (shapes and dtypes only: no number is drawn and nothing is
+    allocated, as the reference's ``jax.eval_shape`` of its init); a
+    no-op on any other device."""
+    return (torch.device("meta") if torch.device(device).type == "meta"
+            else nullcontext())
+
+
+def draw_device(gen: torch.Generator):
+    """Where a draw from ``gen`` lands: the generator's device, or
+    ``meta`` inside :func:`shapes_only`."""
+    return ("meta" if torch.get_default_device().type == "meta"
+            else gen.device)
 
 
 def dense_init_std(fan_in: int) -> float:

@@ -32,7 +32,7 @@ from ..kernels.conv.ref import conv1d_depthwise_causal_ref
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ssd import clip_exp
 from .layers import linear, linear_init, rmsnorm
-from .module import torch_dtype
+from .module import draw_device, torch_dtype
 
 
 # --------------------------------------------------------------------------
@@ -73,7 +73,7 @@ def mamba_init(gen, cfg: ArchConfig):
     dtype = torch_dtype(cfg.param_dtype)
 
     def conv(ch):
-        w = torch.randn((k, ch), generator=gen, device=gen.device) * 0.1
+        w = torch.randn((k, ch), generator=gen, device=draw_device(gen)) * 0.1
         return {"w": w.to(dtype), "b": torch.zeros((ch,), dtype=dtype)}
 
     # A in [1, 16): standard mamba2 init; dt bias st softplus(dt_bias)~[1e-3,1e-1]

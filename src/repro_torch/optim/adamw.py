@@ -12,10 +12,17 @@ clip scale, the bias corrections ``1 - b**t`` in f32, the update in f32,
 then ``p - lr * update`` in p's dtype.
 
 A sharded state (``runtime/trainer.py``'s mesh step) holds DTensor params
-and moments placed alike; its ``grads`` are the full, averaged gradients,
-identical on every rank.  The norm is then the full gradient's, and each
-rank updates its own block of params, m and v in place with its block of
-the gradient: the same arithmetic, element by element.
+and moments; its ``grads`` are the full, averaged gradients, identical on
+every rank.  The norm is then the full gradient's, and each rank updates
+its own block of params, m and v in place with its block of the
+gradient: the same arithmetic, element by element.  The moments may be
+placed finer than the params (ZeRO-1, the reference's default for its
+dry run: ``sharding.zero1_shardings`` shards them over "data" on a dim
+the param leaves whole): m, v and the update are then computed on the
+moment's block, and the update, in the param's dtype, is gathered over
+"data" to the param's block before it is applied.  Every step is
+elementwise and a gather moves bits, so the result is the one of moments
+placed like the params.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ import math
 import torch
 
 from ..nn.module import tree_leaves, tree_map
-from ..parallel.sharding import local, shard_of
+from ..parallel.collectives import all_gather
+from ..parallel.sharding import is_dtensor, local, shard_of
 
 
 def init_state(params) -> dict:
@@ -77,13 +85,51 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
     # leaves' kernels as scalars
     for p, g, m, v in zip(tree_leaves(state["params"]), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        g = shard_of(g, p).to(torch.float32) * scale
+        finer = _finer_dims(p, m)
+        g = shard_of(g, m).to(torch.float32) * scale
         p, m, v = local(p), local(m), local(v)
+        pm = _narrow(p, finer)
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         if weight_decay:
-            update = update + weight_decay * p.to(torch.float32)
-        p.sub_(lr * update.to(p.dtype))
+            update = update + weight_decay * pm.to(torch.float32)
+        p.sub_(lr * _gather(update.to(p.dtype), finer))
     state["step"] = step
     return state, {"grad_norm": gnorm}
+
+
+def _finer_dims(p, m) -> list:
+    """[(tensor dim, mesh dim's process group, its size, this rank's
+    coordinate)] of each mesh dim that shards moment ``m`` and leaves its
+    param ``p`` whole (ZeRO-1: ``sharding.zero1_shardings`` adds "data"),
+    in mesh order; [] where they are placed alike."""
+    if not is_dtensor(m) or m.placements == getattr(p, "placements", None):
+        return []
+    mesh = m.device_mesh
+    out = []
+    for i, (pp, mp) in enumerate(zip(p.placements, m.placements)):
+        if mp.is_shard() and not pp.is_shard() and mesh.shape[i] > 1:
+            out.append((mp.dim, mesh.get_group(i), mesh.shape[i],
+                        mesh.get_coordinate()[i]))
+        elif mp != pp:
+            raise ValueError(f"adamw_step: moments placed {m.placements} "
+                             f"are not a refinement of the param's "
+                             f"{p.placements}")
+    return out
+
+
+def _narrow(t, finer):
+    """The moment's block of ``t``, the param's block."""
+    for d, _, n, c in finer:
+        t = t.narrow(d, c * (t.shape[d] // n), t.shape[d] // n)
+    return t
+
+
+def _gather(t, finer):
+    """The param's block from each rank's moment block ``t``: gathered
+    over the finer mesh dims, innermost first (bits moved, not summed)."""
+    for d, group, n, _ in reversed(finer):
+        parts = all_gather(t, group)           # (n,) + t.shape
+        t = torch.cat(parts.unbind(0), dim=d)
+    return t

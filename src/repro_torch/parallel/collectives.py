@@ -55,7 +55,7 @@ def _ring_rs(x, group, *, block: int, bits: int):
     return acc
 
 
-def _all_gather(t, group):
+def all_gather(t, group):
     """(n,) + t.shape: every rank's ``t``, gathered as bytes (gloo gathers
     no int16)."""
     dist = _dist()
@@ -83,7 +83,7 @@ def bfp_psum(x, group=None, *, block: int = 32, bits: int = 8):
     chunk = _ring_rs(flat, group, block=block, bits=bits)  # this rank's chunk
     # compressed all-gather of the reduced chunks
     m, e, ax = bfp.quantize(chunk.reshape(-1), block=block, bits=bits)
-    ms, es = _all_gather(m, group), _all_gather(e, group)  # (n, nb, blk), (n, nb)
+    ms, es = all_gather(m, group), all_gather(e, group)  # (n,nb,blk), (n,nb)
     parts = bfp.dequantize(ms, es, bits=bits, axis=ax + 1)     # (n, chunk)
     # rank i holds reduced chunk (i+2)%n -> reorder to 0..n-1
     parts = torch.roll(parts, 2, dims=0)

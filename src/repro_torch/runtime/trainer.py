@@ -159,65 +159,13 @@ class Trainer:
     def train_step(self, batch) -> dict:
         """One optimizer step on ``batch`` (device tensors; under a mesh
         the global batch, alike on every rank), in place; returns its
-        metrics as tensors."""
-        tc, state = self.tcfg, self.state
-        lr = lr_schedule(state["step"], base_lr=tc.base_lr,
-                         warmup=tc.warmup, total=tc.steps)
-        if self.mesh is None:
-            leaves = tree_leaves(state["params"])
-            loss, metrics = self.mod.loss_fn(state["params"], self.cfg,
-                                             batch)
-            grads = torch.autograd.grad(loss, leaves)
-            del loss
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            grads, metrics = self._mesh_grads(batch)
-        _, om = adamw_step(state, grads, lr=lr,
-                           weight_decay=tc.weight_decay,
-                           clip_norm=tc.clip_norm)
-        return {**metrics, **om, "lr": lr}
-
-    def _mesh_grads(self, batch):
-        """(the full gradient averaged over the global batch, its metrics)
-        from this rank's share of ``batch`` and the all-reduces over the
-        batch axes."""
-        mesh = self.mesh
-        with shlib.use_mesh_rules(mesh, self.rules):
-            index, count = shlib.batch_share(mesh)
-            groups = shlib.batch_groups(mesh)
-        rows = batch["inputs"].shape[0]
-        if rows % count:
-            raise ValueError(f"a batch of {rows} rows does not split over "
-                             f"{count} data-parallel ranks")
-        rows //= count
-        mine = {k: v[index * rows:(index + 1) * rows]
-                for k, v in batch.items()}
-
-        with torch.no_grad():
-            whole = tree_map(lambda p: shlib.full(p).detach(),
-                             self.state["params"])
-        leaves = tree_leaves(whole)
-        for t in leaves:
-            t.requires_grad_(True)
-        with shlib.use_mesh_rules(mesh, self.rules):
-            _, metrics = self.mod.loss_fn(whole, self.cfg, mine)
-        # this rank's share of the global masked mean: its sum of the
-        # per-token losses (loss x its count) over the global count
-        own = metrics["tokens"].to(torch.float32)
-        sums = torch.stack([metrics["loss"].detach() * own,
-                            metrics["accuracy"].detach() * own,
-                            (mine["targets"] >= 0).sum().to(torch.float32)])
-        all_reduce_coalesced([sums], groups)
-        tokens = torch.clamp(sums[2], min=1)
-        # the router loss is the global batch's on every rank already
-        objective = metrics["loss"] * (own / tokens) \
-            + metrics["aux_loss"] / count
-        grads = torch.autograd.grad(objective, leaves)
-        del objective, whole, leaves
-        all_reduce_coalesced(grads, groups)
-        return grads, {"loss": sums[0] / tokens, "accuracy": sums[1] / tokens,
-                       "tokens": tokens,
-                       "aux_loss": metrics["aux_loss"].detach()}
+        metrics as tensors (:func:`train_step`)."""
+        tc = self.tcfg
+        return train_step(self.mod, self.cfg, self.state, batch,
+                          base_lr=tc.base_lr, warmup=tc.warmup,
+                          total=tc.steps, weight_decay=tc.weight_decay,
+                          clip_norm=tc.clip_norm, mesh=self.mesh,
+                          rules=self.rules)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -375,6 +323,71 @@ class Trainer:
         if self._ckpt is not None:
             self._ckpt.wait()
         return self.history
+
+
+def train_step(mod, cfg: ArchConfig, state, batch, *, base_lr: float,
+               warmup: int, total: int, weight_decay: float,
+               clip_norm: float, mesh=None, rules=None) -> dict:
+    """One optimizer step of ``state`` on ``batch`` in place, the
+    ``Trainer``'s and the dry run's (``launch/specs.py``): autograd through
+    ``mod.loss_fn`` (meshless) or :func:`mesh_grads`, then
+    :func:`optim.adamw_step` at ``lr_schedule(state["step"])``.  Returns
+    the metrics as tensors."""
+    lr = lr_schedule(state["step"], base_lr=base_lr, warmup=warmup,
+                     total=total)
+    if mesh is None:
+        leaves = tree_leaves(state["params"])
+        loss, metrics = mod.loss_fn(state["params"], cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        del loss
+        metrics = {k: v.detach() for k, v in metrics.items()}
+    else:
+        grads, metrics = mesh_grads(mod, cfg, state["params"], batch, mesh,
+                                    rules)
+    _, om = adamw_step(state, grads, lr=lr, weight_decay=weight_decay,
+                       clip_norm=clip_norm)
+    return {**metrics, **om, "lr": lr}
+
+
+def mesh_grads(mod, cfg: ArchConfig, params, batch, mesh, rules=None):
+    """(the full gradient averaged over the global batch, its metrics)
+    from this rank's share of ``batch`` and the all-reduces over the
+    batch axes: every parameter gathered whole, the forward and backward
+    on the share, the gradients all-reduced in buckets."""
+    with shlib.use_mesh_rules(mesh, rules):
+        index, count = shlib.batch_share(mesh)
+        groups = shlib.batch_groups(mesh)
+    rows = batch["inputs"].shape[0]
+    if rows % count:
+        raise ValueError(f"a batch of {rows} rows does not split over "
+                         f"{count} data-parallel ranks")
+    rows //= count
+    mine = {k: v[index * rows:(index + 1) * rows] for k, v in batch.items()}
+
+    with torch.no_grad():
+        whole = tree_map(lambda p: shlib.full(p).detach(), params)
+    leaves = tree_leaves(whole)
+    for t in leaves:
+        t.requires_grad_(True)
+    with shlib.use_mesh_rules(mesh, rules):
+        _, metrics = mod.loss_fn(whole, cfg, mine)
+    # this rank's share of the global masked mean: its sum of the
+    # per-token losses (loss x its count) over the global count
+    own = metrics["tokens"].to(torch.float32)
+    sums = torch.stack([metrics["loss"].detach() * own,
+                        metrics["accuracy"].detach() * own,
+                        (mine["targets"] >= 0).sum().to(torch.float32)])
+    all_reduce_coalesced([sums], groups)
+    tokens = torch.clamp(sums[2], min=1)
+    # the router loss is the global batch's on every rank already
+    objective = metrics["loss"] * (own / tokens) \
+        + metrics["aux_loss"] / count
+    grads = torch.autograd.grad(objective, leaves)
+    del objective, whole, leaves
+    all_reduce_coalesced(grads, groups)
+    return grads, {"loss": sums[0] / tokens, "accuracy": sums[1] / tokens,
+                   "tokens": tokens,
+                   "aux_loss": metrics["aux_loss"].detach()}
 
 
 def _place_params(params, mesh, rules, device):

@@ -2283,3 +2283,51 @@ def test_data_parallel_engine_on_the_card_is_bit_equal(card):
         assert all(r.done for r in reqs) and eng.accounting()["balanced"]
         logits[dp] = np.stack([r.logits for r in reqs])
     assert np.array_equal(logits[True], logits[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("smollm-360m", "decode"),
+                                       ("mamba2-2.7b", "prefill"),
+                                       ("mamba2-2.7b", "train")])
+def test_dry_run_counts_the_launches_the_card_makes(card, arch, kind):
+    """The dry run's count of a reduced step on meta tensors (chip_smoke
+    phase 15b's check): its kernel launches by kernel equal to the
+    wrappers' ``launch_counts()`` when the same step runs on the card
+    (kernel 5 a decode step's attention layer, kernels 6 and 7 a
+    prefill's Mamba layer, kernel 7 forward and backward a train step's)."""
+    from repro_torch.config import ShapeCfg
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.nn.module import tree_map
+    from repro_torch.optim import init_state
+    cfg = get_config(arch).reduced()
+    shape = ShapeCfg(kind, 64, 4, kind)
+
+    def args(dev):
+        if kind == "train":
+            state = (sp.state_specs(cfg) if dev == "meta" else
+                     init_state(lm.init(0, cfg, device=dev)))
+            batch = tree_map(lambda t: torch.zeros(
+                tuple(t.shape), dtype=t.dtype, device=dev),
+                sp.batch_specs(cfg, shape))
+            return state, batch
+        S = 1 if kind == "decode" else 64
+        return (lm.init(0, cfg, device=dev),
+                {"tokens": torch.zeros((4, S), dtype=torch.int32,
+                                       device=dev)},
+                lm.cache_init(cfg, 4, 64, device=dev))
+
+    step = {"train": sp.make_train_step(cfg),
+            "prefill": sp.make_prefill_step(cfg),
+            "decode": sp.make_decode_step(cfg, shape)}[kind]
+    counter, _, _ = count_step(step, *args("meta"))
+    on_card = args("cuda")
+    mods = (ops, bfp_ops, dec_ops, ssd_ops)
+    for m in mods:
+        m.reset_launch_counts()
+    step(*on_card)
+    torch.cuda.synchronize()
+    launched = {k: v for m in mods for k, v in m.launch_counts().items()
+                if v}
+    assert dict(counter.launches) == launched
+    assert launched

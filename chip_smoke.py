@@ -2553,16 +2553,18 @@ def stream_copy(x):
     return lambda: buf.copy_(x)
 
 
-def phase_ssm(torch, np):
-    """Kernels 6 and 7 at mamba2-2.7b's prefill shapes, on inputs in the
-    model's ranges (dt after softplus in [1e-3, 1e-1], A = -exp(A_log) on
-    mamba's [-16, -1] grid): held against their plain versions, timed
-    beside them and beside their bounds (kernel 7 also beside F.conv1d)."""
+def phase_ssm(torch, np, ssd_geometries=SSD_GEOMETRIES,
+              dw1d_geometries=DW1D_GEOMETRIES, seed=5):
+    """Kernels 6 and 7 at mamba2-2.7b's prefill shapes (or the given
+    geometries), on inputs in the model's ranges (dt after softplus in
+    [1e-3, 1e-1], A = -exp(A_log) on mamba's [-16, -1] grid): held against
+    their plain versions, timed beside them and beside their bounds
+    (kernel 7 also beside F.conv1d)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.conv import winograd as wino
     from repro_torch.kernels.ssd import ssd
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
 
     def dev(a, dtype):
         return torch.as_tensor(a, dtype=torch.float32,
@@ -2571,7 +2573,7 @@ def phase_ssm(torch, np):
     row6 = {"name": "ssd", "geometries": [], "max_abs_err": 0.0,
             "library_ms": None,
             "library": "none: no single PyTorch call computes an SSD scan"}
-    for name, B, L, H, P, G, N, chunk, dtype_name in SSD_GEOMETRIES:
+    for name, B, L, H, P, G, N, chunk, dtype_name in ssd_geometries:
         dtype = getattr(torch, dtype_name)
         x = dev(rng.standard_normal((B, L, H, P)), dtype)
         dt = dev(rng.uniform(1e-3, 1e-1, (B, L, H)), torch.float32)
@@ -2630,7 +2632,7 @@ def phase_ssm(torch, np):
         row6["max_abs_err"] = max(row6["max_abs_err"], err_y, err_s)
 
     row7 = {"name": "dw1d", "geometries": [], "max_abs_err": 0.0}
-    for name, B, L, C, dtype_name in DW1D_GEOMETRIES:
+    for name, B, L, C, dtype_name in dw1d_geometries:
         dtype = getattr(torch, dtype_name)
         x = dev(rng.standard_normal((B, L, C)), dtype)
         w = dev(rng.standard_normal((4, C)) * 0.1, torch.float32)
@@ -2907,18 +2909,19 @@ def _wgrad_excess(got, ref, rel_step):
     return float((diff - bound).max()), float(diff.max()), scale
 
 
-def phase_train_kernels(torch, np):
-    """9a: kernel 7's backward at mamba2-2.7b's training shapes: dx
-    bit-equal to flip(kernel 7(flip(dy))), dw and db against the
-    reference's formula; timed beside the plain versions, the autograd
-    backward of the same depthwise ``F.conv1d`` and the bound."""
+def phase_train_kernels(torch, np, geometries=TRAIN_DW1D_GEOMETRIES,
+                        seed=9):
+    """9a: kernel 7's backward at mamba2-2.7b's training shapes (or the
+    given geometries): dx bit-equal to flip(kernel 7(flip(dy))), dw and db
+    against the reference's formula; timed beside the plain versions, the
+    autograd backward of the same depthwise ``F.conv1d`` and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.conv import winograd as wino
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(seed)
     rows = {k: {"name": k, "geometries": [], "max_abs_err": 0.0}
             for k in ("dw1d_bwd", "dw1d_wgrad")}
-    for B, L, C, dtype_name in TRAIN_DW1D_GEOMETRIES:
+    for B, L, C, dtype_name in geometries:
         dtype = getattr(torch, dtype_name)
         bf16 = dtype == torch.bfloat16
 
@@ -3429,11 +3432,17 @@ def mesh_train_pair(torch, np, card, mesh, cfg, shape, seed, want=None):
     loss_close = all(abs(a["loss"] - b["loss"])
                      <= MESH_ATOL + MESH_RTOL * abs(b["loss"])
                      for a, b in zip(hist, plain_hist))
-    worst, close = _max_diff(
-        torch, [t.full_tensor() for t in tree_leaves(tr.state["params"])],
-        [t.detach() for t in tree_leaves(plain.state["params"])])
+    got = [t.full_tensor() for t in tree_leaves(tr.state["params"])]
+    ref = [t.detach() for t in tree_leaves(plain.state["params"])]
+    worst, close = _max_diff(torch, got, ref)
     check(loss_close and close, f"mesh {cfg.name}: off the meshless "
           f"trainer: losses {worst_loss}, params {worst}")
+    # the tensor-parallel layers at one rank: the meshless step's bits
+    bits = worst_loss == 0 and all(torch.equal(a, b)
+                                   for a, b in zip(got, ref))
+    del got, ref
+    check(bits, f"mesh {cfg.name}: the tensor-parallel step on one rank "
+          f"is not bit-equal to the meshless step (params max|d| {worst})")
     # the step's time, the two trainers in turns on one batch
     batch = next(plain.data)
     for trainer in (plain, tr):          # the allocator settles
@@ -3451,7 +3460,8 @@ def mesh_train_pair(torch, np, card, mesh, cfg, shape, seed, want=None):
     del plain
     torch.cuda.empty_cache()
     print(f"mesh {cfg.name} ({cfg.num_layers} layers, batch {B} x {S}, "
-          f"{steps} steps) on the (1, 1) NCCL mesh vs meshless: losses "
+          f"{steps} steps) on the (1, 1) NCCL mesh through the "
+          f"tensor-parallel layers vs meshless: bit-equal | losses "
           + " ".join(f"{h['loss']:.5f}" for h in hist)
           + f" (max|d| {worst_loss:.3e}), params max|d| {worst:.3e} (gate "
           f"rtol {MESH_RTOL:g} atol {MESH_ATOL:g}) | step in turns "
@@ -3469,6 +3479,7 @@ def mesh_train_pair(torch, np, card, mesh, cfg, shape, seed, want=None):
         "seq_len": S, "steps": steps, "losses": [h["loss"] for h in hist],
         "meshless_losses": [h["loss"] for h in plain_hist],
         "max_abs_loss_diff": worst_loss, "max_abs_param_diff": worst,
+        "bit_equal": bits, "tensor_parallel": True,
         "step_ms": med["mesh"], "meshless_step_ms": med["meshless"],
         "step_ms_turns": times, "run_step_ms": _train_report(
             hist, B * S)["step_ms"],
@@ -3621,29 +3632,36 @@ def mesh_collectives(torch, card, mesh):
 
 
 def phase_mesh(torch, np, card):
-    """Phase 14: 14a-14d on one NCCL rank."""
+    """Phase 14: 14a-14d on one NCCL rank; the two mesh trainers run the
+    tensor-parallel layers on their one-rank ``model`` axis
+    (``sharding.tensor_parallel_at_one``), bit-equal to the meshless
+    trainer."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.parallel.sharding import tensor_parallel_at_one
     t0 = time.perf_counter()
     init_process_group("cuda", store=dist.HashStore(), rank=0, world_size=1)
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
         check(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
               f"mesh: a {mesh.device_type} mesh on {dist.get_backend()}")
-        dense, dense_rep = mesh_train_pair(
-            torch, np, card, mesh, get_config(TRAIN_DENSE_ARCH),
-            MESH_DENSE_SHAPE, seed=14)
+        with tensor_parallel_at_one():
+            dense, dense_rep = mesh_train_pair(
+                torch, np, card, mesh, get_config(TRAIN_DENSE_ARCH),
+                MESH_DENSE_SHAPE, seed=14)
         reshard = mesh_reshard(torch, np, card, mesh, dense)
         del dense
         torch.cuda.empty_cache()
         cut = dataclasses.replace(get_config(SSM_ARCH),
                                   num_layers=MESH_SSM_LAYERS)
         L = MESH_SSM_LAYERS
-        ssm, ssm_rep = mesh_train_pair(
-            torch, np, card, mesh, cut, MESH_SSM_SHAPE, seed=15,
-            want={"dw1d": 2 * L, "dw1d_bwd": L, "dw1d_wgrad": L, "ssd": 0})
+        with tensor_parallel_at_one():
+            ssm, ssm_rep = mesh_train_pair(
+                torch, np, card, mesh, cut, MESH_SSM_SHAPE, seed=15,
+                want={"dw1d": 2 * L, "dw1d_bwd": L, "dw1d_wgrad": L,
+                      "ssd": 0})
         del ssm
         torch.cuda.empty_cache()
         serve = mesh_serve(torch, np, card)
@@ -3655,6 +3673,203 @@ def phase_mesh(torch, np, card):
     return {"dense": dense_rep, "ssm": ssm_rep, "reshard": reshard,
             "serve": serve, "collectives": coll, "phase_s": seconds,
             "launches": ssm_rep["launches"]}
+
+
+# --- phase 16: tensor-parallel compute over "model" ------------------------
+# kernel 5's lse mode at the decode_32k block shapes of a 16-way cache_seq
+# split, (name, B, block rows, KV, D, H), the slots' lengths over the
+# 32,768-row cache (the blocks past a slot's length empty)
+TP_BLOCKS = 16
+TP_DECODE = (("smollm-360m decode_32k", 8, 2048, 5, 64, 15),
+             ("llama3.2-3b decode_32k", 8, 2048, 8, 128, 24))
+TP_LENGTHS = (1, 700, 2048, 2049, 9000, 16384, 30001, 32768)
+# a block's lse against the plain version's: <= TOL_LSE * (1 + |plain|)
+TOL_LSE = 1e-4
+# kernels 6 and 7 at a 16-way split of mamba2-2.7b (80 / 16 = 5 heads,
+# 5,120 / 16 = 320 channels) and jamba-v0.1-52b (128 / 16 = 8 heads, 8,192
+# / 16 = 512 channels), as phase 7 runs them whole; kernel 7's backward at
+# 320 channels
+TP_SSD_GEOMETRIES = (
+    ("mamba2-2.7b / 16", 1, 200, 5, 64, 1, 128, 256, "bfloat16"),
+    ("mamba2-2.7b / 16 8 chunks", 1, 2048, 5, 64, 1, 128, 256, "bfloat16"),
+    ("jamba-v0.1-52b / 16", 1, 200, 8, 64, 1, 16, 256, "bfloat16"),
+    ("jamba-v0.1-52b / 16 8 chunks", 1, 2048, 8, 64, 1, 16, 256,
+     "bfloat16"))
+TP_DW1D_GEOMETRIES = (("mamba2-2.7b / 16", 1, 200, 320, "bfloat16"),
+                      ("mamba2-2.7b / 16 long", 1, 2048, 320, "bfloat16"),
+                      ("jamba-v0.1-52b / 16", 1, 200, 512, "bfloat16"),
+                      ("jamba-v0.1-52b / 16 long", 1, 2048, 512,
+                       "bfloat16"))
+TP_TRAIN_DW1D_GEOMETRIES = ((1, 512, 320, "bfloat16"),
+                            (1, 2048, 320, "bfloat16"),
+                            (1, 512, 320, "float32"))
+
+
+def tp_decode_case(torch, dec, merge_blocks, q, kb, vb, lens):
+    """Kernel 5's lse mode over each block of a cache split along rows:
+    (the blocks' outputs, lses, merged output, empty (slot, block) pairs,
+    whether each block's output is bit-equal to the mode without lse
+    where it has valid rows, 0 and -inf where not)."""
+    Lb = kb[0].shape[1]
+    outs, lses, empty, bits = [], [], 0, True
+    for r, (k, v) in enumerate(zip(kb, vb)):
+        ln = (lens - r * Lb).clamp(0, Lb)
+        o, lse = dec.decode_attention(q, k, v, ln, return_lse=True)
+        plain = dec.decode_attention(q, k, v, ln)
+        full = ln > 0
+        empty += int((~full).sum())
+        bits &= torch.equal(o[full].view(torch.int8),
+                            plain[full].view(torch.int8))
+        bits &= bool((o[~full] == 0).all()) and bool(
+            torch.isneginf(lse[~full]).all())
+        outs.append(o)
+        lses.append(lse)
+    mo, mlse = merge_blocks(torch.stack(outs), torch.stack(lses))
+    return outs, lses, mo, mlse, empty, bits
+
+
+def phase_tp_decode(torch, np):
+    """16a: kernel 5's lse mode at smollm-360m's and llama3.2-3b's
+    decode_32k block shapes (16 blocks of 2,048 rows of a 32,768-row
+    cache, lengths leaving whole blocks empty): each block against the
+    plain version's lse mode and bit-equal to the mode without lse where
+    it has rows; the blocks merged by ``merge_blocks`` (the layer's merge)
+    against the whole-cache kernel and the whole cache's plain version, in
+    f32 and bf16; timed in bf16 on block 0 beside the mode without lse,
+    its bound, the plain version and SDPA, and the merge."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import decode_attn as dec
+    from repro_torch.kernels.decode_attn.ref import (decode_attention_ref,
+                                                      merge_blocks)
+    rng = np.random.default_rng(16)
+    row = {"name": "decode_attn lse", "geometries": [], "max_abs_err": 0.0}
+    for name, B, Lb, KV, D, H in TP_DECODE:
+        lens = torch.tensor(TP_LENGTHS[:B], dtype=torch.int32,
+                            device="cuda")
+        shapes = [(B, 1, H, D)] + [(B, Lb, KV, D)] * (2 * TP_BLOCKS)
+        base = [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                                device="cuda") for s in shapes]
+        geo = {"arch": name, "B": B, "block_rows": Lb, "blocks": TP_BLOCKS,
+               "H": H, "KV": KV, "D": D, "lengths": lens.tolist()}
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            q = base[0].to(dt)
+            kb = [t.to(dt) for t in base[1:1 + TP_BLOCKS]]
+            vb = [t.to(dt) for t in base[1 + TP_BLOCKS:]]
+            k, v = torch.cat(kb, 1), torch.cat(vb, 1)
+            whole = dec.decode_attention(q, k, v, lens)
+            plain, plain_lse = decode_attention_ref(q, k, v, lens,
+                                                    return_lse=True)
+            outs, lses, mo, mlse, empty, bits = tp_decode_case(
+                torch, dec, merge_blocks, q, kb, vb, lens)
+            torch.cuda.synchronize()
+            tol = TOL_DECODE[dtype_name]
+            worst_blk = worst_lse = 0.0
+            for r, (o, lse) in enumerate(zip(outs, lses)):
+                ln = (lens - r * Lb).clamp(0, Lb)
+                po, pl = decode_attention_ref(q, kb[r], vb[r], ln,
+                                              return_lse=True)
+                d = (o.float() - po.float()).abs()
+                worst_blk = max(worst_blk, float(
+                    (d - tol * po.float().abs()).max()))
+                fin = torch.isfinite(pl)
+                check(bool((torch.isfinite(lse) == fin).all()),
+                      f"tp decode {name} {dtype_name} block {r}: lse "
+                      f"-inf where the plain version's is not")
+                worst_lse = max(worst_lse, float(
+                    ((lse[fin] - pl[fin]).abs()
+                     - TOL_LSE * (1 + pl[fin].abs())).max())
+                    if fin.any() else -1.0)
+            errs = {}
+            for tag, want in (("whole_kernel", whole), ("plain", plain)):
+                d = (mo.float() - want.float()).abs()
+                errs[tag] = (float(d.max()), float(
+                    (d - tol * want.float().abs()).max()))
+            lse_err = float((mlse - plain_lse).abs().max())
+            print(f"tp decode {name} {dtype_name}: q {tuple(q.shape)} "
+                  f"{TP_BLOCKS} blocks of {tuple(kb[0].shape)}, lengths "
+                  f"{lens.tolist()} ({empty} empty (slot, block) pairs) | "
+                  f"each block vs plain lse mode: worst excess {worst_blk:.3e}"
+                  f" (gate rtol = atol = {tol:g}), lse worst excess "
+                  f"{worst_lse:.3e} (gate {TOL_LSE:g} (1 + |lse|)), bit-equal"
+                  f" to the mode without lse where it has rows, 0 and -inf "
+                  f"where not: {'yes' if bits else 'NO'} | merged vs the "
+                  f"whole-cache kernel max|d| {errs['whole_kernel'][0]:.3e} "
+                  f"vs the whole cache's plain version "
+                  f"{errs['plain'][0]:.3e} (gate rtol = atol = {tol:g}), "
+                  f"merged lse vs plain {lse_err:.3e}")
+            check(empty > 0, f"tp decode {name}: no empty block")
+            check(bits, f"tp decode {name} {dtype_name}: the lse mode's "
+                  f"output differs from the mode without it")
+            check(worst_blk <= tol and worst_lse <= 0,
+                  f"tp decode {name} {dtype_name}: a block disagrees with "
+                  f"the plain lse mode (excess {worst_blk}, lse {worst_lse})")
+            check(all(ex <= tol for _, ex in errs.values()),
+                  f"tp decode {name} {dtype_name}: merged blocks disagree "
+                  f"with the whole cache: {errs}")
+            geo[f"max_abs_err_{dtype_name}"] = max(e for e, _ in
+                                                   errs.values())
+            geo[f"lse_err_{dtype_name}"] = lse_err
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     geo[f"max_abs_err_{dtype_name}"])
+        # timed in bf16 on block 0 (every slot has rows there)
+        q0, k0, v0 = q, kb[0], vb[0]
+        ln0 = lens.clamp(0, Lb)
+        mask = (torch.arange(Lb, device="cuda")[None, :]
+                < ln0[:, None])[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q0, k0, v0))
+        stacked = (torch.stack(outs), torch.stack(lses))
+        (ms, host_ms), (nolse_ms, _), (plain_ms, _), (lib_ms, _), \
+            (merge_ms, _), (whole_ms, _) = (
+                time_ms(torch, lambda: dec.decode_attention(
+                    q0, k0, v0, ln0, return_lse=True)),
+                time_ms(torch, lambda: dec.decode_attention(q0, k0, v0,
+                                                            ln0)),
+                time_ms(torch, lambda: decode_attention_ref(
+                    q0, k0, v0, ln0, return_lse=True)),
+                time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+                time_ms(torch, lambda: merge_blocks(*stacked)),
+                time_ms(torch, lambda: dec.decode_attention(q, k, v, lens)))
+        valid = int(ln0.sum())
+        flops, nbytes = decode_work(B, H, KV, D, valid, 2)
+        nbytes += 4 * B * H                     # the lse written
+        bound, bound_by = _bound(flops, nbytes, "bfloat16")
+        print(f"tp decode {name} bfloat16 block 0 ({valid} valid rows): "
+              f"kernel_ms (lse) {ms:.4f} (host enqueue {host_ms:.4f} ms) "
+              f"vs without lse {nolse_ms:.4f} | plain_ms {plain_ms:.4f} "
+              f"library_ms(SDPA, enable_gqa, length mask; no lse) "
+              f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}: "
+              f"{flops:.3e} flop, {nbytes:.3e} B) | merge of "
+              f"{TP_BLOCKS} blocks {merge_ms:.4f} ms | the whole "
+              f"{TP_BLOCKS * Lb}-row cache in one launch {whole_ms:.4f} ms")
+        geo.update(ms=ms, host_ms=host_ms, nolse_ms=nolse_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                   bound_by=bound_by, flop=flops, bytes=nbytes,
+                   merge_ms=merge_ms, whole_cache_ms=whole_ms)
+        row["geometries"].append(geo)
+        del base, kb, vb, k, v
+        torch.cuda.empty_cache()
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        row[key] = row["geometries"][0][key]
+    return row
+
+
+def phase_tp(torch, np):
+    """Phase 16: kernel 5's lse mode (16a) and kernels 6 and 7, kernel 7's
+    backward too, at the local shapes of a 16-way ``model`` split (16b;
+    phase 7's and 9a's checks at those geometries).  The one-rank
+    tensor-parallel step is phase 14's."""
+    t0 = time.perf_counter()
+    out = {"decode_attn": phase_tp_decode(torch, np)}
+    out.update(phase_ssm(torch, np, TP_SSD_GEOMETRIES, TP_DW1D_GEOMETRIES,
+                         seed=161))
+    out.update(phase_train_kernels(torch, np, TP_TRAIN_DW1D_GEOMETRIES,
+                                   seed=162))
+    seconds = time.perf_counter() - t0
+    print(f"tp: phase 16 {seconds:.1f} s")
+    return out, seconds
 
 
 # --- phase 10: mixture-of-experts and MLA serving ---------------------------
@@ -5075,13 +5290,14 @@ def _digest(torch, t) -> str:
 
 
 def dump_bits(torch, np, path) -> int:
-    """``--bits OUT``: every output of kernels 1-4 and 7 at the main path's
+    """``--bits OUT``: every output of kernels 1-5 and 7 at the main path's
     shapes hashed, and each kernel's device time, into the JSON file OUT.
     Run from another tree (a copy of this script beside its ``src``), it
     holds that tree's kernels to this one's with ``--compare-bits``.
     Cases: AlexNet conv1-conv5 at batch 8 (``layer_cases``) in f32 and
     bf16 at every block tile, armed and unarmed; fc6-fc8 (f32 x); kernel
-    7's forward, dx and wgrad at mamba2-2.7b's (1,200,5120) and
+    5 (without its lse) at every phase-5 decode geometry in f32 and bf16;
+    kernel 7's forward, dx and wgrad at mamba2-2.7b's (1,200,5120) and
     (1,2048,5120) bf16 and (1,512,5120) f32."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.bfp_matmul import bfp_matmul as bfp
@@ -5123,6 +5339,17 @@ def dump_bits(torch, np, path) -> int:
         hashes[name] = _digest(torch, bfp.bfp_matmul(xk, wq, we, block=32))
         times[name] = time_ms(
             torch, lambda: bfp.bfp_matmul(xk, wq, we, block=32))[0]
+    from repro_torch.kernels.decode_attn import decode_attn as dec
+    for name, B, S, H, KV, D, fixed in DECODE_GEOMETRIES:
+        lens = torch.as_tensor(rng.integers(1, S + 1, B) if fixed is None
+                               else fixed, dtype=torch.int32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (dev(shape, dt=dt) for shape in (
+                (B, 1, H, D), (B, S, KV, D), (B, S, KV, D)))
+            tag = f"decode_attn {name} {str(dt)[6:]}"
+            hashes[tag] = _digest(torch, dec.decode_attention(q, k, v, lens))
+            times[tag] = time_ms(
+                torch, lambda: dec.decode_attention(q, k, v, lens))[0]
     for B, L, C, dt in ((1, 200, 5120, torch.bfloat16),
                         (1, 2048, 5120, torch.bfloat16),
                         (1, 512, 5120, torch.float32)):
@@ -5504,6 +5731,9 @@ def main(argv=None) -> int:
     hybrid = phase_hybrid(torch, np, card)
     torch.cuda.empty_cache()
     mesh = phase_mesh(torch, np, card)
+    torch.cuda.empty_cache()
+    tp_rows, tp_s = phase_tp(torch, np)
+    torch.cuda.empty_cache()
     model = phase_model(cfg, card, rows, serves["f32"], lm_serve,
                         moe["granite"], train["dense"])
     torch.cuda.empty_cache()
@@ -5601,6 +5831,12 @@ def main(argv=None) -> int:
             if f"{kname} r={r}" in rows_taps}
         if by_taps:
             entry["by_taps"] = by_taps
+        if kname in tp_rows:
+            # phase 16: at the local shapes of a 16-way model split (kernel
+            # 5: its lse mode over one block of the sequence-split cache)
+            entry["tp_local"] = {k: tp_rows[kname][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "geometries")}
         if kname in rows_bfp_slabs:
             entry["max_abs_err_bfp_slabs"] = \
                 rows_bfp_slabs[kname]["max_abs_err"]
@@ -5682,6 +5918,7 @@ def main(argv=None) -> int:
                        "train": train, "moe": moe,
                        "encdec_vlm": encvlm, "hybrid": hybrid,
                        "mesh": mesh,
+                       "tp": {"kernels": tp_rows, "phase_s": tp_s},
                        "per_layer": {k: r["per_layer"]
                                      for k, r in rows.items()
                                      if "per_layer" in r},

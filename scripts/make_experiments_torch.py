@@ -5,7 +5,10 @@ a shape a column), modelled from ``repro_torch.core.roofline.H100_SXM``'s
 data-sheet peaks.
 
     PYTHONPATH=src python scripts/make_experiments_torch.py \\
-        results/dryrun_torch.jsonl
+        results/dryrun_torch.jsonl [--before OTHER.jsonl]
+
+``--before`` prints one more table: each cell of both files, before (the
+other file's record) and after (this one's), side by side.
 """
 import json
 import os
@@ -91,7 +94,34 @@ def roofline_table(recs):
     return "\n".join(out)
 
 
-def main(path):
+def _terms(r):
+    t, mem = r["roofline"], r["memory"]
+    return (t["flops_per_device"], (mem["argument_size"]
+                                    + mem["temp_size"]) / 2 ** 30,
+            t["coll_bytes_per_device"], t["useful_flops_ratio"],
+            t["bound"])
+
+
+def before_after_table(before, after):
+    """One row a cell ok in both: FLOPs, arguments + temporaries GiB,
+    collective wire bytes, ``useful_flops_ratio`` and the bound a rank,
+    before -> after."""
+    out = ["| arch | shape | mesh | flops/dev | args+temp GiB/dev | "
+           "coll bytes/dev | useful | bound |",
+           "|---|---|---|---|---|---|---|---|"]
+    for key, r in after.items():
+        b = before.get(key)
+        if r["status"] != "ok" or b is None or b["status"] != "ok":
+            continue
+        (f0, m0, c0, u0, b0), (f1, m1, c1, u1, b1) = _terms(b), _terms(r)
+        out.append(f"| {key[0]} | {key[1]} | {key[2]} | {f0:.2e} -> "
+                   f"{f1:.2e} | {m0:.2f} -> {m1:.2f} | {c0:.2e} -> "
+                   f"{c1:.2e} | {u0 * 100:.2f}% -> {u1 * 100:.2f}% | "
+                   f"{b0} -> {b1} |")
+    return "\n".join(out)
+
+
+def main(path, before=None):
     recs = load(path)
     ok = sum(1 for r in recs.values() if r["status"] == "ok")
     sk = sum(1 for r in recs.values() if r["status"] == "skipped")
@@ -107,7 +137,16 @@ def main(path):
           "rate, one rank's), the bound, and MODEL_FLOPS over the counted "
           "FLOPs of all ranks.\n")
     print(roofline_table(recs))
+    if before is not None:
+        print(f"\n## Before ({before}) -> after ({path})\n")
+        print(before_after_table(load(before), recs))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "results/dryrun_torch.jsonl")
+    args = sys.argv[1:]
+    prior = None
+    if "--before" in args:
+        i = args.index("--before")
+        prior = args[i + 1]
+        del args[i:i + 2]
+    main(args[0] if args else "results/dryrun_torch.jsonl", prior)

@@ -52,6 +52,12 @@
 //     weights, in ascending split order whatever the arrival order, and
 //     it sets the ticket back to 0.  No float atomics: two calls give
 //     equal bits.
+// The lse mode (a non-null lse, f32 (B, H)): the same outputs, and each
+// (slot, head)'s log-sum-exp of its scaled scores, m + log l of the merged
+// state, so that the blocks of a cache split over ranks merge by their
+// lse; a slot of length <= 0 then has no valid row: output 0, lse -inf
+// (written by its split-0 blocks), where without lse it attends uniformly.
+// Without lse every instruction of the kernel is the one it was.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,8 +141,9 @@ __global__ void __launch_bounds__(kThreads)
                        const T* __restrict__ v,
                        const int* __restrict__ lengths,
                        float* __restrict__ part, int* __restrict__ tickets,
-                       T* __restrict__ out, float scale, int S, int H,
-                       int KV, int R, int splits) {
+                       T* __restrict__ out, float* __restrict__ lse,
+                       float scale, int S, int H, int KV, int R,
+                       int splits) {
   using L = Smem<T, D>;
   constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16-byte chunks a row
   constexpr int kOut = kHeads * D / 32;   // (head, d) outputs a lane
@@ -159,6 +166,16 @@ __global__ void __launch_bounds__(kThreads)
   const int ng = min(kHeads, G - g0);
   const int b = blockIdx.z;
   const int len = lengths[b];
+  const size_t head0 = (size_t)b * H + (size_t)kvh * G + g0;
+  if (lse != nullptr && len <= 0) {   // an empty block: 0 and -inf
+    if (blockIdx.x == 0) {
+      for (int o = threadIdx.x; o < ng * D; o += kThreads)
+        Row<T>::store(out + head0 * D + o, 0.0f);
+      if (threadIdx.x < ng)
+        lse[head0 + threadIdx.x] = __int_as_float(0xff800000);   // -inf
+    }
+    return;
+  }
   const bool uniform = len <= 0;
   const int n = uniform ? S : min(len, S);
   const int r0 = blockIdx.x * R;
@@ -195,7 +212,6 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   }
 
-  const size_t head0 = (size_t)b * H + (size_t)kvh * G + g0;
   for (int i = tid; i < ng * D; i += kThreads)   // q * D^-0.5 in T
     qs[i] = Row<T>::round(__fmul_rn(
         Row<T>::at(reinterpret_cast<const unsigned char*>(q + head0 * D), i),
@@ -331,6 +347,7 @@ __global__ void __launch_bounds__(kThreads)
       float mx, num, den;
       state(o, mx, num, den);
       Row<T>::store(outb + o, num / fmaxf(den, 1e-30f));
+      if (lse != nullptr && o % D == 0) lse[head0 + o / D] = mx + logf(den);
     }
     return;
   }
@@ -388,6 +405,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int off = 16; off > 0; off >>= 1)
       den += __shfl_xor_sync(0xffffffffu, den, off);
     const float inv = 1.0f / fmaxf(den, 1e-30f);
+    if (lse != nullptr && lane == 0) lse[head0 + warp] = mx + logf(den);
 #pragma unroll
     for (int j = 0; j < kMergeSplits; ++j)
       if (lane + 32 * j < used)
@@ -409,8 +427,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           float* part, int* tickets, void* out, float scale, int B, int S,
-           int H, int KV, int R, cudaStream_t stream) {
+           float* part, int* tickets, void* out, float* lse, float scale,
+           int B, int S, int H, int KV, int R, cudaStream_t stream) {
   const int G = H / KV;
   const int splits = (S + R - 1) / R;
   constexpr int smem = Smem<T, D>::kBytes;
@@ -426,17 +444,17 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   decode_attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, part, tickets, static_cast<T*>(out),
-      scale, S, H, KV, R, splits);
+      lse, scale, S, H, KV, R, splits);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const int* lengths,
-             float* part, int* tickets, void* out, float scale, int B, int S,
-             int H, int KV, int D, int R, cudaStream_t stream) {
+             float* part, int* tickets, void* out, float* lse, float scale,
+             int B, int S, int H, int KV, int D, int R, cudaStream_t stream) {
   auto run = [&](auto launcher) {
-    return launcher(q, k, v, lengths, part, tickets, out, scale, B, S, H, KV,
-                    R, stream);
+    return launcher(q, k, v, lengths, part, tickets, out, lse, scale, B, S,
+                    H, KV, R, stream);
   };
   switch (D) {
     case 8:
@@ -460,24 +478,26 @@ int dispatch(const void* q, const void* k, const void* v, const int* lengths,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, caches and out alike); part: f32
 // scratch (B, KV, ceil(S / R), H / KV, D + 2); tickets: int32, B * KV *
-// ceil(H / KV / 4), zero at the call and left zero; scale: D^-0.5 rounded
-// to q's dtype; R: cache rows a split, a positive multiple of 32
+// ceil(H / KV / 4), zero at the call and left zero; lse: f32 (B, H) or
+// NULL (the mode without it); scale: D^-0.5 rounded to q's dtype; R:
+// cache rows a split, a positive multiple of 32
 extern "C" int repro_decode_attn(const void* q, const void* k, const void* v,
                                  const int* lengths, float* part,
-                                 int* tickets, void* out, float scale, int B,
-                                 int S, int H, int KV, int D, int R,
-                                 int dtype, cudaStream_t stream) {
+                                 int* tickets, void* out, float* lse,
+                                 float scale, int B, int S, int H, int KV,
+                                 int D, int R, int dtype,
+                                 cudaStream_t stream) {
   if (B <= 0 || B > 65535 || S <= 0 || H <= 0 || KV <= 0 || H % KV ||
       R <= 0 || R % kTile || KV * ((H / KV + kHeads - 1) / kHeads) > 65535 ||
       (S + R - 1) / R > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, lengths, part, tickets, out, scale, B,
-                             S, H, KV, D, R, stream);
+      return dispatch<float>(q, k, v, lengths, part, tickets, out, lse,
+                             scale, B, S, H, KV, D, R, stream);
     case 1:
       return dispatch<__nv_bfloat16>(q, k, v, lengths, part, tickets, out,
-                                     scale, B, S, H, KV, D, R, stream);
+                                     lse, scale, B, S, H, KV, D, R, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -148,10 +148,10 @@ def _declare(lib: ctypes.CDLL):
     # dtype, stream)
     lib.repro_bfp_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_bfp_matmul.restype = ctypes.c_int
-    # (q, k, v, lengths, scratch, tickets, out, D**-0.5 in q's dtype, B, S,
-    # H, KV, D, rows a split, dtype, stream)
-    lib.repro_decode_attn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, i,
-                                      i, i, i, i, i, i, p]
+    # (q, k, v, lengths, scratch, tickets, out, lse or NULL, D**-0.5 in
+    # q's dtype, B, S, H, KV, D, rows a split, dtype, stream)
+    lib.repro_decode_attn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float,
+                                      i, i, i, i, i, i, i, p]
     lib.repro_decode_attn.restype = ctypes.c_int
     # (x, dt, A, B, C, y, state, scratch, Bb, L, H, P, G, N, Q, rows of y a
     # block, state rows a block, dtype, stream)

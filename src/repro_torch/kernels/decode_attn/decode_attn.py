@@ -129,7 +129,7 @@ def _check_args(q, k_cache, v_cache, lengths):
                          f" is not ({B},)")
 
 
-def _decode_attention_cuda(q, k_cache, v_cache, lengths):
+def _decode_attention_cuda(q, k_cache, v_cache, lengths, return_lse):
     global launches
     B, _, H, D = q.shape
     _, S, KV, _ = k_cache.shape
@@ -151,36 +151,44 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths):
                          f"q on {q.device}")
     G = H // KV
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     part = torch.empty(scratch_shape(B, S, KV, G, D), dtype=torch.float32,
                        device=q.device)
     if q.device.type == "meta":
         # the lengths are not known on meta: every cache row counts
         opcount.record_kernel("decode_attn", *decode_work(
             B, H, KV, D, B * S, q.element_size()))
-        return out
+        return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets = _tickets(q.device, stream,
                        B * KV * math.ceil(G / HEADS_PER_BLOCK))
     err = build.library().lib.repro_decode_attn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-        out.data_ptr(), prescale_factor(q), B, S, H, KV, D,
+        out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+        prescale_factor(q), B, S, H, KV, D,
         split_rows(B, S, KV, G, D), _DTYPE_CODE[q.dtype], stream)
     build.check(err, "decode_attn")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
+def decode_attention(q, k_cache, v_cache, lengths, return_lse: bool = False):
     """q (B, 1, H, D); caches (B, S, KV, D) in q's dtype; lengths (B,)
-    int -> (B, 1, H, D) in q's dtype.  On meta tensors (the dry run) the
+    int -> (B, 1, H, D) in q's dtype.  ``return_lse``: also each (slot,
+    head)'s f32 log-sum-exp of its scaled scores (B, H), and a slot of
+    length <= 0 gives output 0 and lse -inf where without it the
+    attention is uniform over every row (one rank's block of a cache split
+    over ``model`` may hold no valid row).  On meta tensors (the dry run) the
     CUDA path's outputs and scratch, and its launch recorded with
     :func:`decode_work` over every cache row: the lengths are not known
     there (the dry run's decode step fills the cache to all but its last
     row, so the count is exact to within one row a slot)."""
     _check_args(q, k_cache, v_cache, lengths)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lengths)
+        return decode_attention_ref(q, k_cache, v_cache, lengths,
+                                    return_lse=return_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _decode_attention_cuda(q, k_cache, v_cache, lengths)
+    return _decode_attention_cuda(q, k_cache, v_cache, lengths, return_lse)

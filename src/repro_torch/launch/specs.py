@@ -16,16 +16,22 @@ them), and the state's ``step`` is the host scalar the port's AdamW keeps.
 The step functions are the port's own: the ``Trainer``'s step
 (``runtime/trainer.py::train_step``, with its mesh step
 ``mesh_grads``) and ``apply`` in prefill or decode mode.  Given a mesh, a
-serving step does what the mesh training step does: each rank gathers
-the parameters whole (``sharding.full``), takes its share of the batch
-rows (every row where the batch does not split over the batch axes) and
-gathers its rows of each cache over the other mesh axes, runs ``apply``
-on them and writes its block of each cache back.  The same functions run
-on meta tensors in the dry run (``launch/dryrun.py``) and on the card
-(``chip_smoke.py``).
+serving step does what the mesh training step does: each rank takes its
+share of the batch rows (every row where the batch does not split over
+the batch axes) and runs ``apply`` on them.  Where the mesh's ``model``
+axis has one rank, it gathers the parameters whole (``sharding.full``)
+and its rows of each cache over the other mesh axes, and writes its
+block of each cache back; with more (tensor-parallel compute) it keeps
+each parameter's ``model`` block (``sharding.model_block``) and hands
+``apply`` the placed caches, whose layers read and write the rank's
+blocks in place (``sharding.cache_block``), and the next token is the
+argmax across the ranks' blocks of the vocabulary (``lm.greedy``).  The
+same functions run on meta tensors in the dry run (``launch/dryrun.py``)
+and on the card (``chip_smoke.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -126,29 +132,13 @@ def batch_shardings(cfg, shape, mesh, specs):
     return tree_map(one, specs)
 
 
-_CACHE_AXES = {
-    "k": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
-    "v": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
-    "ck": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
-    "cv": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
-    "ckv": ("batch", "cache_seq", "kv_lora"),
-    "kpe": ("batch", "cache_seq", None),
-    "conv_x": ("batch", None, "ssm_inner"),
-    "conv_b": ("batch", None, None),
-    "conv_c": ("batch", None, None),
-    "state": ("batch", "ssm_heads", "state", None),
-    # the port's cross caches: the encoder rows each slot's prefill wrote
-    "clen": ("batch",),
-}
-
-
 def cache_shardings(cfg, cache_spec, mesh):
     """Each cache leaf by its name's logical axes (the default rules, as
     the reference's; the port's ``clen`` by its slots), any leading dim
     replicated."""
     def one(path, leaf):
         name = shlib.path_str(path).split("/")[-1]
-        axes = _CACHE_AXES.get(name, (None,) * leaf.ndim)
+        axes = shlib.CACHE_AXES.get(name, (None,) * leaf.ndim)
         axes = ("layers",) * (leaf.ndim - len(axes)) + tuple(axes)
         return shlib.logical_sharding(leaf.shape, axes, mesh)
     with shlib.use_mesh_rules(mesh, None):
@@ -244,18 +234,28 @@ def _serve_step(cfg: ArchConfig, mode: str, *, length=None, mesh=None,
     def step(params, batch, caches):
         tokens = batch["tokens"]
         kw = {k: batch[k] for k in ("frames", "patches") if k in batch}
-        local = caches
+        local, share = caches, None
         if mesh is not None:
-            params = tree_map(shlib.full, params)
+            with shlib.use_mesh_rules(mesh, rules):
+                share = shlib.model_share(mesh)
+                vshare = lm.vocab_share(cfg) if share else None
             index, count = _rows(mesh, rules, tokens.shape[0])
             n = tokens.shape[0] // count
             tokens = tokens[index * n:(index + 1) * n]
             kw = {k: v[index * n:(index + 1) * n] for k, v in kw.items()}
-            local = tree_map(lambda t: _own_rows(t, mesh, rules), caches)
+            if share is None:
+                params = tree_map(shlib.full, params)
+                local = tree_map(lambda t: _own_rows(t, mesh, rules), caches)
+            else:
+                params = tree_map(shlib.model_block, params)
         if mode == "decode":
             kw["length"] = length
-        logits, new, _ = mod.apply(params, cfg, tokens, mode=mode,
-                                   caches=local, **kw)
+        with (shlib.use_mesh_rules(mesh, rules) if share
+              else contextlib.nullcontext()):
+            logits, new, _ = mod.apply(params, cfg, tokens, mode=mode,
+                                       caches=local, **kw)
+        if share is not None:
+            return lm.greedy(logits[:, -1], vshare), caches
         if mesh is not None:
             for t, r in zip(tree_leaves(caches), tree_leaves(new),
                             strict=True):

@@ -20,7 +20,7 @@ import torch
 from ..config import ArchConfig
 from ..core.device import resolve_device
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
-from ..nn.layers import embed, embed_init, linear_init, norm, norm_init
+from ..nn.layers import embed_init, linear_init, norm, norm_init
 from ..nn.module import shapes_only, torch_dtype
 from . import lm
 
@@ -116,7 +116,7 @@ def apply(params, cfg: ArchConfig, tokens, *, frames=None, enc_out=None,
         raise ValueError(mode)
     if enc_out is None and frames is not None:
         enc_out = encode(params, cfg, frames)
-    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = lm.embed_tokens(params, cfg, tokens)
     x, new_caches, aux = stack_apply(params["dec_stack"], cfg, x, mode=mode,
                                      length=length, caches=caches,
                                      enc_out=enc_out,
@@ -131,4 +131,4 @@ def loss_fn(params, cfg: ArchConfig, batch, collect_aux: bool = True):
     logits, _, aux = apply(params, cfg, batch["inputs"],
                            frames=batch["frames"], mode="train",
                            collect_aux=collect_aux)
-    return lm._ce(logits, batch["targets"], aux)
+    return lm._ce(logits, batch["targets"], aux, lm.vocab_share(cfg))

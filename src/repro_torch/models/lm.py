@@ -16,6 +16,15 @@ the large linears to shared-exponent int8 blocks (the reference's
 ``bfp8`` serving weights), which ``nn.layers.linear`` and
 ``core.bfp.weight_of`` dequantize.  :func:`loss_fn` is the reference's
 masked cross entropy with its metrics (plus the MoE router loss).
+
+Under tensor-parallel compute over ``model`` (an active DeviceMesh whose
+``model`` axis has more than one rank, where the rules split the
+vocabulary) the embedding is looked up in each rank's rows and summed,
+the readout gives the rank's block of the vocabulary's logits (an untied
+``lm_head``, which no rule splits, is cut to its columns; under
+``fc_bfp`` kernel 4 runs on them), :func:`_ce` takes its max, sum of
+exponentials and label logit across the ranks, and :func:`greedy` the
+lowest index among the maxima across them.
 """
 from __future__ import annotations
 
@@ -27,9 +36,11 @@ from ..core import bfp
 from ..core.device import resolve_device
 from ..kernels.bfp_matmul.ops import bfp_linear
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
-from ..nn.layers import (embed, embed_attend, embed_init, linear,
-                         linear_init, norm, norm_init)
+from ..nn.layers import (block, embed, embed_attend, embed_init, linear,
+                         linear_cols, linear_init, norm, norm_init)
 from ..nn.module import shapes_only, torch_dtype, tree_map
+from ..parallel import collectives as coll
+from ..parallel.sharding import model_share, splits
 
 
 def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
@@ -170,8 +181,30 @@ def zero_caches(shapes, device):
             for c in shapes]
 
 
+def vocab_share(cfg: ArchConfig):
+    """The ``model`` share the vocabulary is split over, or None."""
+    share = model_share()
+    return share if share and splits("vocab", cfg.vocab_size) else None
+
+
+def embed_tokens(params, cfg: ArchConfig, tokens):
+    """The tokens' embeddings in ``cfg.dtype``, every rank's whole."""
+    return embed(params["embed"], tokens, torch_dtype(cfg.dtype),
+                 vocab_share(cfg), cfg.vocab_size)
+
+
 def _readout(params, cfg: ArchConfig, x):
     x = x.to(torch_dtype(cfg.dtype))
+    share = vocab_share(cfg)
+    if share is not None:
+        V = cfg.vocab_size
+        if cfg.tie_embeddings:
+            return embed_attend(params["embed"], x, share, V)
+        if cfg.fc_bfp:
+            return bfp_linear(x, block(params["lm_head"]["w"], 1, V,
+                                       share).contiguous())
+        return linear_cols(params["lm_head"], x, V, share,
+                           dtype=torch.float32)
     if cfg.tie_embeddings:
         return embed_attend(params["embed"], x)
     if cfg.fc_bfp:
@@ -193,7 +226,7 @@ def apply(params, cfg: ArchConfig, tokens, *, mode: str = "train",
     ``collect_aux``; else 0."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
-    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = embed_tokens(params, cfg, tokens)
     x, new_caches, aux = stack_apply(params["stack"], cfg, x, mode=mode,
                                      length=length, caches=caches,
                                      collect_aux=collect_aux)
@@ -206,15 +239,32 @@ def loss_fn(params, cfg: ArchConfig, batch, collect_aux: bool = True):
     are masked.  Returns (loss + aux, metrics) as the reference does."""
     logits, _, aux = apply(params, cfg, batch["inputs"], mode="train",
                            collect_aux=collect_aux)
-    return _ce(logits, batch["targets"], aux)
+    return _ce(logits, batch["targets"], aux, vocab_share(cfg))
 
 
-def _ce(logits, targets, aux):
+def greedy(logits, share=None):
+    """The index of each row's max over the last axis, the lowest among
+    equal maxima (``argmax``), int32; with ``share`` the rows are the
+    rank's block of the vocabulary and the answer is the whole row's."""
+    idx = logits.argmax(-1)
+    if share is None:
+        return idx.to(torch.int32)
+    val = logits.gather(-1, idx[..., None])[..., 0].to(torch.float32)
+    idx = idx + share.block(logits.shape[-1] * share.size)[0]
+    vals = coll.gather_nograd(val[None], 0, share)       # (m, ...)
+    idxs = coll.gather_nograd(idx[None], 0, share)
+    best = vals.argmax(0)                       # the lowest rank among ties
+    return idxs.gather(0, best[None])[0].to(torch.int32)
+
+
+def _ce(logits, targets, aux, share=None):
     """Masked mean cross entropy over the valid targets, the reference's
     formulation: the log-sum-exp against the detached row max, and the
     label's logit (here gathered: the reference's one-hot select-sum adds
     zeros to it, the same value).  Accuracy counts a label whose logit is
     >= the row max, ties included."""
+    if share is not None:
+        return _ce_split(logits, targets, aux, share)
     valid = targets >= 0
     tgt = torch.clamp(targets, min=0).long()
     lf = logits.to(torch.float32)
@@ -226,6 +276,33 @@ def _ce(logits, targets, aux):
     loss = torch.where(valid, nll, 0.0).sum() / denom
     total = loss + aux
     is_max = label_logit >= m[..., 0]
+    metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
+               "accuracy": (valid & is_max).sum() / denom}
+    return total, metrics
+
+
+def _ce_split(logits, targets, aux, share):
+    """:func:`_ce` on the rank's block of the vocabulary's logits: the row
+    max (detached) and the sum of exponentials against it across the
+    ranks, the label's logit from the rank that holds it; every rank gets
+    the same loss and metrics."""
+    valid = targets >= 0
+    tgt = torch.clamp(targets, min=0).long()
+    lf = logits.to(torch.float32)
+    Vl = lf.shape[-1]
+    lo = share.rank * Vl
+    m = coll.all_max(lf.amax(dim=-1), share)
+    se = coll.reduce_sum(torch.sum(torch.exp(lf - m[..., None]), dim=-1),
+                         share)
+    lse = torch.log(se) + m
+    mine = (tgt >= lo) & (tgt < lo + Vl)
+    ll = torch.gather(lf, -1, (tgt - lo).clamp(0, Vl - 1)[..., None])[..., 0]
+    label_logit = coll.reduce_sum(torch.where(mine, ll, 0.0), share)
+    nll = lse - label_logit
+    denom = torch.clamp(valid.sum(), min=1)
+    loss = torch.where(valid, nll, 0.0).sum() / denom
+    total = loss + aux
+    is_max = label_logit >= m
     metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
                "accuracy": (valid & is_max).sum() / denom}
     return total, metrics

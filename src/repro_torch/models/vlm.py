@@ -15,7 +15,7 @@ import torch
 from ..config import ArchConfig
 from ..core.device import resolve_device
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
-from ..nn.layers import embed, embed_init, linear, linear_init, norm, norm_init
+from ..nn.layers import embed_init, linear, linear_init, norm, norm_init
 from ..nn.module import shapes_only, torch_dtype
 from . import lm
 
@@ -70,7 +70,7 @@ def apply(params, cfg: ArchConfig, tokens, *, patches=None,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     dt = torch_dtype(cfg.dtype)
-    x = embed(params["embed"], tokens, dt)
+    x = lm.embed_tokens(params, cfg, tokens)
     n_patch = 0
     if patches is not None:
         pe = linear(params["patch_proj"], patches.to(dt))
@@ -89,4 +89,4 @@ def loss_fn(params, cfg: ArchConfig, batch, collect_aux: bool = True):
     logits, _, aux = apply(params, cfg, batch["inputs"],
                            patches=batch["patches"], mode="train",
                            collect_aux=collect_aux)
-    return lm._ce(logits, batch["targets"], aux)
+    return lm._ce(logits, batch["targets"], aux, lm.vocab_share(cfg))

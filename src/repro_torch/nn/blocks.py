@@ -32,14 +32,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..config import ArchConfig
 from ..core.opcount import marks_layer
-from .attention import (attn_apply, attn_cache_shape, attn_init,
-                        cross_cache_shape)
+from ..parallel import collectives as coll
+from ..parallel.sharding import model_share, splits
+from .attention import (attn_apply, attn_apply_tp, attn_cache_shape,
+                        attn_init, cross_cache_shape)
 from .flash import FLASH_OP
 from .layers import norm, norm_init
-from .mlp import mlp_apply, mlp_init
-from .moe import moe_apply, moe_init
+from .mlp import mlp_apply, mlp_apply_tp, mlp_init
+from .moe import moe_apply, moe_apply_tp, moe_init
 from .module import torch_dtype
-from .ssd import mamba_apply, mamba_init, ssm_cache_shape
+from .ssd import mamba_apply, mamba_apply_tp, mamba_init, ssm_cache_shape
 
 
 def _check_kind(ffn: str):
@@ -102,6 +104,64 @@ def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
     return x, new_cache, aux
 
 
+def _settle(y, kind: str, rows: bool, share):
+    """A sublayer's output ``y`` as the residual holds it: the rank's rows
+    (``rows``) or every row."""
+    if kind == "partial":
+        return (coll.reduce_scatter(y, 1, share) if rows
+                else coll.reduce_sum(y, share))
+    if kind == "full" and rows:
+        return coll.split(y, 1, share)
+    return y
+
+
+@marks_layer
+def block_apply_tp(p, cfg: ArchConfig, x, share, *, mixer: str, ffn: str,
+                   mode: str, rows: bool, length=None, cache=None,
+                   enc_out=None, collect_aux: bool = False):
+    """:func:`block_apply` on the rank's blocks: ``x`` the residual, the
+    rank's block of rows where ``rows``, else every row."""
+    def whole(h):
+        return coll.gather(h, 1, share) if rows else h
+
+    h = whole(norm(cfg.norm_type, p["norm1"], x))
+    if mixer == "attn":
+        h, kind, c = attn_apply_tp(
+            p["attn"], cfg, h, share, mode=mode, length=length,
+            cache=None if cache is None else cache["attn"])
+    else:
+        h, kind, c = mamba_apply_tp(
+            p["ssm"], cfg, h, share,
+            mode="train" if mode == "bidir" else mode,
+            cache=None if cache is None else cache["ssm"])
+    x = x + _settle(h, kind, rows, share)
+    new_cache = None if cache is None else {mixer: c}
+    xc = None if cache is None else cache.get("xattn")
+    if cfg.cross_attention and "xattn" in p and (enc_out is not None
+                                                 or xc is not None):
+        h, kind, xc = attn_apply_tp(
+            p["xattn"], cfg, whole(norm(cfg.norm_type, p["normx"], x)),
+            share, mode="decode" if mode == "decode" else "prefill",
+            length=length, cache=xc, enc_out=enc_out)
+        x = x + _settle(h, kind, rows, share)
+        if new_cache is not None and xc is not None:
+            new_cache["xattn"] = xc
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "mlp":
+        h, kind = mlp_apply_tp(p["mlp"], cfg,
+                               whole(norm(cfg.norm_type, p["norm2"], x)),
+                               share)
+        x = x + _settle(h, kind, rows, share)
+    elif ffn == "moe":
+        h, kind, a = moe_apply_tp(p["moe"], cfg,
+                                  whole(norm(cfg.norm_type, p["norm2"], x)),
+                                  share, return_aux=collect_aux)
+        x = x + _settle(h, kind, rows, share)
+        if a is not None:
+            aux = a
+    return x, new_cache, aux
+
+
 def stack_kinds(cfg: ArchConfig):
     """(mixer, ffn) of every layer, in order: the dense prefix
     (``first_k_dense``) and then the repeating pattern."""
@@ -145,6 +205,14 @@ def _remat_block(bp, x, enc_out, cfg, mixer, ffn, mode, collect_aux):
     return x, aux
 
 
+def _remat_block_tp(bp, x, enc_out, cfg, mixer, ffn, mode, collect_aux,
+                    share, rows):
+    x, _, aux = block_apply_tp(bp, cfg, x, share, mixer=mixer, ffn=ffn,
+                               mode=mode, rows=rows, enc_out=enc_out,
+                               collect_aux=collect_aux)
+    return x, aux
+
+
 def _remat_kwargs(cfg: ArchConfig) -> dict:
     """``checkpoint``'s keyword arguments for ``cfg.remat_policy``."""
     if cfg.remat_policy == "save_attn":
@@ -158,7 +226,14 @@ def stack_apply(params, cfg: ArchConfig, x, *, mode: str, length=None,
                 caches=None, enc_out=None, collect_aux: bool = False):
     """Every layer in order -> (x, caches, aux); aux, the MoE router loss
     summed over the layers under ``collect_aux``, is 0 otherwise;
-    ``enc_out`` goes to every layer's cross-attention."""
+    ``enc_out`` goes to every layer's cross-attention.  Under a ``model``
+    share the stack runs :func:`block_apply_tp`; ``x`` comes in and goes
+    out whole on every rank."""
+    share = model_share()
+    if share is not None:
+        return _stack_apply_tp(params, cfg, x, share, mode=mode,
+                               length=length, caches=caches, enc_out=enc_out,
+                               collect_aux=collect_aux)
     new_caches = None if caches is None else []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = (cfg.remat and mode in ("train", "bidir")
@@ -177,4 +252,35 @@ def stack_apply(params, cfg: ArchConfig, x, *, mode: str, length=None,
             if new_caches is not None:
                 new_caches.append(c)
         aux_total = aux_total + aux
+    return x, new_caches, aux_total
+
+
+def _stack_apply_tp(params, cfg: ArchConfig, x, share, *, mode: str,
+                    length=None, caches=None, enc_out=None,
+                    collect_aux: bool = False):
+    rows = mode != "decode" and splits("seq_res", x.shape[1])
+    if rows:
+        x = coll.split(x, 1, share)
+    new_caches = None if caches is None else []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = (cfg.remat and mode in ("train", "bidir")
+             and torch.is_grad_enabled())
+    kw = _remat_kwargs(cfg) if remat else None
+    for i, ((mixer, ffn), bp) in enumerate(zip(stack_kinds(cfg), params)):
+        if remat:
+            x, aux = checkpoint(functools.partial(
+                _remat_block_tp, cfg=cfg, mixer=mixer, ffn=ffn, mode=mode,
+                collect_aux=collect_aux, share=share, rows=rows), bp, x,
+                enc_out, **kw)
+        else:
+            x, c, aux = block_apply_tp(
+                bp, cfg, x, share, mixer=mixer, ffn=ffn, mode=mode,
+                rows=rows, length=length,
+                cache=None if caches is None else caches[i],
+                enc_out=enc_out, collect_aux=collect_aux)
+            if new_caches is not None:
+                new_caches.append(c)
+        aux_total = aux_total + aux
+    if rows:
+        x = coll.gather(x, 1, share)
     return x, new_caches, aux_total

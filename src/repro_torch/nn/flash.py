@@ -23,6 +23,12 @@ activation checkpointing can keep its output (``remat_policy="save_attn"``,
 :func:`decode_attention` runs kernel 5 (``csrc/decode_attn.cu``) on a CUDA
 tensor and its plain version on a CPU tensor.
 
+Under tensor-parallel compute over ``model`` the sequence-parallel
+regime (``nn/attention.py``) gives :func:`flash_attention` the rank's block
+of q rows with ``q_offset`` = rank x S / model, and a decode gives kernel 5
+the rank's block of the cache, merged across the ranks by the log-sum-exp
+``return_lse`` returns (``kernels/decode_attn/ref.py::merge_blocks``).
+
 Layouts: q (B, Sq, H, D); k, v (B, Skv, KV, D) with H % KV == 0.
 """
 from __future__ import annotations
@@ -233,9 +239,12 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return o[:, :Sq].to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, length):
+def decode_attention(q, k_cache, v_cache, length, return_lse: bool = False):
     """One-token decode: q (B, 1, H, D) against the cache (B, S, KV, D);
     positions >= length (a scalar or a (B,) tensor) are masked.  Kernel 5
     on a CUDA tensor, its plain version (the reference's grouped einsum) on
-    a CPU tensor."""
-    return _decode_ops.decode_attention(q, k_cache, v_cache, length)
+    a CPU tensor.  ``return_lse``: also the f32 log-sum-exp (B, H), for
+    one rank's block of a cache split along the sequence (an empty block:
+    output 0, lse -inf)."""
+    return _decode_ops.decode_attention(q, k_cache, v_cache, length,
+                                        return_lse=return_lse)

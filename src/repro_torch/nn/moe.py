@@ -16,6 +16,13 @@ The dispatch and combine tensors (G, sg, E, C) and the expert products
 over (E, G, C, D) are the reference's einsums: every expert's weights
 are read whatever the routing, and the result is deterministic.  There
 is no kernel on this path in the reference, and none here.
+
+:func:`moe_apply_tp` splits the experts over ``model`` where the rules
+split ``experts``: the router and the top-k stay replicated (every rank
+routes every token alike, ties included), the rank runs its experts'
+slots of dispatch and combine, and its output is its partial sum over
+them (summed by the caller's collective, in the ring's fixed order; no
+float atomics).
 """
 from __future__ import annotations
 
@@ -23,10 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ArchConfig, MoECfg
-from ..core.bfp import weight_of
-from ..parallel.sharding import batch_mean
-from .layers import linear, linear_init
-from .mlp import mlp_apply, mlp_init
+from ..parallel.sharding import batch_mean, splits
+from .layers import linear, linear_init, weight_block
+from .mlp import mlp_apply, mlp_apply_tp, mlp_init
 from .module import param, torch_dtype
 
 
@@ -75,6 +81,15 @@ def group(cfg: ArchConfig, x):
 
 def moe_apply(p, cfg: ArchConfig, x, *, return_aux: bool = False):
     """x (B, S, D) -> (y (B, S, D), aux or None)."""
+    y, _, aux = moe_apply_tp(p, cfg, x, None, return_aux=return_aux)
+    return y, aux
+
+
+def moe_apply_tp(p, cfg: ArchConfig, x, share, *, return_aux: bool = False):
+    """(y, kind, aux) under ``share``: the rank's partial sum over its
+    experts (and its block of the shared experts' MLP) where the rules
+    split ``experts``; else the experts on every rank, kind "full" where
+    the shared MLP is whole too.  ``share`` None: :func:`moe_apply`."""
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.num_experts, m.top_k
@@ -97,22 +112,38 @@ def moe_apply(p, cfg: ArchConfig, x, *, return_aux: bool = False):
     combine = (gates[..., None] * sel.to(x.dtype)).sum(2)[..., None] \
         * dispatch
 
-    xe = torch.einsum("gsec,gsd->egcd", dispatch, xg)
     w = p["experts"]
-    h = F.silu(torch.einsum("egcd,edf->egcf", xe,
-                            weight_of(w, "w1", dtype=x.dtype)))
-    h = h * torch.einsum("egcd,edf->egcf", xe,
-                         weight_of(w, "w3", dtype=x.dtype))
-    ye = torch.einsum("egcf,efd->egcd", h, weight_of(w, "w2", dtype=x.dtype))
+    mine = share is not None and splits("experts", E)
+    if mine:        # the rank's experts' slots only
+        lo, hi = share.block(E)
+        dispatch, combine = dispatch[:, :, lo:hi], combine[:, :, lo:hi]
+    wts = [weight_block(w, n, 0, E, share if mine else None, x.dtype)
+           for n in ("w1", "w3", "w2")]
+    xe = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    h = F.silu(torch.einsum("egcd,edf->egcf", xe, wts[0]))
+    h = h * torch.einsum("egcd,edf->egcf", xe, wts[1])
+    ye = torch.einsum("egcf,efd->egcd", h, wts[2])
     y = torch.einsum("gsec,egcd->gsd", combine, ye)
+    kind = "partial" if mine else "full"
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], cfg, xg)
+        if share is None:
+            y = y + mlp_apply(p["shared"], cfg, xg)
+        else:
+            ys, skind = mlp_apply_tp(p["shared"], cfg, xg, share,
+                                     d_ff=m.d_ff * m.num_shared)
+            if skind != kind:   # a whole term held once: on rank 0
+                if kind == "full":
+                    y = y if share.rank == 0 else torch.zeros_like(y)
+                else:
+                    ys = ys if share.rank == 0 else torch.zeros_like(ys)
+                kind = "partial"
+            y = y + ys
     y = y.reshape(B, S + pad, D)[:, :S].to(x.dtype)
     if not return_aux:
-        return y, None
+        return y, kind, None
     # load-balance loss (Switch/GShard): E * sum_e f_e * p_e, over the pad
     # rows too, as the reference averages; both means span the global batch
     # under a data-parallel mesh step
     me = batch_mean(probs.mean(dim=(0, 1)))
     ce = batch_mean(sel.to(torch.float32).sum(2).mean(dim=(0, 1))) / k
-    return y, E * torch.sum(me * ce) * m.router_aux_coef
+    return y, kind, E * torch.sum(me * ce) * m.router_aux_coef

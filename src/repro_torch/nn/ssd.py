@@ -19,6 +19,17 @@ shorter than k - 1 tokens the reference's prefill keeps fewer than k - 1
 rows of conv state (``raw[:, S - (k - 1):]`` starts at a negative index);
 here the state is the last k - 1 raw inputs, left-padded with zeros, the
 value the causal conv itself assumes.
+
+:func:`mamba_apply_tp` is the mixer under tensor-parallel compute over
+``model``, where the rules split ``ssm_inner`` and ``ssm_heads``: the
+in-projections match no rule and stay replicated, and the rank computes
+only its columns of them, its channels of x and z and its heads of dt;
+kernel 7 runs on those channels with the matching columns of the
+replicated ``conv_x`` weight, kernel 6 on its heads with its blocks of
+``A_log``/``D``/``dt_bias`` (B and C whole), the gated RMSNorm over
+``d_inner`` sums its squares across the ranks, and ``out_proj`` on the
+rank's rows gives its partial sum.  The decode caches hold the rank's
+channels and heads (``sharding.cache_block``).
 """
 from __future__ import annotations
 
@@ -31,7 +42,10 @@ from ..kernels.conv import ops as conv_ops
 from ..kernels.conv.ref import conv1d_depthwise_causal_ref
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ssd import clip_exp
-from .layers import linear, linear_init, rmsnorm
+from ..parallel import collectives as coll
+from ..parallel.sharding import cache_block, splits
+from .layers import block, linear, linear_cols, linear_init, linear_rows, \
+    rmsnorm
 from .module import draw_device, torch_dtype
 
 
@@ -243,3 +257,86 @@ def mamba_apply(p, cfg: ArchConfig, x, *, mode: str, cache=None):
     y = y.reshape(Bb, S, cfg.d_inner)
     y = rmsnorm(p["norm"], y * F.silu(z))
     return linear(p["out_proj"], y).to(x.dtype), cache
+
+
+def _head_groups(t, H: int, lo: int, hi: int):
+    """The groups of B or C (B, S, G, N) that heads [lo, hi) read."""
+    G = t.shape[2]
+    Hg = H // G
+    if G == 1:
+        return t
+    if (hi - lo) % Hg == 0:
+        return t[:, :, lo // Hg:hi // Hg]
+    if Hg % (hi - lo) == 0:
+        return t[:, :, lo // Hg:lo // Hg + 1]
+    raise NotImplementedError(f"heads [{lo}, {hi}) across groups of {Hg}")
+
+
+def mamba_apply_tp(p, cfg: ArchConfig, x, share, *, mode: str, cache=None):
+    """(y, kind, cache) under ``share``: kind "partial" where the rules
+    split ``ssm_inner`` and ``ssm_heads`` (the rank's channels and heads),
+    else :func:`mamba_apply` on every rank ("full")."""
+    s = cfg.ssm
+    Bb, S, _ = x.shape
+    H, P, di = cfg.ssm_heads, s.head_dim, cfg.d_inner
+    loc = None if cache is None else {
+        n: cache_block(t, n, share)[0] for n, t in cache.items()}
+    if not (splits("ssm_inner", di) and splits("ssm_heads", H)):
+        y, _ = mamba_apply(p, cfg, x, mode=mode, cache=loc)
+        return y, "full", cache
+    lo, hi = share.block(H)
+
+    z = linear_cols(p["wz"], x, di, share)
+    xs = linear_cols(p["wx"], x, di, share)
+    bs = linear(p["wb"], x)
+    cs = linear(p["wc"], x)
+    dt = linear_cols(p["wdt"], x, H, share)
+    wx = block(p["conv_x"]["w"], 1, di, share).contiguous()
+    bx = block(p["conv_x"]["b"], 0, di, share)
+
+    if mode == "decode":
+        xs, conv_x = conv_decode_step(wx, bx, loc["conv_x"], xs)
+        bs, conv_b = conv_decode_step(p["conv_b"]["w"], p["conv_b"]["b"],
+                                      loc["conv_b"], bs)
+        cs, conv_c = conv_decode_step(p["conv_c"]["w"], p["conv_c"]["b"],
+                                      loc["conv_c"], cs)
+    else:
+        raw = {"conv_x": xs, "conv_b": bs, "conv_c": cs}
+        xs = causal_conv1d(wx, bx, xs, use_winograd=True)
+        bs = causal_conv1d(p["conv_b"]["w"], p["conv_b"]["b"], bs)
+        cs = causal_conv1d(p["conv_c"]["w"], p["conv_c"]["b"], cs)
+    xs, bs, cs = F.silu(xs), F.silu(bs), F.silu(cs)
+
+    A = -torch.exp(block(p["A_log"], 0, H, share).float())
+    dt = F.softplus(dt.float() + block(p["dt_bias"], 0, H, share).float())
+    xh = xs.reshape(Bb, S, hi - lo, P)
+    bg = _head_groups(bs.reshape(Bb, S, s.ngroups, s.d_state), H, lo, hi)
+    cg = _head_groups(cs.reshape(Bb, S, s.ngroups, s.d_state), H, lo, hi)
+
+    if mode == "decode":
+        y, state = ssd_decode_step(xh, dt, A, bg, cg, loc["state"])
+        for name, val in (("conv_x", conv_x), ("conv_b", conv_b),
+                          ("conv_c", conv_c), ("state", state)):
+            loc[name].copy_(val)
+    elif mode == "train":
+        y, state = ssd_ops.ssd_chunked(xh, dt, A, bg, cg, chunk=s.chunk,
+                                       pallas=False)
+    else:
+        y, state = ssd_ops.ssd_chunked(xh, dt, A, bg, cg, chunk=s.chunk)
+        if mode == "prefill" and loc is not None:
+            for name, val in raw.items():
+                loc[name].copy_(conv_tail(val, s.conv_kernel))
+            loc["state"].copy_(state)
+
+    y = y + block(p["D"], 0, H, share).to(y.dtype)[None, None, :, None] * xh
+    y = (y.reshape(Bb, S, -1) * F.silu(z))
+    # the gated RMSNorm over all of d_inner: the ranks' means of squares,
+    # each weighted by its share of the width, summed
+    dtype = y.dtype
+    yf = y.to(torch.float32)
+    var = coll.reduce_sum(yf.square().mean(dim=-1, keepdim=True)
+                          * (yf.shape[-1] / di), share)
+    y = (yf * torch.rsqrt(var + 1e-6)
+         * block(p["norm"]["scale"], 0, di, share).to(torch.float32))
+    y = linear_rows(p["out_proj"], y.to(dtype), di, share)
+    return y.to(x.dtype), "partial", cache

@@ -12,10 +12,13 @@ clip scale, the bias corrections ``1 - b**t`` in f32, the update in f32,
 then ``p - lr * update`` in p's dtype.
 
 A sharded state (``runtime/trainer.py``'s mesh step) holds DTensor params
-and moments; its ``grads`` are the full, averaged gradients, identical on
-every rank.  The norm is then the full gradient's, and each rank updates
-its own block of params, m and v in place with its block of the
-gradient: the same arithmetic, element by element.  The moments may be
+and moments; its ``grads`` are the averaged gradients, whole (identical
+on every rank) or, under tensor-parallel compute, the rank's ``model``
+block of each leaf the rules split.  The norm is then the full
+gradient's (the blocks' sums of squares summed over ``model``, each
+replicated leaf counted once), and each rank updates its own block of
+params, m and v in place with its block of the gradient: the same
+arithmetic, element by element.  The moments may be
 placed finer than the params (ZeRO-1, the reference's default for its
 dry run: ``sharding.zero1_shardings`` shards them over "data" on a dim
 the param leaves whole): m, v and the update are then computed on the
@@ -32,7 +35,7 @@ import torch
 
 from ..nn.module import tree_leaves, tree_map
 from ..parallel.collectives import all_gather
-from ..parallel.sharding import is_dtensor, local, shard_of
+from ..parallel.sharding import is_dtensor, local, model_share, shard_of
 
 
 def init_state(params) -> dict:
@@ -56,12 +59,23 @@ def lr_schedule(step, *, base_lr: float, warmup: int = 100,
     return base_lr * warm * cos
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    total = None
-    for x in tree_leaves(tree):
+def global_norm(tree, blocks=None, group=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+    ``blocks``: for each leaf whether it is this rank's block of a leaf
+    split over a ``model`` axis, whose process group is ``group``; the
+    blocks' sums of squares are summed over its ranks (the replicated
+    leaves' taken once)."""
+    total = split = None
+    for i, x in enumerate(tree_leaves(tree)):
         sq = torch.sum(torch.square(x.to(torch.float32)))
-        total = sq if total is None else total + sq
+        if blocks is not None and blocks[i]:
+            split = sq if split is None else split + sq
+        else:
+            total = sq if total is None else total + sq
+    if split is not None:
+        import torch.distributed as dist
+        dist.all_reduce(split, group=group)
+        total = split if total is None else total + split
     return torch.sqrt(total)
 
 
@@ -73,7 +87,7 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
     params' structure (or the list of its leaves), whole tensors also for
     DTensor params.  Returns ``(state, {"grad_norm": ...})`` like the
     reference."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, *_blocks(state["params"], grads))
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0) \
         if clip_norm else 1.0
     step = state["step"] + 1
@@ -86,7 +100,8 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
     for p, g, m, v in zip(tree_leaves(state["params"]), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
         finer = _finer_dims(p, m)
-        g = shard_of(g, m).to(torch.float32) * scale
+        g = (_narrow(g, finer) if g.shape != p.shape
+             else shard_of(g, m)).to(torch.float32) * scale
         p, m, v = local(p), local(m), local(v)
         pm = _narrow(p, finer)
         m.mul_(b1).add_((1 - b1) * g)
@@ -97,6 +112,17 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
         p.sub_(lr * _gather(update.to(p.dtype), finer))
     state["step"] = step
     return state, {"grad_norm": gnorm}
+
+
+def _blocks(params, grads) -> tuple:
+    """(per leaf whether its gradient is the leaf's ``model`` block, the
+    ``model`` group) under tensor-parallel compute; else (None, None)."""
+    flags = [g.shape != p.shape for p, g in zip(tree_leaves(params),
+                                                 tree_leaves(grads))]
+    if not any(flags):
+        return None, None
+    mesh = next(p for p in tree_leaves(params) if is_dtensor(p)).device_mesh
+    return flags, model_share(mesh).group
 
 
 def _finer_dims(p, m) -> list:

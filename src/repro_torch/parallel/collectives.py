@@ -13,6 +13,23 @@ the gathered chunks are rolled by 2.  With the same BFP rounding
 (``core/bfp.py``) the result is the reference's to the bit.  The
 quantization runs in PyTorch ops, as the reference's runs in jnp outside
 any Pallas kernel.
+
+The collectives of tensor-parallel compute over ``model`` (the ones GSPMD
+inserts in the reference) are autograd functions on a
+``sharding.ModelShare``'s group, eager c10d ops the dry run's counter
+counts (``core/opcount.py``).  Their gradients keep one convention: the
+gradient a rank holds of a tensor every rank holds alike (a replicated
+activation or parameter) is its share, and the gradient is the sum of the
+shares over the ``model`` ranks; of a tensor that is the rank's own (its
+block of a split dim, or its partial sum) the gradient is whole.  So
+:func:`reduce_sum` (partial sums -> their sum) and :func:`gather` (blocks
+-> the whole) sum shares in their backward (an all-reduce and a
+reduce-scatter), :func:`reduce_scatter` gathers, :func:`split` (the
+whole -> the rank's block) pads with zeros and moves nothing, and the
+training step seeds each rank's loss with 1 / model and sums the
+replicated leaves' gradients over the group (``runtime/trainer.py``).
+Every sum over ranks is the backend's ring, whose order is fixed: no
+float atomics, and every rank gets the same bits.
 """
 from __future__ import annotations
 
@@ -64,6 +81,140 @@ def all_gather(t, group):
     out = torch.empty(n * raw.numel(), dtype=torch.uint8, device=t.device)
     dist.all_gather_into_tensor(out, raw, group=group)
     return out.view(t.dtype).reshape((n,) + t.shape)
+
+
+def _moved(x, dim):
+    """``x`` with ``dim`` first, contiguous (the layout c10d's tensor
+    collectives split and concatenate along)."""
+    return x.movedim(dim, 0).contiguous()
+
+
+def _all_gather_dim(x, dim, share):
+    dist = _dist()
+    xs = _moved(x, dim)
+    out = xs.new_empty((share.size * xs.shape[0],) + tuple(xs.shape[1:]))
+    # the tensor collectives' newer names where this PyTorch has them
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+        out, xs, group=share.group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter_dim(x, dim, share):
+    dist = _dist()
+    xs = _moved(x, dim)
+    out = xs.new_empty((xs.shape[0] // share.size,) + tuple(xs.shape[1:]))
+    getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
+        out, xs, group=share.group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _all_reduce(x, share, op=None):
+    dist = _dist()
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=share.group)
+    return out
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, share):
+        ctx.share = share
+        return _all_reduce(x, share)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.share), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, share):
+        ctx.dim, ctx.share = dim, share
+        return _all_gather_dim(x, dim, share)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_dim(g, ctx.dim, ctx.share), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, share):
+        ctx.dim, ctx.share = dim, share
+        return _reduce_scatter_dim(x, dim, share)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(g, ctx.dim, ctx.share), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, share):
+        ctx.dim, ctx.n, ctx.share = dim, x.shape[dim], share
+        lo, hi = share.block(x.shape[dim])
+        return x.narrow(dim, lo, hi - lo).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.share.block(ctx.n)
+        shape = list(g.shape)
+        shape[ctx.dim] = ctx.n
+        out = g.new_zeros(shape)
+        out.narrow(ctx.dim, lo, hi - lo).copy_(g)
+        return out, None, None
+
+
+# on a group of one rank each of these moves nothing and returns its input
+# (no call into the process group, no copy), as the mesh step skips its
+# one-rank dims
+def reduce_sum(x, share):
+    """The sum over the ``model`` ranks of their partial sums ``x``
+    (all-reduce), alike on every rank; backward an all-reduce of the
+    shares."""
+    return x if share.size == 1 else _ReduceSum.apply(x, share)
+
+
+def gather(x, dim: int, share):
+    """Every rank's block ``x`` concatenated along ``dim`` in rank order
+    (all-gather); backward a reduce-scatter of the shares."""
+    return x if share.size == 1 else _Gather.apply(x, dim, share)
+
+
+def reduce_scatter(x, dim: int, share):
+    """This rank's block along ``dim`` of the sum of the ranks' partial
+    sums ``x`` (reduce-scatter); backward an all-gather."""
+    return x if share.size == 1 else _ReduceScatter.apply(x, dim, share)
+
+
+def split(x, dim: int, share):
+    """This rank's block along ``dim`` of ``x``, held alike on every rank;
+    no collective either way (the gradient's other blocks are zero)."""
+    return x if share.size == 1 else _Split.apply(x, dim, share)
+
+
+def gather_nograd(x, dim: int, share):
+    """:func:`gather` outside autograd (the serving steps)."""
+    return x if share.size == 1 else _all_gather_dim(x, dim, share)
+
+
+def all_max(x, share):
+    """The elementwise max over the ``model`` ranks (no gradient)."""
+    if share.size == 1:
+        return x.detach()
+    return _all_reduce(x.detach(), share, _dist().ReduceOp.MAX)
+
+
+def heads_to_rows(x, share):
+    """All-to-all over the ``model`` ranks: ``x`` (m, ...), chunk d for
+    rank d, -> (m, ...), chunk s from rank s."""
+    if share.size == 1:
+        return x
+    dist = _dist()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=share.group)
+    return out
 
 
 def bfp_psum(x, group=None, *, block: int = 32, bits: int = 8):

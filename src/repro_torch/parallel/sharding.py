@@ -20,8 +20,16 @@ regexes match as they do there.  A per-layer leaf of the port's layer list
 that dim to None, so its spec is the reference's without that entry.
 
 :func:`constrain` is the identity on a plain tensor and a ``redistribute``
-on a DTensor; the port's layers do not call it (tensor-parallel compute
-over ``model`` is not ported: ROADMAP).  :func:`batch_mean` is the one
+on a DTensor; the port's layers do not call it.  Where the reference
+leaves GSPMD to derive each rank's block from its ``constrain`` hints, the
+port's layers compute it explicitly: under an active DeviceMesh whose
+``model`` axis has more than one rank (:func:`model_share`), each layer
+takes its blocks of the parameters (``nn/layers.py::block``), picks its
+regime from :func:`splits` (a :func:`_resolve` of the logical axis) and
+:func:`heads_parallel` (the reference's attention regime test), and moves
+activations over the ``model`` group with ``parallel/collectives.py``'s
+autograd pairs.  A cache leaf holds the rank's block by
+:data:`CACHE_AXES` (:func:`cache_block`).  :func:`batch_mean` is the one
 reduction over the batch inside a model (the MoE router's load-balance
 statistics): under an active DeviceMesh the model runs on the rank's share
 of the global batch (``runtime/trainer.py``'s mesh step), and the mean is
@@ -231,6 +239,106 @@ def batch_groups(mesh) -> list:
     return [mesh.get_group(a) for a in _batch_axes(mesh)]
 
 
+@dataclass(frozen=True)
+class ModelShare:
+    """This rank's place on the active mesh's ``model`` axis: its index,
+    the axis's size and its process group."""
+    rank: int
+    size: int
+    group: object
+
+    def block(self, n: int) -> tuple:
+        """[lo, hi) of this rank's block of a dim of ``n`` split evenly."""
+        b = n // self.size
+        return self.rank * b, (self.rank + 1) * b
+
+
+_AT_ONE = [False]
+
+
+@contextmanager
+def tensor_parallel_at_one():
+    """Inside, a ``model`` axis of one rank runs the tensor-parallel
+    layers too (its collectives move nothing): the card's one-rank check
+    of that code path, which gives the one-device step's bits."""
+    prev = _AT_ONE[0]
+    _AT_ONE[0] = True
+    try:
+        yield
+    finally:
+        _AT_ONE[0] = prev
+
+
+def model_share(mesh=None) -> Optional[ModelShare]:
+    """The :class:`ModelShare` of the active DeviceMesh (or ``mesh``), or
+    None where there is none, it is a mesh shape only, or its ``model``
+    axis has one rank (outside :func:`tensor_parallel_at_one`): the
+    layers then run their one-device code."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None or isinstance(mesh, dict) or "model" not in \
+            mesh.mesh_dim_names:
+        return None
+    sizes = axis_sizes(mesh)
+    if sizes["model"] == 1 and not _AT_ONE[0]:
+        return None
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return ModelShare(coord["model"], sizes["model"], mesh.get_group("model"))
+
+
+def splits(name: str, n: int) -> bool:
+    """Whether the active rules split a dim of logical axis ``name`` and
+    size ``n`` over ``model`` (:func:`_resolve`'s answer: dropped where it
+    does not divide or the rule names another axis)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return False
+    entry = _resolve(mesh, (name,), (n,))[0]
+    if entry is not None and "model" in _axes(entry) and entry != "model":
+        raise NotImplementedError(f"{name}: split over {entry}; the "
+                                  "layers split a dim over 'model' alone")
+    return entry == "model"
+
+
+def heads_parallel(num_heads: int, share: Optional[ModelShare]) -> bool:
+    """The reference's attention regime (``nn/attention.py``): the heads
+    split over ``model`` where they divide (head-parallel); otherwise q is
+    split along the sequence and K/V are replicated."""
+    return share is None or num_heads % share.size == 0
+
+
+# logical axes of each cache leaf, by its name (the reference's
+# ``launch/specs.py`` table; the port's ``clen`` by its slots)
+CACHE_AXES = {
+    "k": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
+    "v": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
+    "ck": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
+    "cv": ("batch", "cache_seq", "cache_kv_heads", "head_dim"),
+    "ckv": ("batch", "cache_seq", "kv_lora"),
+    "kpe": ("batch", "cache_seq", None),
+    "conv_x": ("batch", None, "ssm_inner"),
+    "conv_b": ("batch", None, None),
+    "conv_c": ("batch", None, None),
+    "state": ("batch", "ssm_heads", "state", None),
+    "clen": ("batch",),
+}
+
+
+def cache_block(t, name: str, share: ModelShare):
+    """(this rank's block of cache leaf ``t`` (a view: writes land in
+    ``t``), the leaf's whole shape): the dims :data:`CACHE_AXES` split
+    over ``model`` cut to the rank's block.  A DTensor placed by
+    ``launch/specs.py::cache_shardings`` holds that block already; a
+    plain tensor is taken as whole on every rank and cut."""
+    shape = tuple(t.shape)
+    loc = local(t)
+    spec = _resolve(active_mesh(), CACHE_AXES[name], shape)
+    for d, entry in enumerate(spec):
+        if entry == "model" and loc.shape[d] == shape[d]:
+            lo, hi = share.block(shape[d])
+            loc = loc.narrow(d, lo, hi - lo)
+    return loc, shape
+
+
 # --- parameter sharding by path ----------------------------------------------
 # regex on the parameter path (dict keys joined with '/'); value = logical
 # axes of the *trailing* dims (left-padded with "layers"/None for stacked
@@ -387,6 +495,33 @@ def local(t):
     """A DTensor's block on this rank (its storage: an in-place update
     changes the DTensor); any other tensor as it is."""
     return t.to_local() if is_dtensor(t) else t
+
+
+def model_block(t):
+    """This rank's block of a DTensor over ``model`` alone: gathered over
+    every other mesh axis that shards it (none under the default rules;
+    the moments' and ``--fsdp``'s "data"), else its own block with no
+    collective; any other tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh = t.device_mesh
+    keep = tuple(pl if name == "model" or size == 1 else Replicate()
+                 for name, size, pl in zip(mesh.mesh_dim_names, mesh.shape,
+                                           t.placements))
+    if keep != tuple(t.placements):
+        t = t.redistribute(mesh, keep)
+    return t.to_local()
+
+
+def model_sharded(t) -> bool:
+    """Whether DTensor ``t`` is split over a ``model`` axis of more than
+    one rank."""
+    if not is_dtensor(t):
+        return False
+    return any(name == "model" and size > 1 and pl.is_shard()
+               for name, size, pl in zip(t.device_mesh.mesh_dim_names,
+                                         t.device_mesh.shape, t.placements))
 
 
 def shard_of(whole: torch.Tensor, like) -> torch.Tensor:

@@ -37,10 +37,12 @@ full averaged gradient and updates its own blocks of params, m and v in
 place.  The loss is each rank's share of the global masked mean (its sum
 over the global count of valid targets), and the metrics are reduced as
 sums and counts, so ``history`` is a one-device run's; the MoE router's
-load-balance means span the global batch (``sharding.batch_mean``).  Not
-in this slice (ROADMAP): tensor-parallel compute over ``model`` (GSPMD's
-from the reference's ``constrain`` hints) and a per-layer gather in place
-of the whole-model one, which a model larger than one card needs.
+load-balance means span the global batch (``sharding.batch_mean``).
+Where the mesh's ``model`` axis has more than one rank the step is
+tensor-parallel (:func:`mesh_grads`): no parameter is gathered whole, each
+rank computes its block of every layer (the reference's GSPMD layout) and
+holds its block of the gradient.  Not in this slice (ROADMAP): a
+per-layer gather under ``--fsdp`` in place of its whole-block one.
 :func:`reshard_state` moves a state onto another mesh of the same world,
 the reference's elastic scaling; checkpoints gather the state and rank 0
 writes it, in the reference's layout as above.
@@ -350,13 +352,20 @@ def train_step(mod, cfg: ArchConfig, state, batch, *, base_lr: float,
 
 
 def mesh_grads(mod, cfg: ArchConfig, params, batch, mesh, rules=None):
-    """(the full gradient averaged over the global batch, its metrics)
-    from this rank's share of ``batch`` and the all-reduces over the
-    batch axes: every parameter gathered whole, the forward and backward
-    on the share, the gradients all-reduced in buckets."""
+    """(the gradient averaged over the global batch, its metrics) from
+    this rank's share of ``batch`` and the all-reduces over the batch
+    axes.  On a mesh whose ``model`` axis has one rank: every parameter
+    gathered whole, the forward and backward on the share, the gradients
+    all-reduced in buckets.  With more (tensor-parallel compute): each
+    parameter's ``model`` block, the layers computing the rank's block
+    (``sharding.model_share``), each rank's objective a 1 / model share of
+    the loss, a model-split leaf's gradient the rank's block, and a
+    replicated leaf's the sum of the ``model`` ranks' shares (each
+    counted once), before the all-reduce over the batch axes."""
     with shlib.use_mesh_rules(mesh, rules):
         index, count = shlib.batch_share(mesh)
         groups = shlib.batch_groups(mesh)
+        share = shlib.model_share(mesh)
     rows = batch["inputs"].shape[0]
     if rows % count:
         raise ValueError(f"a batch of {rows} rows does not split over "
@@ -365,7 +374,10 @@ def mesh_grads(mod, cfg: ArchConfig, params, batch, mesh, rules=None):
     mine = {k: v[index * rows:(index + 1) * rows] for k, v in batch.items()}
 
     with torch.no_grad():
-        whole = tree_map(lambda p: shlib.full(p).detach(), params)
+        if share is None:
+            whole = tree_map(lambda p: shlib.full(p).detach(), params)
+        else:
+            whole = tree_map(lambda p: shlib.model_block(p).detach(), params)
     leaves = tree_leaves(whole)
     for t in leaves:
         t.requires_grad_(True)
@@ -382,8 +394,17 @@ def mesh_grads(mod, cfg: ArchConfig, params, batch, mesh, rules=None):
     # the router loss is the global batch's on every rank already
     objective = metrics["loss"] * (own / tokens) \
         + metrics["aux_loss"] / count
-    grads = torch.autograd.grad(objective, leaves)
+    if share is not None:
+        objective = objective / share.size
+    # under a model share a leaf may take no part on a rank (a bias its
+    # rank-0 partial sum holds): its share is zero
+    grads = torch.autograd.grad(objective, leaves,
+                                materialize_grads=share is not None)
     del objective, whole, leaves
+    if share is not None and share.size > 1:
+        split = [shlib.model_sharded(p) for p in tree_leaves(params)]
+        all_reduce_coalesced([g for g, s in zip(grads, split) if not s],
+                             [share.group])
     all_reduce_coalesced(grads, groups)
     return grads, {"loss": sums[0] / tokens, "accuracy": sums[1] / tokens,
                    "tokens": tokens,

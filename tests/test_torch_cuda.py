@@ -740,6 +740,36 @@ def test_decode_attn_length_zero_and_scalar(card, dtype):
                   decode_attention_f32_ref(q, k, v, 9), dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", [(4, 64, 4, 2, 16),
+                                        (8, 2048, 15, 5, 64),
+                                        (8, 2048, 24, 8, 128)])
+def test_decode_attn_lse_mode(card, dtype, B, S, H, KV, D):
+    """The lse mode (one rank's block of a cache split along rows): the
+    output bit-equal to the mode without lse where a slot has rows, 0
+    where it has none; the lse within 1e-4 (1 + |lse|) of the plain
+    version's, -inf where it has none; one launch."""
+    q, k, v, lens = _decode_inputs(B + S + D, B, S, H, KV, D, dtype, card)
+    lens[1] = 0
+    lens[-1] = -5
+    n0 = decode_attn.launches
+    got, lse = decode_attn.decode_attention(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attn.launches == n0 + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    full = lens > 0
+    plain = decode_attn.decode_attention(q, k, v, lens)
+    assert torch.equal(got[full].view(torch.int8),
+                       plain[full].view(torch.int8))
+    assert (got[~full] == 0).all() and torch.isneginf(lse[~full]).all()
+    ref, ref_lse = decode_attention_f32_ref(q, k, v, lens, return_lse=True)
+    _decode_close(got, ref, dtype)
+    assert torch.isfinite(lse[full]).all()
+    assert ((lse[full] - ref_lse[full]).abs()
+            <= 1e-4 * (1 + ref_lse[full].abs())).all()
+
+
 def _decode_check(q, k, v, lens, dtype):
     got = decode_attn.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()

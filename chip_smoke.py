@@ -3488,6 +3488,121 @@ def mesh_train_pair(torch, np, card, mesh, cfg, shape, seed, want=None):
         "launches": n}
 
 
+def mesh_fsdp_step(torch, np, card, mesh, cfg, shape, seed, want=None):
+    """14e: ``cfg``'s training step (``launch/specs.py::make_train_step``)
+    with the state placed by ``state_shardings(..., fsdp=True)``: inside
+    ``tensor_parallel_at_one`` (which the caller enters) the one-rank
+    "data" axis splits the parameters and each layer gathers its leaves
+    with one-rank NCCL collectives and reduce-scatters their gradients.
+    Beside it the same step on ``state_shardings(..., fsdp=False)``
+    (ZeRO-1 moments, the params whole) and the meshless step, from one
+    set of params drawn on the card and the same batches: ``steps`` steps
+    of each, bit-equal, each run's peak memory over what was allocated
+    before it; then one untimed step of each and 2 x MESH_TIMED_PAIRS
+    more in turns (meshless, zero1, fsdp, fsdp, zero1, meshless) on one
+    batch for their median ms.  ``want``: kernel launches a step of the
+    FSDP run.  Returns its numbers."""
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.optim import init_state
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as sh
+    B, S, steps = shape
+    params = lm.init(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                     device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batches = [{k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+                for k in ("inputs", "targets")} for _ in range(steps)]
+    states, runs = {}, ("meshless", "zero1", "fsdp")
+    with sh.use_mesh_rules(mesh):
+        for kind in runs[1:]:
+            st = init_state(tree_map(lambda t: t.detach(), params))
+            states[kind] = specs.place_state(st, specs.state_shardings(
+                cfg, st, mesh, fsdp=kind == "fsdp"))
+    states["meshless"] = init_state(params)
+    del params
+    split = sum(bool(sh.gathered_axes(p))
+                for p in tree_leaves(states["fsdp"]["params"]))
+    check(split > 0 and not any(sh.gathered_axes(p) for p in tree_leaves(
+        states["zero1"]["params"])), f"mesh fsdp {cfg.name}: {split} "
+        "leaves split over 'data' under fsdp=True")
+    step = {"meshless": specs.make_train_step(cfg),
+            **{k: specs.make_train_step(cfg, mesh=mesh) for k in runs[1:]}}
+    gathers = [0]
+    real = coll.gather_many
+
+    def counting(xs, dims, share):
+        gathers[0] += 1
+        return real(xs, dims, share)
+
+    losses, peaks = {}, {}
+    coll.gather_many = counting
+    try:
+        for kind in runs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            if kind == "fsdp":
+                reset_launch_counts()
+                gathers[0] = 0
+            losses[kind] = [float(step[kind](states[kind], b)["loss"])
+                            for b in batches]
+            torch.cuda.synchronize()
+            peaks[kind] = torch.cuda.max_memory_allocated() - before
+            if kind == "fsdp":
+                n, per_step = launch_counts(), gathers[0] / steps
+    finally:
+        coll.gather_many = real
+    bits = all(losses[k] == losses["meshless"] for k in runs[1:]) and all(
+        torch.equal(sh.full(a), b)
+        for k in runs[1:] for part in ("params", "m", "v")
+        for a, b in zip(tree_leaves(states[k][part]),
+                        tree_leaves(states["meshless"][part]), strict=True))
+    check(bits, f"mesh fsdp {cfg.name}: the one-rank FSDP or ZeRO-1 step "
+          f"is not bit-equal to the meshless step (losses {losses})")
+    check(per_step >= cfg.num_layers, f"mesh fsdp {cfg.name}: {per_step} "
+          f"per-layer gathers a step, {cfg.num_layers} layers")
+    for kind in runs:                     # the allocator settles
+        step[kind](states[kind], batches[0])
+    times = {k: [] for k in runs}
+    for _ in range(MESH_TIMED_PAIRS):
+        for kind in runs + runs[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step[kind](states[kind], batches[0])
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    del states
+    torch.cuda.empty_cache()
+    gib = {k: v / 2 ** 30 for k, v in peaks.items()}
+    print(f"mesh fsdp {cfg.name} ({cfg.num_layers} layers, batch {B} x {S}, "
+          f"{steps} steps) on the (1, 1) NCCL mesh, the state placed by "
+          f"state_shardings(fsdp=True) ({split} leaves split over 'data', "
+          f"{per_step:g} per-layer gathers a step with one-rank "
+          f"collectives) and by fsdp=False (ZeRO-1) vs meshless: bit-equal "
+          f"| losses " + " ".join(f"{x:.5f}" for x in losses["fsdp"])
+          + f" | step in turns fsdp {med['fsdp']:.2f} ms, zero1 "
+          f"{med['zero1']:.2f} ms, meshless {med['meshless']:.2f} ms "
+          f"(ratios {med['fsdp'] / med['meshless']:.4f} and "
+          f"{med['zero1'] / med['meshless']:.4f}; medians of "
+          f"{2 * MESH_TIMED_PAIRS}) | peak over the allocated fsdp "
+          f"{gib['fsdp']:.3f} GiB, zero1 {gib['zero1']:.3f} GiB, meshless "
+          f"{gib['meshless']:.3f} GiB | launches {n} | on {card}")
+    if want is not None:
+        total = {k: v * steps for k, v in want.items()}
+        check(all(n[k] == v for k, v in total.items()),
+              f"mesh fsdp {cfg.name}: launches {n}, expected {total}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+            "seq_len": S, "steps": steps, "losses": losses,
+            "bit_equal": bits, "split_leaves": split,
+            "gathers_per_step": per_step, "step_ms": med,
+            "step_ms_turns": times, "peak_over_bytes": peaks,
+            "launches": n}
+
+
 def mesh_reshard(torch, np, card, mesh, tr):
     """14b: the mesh trainer's state resharded onto the same mesh and one
     more step, against the trainer continuing; then its params saved
@@ -3632,10 +3747,11 @@ def mesh_collectives(torch, card, mesh):
 
 
 def phase_mesh(torch, np, card):
-    """Phase 14: 14a-14d on one NCCL rank; the two mesh trainers run the
+    """Phase 14: 14a-14e on one NCCL rank; the two mesh trainers run the
     tensor-parallel layers on their one-rank ``model`` axis
     (``sharding.tensor_parallel_at_one``), bit-equal to the meshless
-    trainer."""
+    trainer, and so do the two FSDP-placed steps (14e), which gather
+    their parameters per layer over the one-rank "data" axis."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3664,6 +3780,17 @@ def phase_mesh(torch, np, card):
                       "ssd": 0})
         del ssm
         torch.cuda.empty_cache()
+        # 14e: the per-layer gather under --fsdp placements at one rank
+        with tensor_parallel_at_one():
+            fsdp_dense = mesh_fsdp_step(
+                torch, np, card, mesh, get_config(TRAIN_DENSE_ARCH),
+                MESH_DENSE_SHAPE, seed=16)
+            torch.cuda.empty_cache()
+            fsdp_ssm = mesh_fsdp_step(
+                torch, np, card, mesh, cut, MESH_SSM_SHAPE, seed=17,
+                want={"dw1d": 2 * L, "dw1d_bwd": L, "dw1d_wgrad": L,
+                      "ssd": 0})
+        torch.cuda.empty_cache()
         serve = mesh_serve(torch, np, card)
         coll = mesh_collectives(torch, card, mesh)
     finally:
@@ -3671,6 +3798,7 @@ def phase_mesh(torch, np, card):
     seconds = time.perf_counter() - t0
     print(f"mesh: phase 14 {seconds:.1f} s")
     return {"dense": dense_rep, "ssm": ssm_rep, "reshard": reshard,
+            "fsdp_dense": fsdp_dense, "fsdp_ssm": fsdp_ssm,
             "serve": serve, "collectives": coll, "phase_s": seconds,
             "launches": ssm_rep["launches"]}
 
@@ -5418,6 +5546,7 @@ def summary(row):
 # ---------------------------------------------------------------------------
 DRYRUN_CELLS = (
     ("smollm-360m", "train_4k", ["--mesh", "single"]),
+    ("smollm-360m", "train_4k", ["--mesh", "single", "--fsdp"]),
     ("mamba2-2.7b", "decode_32k", ["--mesh", "multi"]),
     ("jamba-v0.1-52b", "decode_32k", ["--mesh", "single", "--serve-dtype",
                                       "bfp8"]),
@@ -5436,24 +5565,24 @@ DRYRUN_KERNELS = {"decode_attn", "ssd", "dw1d", "dw1d_bwd", "dw1d_wgrad"}
 
 
 def phase_dryrun_cli():
-    """15a: ``python -m repro_torch.launch.dryrun`` for three cells, each
-    in its own process (a fake world of 256 or 512 ranks on meta tensors,
+    """15a: ``python -m repro_torch.launch.dryrun`` for four cells (one
+    under ``--fsdp``), each in its own process (a fake world of 256 or 512 ranks on meta tensors,
     no card), all at once: every record ``ok``."""
     import tempfile
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
-        for arch, shape, extra in DRYRUN_CELLS:
-            out = os.path.join(tmp, f"{arch}_{shape}.jsonl")
-            procs.append((out, subprocess.Popen(
+        for i, (arch, shape, extra) in enumerate(DRYRUN_CELLS):
+            out = os.path.join(tmp, f"{i}_{arch}_{shape}.jsonl")
+            procs.append((out, "--fsdp" in extra, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", shape, "--out", out, *extra],
                 cwd=tmp, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)))
         recs = []
         try:
-            for out, p in procs:
+            for out, fsdp, p in procs:
                 log, _ = p.communicate(timeout=DRYRUN_TIMEOUT)
                 for line in log.splitlines():
                     if line.startswith("["):
@@ -5461,9 +5590,10 @@ def phase_dryrun_cli():
                 check(p.returncode == 0,
                       f"dryrun cli: exit {p.returncode}: {log[-2000:]}")
                 with open(out) as f:
-                    recs += [json.loads(line) for line in f]
+                    recs += [dict(json.loads(line), fsdp=fsdp)
+                             for line in f]
         finally:
-            for _, p in procs:
+            for _, _, p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
@@ -5472,7 +5602,8 @@ def phase_dryrun_cli():
               f"{r['status']}: {r.get('error')}")
         t, mem = r["roofline"], r["memory"]
         print(f"dryrun: {r['arch']} {r['shape']} {r['mesh']} "
-              f"serve_dtype {r['serve_dtype']}: t_count_s {r['t_count_s']} "
+              f"serve_dtype {r['serve_dtype']}"
+              f"{' --fsdp' if r['fsdp'] else ''}: t_count_s {r['t_count_s']} "
               f"ops {r['ops']} launches {r['launches']} | modelled "
               f"(H100_SXM data sheet at 700 W, counted on meta, no card "
               f"time): step {t['step_time'] * 1e3:.2f} ms, bound "
@@ -5756,6 +5887,7 @@ def main(argv=None) -> int:
              "hybrid": hybrid["jamba"]["launches"],
              "hybrid_bfp8": hybrid["jamba_bfp8"]["launches"],
              "mesh": mesh["launches"],
+             "mesh_fsdp": mesh["fsdp_ssm"]["launches"],
              "mesh_serve": mesh["serve"]["data_parallel"]["launches"]}
 
     replaces = {"conv_direct": "src/repro/kernels/conv/direct.py:189",

@@ -7,8 +7,10 @@ data-sheet peaks.
     PYTHONPATH=src python scripts/make_experiments_torch.py \\
         results/dryrun_torch.jsonl [--before OTHER.jsonl]
 
-``--before`` prints one more table: each cell of both files, before (the
-other file's record) and after (this one's), side by side.
+``--before`` prints two more tables: each cell of both files, before (the
+other file's record) and after (this one's), side by side; the second by
+collective (all-gather, reduce-scatter, the count inside the layers) and
+arguments.
 """
 import json
 import os
@@ -121,6 +123,29 @@ def before_after_table(before, after):
     return "\n".join(out)
 
 
+def collectives_table(before, after):
+    """One row a cell ok in both: the all-gather and reduce-scatter wire
+    GB a rank, the collectives issued inside the layers and in all, and
+    the arguments GiB a rank, before -> after."""
+    out = ["| arch | shape | mesh | all-gather GB/dev | reduce-scatter "
+           "GB/dev | in-loop (all) collectives | args GiB/dev |",
+           "|---|---|---|---|---|---|---|"]
+    for key, r in after.items():
+        b = before.get(key)
+        if r["status"] != "ok" or b is None or b["status"] != "ok":
+            continue
+        c0, c1 = (x["roofline"]["coll_breakdown"] for x in (b, r))
+        out.append(
+            f"| {key[0]} | {key[1]} | {key[2]} | "
+            f"{c0['all-gather'] / 1e9:.3f} -> {c1['all-gather'] / 1e9:.3f} "
+            f"| {c0['reduce-scatter'] / 1e9:.3f} -> "
+            f"{c1['reduce-scatter'] / 1e9:.3f} | {c0['in_loop_count']} "
+            f"({c0['count']}) -> {c1['in_loop_count']} ({c1['count']}) | "
+            f"{fmt_bytes(b['memory']['argument_size'])} -> "
+            f"{fmt_bytes(r['memory']['argument_size'])} |")
+    return "\n".join(out)
+
+
 def main(path, before=None):
     recs = load(path)
     ok = sum(1 for r in recs.values() if r["status"] == "ok")
@@ -140,6 +165,8 @@ def main(path, before=None):
     if before is not None:
         print(f"\n## Before ({before}) -> after ({path})\n")
         print(before_after_table(load(before), recs))
+        print(f"\n## Collectives, before ({before}) -> after ({path})\n")
+        print(collectives_table(load(before), recs))
 
 
 if __name__ == "__main__":

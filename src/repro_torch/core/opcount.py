@@ -30,7 +30,10 @@ number is computed) and, for a mesh, as one rank of a fake world
   of which ``in_loop_count`` were issued inside a layer of the stack
   (while a function marked by :func:`marks_layer` runs, which
   ``nn/blocks.py::block_apply`` is: the forward and the remat recompute;
-  the backward of a collective is issued by autograd, outside it);
+  and in the backward of a collective issued there, which
+  ``parallel/collectives.py``'s autograd pairs run under
+  :func:`layer_scope`, as the reference's count of its while body holds
+  the scan's backward);
 * kernel launches by kernel: a hand-written kernel's wrapper, given meta
   tensors, allocates what its CUDA path allocates and calls
   :func:`record_kernel` with its module's work function where the CUDA
@@ -46,6 +49,7 @@ counter counts the ops of its body, which is what the card runs.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import weakref
@@ -290,6 +294,26 @@ def marks_layer(fn):
         finally:
             _LAYER[0] -= 1
     return run
+
+
+def in_layer() -> bool:
+    """Whether a layer marked by :func:`marks_layer` is running under a
+    counter."""
+    return bool(_LAYER[0])
+
+
+@contextlib.contextmanager
+def layer_scope(inside: bool):
+    """Count the collectives issued within as a layer's where ``inside``
+    (the backward of a collective whose forward :func:`in_layer` saw)."""
+    if not (inside and _ACTIVE):
+        yield
+        return
+    _LAYER[0] += 1
+    try:
+        yield
+    finally:
+        _LAYER[0] -= 1
 
 
 class OpCounter(TorchDispatchMode):

@@ -76,7 +76,8 @@ def count_step(step, *args, keep_ops: bool = False, outputs=None):
 def build_cell(cfg, shape, mesh, *, rules=None, zero1: bool = True,
                fsdp: bool = False, serve_dtype: str = "bf16"):
     """(step, its placed arguments, outputs) of a cell on ``mesh``:
-    train -> the state placed by ``state_shardings`` and the global batch;
+    train -> the state placed by ``state_shardings`` (``fsdp``: the params
+    split over "data", gathered per layer) and the global batch;
     prefill/decode -> serving weights placed by ``param_shardings``, the
     batch and the caches placed by ``cache_shardings``."""
     from ..parallel import sharding as shlib

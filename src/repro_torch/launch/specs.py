@@ -26,8 +26,12 @@ each parameter's ``model`` block (``sharding.model_block``) and hands
 ``apply`` the placed caches, whose layers read and write the rank's
 blocks in place (``sharding.cache_block``), and the next token is the
 argmax across the ranks' blocks of the vocabulary (``lm.greedy``).  The
-same functions run on meta tensors in the dry run (``launch/dryrun.py``)
-and on the card (``chip_smoke.py``).
+training step follows from how its state is placed: under
+:func:`state_shardings`' ``fsdp`` the params are split over "data" too,
+and each layer gathers its leaves over "data" at its use and
+reduce-scatters their gradients (``sharding.layer_params``); the serving
+steps keep ``param_shardings``.  The same functions run on meta tensors
+in the dry run (``launch/dryrun.py``) and on the card (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -148,7 +152,9 @@ def cache_shardings(cfg, cache_spec, mesh):
 def state_shardings(cfg, state_spec, mesh, *, zero1: bool = True,
                     fsdp: bool = False):
     """zero1: the AdamW moments sharded over 'data' as well (ZeRO-1).
-    fsdp: the parameters (and so their gradients' blocks) too."""
+    fsdp: the parameters (and so their gradients' blocks) too; the step
+    gathers each layer's leaves over 'data' just before use and
+    reduce-scatters their gradients (ZeRO-3)."""
     z1 = shlib.zero1_shardings(state_spec["params"], mesh)
     pshard = z1 if fsdp else shlib.param_shardings(state_spec["params"],
                                                    mesh)

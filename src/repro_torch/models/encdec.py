@@ -22,6 +22,7 @@ from ..core.device import resolve_device
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
 from ..nn.layers import embed_init, linear_init, norm, norm_init
 from ..nn.module import shapes_only, torch_dtype
+from ..parallel.sharding import layer_params
 from . import lm
 
 CROSS_LEN_DEFAULT = 1500   # whisper: 30 s of audio -> 1,500 frames
@@ -103,7 +104,7 @@ def encode(params, cfg: ArchConfig, frames):
     x = frames.to(torch_dtype(cfg.dtype))
     x, _, _ = stack_apply(params["enc_stack"], enc_cfg(cfg), x,
                           mode="bidir")
-    return norm(cfg.norm_type, params["enc_norm"], x)
+    return norm(cfg.norm_type, layer_params(params["enc_norm"]), x)
 
 
 def apply(params, cfg: ArchConfig, tokens, *, frames=None, enc_out=None,
@@ -121,7 +122,7 @@ def apply(params, cfg: ArchConfig, tokens, *, frames=None, enc_out=None,
                                      length=length, caches=caches,
                                      enc_out=enc_out,
                                      collect_aux=collect_aux)
-    x = norm(cfg.norm_type, params["final_norm"], x)
+    x = norm(cfg.norm_type, layer_params(params["final_norm"]), x)
     return lm._readout(params, cfg, x), new_caches, aux
 
 

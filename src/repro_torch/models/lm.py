@@ -24,7 +24,10 @@ the readout gives the rank's block of the vocabulary's logits (an untied
 ``lm_head``, which no rule splits, is cut to its columns; under
 ``fc_bfp`` kernel 4 runs on them), :func:`_ce` takes its max, sum of
 exponentials and label logit across the ranks, and :func:`greedy` the
-lowest index among the maxima across them.
+lowest index among the maxima across them.  The leaves outside the
+stack (the embedding, the final norm, the readout) pass through
+``sharding.layer_params`` at each use, as the layers' do: under
+``--fsdp`` placements each is gathered over "data" there.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from ..nn.layers import (block, embed, embed_attend, embed_init, linear,
                          linear_cols, linear_init, norm, norm_init)
 from ..nn.module import shapes_only, torch_dtype, tree_map
 from ..parallel import collectives as coll
-from ..parallel.sharding import model_share, splits
+from ..parallel.sharding import layer_params, model_share, splits
 
 
 def init(seed_or_generator, cfg: ArchConfig, *, device="cuda") -> dict:
@@ -189,12 +192,14 @@ def vocab_share(cfg: ArchConfig):
 
 def embed_tokens(params, cfg: ArchConfig, tokens):
     """The tokens' embeddings in ``cfg.dtype``, every rank's whole."""
-    return embed(params["embed"], tokens, torch_dtype(cfg.dtype),
-                 vocab_share(cfg), cfg.vocab_size)
+    return embed(layer_params(params["embed"]), tokens,
+                 torch_dtype(cfg.dtype), vocab_share(cfg), cfg.vocab_size)
 
 
 def _readout(params, cfg: ArchConfig, x):
     x = x.to(torch_dtype(cfg.dtype))
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    params = {key: layer_params(params[key])}
     share = vocab_share(cfg)
     if share is not None:
         V = cfg.vocab_size
@@ -230,7 +235,7 @@ def apply(params, cfg: ArchConfig, tokens, *, mode: str = "train",
     x, new_caches, aux = stack_apply(params["stack"], cfg, x, mode=mode,
                                      length=length, caches=caches,
                                      collect_aux=collect_aux)
-    x = norm(cfg.norm_type, params["final_norm"], x)
+    x = norm(cfg.norm_type, layer_params(params["final_norm"]), x)
     return _readout(params, cfg, x), new_caches, aux
 
 

@@ -17,6 +17,7 @@ from ..core.device import resolve_device
 from ..nn.blocks import stack_apply, stack_cache_shape, stack_init
 from ..nn.layers import embed_init, linear, linear_init, norm, norm_init
 from ..nn.module import shapes_only, torch_dtype
+from ..parallel.sharding import layer_params
 from . import lm
 
 CLIP_DIM = 1024
@@ -73,13 +74,14 @@ def apply(params, cfg: ArchConfig, tokens, *, patches=None,
     x = lm.embed_tokens(params, cfg, tokens)
     n_patch = 0
     if patches is not None:
-        pe = linear(params["patch_proj"], patches.to(dt))
+        pe = linear(layer_params(params["patch_proj"]), patches.to(dt))
         x = torch.cat([pe, x], dim=1)
         n_patch = pe.shape[1]
     x, new_caches, aux = stack_apply(params["stack"], cfg, x, mode=mode,
                                      length=length, caches=caches,
                                      collect_aux=collect_aux)
-    x = norm(cfg.norm_type, params["final_norm"], x[:, n_patch:])
+    x = norm(cfg.norm_type, layer_params(params["final_norm"]),
+             x[:, n_patch:])
     return lm._readout(params, cfg, x), new_caches, aux
 
 

@@ -21,6 +21,13 @@ recomputed in the backward, one layer at a time, as the reference's
 ``jax.checkpoint`` of its period-1 scan group does.  With
 ``remat_policy="save_attn"`` selective checkpointing keeps the flash
 attention's output (``flash.FLASH_OP``), so the recompute skips it.
+
+A layer takes its parameters through ``sharding.layer_params`` on entry:
+under ``--fsdp`` placements each leaf split over "data" is gathered
+there, inside the layer and so inside its checkpoint: the gathered
+blocks are never saved, the recompute gathers again, and the backward
+reduce-scatters their gradients (the reference's per-layer all-gathers
+inside its scan body).  Any other leaf passes as it is.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..config import ArchConfig
 from ..core.opcount import marks_layer
 from ..parallel import collectives as coll
-from ..parallel.sharding import model_share, splits
+from ..parallel.sharding import layer_params, model_share, splits
 from .attention import (attn_apply, attn_apply_tp, attn_cache_shape,
                         attn_init, cross_cache_shape)
 from .flash import FLASH_OP
@@ -72,6 +79,7 @@ def block_apply(p, cfg: ArchConfig, x, *, mixer: str, ffn: str, mode: str,
     """x (B, S, d_model) -> (x, cache, aux); aux is the MoE router loss
     under ``collect_aux``, else 0.  ``stack_kinds`` has checked the
     kind."""
+    p = layer_params(p)
     h = norm(cfg.norm_type, p["norm1"], x)
     if mixer == "attn":
         h, c = attn_apply(p["attn"], cfg, h, mode=mode, length=length,
@@ -121,6 +129,8 @@ def block_apply_tp(p, cfg: ArchConfig, x, share, *, mixer: str, ffn: str,
                    enc_out=None, collect_aux: bool = False):
     """:func:`block_apply` on the rank's blocks: ``x`` the residual, the
     rank's block of rows where ``rows``, else every row."""
+    p = layer_params(p)
+
     def whole(h):
         return coll.gather(h, 1, share) if rows else h
 

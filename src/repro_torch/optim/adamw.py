@@ -14,11 +14,13 @@ then ``p - lr * update`` in p's dtype.
 A sharded state (``runtime/trainer.py``'s mesh step) holds DTensor params
 and moments; its ``grads`` are the averaged gradients, whole (identical
 on every rank) or, under tensor-parallel compute, the rank's ``model``
-block of each leaf the rules split.  The norm is then the full
-gradient's (the blocks' sums of squares summed over ``model``, each
-replicated leaf counted once), and each rank updates its own block of
-params, m and v in place with its block of the gradient: the same
-arithmetic, element by element.  The moments may be
+block of each leaf the rules split, and under ``--fsdp`` placements
+(params split over "data" too) the rank's own block of each such leaf.
+The norm is then the full gradient's (the blocks' sums of squares
+summed over the mesh dims that split them, each replicated leaf counted
+once), and each rank updates its own block of params, m and v in place
+with its block of the gradient: the same arithmetic, element by
+element.  The moments may be
 placed finer than the params (ZeRO-1, the reference's default for its
 dry run: ``sharding.zero1_shardings`` shards them over "data" on a dim
 the param leaves whole): m, v and the update are then computed on the
@@ -35,7 +37,7 @@ import torch
 
 from ..nn.module import tree_leaves, tree_map
 from ..parallel.collectives import all_gather
-from ..parallel.sharding import is_dtensor, local, model_share, shard_of
+from ..parallel.sharding import is_dtensor, local, shard_of
 
 
 def init_state(params) -> dict:
@@ -59,23 +61,25 @@ def lr_schedule(step, *, base_lr: float, warmup: int = 100,
     return base_lr * warm * cos
 
 
-def global_norm(tree, blocks=None, group=None) -> torch.Tensor:
+def global_norm(tree, groups=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares.
-    ``blocks``: for each leaf whether it is this rank's block of a leaf
-    split over a ``model`` axis, whose process group is ``group``; the
-    blocks' sums of squares are summed over its ranks (the replicated
-    leaves' taken once)."""
-    total = split = None
-    for i, x in enumerate(tree_leaves(tree)):
+    ``groups``: for each leaf the process groups of the mesh dims over
+    which the ranks hold distinct blocks of it (() for a leaf held whole,
+    or alike on those ranks); the blocks' sums of squares are summed over
+    them, one sum a set of groups, and each leaf is counted once."""
+    if groups is None:
+        groups = [()] * len(tree_leaves(tree))
+    sums: dict = {}
+    for x, gs in zip(tree_leaves(tree), groups):
         sq = torch.sum(torch.square(x.to(torch.float32)))
-        if blocks is not None and blocks[i]:
-            split = sq if split is None else split + sq
-        else:
-            total = sq if total is None else total + sq
-    if split is not None:
+        sums[gs] = sq if gs not in sums else sums[gs] + sq
+    total = sums.pop((), None)
+    if sums:
         import torch.distributed as dist
-        dist.all_reduce(split, group=group)
-        total = split if total is None else total + split
+        for gs, sq in sums.items():
+            for g in gs:
+                dist.all_reduce(sq, group=g)
+            total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
@@ -87,7 +91,7 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
     params' structure (or the list of its leaves), whole tensors also for
     DTensor params.  Returns ``(state, {"grad_norm": ...})`` like the
     reference."""
-    gnorm = global_norm(grads, *_blocks(state["params"], grads))
+    gnorm = global_norm(grads, _block_groups(state["params"], grads))
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0) \
         if clip_norm else 1.0
     step = state["step"] + 1
@@ -114,15 +118,21 @@ def adamw_step(state, grads, *, lr, b1: float = 0.9, b2: float = 0.95,
     return state, {"grad_norm": gnorm}
 
 
-def _blocks(params, grads) -> tuple:
-    """(per leaf whether its gradient is the leaf's ``model`` block, the
-    ``model`` group) under tensor-parallel compute; else (None, None)."""
-    flags = [g.shape != p.shape for p, g in zip(tree_leaves(params),
-                                                 tree_leaves(grads))]
-    if not any(flags):
-        return None, None
-    mesh = next(p for p in tree_leaves(params) if is_dtensor(p)).device_mesh
-    return flags, model_share(mesh).group
+def _block_groups(params, grads) -> list:
+    """Per leaf, the process groups over which its gradient is distinct
+    blocks: where a gradient is the param's block (tensor-parallel
+    compute: its ``model`` block; ``--fsdp``: its block over "data" and
+    ``model``), the groups of the mesh dims of more than one rank that
+    split the param; () where it is whole."""
+    out = []
+    for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+        if g.shape == p.shape or not is_dtensor(p):
+            out.append(())
+            continue
+        mesh = p.device_mesh
+        out.append(tuple(mesh.get_group(i) for i, (size, pl) in enumerate(
+            zip(mesh.shape, p.placements)) if pl.is_shard() and size > 1))
+    return out
 
 
 def _finer_dims(p, m) -> list:
@@ -135,9 +145,10 @@ def _finer_dims(p, m) -> list:
     mesh = m.device_mesh
     out = []
     for i, (pp, mp) in enumerate(zip(p.placements, m.placements)):
-        if mp.is_shard() and not pp.is_shard() and mesh.shape[i] > 1:
-            out.append((mp.dim, mesh.get_group(i), mesh.shape[i],
-                        mesh.get_coordinate()[i]))
+        if mp.is_shard() and not pp.is_shard():
+            if mesh.shape[i] > 1:     # a one-rank dim holds it whole
+                out.append((mp.dim, mesh.get_group(i), mesh.shape[i],
+                            mesh.get_coordinate()[i]))
         elif mp != pp:
             raise ValueError(f"adamw_step: moments placed {m.placements} "
                              f"are not a refinement of the param's "

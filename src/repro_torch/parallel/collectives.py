@@ -17,7 +17,8 @@ any Pallas kernel.
 The collectives of tensor-parallel compute over ``model`` (the ones GSPMD
 inserts in the reference) are autograd functions on a
 ``sharding.ModelShare``'s group, eager c10d ops the dry run's counter
-counts (``core/opcount.py``).  Their gradients keep one convention: the
+counts (``core/opcount.py``; the backward of one issued inside a layer
+counts as the layer's).  Their gradients keep one convention: the
 gradient a rank holds of a tensor every rank holds alike (a replicated
 activation or parameter) is its share, and the gradient is the sum of the
 shares over the ``model`` ranks; of a tensor that is the rank's own (its
@@ -28,14 +29,18 @@ reduce-scatter), :func:`reduce_scatter` gathers, :func:`split` (the
 whole -> the rank's block) pads with zeros and moves nothing, and the
 training step seeds each rank's loss with 1 / model and sums the
 replicated leaves' gradients over the group (``runtime/trainer.py``).
-Every sum over ranks is the backend's ring, whose order is fixed: no
-float atomics, and every rank gets the same bits.
+:func:`gather_many` is the same gather over a mesh dim that splits the
+parameters (``--fsdp``'s "data"): a layer gathers its blocks just before
+use, and the backward's reduce-scatter hands each rank the gradient of
+its own block, summed over the group.  Every sum over ranks is the
+backend's ring, whose order is fixed: no float atomics, and every rank
+gets the same bits.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core import bfp
+from ..core import bfp, opcount
 from ..nn.module import tree_map
 
 
@@ -108,6 +113,54 @@ def _reduce_scatter_dim(x, dim, share):
     return out.movedim(0, dim).contiguous()
 
 
+def _flat_dtype(ts):
+    """The one dtype of ``ts``, which one buffer carries (``torch.cat``
+    would promote a mixed list)."""
+    dtypes = {t.dtype for t in ts}
+    if len(dtypes) != 1:
+        raise ValueError(f"one collective of tensors of dtypes {dtypes}")
+
+
+def _all_gather_dims(xs, dims, share) -> list:
+    """Each of ``xs`` gathered along its dim of ``dims``: one all-gather
+    of the blocks flattened (their dim first) into one buffer, each
+    gathered tensor cut from its columns of the result."""
+    if len(xs) == 1:
+        return [_all_gather_dim(xs[0], dims[0], share)]
+    _flat_dtype(xs)
+    dist = _dist()
+    moved = [_moved(x, d) for x, d in zip(xs, dims)]
+    flat = torch.cat([m.reshape(-1) for m in moved])
+    every = flat.new_empty(share.size * flat.numel())
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+        every, flat, group=share.group)
+    parts = every.view(share.size, -1).split([m.numel() for m in moved],
+                                             dim=1)
+    return [part.reshape((share.size * m.shape[0],) + tuple(m.shape[1:]))
+            .movedim(0, d).contiguous()
+            for part, m, d in zip(parts, moved, dims)]
+
+
+def _reduce_scatter_dims(gs, dims, share) -> list:
+    """Each of ``gs`` reduce-scattered along its dim of ``dims``: one
+    reduce-scatter of a buffer whose rank-r chunk holds every tensor's
+    rank-r block (their dim first)."""
+    if len(gs) == 1:
+        return [_reduce_scatter_dim(gs[0], dims[0], share)]
+    _flat_dtype(gs)
+    dist = _dist()
+    n = share.size
+    moved = [_moved(g, d) for g, d in zip(gs, dims)]
+    flat = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
+    mine = flat.new_empty(flat.shape[1])
+    getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
+        mine, flat.reshape(-1), group=share.group)
+    parts = mine.split([m.numel() // n for m in moved])
+    return [part.view((m.shape[0] // n,) + tuple(m.shape[1:]))
+            .movedim(0, d).contiguous()
+            for part, m, d in zip(parts, moved, dims)]
+
+
 def _all_reduce(x, share, op=None):
     dist = _dist()
     out = x.clone(memory_format=torch.contiguous_format)
@@ -118,34 +171,43 @@ def _all_reduce(x, share, op=None):
 class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, share):
-        ctx.share = share
+        ctx.share, ctx.layer = share, opcount.in_layer()
         return _all_reduce(x, share)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.share), None
+        with opcount.layer_scope(ctx.layer):
+            return _all_reduce(g, ctx.share), None
 
 
 class _Gather(torch.autograd.Function):
+    """Each of ``xs`` gathered along its dim of ``dims`` over one group,
+    in one collective.  One node for them all: its backward
+    reduce-scatters every gradient the same way, zeros where no op used a
+    tensor on this rank, so every rank issues the same collectives in the
+    same order."""
     @staticmethod
-    def forward(ctx, x, dim, share):
-        ctx.dim, ctx.share = dim, share
-        return _all_gather_dim(x, dim, share)
+    def forward(ctx, dims, share, *xs):
+        ctx.dims, ctx.share, ctx.layer = dims, share, opcount.in_layer()
+        return tuple(_all_gather_dims(xs, dims, share))
 
     @staticmethod
-    def backward(ctx, g):
-        return _reduce_scatter_dim(g, ctx.dim, ctx.share), None, None
+    def backward(ctx, *gs):
+        with opcount.layer_scope(ctx.layer):
+            return (None, None) + tuple(
+                _reduce_scatter_dims(gs, ctx.dims, ctx.share))
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, share):
-        ctx.dim, ctx.share = dim, share
+        ctx.dim, ctx.share, ctx.layer = dim, share, opcount.in_layer()
         return _reduce_scatter_dim(x, dim, share)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather_dim(g, ctx.dim, ctx.share), None, None
+        with opcount.layer_scope(ctx.layer):
+            return _all_gather_dim(g, ctx.dim, ctx.share), None, None
 
 
 class _Split(torch.autograd.Function):
@@ -178,7 +240,14 @@ def reduce_sum(x, share):
 def gather(x, dim: int, share):
     """Every rank's block ``x`` concatenated along ``dim`` in rank order
     (all-gather); backward a reduce-scatter of the shares."""
-    return x if share.size == 1 else _Gather.apply(x, dim, share)
+    return x if share.size == 1 else _Gather.apply((dim,), share, x)[0]
+
+
+def gather_many(xs, dims, share) -> tuple:
+    """:func:`gather` of each of ``xs`` along its dim of ``dims`` in one
+    autograd node and one all-gather (its backward one reduce-scatter), a group of one rank too (whose collectives move
+    nothing): a layer's parameter blocks (``sharding.layer_params``)."""
+    return _Gather.apply(tuple(dims), share, *xs)
 
 
 def reduce_scatter(x, dim: int, share):

@@ -33,7 +33,11 @@ autograd pairs.  A cache leaf holds the rank's block by
 reduction over the batch inside a model (the MoE router's load-balance
 statistics): under an active DeviceMesh the model runs on the rank's share
 of the global batch (``runtime/trainer.py``'s mesh step), and the mean is
-taken over the ranks of the batch axes too.
+taken over the ranks of the batch axes too.  Under ``--fsdp`` placements
+(:func:`zero1_shardings` for the params too) a parameter is split over
+"data" as well: :func:`layer_params`, which every layer and every use of a
+leaf outside the stack calls, gathers it there (autograd-aware: the
+backward reduce-scatters), the reference's per-layer all-gathers.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ from typing import Optional
 
 import torch
 
-from ..nn.module import tree_map_with_path
+from ..nn.module import tree_map, tree_map_with_path
 
 # --- default logical -> mesh-axis rules -------------------------------------
 # "pod" composes as an outer data axis by default (multi-pod DP); the
@@ -241,8 +245,9 @@ def batch_groups(mesh) -> list:
 
 @dataclass(frozen=True)
 class ModelShare:
-    """This rank's place on the active mesh's ``model`` axis: its index,
-    the axis's size and its process group."""
+    """This rank's place on the active mesh's ``model`` axis (or on the
+    axis :func:`layer_params` gathers over): its index, the axis's size
+    and its process group."""
     rank: int
     size: int
     group: object
@@ -259,8 +264,11 @@ _AT_ONE = [False]
 @contextmanager
 def tensor_parallel_at_one():
     """Inside, a ``model`` axis of one rank runs the tensor-parallel
-    layers too (its collectives move nothing): the card's one-rank check
-    of that code path, which gives the one-device step's bits."""
+    layers too (its collectives move nothing), and a "data" axis of one
+    rank splits the parameters under ``--fsdp`` (:func:`zero1_shardings`
+    places "data" there too) and gathers them per layer
+    (:func:`layer_params`, one-rank collectives): the card's one-rank
+    check of those code paths, which gives the one-device step's bits."""
     prev = _AT_ONE[0]
     _AT_ONE[0] = True
     try:
@@ -420,14 +428,15 @@ def replicated_sharding(mesh) -> NamedSharding:
 
 def zero1_shardings(params, mesh):
     """ZeRO-1: optimizer moments additionally sharded over 'data' on the
-    largest divisible dim that the param sharding leaves unsharded."""
+    largest divisible dim that the param sharding leaves unsharded (a
+    one-rank 'data' axis only inside :func:`tensor_parallel_at_one`)."""
     dsize = axis_sizes(mesh).get("data", 1)
 
     def upgrade(path, leaf):
         ns = NamedSharding(mesh, _resolve(
             mesh, param_logical_axes(path, leaf), leaf.shape))
         spec = list(ns.spec) + [None] * (len(leaf.shape) - len(ns.spec))
-        if dsize == 1:
+        if dsize == 1 and not _AT_ONE[0]:
             return ns
         # pick the largest unsharded dim divisible by the data axis
         cands = [(d, i) for i, d in enumerate(leaf.shape)
@@ -512,6 +521,67 @@ def model_block(t):
     if keep != tuple(t.placements):
         t = t.redistribute(mesh, keep)
     return t.to_local()
+
+
+def gathered_axes(t) -> tuple:
+    """The mesh axes a layer gathers DTensor ``t`` over before use: each
+    axis other than ``model`` that shards it and has more than one rank
+    (inside :func:`tensor_parallel_at_one`, one rank too), in mesh order;
+    () for any other tensor."""
+    if not is_dtensor(t):
+        return ()
+    mesh = t.device_mesh
+    return tuple(name for name, size, pl in zip(
+        mesh.mesh_dim_names, mesh.shape, t.placements)
+        if name != "model" and pl.is_shard() and (size > 1 or _AT_ONE[0]))
+
+
+@dataclass(frozen=True)
+class Placed:
+    """A parameter the layers gather (:func:`gathered_axes`) as the mesh
+    step hands it to them: ``block``, the rank's block that autograd
+    differentiates, and ``param``, the DTensor it is the block of."""
+    block: torch.Tensor
+    param: object
+
+
+def layer_params(tree):
+    """The tensors a layer computes with: each DTensor leaf of ``tree`` (or
+    :class:`Placed` block) as its ``model`` block, gathered over
+    :func:`gathered_axes` (the parameters ``--fsdp`` splits over "data")
+    through ``collectives.gather_many``, whose backward reduce-scatters
+    the gradient back to the rank's block; every other leaf as
+    :func:`local` gives it.  The leaves gathered over one axis gather in
+    one autograd node, innermost axis first, so every rank issues the
+    same collectives, in the backward too."""
+    from . import collectives as coll
+    leaves = []
+    tree_map(leaves.append, tree)
+    placed = [t.param if isinstance(t, Placed) else t for t in leaves]
+    out = [t.block if isinstance(t, Placed) else local(t) for t in leaves]
+    split = [i for i, t in enumerate(placed) if gathered_axes(t)]
+    if split:
+        mesh = placed[split[0]].device_mesh
+        names = mesh.mesh_dim_names
+        coord = dict(zip(names, mesh.get_coordinate()))
+        for axis in reversed(names):          # the innermost axis first
+            idx = [i for i in split if axis in gathered_axes(placed[i])]
+            if not idx:
+                continue
+            dims = [placed[i].placements[names.index(axis)].dim
+                    for i in idx]
+            if "model" in names and any(
+                    placed[i].placements[names.index("model")].is_shard(d)
+                    for i, d in zip(idx, dims)):
+                raise ValueError(f"a leaf split over {axis!r} and 'model' "
+                                 "on one dim")
+            share = ModelShare(coord[axis], axis_sizes(mesh)[axis],
+                               mesh.get_group(axis))
+            for i, g in zip(idx, coll.gather_many([out[i] for i in idx],
+                                                  dims, share)):
+                out[i] = g
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
 
 
 def model_sharded(t) -> bool:

@@ -41,8 +41,12 @@ load-balance means span the global batch (``sharding.batch_mean``).
 Where the mesh's ``model`` axis has more than one rank the step is
 tensor-parallel (:func:`mesh_grads`): no parameter is gathered whole, each
 rank computes its block of every layer (the reference's GSPMD layout) and
-holds its block of the gradient.  Not in this slice (ROADMAP): a
-per-layer gather under ``--fsdp`` in place of its whole-block one.
+holds its block of the gradient.  Under ``--fsdp`` placements
+(``launch/specs.py::state_shardings``, the parameters split over "data"
+too) no parameter's block is gathered before the forward: each layer
+gathers its own leaves over "data" just before use and the backward
+reduce-scatters their gradients to the rank's blocks, which AdamW
+updates (``sharding.layer_params``).
 :func:`reshard_state` moves a state onto another mesh of the same world,
 the reference's elastic scaling; checkpoints gather the state and rank 0
 writes it, in the reference's layout as above.
@@ -353,7 +357,7 @@ def train_step(mod, cfg: ArchConfig, state, batch, *, base_lr: float,
 
 def mesh_grads(mod, cfg: ArchConfig, params, batch, mesh, rules=None):
     """(the gradient averaged over the global batch, its metrics) from
-    this rank's share of ``batch`` and the all-reduces over the batch
+    this rank's share of ``batch`` and the reductions over the batch
     axes.  On a mesh whose ``model`` axis has one rank: every parameter
     gathered whole, the forward and backward on the share, the gradients
     all-reduced in buckets.  With more (tensor-parallel compute): each
@@ -361,51 +365,73 @@ def mesh_grads(mod, cfg: ArchConfig, params, batch, mesh, rules=None):
     (``sharding.model_share``), each rank's objective a 1 / model share of
     the loss, a model-split leaf's gradient the rank's block, and a
     replicated leaf's the sum of the ``model`` ranks' shares (each
-    counted once), before the all-reduce over the batch axes."""
+    counted once), before the all-reduce over the batch axes.  A leaf the
+    state splits over a batch axis too (``--fsdp``:
+    ``sharding.gathered_axes``) goes in as its own block, gathered by
+    each layer at its use (``sharding.layer_params``); its gradient comes
+    back as that block, already summed over the axes it was gathered
+    over, and is all-reduced over the other batch axes only."""
     with shlib.use_mesh_rules(mesh, rules):
         index, count = shlib.batch_share(mesh)
+        batch_axes = shlib._batch_axes(mesh)
         groups = shlib.batch_groups(mesh)
         share = shlib.model_share(mesh)
+        gathered = [shlib.gathered_axes(p) for p in tree_leaves(params)]
     rows = batch["inputs"].shape[0]
     if rows % count:
         raise ValueError(f"a batch of {rows} rows does not split over "
                          f"{count} data-parallel ranks")
     rows //= count
     mine = {k: v[index * rows:(index + 1) * rows] for k, v in batch.items()}
+    for axes in gathered:
+        if set(axes) - set(batch_axes):
+            raise ValueError(f"a parameter split over {axes}: the step "
+                             f"gathers parameters over the batch axes "
+                             f"{batch_axes} only")
+
+    def take(p):
+        if shlib.gathered_axes(p):
+            # handed to the layers with its placement: they gather it
+            return shlib.Placed(shlib.local(p).detach().requires_grad_(), p)
+        t = shlib.full(p) if share is None else shlib.model_block(p)
+        return t.detach().requires_grad_()
 
     with torch.no_grad():
-        if share is None:
-            whole = tree_map(lambda p: shlib.full(p).detach(), params)
-        else:
-            whole = tree_map(lambda p: shlib.model_block(p).detach(), params)
-    leaves = tree_leaves(whole)
-    for t in leaves:
-        t.requires_grad_(True)
+        whole = tree_map(take, params)
+    leaves = [t.block if isinstance(t, shlib.Placed) else t
+              for t in tree_leaves(whole)]
     with shlib.use_mesh_rules(mesh, rules):
         _, metrics = mod.loss_fn(whole, cfg, mine)
-    # this rank's share of the global masked mean: its sum of the
-    # per-token losses (loss x its count) over the global count
-    own = metrics["tokens"].to(torch.float32)
-    sums = torch.stack([metrics["loss"].detach() * own,
-                        metrics["accuracy"].detach() * own,
-                        (mine["targets"] >= 0).sum().to(torch.float32)])
-    all_reduce_coalesced([sums], groups)
-    tokens = torch.clamp(sums[2], min=1)
-    # the router loss is the global batch's on every rank already
-    objective = metrics["loss"] * (own / tokens) \
-        + metrics["aux_loss"] / count
-    if share is not None:
-        objective = objective / share.size
-    # under a model share a leaf may take no part on a rank (a bias its
-    # rank-0 partial sum holds): its share is zero
-    grads = torch.autograd.grad(objective, leaves,
-                                materialize_grads=share is not None)
+        # this rank's share of the global masked mean: its sum of the
+        # per-token losses (loss x its count) over the global count
+        own = metrics["tokens"].to(torch.float32)
+        sums = torch.stack([metrics["loss"].detach() * own,
+                            metrics["accuracy"].detach() * own,
+                            (mine["targets"] >= 0).sum().to(torch.float32)])
+        all_reduce_coalesced([sums], groups)
+        tokens = torch.clamp(sums[2], min=1)
+        # the router loss is the global batch's on every rank already
+        objective = metrics["loss"] * (own / tokens) \
+            + metrics["aux_loss"] / count
+        if share is not None:
+            objective = objective / share.size
+        # under a model share a leaf may take no part on a rank (a bias
+        # its rank-0 partial sum holds): its share is zero.  The backward
+        # runs under the rules too: a remat recompute runs the layers.
+        grads = torch.autograd.grad(objective, leaves,
+                                    materialize_grads=share is not None
+                                    or any(gathered))
     del objective, whole, leaves
     if share is not None and share.size > 1:
         split = [shlib.model_sharded(p) for p in tree_leaves(params)]
         all_reduce_coalesced([g for g, s in zip(grads, split) if not s],
                              [share.group])
-    all_reduce_coalesced(grads, groups)
+    # each leaf over the batch axes it was not gathered over: one bucketed
+    # pass a set of axes, in the order the sets first appear
+    for axes in dict.fromkeys(gathered):
+        rest = [mesh.get_group(a) for a in batch_axes if a not in axes]
+        all_reduce_coalesced([g for g, a in zip(grads, gathered)
+                              if a == axes], rest)
     return grads, {"loss": sums[0] / tokens, "accuracy": sums[1] / tokens,
                    "tokens": tokens,
                    "aux_loss": metrics["aux_loss"].detach()}

@@ -94,6 +94,10 @@ for arch in ARCHS:
         recs.append(dryrun.run_cell(arch, "t", cfg=cfg,
                                     shape=ShapeCfg("t", 64, 8, kind),
                                     mesh_shape=(2, 4)))
+    # the same train step with the params split over "data" too
+    recs.append(dryrun.run_cell(arch, "t_fsdp", cfg=cfg,
+                                shape=ShapeCfg("t_fsdp", 64, 8, "train"),
+                                mesh_shape=(2, 4), fsdp=True))
 # the reference's reason for an inapplicable cell
 recs.append(dryrun.run_cell("smollm-360m", "long_500k"))
 # a step that cannot run: an error record with its traceback, and the
@@ -408,7 +412,7 @@ def test_mamba_train_step_flops_differ_by_the_named_terms(spawned):
 
 
 # --- (f) cells on a fake (2, 4) world ----------------------------------------
-def _tp_wire_bytes(cfg, B=8, S=64, data=2, m=4):
+def _tp_wire_bytes(cfg, B=8, S=64, data=2, m=4, fsdp=False):
     """(reduce-scatter, all-gather, all-reduce) wire bytes of the (2, 4)
     tensor-parallel train step of a reduced config (f32, its heads, MLP
     columns, experts and SSM heads split 4 ways), from the specs.  Each
@@ -421,7 +425,14 @@ def _tp_wire_bytes(cfg, B=8, S=64, data=2, m=4):
     f32 gradient blocks, the step's three-float sums and per MoE layer the
     router loss's two means and the backward of one; over "model" the
     replicated leaves' gradients, the norm's block sum of squares and per
-    SSM layer the gated RMSNorm's sums of squares, forward and backward."""
+    SSM layer the gated RMSNorm's sums of squares, forward and backward.
+    ``fsdp``: the params placed like the ZeRO-1 moments, so no update is
+    gathered; each leaf split over "data" is gathered at each use (the
+    tied embedding twice: lookup and readout; no remat at the reduced
+    config) and its gradient reduce-scattered (g = 2), and neither it nor
+    its block of the norm's sum of squares is all-reduced over "data":
+    the norm's sums are all-reduced once for each set of mesh dims that
+    split their leaves' gradients (of "data" and "model")."""
     mesh = {"data": data, "model": m}
     f = 4
     Bl, d = B // data, cfg.d_model
@@ -443,18 +454,45 @@ def _tp_wire_bytes(cfg, B=8, S=64, data=2, m=4):
         ps = sh.param_shardings(st["params"], mesh)
         z1 = sh.zero1_shardings(st["params"], mesh)
     local = rep = finer = 0
-    for p, s_, z in zip(tree_leaves(st["params"]), tree_leaves(ps),
-                        tree_leaves(z1)):
+    norm_sets = set()
+    names = _leaf_names(st["params"])
+    for name, p, s_, z in zip(names, tree_leaves(st["params"]),
+                              tree_leaves(ps), tree_leaves(z1)):
         n = p.numel() // (m if "model" in s_.spec else 1)
+        if fsdp and "data" in z.spec:
+            uses = 2 if name.startswith("embed/") and \
+                cfg.tie_embeddings else 1
+            ag += uses * n * f / 2
+            rs += uses * n * f / 2
+            rep += 0 if "model" in s_.spec else n / 2
+            norm_sets.add(("data", "model") if "model" in s_.spec
+                          else ("data",))
+            continue
         local += n
         rep += 0 if "model" in s_.spec else n
         finer += n if "data" in z.spec else 0
-    ag += finer * f / 2
+        if "model" in s_.spec:
+            norm_sets.add(("model",))
+    if not fsdp:
+        ag += finer * f / 2
     experts = cfg.moe.num_experts if cfg.moe else 0
     n_moe = sum(ffn == "moe" for _, ffn in kinds)
-    ar = (f * local + 12 + n_moe * 3 * 4 * experts
-          + 2 * (m - 1) / m * (f * rep + f + n_ssm * 2 * Bl * S * f))
+    norm = sum(f * (("data" in axes) + 2 * (m - 1) / m * ("model" in axes))
+               for axes in norm_sets)
+    ar = (f * local + 12 + n_moe * 3 * 4 * experts + norm
+          + 2 * (m - 1) / m * (f * rep + n_ssm * 2 * Bl * S * f))
     return rs, ag, ar
+
+
+def _leaf_names(tree, path=""):
+    """Each leaf's path, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{path}/{k}" if path else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{path}/{i}")]
+    return [path]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -492,6 +530,31 @@ def test_cells_on_a_fake_world(spawned, arch):
     want = {} if cfg.ssm is not None else {
         "decode_attn": sum(m == "attn" for m, _ in stack_kinds(cfg))}
     assert decode["launches"] == want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fsdp_cells_on_a_fake_world(spawned, arch):
+    """(f) The same train cell under ``--fsdp`` (the params split over
+    "data" as well, each layer gathering its leaves at its use): ``ok``,
+    the all-gather, reduce-scatter and all-reduce wire bytes equal to the
+    sums derived from the specs, more collectives inside the layers (the
+    gathers and their reduce-scatters) and fewer argument bytes a rank
+    than the non-FSDP cell's."""
+    recs = {r["shape"]: r for r in spawned["cells"]
+            if r["arch"] == arch and r["mesh"] == "2x4"
+            and r["kind"] == "train"}
+    cfg = get_config(arch).reduced()
+    cell, base = recs["t_fsdp"], recs["t"]
+    assert cell["status"] == "ok", cell.get("traceback")
+    cb, cb0 = (r["roofline"]["coll_breakdown"] for r in (cell, base))
+    rs, ag, ar = _tp_wire_bytes(cfg, fsdp=True)
+    assert cb["reduce-scatter"] == pytest.approx(rs, rel=1e-12)
+    assert cb["all-gather"] == pytest.approx(ag, rel=1e-12)
+    assert cb["all-reduce"] == pytest.approx(ar, rel=1e-12)
+    assert cb["in_loop_count"] > cb0["in_loop_count"]
+    assert cell["memory"]["argument_size"] < base["memory"]["argument_size"]
+    if cfg.ssm is not None:
+        assert cell["launches"] == base["launches"]
 
 
 def test_skipped_and_error_records(spawned):

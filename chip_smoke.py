@@ -327,6 +327,27 @@ Slice 17's phases, in the order they run:
                within 10% of ``max_memory_allocated()`` over the step's
                start, the modelled step ms beside the device ms.
                ``dryrun:`` lines.
+  17. cnn-train — training the image models (``models/alexnet.py::
+               loss_fn``), after phase 15: (a) full-width AlexNet at 227
+               px, f32, batch 128, on route winograd (the plain Winograd
+               transforms; conv1/conv2 through ``F.conv2d``), 2 warm-up
+               and 5 timed AdamW steps on ``synthetic_images``: step ms,
+               img/s, peak memory, finite losses, the loss on step 0's
+               batch lower after the run, no port kernel launched, one
+               step traced (device busy ms, idle share, top device ops),
+               route winograd's gradients against route direct's on
+               the whole batch: each conv layer's backward within 1e-3
+               of its max, one step's through loss_fn within 3e-2 of
+               each leaf's norm; (b) the same model
+               in bf16, one timed step after one warm-up; (c) VGG-16 at
+               224 px, f32, batch 16, 1 + 2 steps, as (a); (d) a gradient
+               asked for on route pallas, under fc_bfp and under sdc_abft
+               raises, naming the reason; (e) the example twins in this
+               process: ``serve_batch_torch.py --arch alexnet --route
+               pallas`` (kernels 1-3 launched), ``--arch smollm-360m``
+               (kernel 5), ``quickstart_torch.py`` and
+               ``alexnet_winograd_torch.py``, each printing its OK line.
+               ``cnn-train:`` lines.
 The last line is ``{"ok": true, "device": {...}}``; any failed check exits
 nonzero, and so does a run without a card or without the repository.
 """
@@ -339,6 +360,7 @@ import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -5749,6 +5771,297 @@ def phase_dryrun(torch, card):
     return {"cells": cells, "steps": steps, "phase_s": took}
 
 
+# 17. cnn-train: (batch, warm-up steps, timed steps) at full width on route
+# winograd, f32; Krizhevsky's batch for AlexNet
+CNN_TRAIN_SHAPES = {"alexnet": (128, 2, 5), "vgg16": (16, 1, 2)}
+CNN_TRAIN_LR = 1e-4
+# route winograd's gradients against route direct's (both f32, summed in
+# different orders): each conv layer's dx, dw, db <= this * its max
+TOL_CNN_GRAD = 1e-3
+# and one step's gradients through loss_fn: <= this * each leaf's norm
+# (read 1.1e-4 to 2.8e-3 for AlexNet, up to 7.8e-3 for VGG-16 on 16
+# batches: ReLU and pool choices flip between the routes)
+TOL_CNN_STEP = 3e-2
+# the configs whose forward has no gradient, and the word each error names
+CNN_NO_GRAD = {"pallas": ({"use_pallas": True}, "route 'pallas'"),
+               "fc_bfp": ({"fc_bfp": True}, "fc_bfp"),
+               "sdc_abft": ({"sdc_abft": True}, "sdc_abft")}
+# the example twins phase 17 runs in this process: (file, argv, the
+# kernels whose launches it must reach)
+CNN_EXAMPLES = (
+    ("serve_batch_torch", ["--arch", "alexnet", "--route", "pallas"],
+     ("conv_direct", "conv_winograd", "conv_winograd_fused")),
+    ("serve_batch_torch", ["--arch", "smollm-360m"], ("decode_attn",)),
+    ("quickstart_torch", [], ()),
+    ("alexnet_winograd_torch", [], ()))
+
+
+def _cnn_batches(torch, cfg, B, steps, seed=0):
+    from repro_torch.data.pipeline import synthetic_images
+    return [{"images": torch.from_numpy(b["images"]).to("cuda"),
+             "labels": torch.from_numpy(b["labels"]).long().to("cuda")}
+            for b in synthetic_images(batch=B, image_size=cfg.image_size,
+                                      num_classes=cfg.num_classes,
+                                      seed=seed, steps=steps)]
+
+
+def _cnn_grads(torch, params, cfg, batch):
+    from repro_torch.models import alexnet
+    from repro_torch.nn.module import tree_leaves
+    leaves = tree_leaves(params)
+    loss, aux = alexnet.loss_fn(params, cfg, batch)
+    return loss, aux, torch.autograd.grad(loss, leaves)
+
+
+def cnn_train_run(torch, card, arch, dtype="float32", shape=None, *,
+                  full=True):
+    """``arch`` at full width, random weights from a seed, trained on
+    route winograd with AdamW on ``synthetic_images``: step ms (host,
+    after a synchronize) and img/s over the timed steps, peak memory,
+    finite losses; with ``full``: the loss on step 0's batch lower after
+    the run than before it, one step traced (device busy ms, idle share,
+    top device ops) and one step's gradients on route winograd held to
+    route direct's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import alexnet
+    from repro_torch.nn.module import count_params, tree_leaves
+    from repro_torch.optim import adamw_step, init_state
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    check(alexnet._route(cfg) == "winograd", f"cnn-train {arch}: route "
+          f"{alexnet._route(cfg)}, not winograd")
+    B, warm, timed = shape or CNN_TRAIN_SHAPES[arch]
+    batches = _cnn_batches(torch, cfg, B, warm + timed)
+    state = init_state(alexnet.init(0, cfg, device="cuda"))
+    leaves = tree_leaves(state["params"])
+    for p in leaves:
+        p.requires_grad_()
+    n_params = count_params(state["params"])
+
+    def held_loss():
+        with torch.no_grad():
+            return alexnet.loss_fn(state["params"], cfg, batches[0])[0].item()
+
+    def step(batch):
+        loss, _, grads = _cnn_grads(torch, state["params"], cfg, batch)
+        adamw_step(state, grads, lr=CNN_TRAIN_LR)
+        return loss.detach()
+
+    before = held_loss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, dts = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        if i >= warm:
+            dts.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    after = held_loss()
+    check(all(math.isfinite(x) for x in losses), f"cnn-train {arch} "
+          f"{dtype}: a non-finite loss {losses}")
+    check(not any(launches.values()), f"cnn-train {arch}: route winograd "
+          f"launched a port kernel {launches}")
+    check(not full or after < before, f"cnn-train {arch} {dtype}: the "
+          f"loss on step 0's "
+          f"batch did not fall over {len(batches)} steps ({before} -> "
+          f"{after})")
+    step_ms = statistics.median(dts) * 1e3
+    rep = {"arch": arch, "dtype": dtype, "batch": B,
+           "image_size": cfg.image_size, "params": n_params,
+           "warmup_steps": warm, "timed_steps": timed, "losses": losses,
+           "held_loss_before": before, "held_loss_after": after,
+           "step_ms": step_ms, "step_ms_all": [d * 1e3 for d in dts],
+           "imgs_per_s": B / step_ms * 1e3, "peak_mem_bytes": peak,
+           "launches": launches}
+    line = (f"cnn-train {arch} ({dtype}, {n_params / 1e6:.1f} M params, "
+            f"{cfg.image_size} px, batch {B}, route winograd, lr "
+            f"{CNN_TRAIN_LR}): {warm} + {timed} steps, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, on step 0's batch "
+            f"{before:.4f} -> {after:.4f} | step {step_ms:.2f} ms median "
+            f"({', '.join(f'{d * 1e3:.2f}' for d in dts)}), "
+            f"{rep['imgs_per_s']:.1f} img/s | peak mem "
+            f"{peak / 2 ** 30:.2f} GiB")
+    if full:
+        marks = ("cudnn", "dgrad", "wgrad", "gemm", "elementwise",
+                 "unfold", "reduce")
+        wall, busy, events, by_mark, top = profile_decode(
+            torch, lambda: step(batches[-1]), steps=1, marks=marks)
+        rep.update(traced_wall_ms=wall, device_busy_ms=busy,
+                   device_events=events, device_ms_by_mark=by_mark, top=top,
+                   idle_share=None if busy is None else 1.0 - busy / wall)
+        line += (f" | traced step: {wall:.2f} ms wall, "
+                 + ("device busy not measured (no device events)"
+                    if busy is None else
+                    f"device busy {busy:.2f} ms in {events:.0f} events, "
+                    f"idle share {1.0 - busy / wall:.4f}, by name: "
+                    + ", ".join(f"{m} {by_mark[m]:.2f}" for m in marks)
+                    + " ms | top: "
+                    + "; ".join(f"{n} {ms:.3f} ms" for n, ms in top)))
+        rep["grad_check"] = cnn_grad_check(torch, state["params"], cfg,
+                                           batches[0])
+        g = rep["grad_check"]
+        line += (f" | gradients winograd vs direct on all {g['batch']} "
+                 f"images: each conv's backward, worst {g['worst_layer']} "
+                 f"{g['layer_max_rel_err']:.3e} of its max (<= "
+                 f"{TOL_CNN_GRAD}); one step through loss_fn, worst leaf "
+                 f"{g['worst_leaf']} {g['step_l2_rel_err']:.3e} of its "
+                 f"norm (<= {TOL_CNN_STEP}), largest difference "
+                 f"{g['step_max_rel_err']:.3e} of a leaf's max|g|; route "
+                 f"direct against itself {g['direct_twice_l2_rel_err']:.3e} "
+                 f"of a leaf's norm")
+    print(line + f" | on {card}")
+    del state, leaves, batches
+    torch.cuda.empty_cache()
+    return rep
+
+
+def cnn_grad_check(torch, params, cfg, batch):
+    """Route winograd's gradients against route direct's on the whole
+    batch.  Each conv layer's backward (dx, dw, db) at the layer's input
+    from route direct's forward and a seeded gradient of its output:
+    within TOL_CNN_GRAD of each one's max.  One step's gradients through
+    ``loss_fn``: each leaf's difference within TOL_CNN_STEP of its norm;
+    there a ReLU input or a pool window's runner-up within rounding of
+    the winner lands on the other side in the two forwards, and route
+    direct's own backward (cuDNN) moves a bias gradient summed over the
+    batch between two runs (reported: route direct against itself)."""
+    from repro_torch.models import alexnet
+    from repro_torch.nn.conv import dispatch_conv
+    x = batch["images"].to(torch.float32)
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    layers = {}
+    for i, spec in enumerate(alexnet.layer_specs(cfg)):
+        name, p = f"conv{i + 1}", params[f"conv{i + 1}"]
+        bare = dataclasses.replace(spec, relu=False, fuse_lrn=False,
+                                   fuse_pool=False)
+        xi, g, got = x.detach().requires_grad_(), None, []
+        for route in ("winograd", "direct"):
+            y = dispatch_conv(bare.with_route(route), xi, p["w"], p["b"])
+            if g is None:
+                g = torch.randn(y.shape, device=y.device, generator=gen)
+            got.append(torch.autograd.grad(y, (xi, p["w"], p["b"]), g))
+        layers[name] = [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(*got)]
+        check(max(layers[name]) <= TOL_CNN_GRAD, f"cnn-train {cfg.name}: "
+              f"{name}'s backward (dx, dw, db) on route winograd is "
+              f"{layers[name]} of its max off route direct's")
+        with torch.no_grad():
+            x = dispatch_conv(spec.with_route("direct"), x, p["w"], p["b"])
+    direct = dataclasses.replace(cfg, use_winograd=False)
+    _, _, gw = _cnn_grads(torch, params, cfg, batch)
+    _, _, gd = _cnn_grads(torch, params, direct, batch)
+    _, _, gd2 = _cnn_grads(torch, params, direct, batch)
+    names = [f"{layer}.{k}" for layer in params for k in params[layer]]
+    step, again = {}, 0.0
+    for name, a, b, b2 in zip(names, gw, gd, gd2):
+        check(bool(torch.isfinite(a).all()) and float(b.norm()) > 0,
+              f"cnn-train {cfg.name}: gradient of {name} zero or non-finite")
+        step[name] = (float((a - b).norm() / b.norm()),
+                      float((a - b).abs().max() / b.abs().max()))
+        again = max(again, float((b2 - b).norm() / b.norm()))
+    worst = max(step, key=lambda n: step[n][0])
+    check(step[worst][0] <= TOL_CNN_STEP, f"cnn-train {cfg.name}: one "
+          f"step's gradient of {worst} on route winograd is "
+          f"{step[worst][0]:.3e} of its norm off route direct's")
+    worst_layer = max(layers, key=lambda n: max(layers[n]))
+    return {"batch": len(batch["labels"]), "layers": layers,
+            "layer_max_rel_err": max(layers[worst_layer]),
+            "worst_layer": worst_layer, "step": step, "worst_leaf": worst,
+            "step_l2_rel_err": step[worst][0],
+            "step_max_rel_err": max(v[1] for v in step.values()),
+            "direct_twice_l2_rel_err": again}
+
+
+def cnn_no_grad_routes(torch, card):
+    """17d: asking for a gradient on route pallas, under fc_bfp and under
+    sdc_abft raises, naming the reason (the CUDA conv kernels and the BFP
+    matmul kernel have no backward; the armed forward returns its verdict
+    beside the logits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import alexnet
+    from repro_torch.nn.module import tree_leaves
+    cfg = get_config("alexnet")
+    params = alexnet.init(0, cfg, device="cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    batch = _cnn_batches(torch, cfg, 2, 1, seed=1)[0]
+    out = {}
+    for name, (kw, reason) in CNN_NO_GRAD.items():
+        try:
+            alexnet.loss_fn(params, dataclasses.replace(cfg, **kw), batch)
+        except ValueError as e:
+            check(reason in str(e), f"cnn-train {name}: the error does not "
+                  f"name {reason!r}: {e}")
+            out[name] = str(e)
+        else:
+            raise CheckFailed(f"cnn-train: a gradient asked for under "
+                              f"{name} did not raise")
+        print(f"cnn-train {name}: raises ValueError: {out[name]}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def cnn_examples(torch, card):
+    """17e: the example twins in this process on the card, each printing
+    its OK line, the kernels each must reach counted."""
+    import importlib.util
+    import io
+    out = []
+    for name, argv, kernels in CNN_EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+        finally:
+            for line in buf.getvalue().splitlines():
+                print(f"  {name}: {line}")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = launch_counts()
+        text = buf.getvalue()
+        ok = {"serve_batch_torch": "serve_batch OK",
+              "quickstart_torch": "quickstart OK",
+              "alexnet_winograd_torch": "alexnet_winograd OK"}[name]
+        check(ok in text, f"cnn-train: examples/{name}.py {argv} printed "
+              f"no {ok!r}")
+        check(all(counts[k] > 0 for k in kernels), f"cnn-train: "
+              f"examples/{name}.py {argv} did not reach {kernels}: {counts}")
+        print(f"cnn-train example {name} {' '.join(argv)}: {ok} in "
+              f"{took:.2f} s"
+              + "".join(f", {k} launched {counts[k]} times" for k in kernels)
+              + f" | on {card}")
+        out.append({"example": name, "argv": argv, "seconds": took,
+                    "launches": {k: counts[k] for k in kernels}})
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cnn_train(torch, card):
+    """17: training the image models on the card (a-e)."""
+    t0 = time.perf_counter()
+    out = {"alexnet": cnn_train_run(torch, card, "alexnet")}
+    shape = CNN_TRAIN_SHAPES["alexnet"]
+    out["alexnet_bf16"] = cnn_train_run(
+        torch, card, "alexnet", "bfloat16", (shape[0], 1, 1), full=False)
+    out["vgg16"] = cnn_train_run(torch, card, "vgg16")
+    out["no_grad"] = cnn_no_grad_routes(torch, card)
+    out["examples"] = cnn_examples(torch, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"cnn-train: phase 17 {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke run of the "
                                  "PyTorch/CUDA port.")
@@ -5869,6 +6182,8 @@ def main(argv=None) -> int:
                         moe["granite"], train["dense"])
     torch.cuda.empty_cache()
     dryrun = phase_dryrun(torch, card)
+    torch.cuda.empty_cache()
+    cnn_train = phase_cnn_train(torch, card)
     # each path's launches, counted from 0 over its own serve run
     paths = {**{path: sv["launches"] for path, sv in serves.items()},
              "sdc": sdc["launches"], "autotune": tuned["launches"],
@@ -6065,6 +6380,7 @@ def main(argv=None) -> int:
                                       for k, r in rows_m.items()},
                        "dw1d_taps": rows_taps, "mamba_taps": mamba_taps,
                        "model": model, "dryrun": dryrun,
+                       "cnn_train": cnn_train,
                        "build_seconds": lib.build_seconds,
                        "ptxas": ptxas}, f, indent=1)
     print(card)

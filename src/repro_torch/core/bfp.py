@@ -74,8 +74,26 @@ def dequantize(m, e, *, bits: int = 8, axis: int | None = None):
 
 def quantize_dequantize(x, *, block: int = 32, bits: int = 8,
                         axis: int = -1):
-    m, e, ax = quantize(x, block=block, bits=bits, axis=axis)
-    return dequantize(m, e, bits=bits, axis=ax)
+    """``x`` rounded to BFP and back, in f32.  Its gradient is 0, the
+    derivative of ``round`` (the reference's, whose cast to the integer
+    mantissas differentiates to 0): a tensor that requires grad gets a
+    zero gradient through here, where the integer ops of :func:`quantize`
+    and :func:`pow2` would cut the graph and leave it none."""
+    return _RoundTrip.apply(x, block, bits, axis)
+
+
+class _RoundTrip(torch.autograd.Function):
+    """:func:`quantize_dequantize` as one node with a zero backward."""
+
+    @staticmethod
+    def forward(ctx, x, block, bits, axis):
+        ctx.dtype = x.dtype
+        m, e, ax = quantize(x, block=block, bits=bits, axis=axis)
+        return dequantize(m, e, bits=bits, axis=ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g, dtype=ctx.dtype), None, None, None
 
 
 def bfp_matmul(x, w, *, block: int = 32, bits: int = 8):

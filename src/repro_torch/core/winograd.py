@@ -157,7 +157,8 @@ def _conv2d_winograd_single(x, w, b, *, m: int, padding: str, relu: bool):
     if b is not None:
         y = y + b.float()
     if relu:
-        y = torch.clamp_min(y, 0.0)
+        from ..nn.pooling import relu as relu_
+        y = relu_(y)
     return y.to(x.dtype)
 
 

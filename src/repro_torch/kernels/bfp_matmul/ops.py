@@ -28,7 +28,13 @@ def quantize_weights(w, *, block: int = 32):
 
 
 def bfp_matmul(x, w, *, block: int = 32, quantized=None):
-    """(M, K) @ (K, N) in shared-exponent block floating point."""
+    """(M, K) @ (K, N) in shared-exponent block floating point.  The
+    kernel has no backward, as the reference's has none: with grad mode
+    on, an ``x`` or ``w`` that requires grad raises, rather than return an
+    output that silently carries no gradient."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise ValueError("bfp_matmul: the BFP matmul kernel (fc_bfp) has no "
+                         "backward; differentiate with fc_bfp=False")
     wq, we = (quantized if quantized is not None
               else _k.quantize_weights(w, block=block))
     return _k.bfp_matmul(x, wq, we, block=block)

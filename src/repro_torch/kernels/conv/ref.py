@@ -22,6 +22,29 @@ def _no_tf32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+class _Conv2dF32(torch.autograd.Function):
+    """``F.conv2d`` in full f32 in the backward too: autograd runs a conv's
+    backward after the forward's context has closed, where cuDNN allows
+    TF32 by default."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, groups):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.groups = stride, groups
+        with _no_tf32():
+            return F.conv2d(x, w, stride=stride, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with _no_tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [ctx.stride] * 2, [0, 0], [1, 1], False,
+                [0, 0], ctx.groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None
+
+
 def same_pad(extent: int, r: int, stride: int) -> tuple[int, int, int]:
     """(out, pad_lo, pad_hi) for SAME padding, matching lax.conv semantics."""
     out = -(-extent // stride)
@@ -40,16 +63,14 @@ def conv2d_ref(x, w, b=None, *, stride: int = 1, padding: str = "SAME",
         _, h_lo, h_hi = same_pad(x.shape[1], r, stride)
         _, w_lo, w_hi = same_pad(x.shape[2], r, stride)
         xc = F.pad(xc, (w_lo, w_hi, h_lo, h_hi))
-    with _no_tf32():
-        y = F.conv2d(xc, w.float().permute(3, 2, 0, 1), stride=stride,
-                     groups=groups)
+    y = _Conv2dF32.apply(xc, w.float().permute(3, 2, 0, 1), stride, groups)
     y = y.permute(0, 2, 3, 1)
     if b is not None:
         y = y + b.float()
+    from ...nn.pooling import apply_epilogue, relu as relu_
     if relu:
-        y = torch.clamp_min(y, 0.0)
+        y = relu_(y)
     if lrn is not None or pool is not None:
-        from ...nn.pooling import apply_epilogue
         y = apply_epilogue(y, lrn, pool)
     return y.to(x.dtype).contiguous()
 

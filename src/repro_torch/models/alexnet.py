@@ -28,6 +28,19 @@ rows and runs the kernels' armed variant; the forward then returns
 ``(logits, sdc)``, ``sdc`` an int32 device tensor that every layer adds
 its mismatched checksum lanes to (0: every slab intact).  It costs one
 zero-fill a forward and no host sync.
+
+Training: :func:`loss_fn` is differentiable on the routes the reference
+differentiates, ``winograd`` (``core/winograd.py``'s plain Winograd, and
+``conv2d_ref`` on the layers it does not take) and ``direct``, in f32 and
+bf16 and under ``conv_bfp``, whose filters go through ``round`` and get a
+zero gradient, as in the reference.  A forward with grad mode on and a
+parameter that requires grad packs every slab from the live weights, and
+raises where the reference's gradient fails too: on route ``pallas`` and
+under ``fc_bfp`` the kernel's entry refuses (``dispatch_conv``,
+``bfp_matmul``: the CUDA kernels have no backward), under ``sdc_abft``
+:func:`features`.
+Serving callers hold parameters that do not require grad, or run under
+``torch.no_grad()``: their forward builds no graph.
 """
 from __future__ import annotations
 
@@ -93,6 +106,11 @@ def check_supported(cfg: AlexNetConfig):
     if cfg.dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {cfg.dtype!r}; the CNN path "
                          f"takes {list(DTYPES)}")
+
+
+def _needs_grad(params) -> bool:
+    return torch.is_grad_enabled() and any(
+        v.requires_grad for sub in params.values() for v in sub.values())
 
 
 def layer_specs(cfg: AlexNetConfig) -> List[ConvSpec]:
@@ -279,8 +297,26 @@ def features(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
     Under ``cfg.sdc_abft`` the return is ``(features, sdc)``: one int32
     zero on the device that every layer's kernel adds its mismatched
     checksum lanes to.  A verifying stager (``WeightStager(verify=True)``)
-    gets fingerprinted slabs and the pack context to expect on a hit."""
+    gets fingerprinted slabs and the pack context to expect on a hit.
+
+    A differentiable forward (grad mode on, a parameter that requires
+    grad) packs from the live weights: it refuses ``packed`` and a stager
+    that already holds slabs, which were packed from the weights of an
+    earlier step.  It refuses ``sdc_abft``: the armed forward returns
+    ``(logits, sdc)``, which the reference's ``loss_fn`` does not take
+    apart, and its checksums guard served slabs."""
     check_supported(cfg)
+    if _needs_grad(params):
+        if cfg.sdc_abft:
+            raise ValueError(
+                "alexnet: no gradient under sdc_abft: the armed forward "
+                "returns (logits, sdc) and its checksums guard served "
+                "slabs; train with sdc_abft=False")
+        if packed is not None or (stager is not None and stager.misses):
+            raise ValueError(
+                "alexnet.features: a differentiable forward packs every "
+                "slab from the live weights; pass no packed slabs and no "
+                "stager that has staged any")
     x = images.to(DTYPES[cfg.dtype])
     route = _route(cfg)
     plans = plans or {}
@@ -370,12 +406,13 @@ def classifier(params, cfg: AlexNetConfig, feats, *, stager=None,
     return x
 
 
-@torch.no_grad()
 def apply(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
           packed=None):
     """Full forward: images (B, H, W, C) -> logits (B, num_classes), or
     ``(logits, sdc)`` under ``cfg.sdc_abft``.  One stager spans conv and
-    FC, so conv5's hook can stage fc6's stream."""
+    FC, so conv5's hook can stage fc6's stream.  Differentiable on routes
+    ``winograd`` and ``direct``; params that do not require grad (or
+    ``torch.no_grad()``) build no graph."""
     stager = WeightStager() if stager is None else stager
     feats = features(params, cfg, images, stager=stager, plans=plans,
                      packed=packed)
@@ -387,7 +424,10 @@ def apply(params, cfg: AlexNetConfig, images, *, stager=None, plans=None,
 
 
 def loss_fn(params, cfg: AlexNetConfig, batch):
-    """(loss, {"loss", "accuracy"}) for a batch of images and int labels."""
+    """(loss, {"loss", "accuracy"}) for a batch of images and int labels;
+    the loss carries the gradient of every parameter that requires grad
+    (``torch.autograd.grad(loss, leaves)``), packed from the live weights
+    on every call."""
     logits = apply(params, cfg, batch["images"])
     labels = batch["labels"]
     logp = torch.log_softmax(logits.float(), dim=-1)

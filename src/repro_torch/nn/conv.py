@@ -34,6 +34,7 @@ from ..kernels.conv.ops import conv2d as kernel_conv2d
 from ..kernels.conv.ops import conv2d_direct as kernel_conv2d_direct
 from ..kernels.conv.ref import conv2d_ref
 from .pooling import LrnParams, apply_epilogue, pooled_hw
+from .pooling import relu as _relu
 
 ROUTES = ("auto", "direct", "winograd", "pallas")
 
@@ -383,6 +384,10 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     checksum lanes to ``verdict`` (an int32 0-dim tensor, a fresh zero when
     None, so a forward can sum its layers into one); the routes without a
     slab leave it as it is.  ``y`` is bit-equal to the unarmed call's.
+
+    The CUDA kernels have no backward: with grad mode on, a call that
+    resolves to one with an input that requires grad raises, rather than
+    return an output that silently carries no gradient.
     """
     assert w.shape[0] == w.shape[1] == spec.kernel, (w.shape, spec.kernel)
     knobs = plan_knobs(plan, batch_block=batch_block, k_block=k_block,
@@ -400,6 +405,11 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     pool = ((spec.pool_window, spec.pool_stride)
             if spec.fuse_pool and not defer_bias else None)
     kernel = resolve_kernel(spec, in_hw=(x.shape[1], x.shape[2]))
+    if kernel.startswith("cuda") and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)):
+        raise ValueError(f"dispatch_conv: {kernel} (route 'pallas') has no "
+                         f"backward; differentiate on route 'winograd' or "
+                         f"'direct'")
 
     slab = None
     if w_packed is not None and kernel.startswith("cuda"):
@@ -448,7 +458,7 @@ def dispatch_conv(spec: ConvSpec, x, w, b=None, *,
     if defer_bias:
         y = y + b.to(y.dtype)
         if spec.relu:
-            y = torch.clamp_min(y, 0)
+            y = _relu(y)
         y = apply_epilogue(y, spec.lrn if spec.fuse_lrn else None,
                            (spec.pool_window, spec.pool_stride)
                            if spec.fuse_pool else None)

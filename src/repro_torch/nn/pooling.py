@@ -38,17 +38,21 @@ def lrn(x, p: LrnParams = LrnParams()):
     return x / torch.pow(p.k + p.alpha / p.n * win, p.beta)
 
 
+def relu(y):
+    """max(y, 0), the conv routes' fused ReLU.  ``torch.maximum``, whose
+    backward passes half the gradient at y == 0 as the reference's
+    ``jnp.maximum`` does (a window of zeros after a ReLU gives an exact 0
+    wherever the bias is 0)."""
+    return torch.maximum(y, y.new_zeros(()))
+
+
 def maxpool2d(x, window: int = 3, stride: int = 2):
-    """VALID spatial max-pool on NHWC via window**2 strided slices."""
-    ph = pooled_hw(x.shape[1], window, stride)
-    pw = pooled_hw(x.shape[2], window, stride)
-    y = None
-    for di in range(window):
-        for dj in range(window):
-            sl = x[:, di:di + stride * (ph - 1) + 1:stride,
-                   dj:dj + stride * (pw - 1) + 1:stride]
-            y = sl if y is None else torch.maximum(y, sl)
-    return y
+    """VALID spatial max-pool on NHWC, ``F.max_pool2d`` on the NCHW view.
+    Its backward sends each window's gradient to the first of its tied
+    maxima in row-major order, as the reference's ``reduce_window`` max
+    does (ties are common in bf16)."""
+    y = torch.nn.functional.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
 
 
 def pooled_hw(h: int, window: int = 3, stride: int = 2) -> int:

@@ -578,10 +578,11 @@ class CnnEngine:
             images, host = self._put(buf)
             self._staged.append(_Group(slots, reqs, bucket, images, host))
 
+    @torch.no_grad()
     def _forward(self, g: _Group, degraded: bool):
         """The logits of the group's rows (with the ABFT verdict under
         ``sdc_abft``) on the first device: each device used runs its rows
-        (its kernels launched with it current)."""
+        (its kernels launched with it current).  No autograd graph."""
         outs = []
         for dev, x in enumerate(g.images):
             d = self.devices[dev]

@@ -1568,14 +1568,34 @@ def conv_bound(kname, x, flops, nbytes):
                   and x.element_size() == 2 else "float32")
 
 
+# kernels 2-3's launches by kernel name, in launch order
+WINO_STAGES = ("conv_winograd_input", "conv_winograd_gemm",
+               "conv_winograd_inverse", "conv_winograd_epilogue")
+
+
+def wino_launches(torch, kern, armed_kern):
+    """Kernels 2-3 in bf16: the armed call's device ms and each launch's
+    (``stage_ms``: input transform, GEMM, inverse transform, epilogue) for
+    the row, and their part of the row's line."""
+    out = {"armed_ms": time_ms(torch, armed_kern)[0],
+           "stages_ms": stage_ms(torch, kern, WINO_STAGES)}
+    st = out["stages_ms"]
+    launches = ("not measured (no device events)" if st is None else
+                ", ".join(f"{k.removeprefix('conv_winograd_')} {v:.4f}"
+                          for k, v in st.items() if v is not None))
+    return out, (f" | armed kernel_ms {out['armed_ms']:.4f} | launches "
+                 f"{launches}")
+
+
 def phase_kernels_bf16(torch, np, cfg, params):
     """3b: kernels 1-3 at AlexNet's five layer shapes, batch 8, in bf16:
     the bf16 rule at every tile of each launcher's grid, armed and
     unarmed; within one bf16 step of the plain version; the armed direct
     kernels' verdicts for seeded flips of their bf16 slabs; timed beside
-    bf16 ``F.conv2d`` and the bound.  Under ``cfg.conv_bfp`` (3e) every
+    bf16 ``F.conv2d`` and the bound, kernels 2-3 also armed and each
+    launch by name (``wino_launches``).  Under ``cfg.conv_bfp`` (3e) every
     slab is the reference's f32 BFP slab, kernel 1's too (bf16 x on an f32
-    slab), and the flips are left to 3b."""
+    slab), and the flips and launch times are left to 3b."""
     from repro_torch.kernels.conv import direct, winograd
     from repro_torch.nn.conv import pack_conv_weights
     rng = np.random.default_rng(SDC_SEED + 1)
@@ -1627,6 +1647,10 @@ def phase_kernels_bf16(torch, np, cfg, params):
         flops, nbytes = flops_bytes(kname, x, got, plan, slab)
         bound, bound_by = conv_bound(kname, x, flops, nbytes)
         kind = "conv_bfp slab" if cfg.conv_bfp else "slab"
+        wino, extra = {}, ""
+        if kname != "conv_direct" and not cfg.conv_bfp:
+            wino, extra = wino_launches(torch, kern, lambda: entry(
+                x, w, b, armed, checksum=True))
         print(f"kernel {kname} {layer} (bf16 x, {str(slab.dtype)[6:]} "
               f"{kind}): bf16 rule bit-equal at tiles {tiles}, armed and "
               f"unarmed | max_abs_err {err:.3e} vs plain (within one bf16 "
@@ -1634,13 +1658,13 @@ def phase_kernels_bf16(torch, np, cfg, params):
               f"plain_ms {plain_ms:.4f} library_ms(bf16 F.conv2d, cuDNN) "
               f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}: {flops:.3e} "
               f"flop, {nbytes:.3e} B) | kernel_ms/library_ms "
-              f"{ms / lib_ms:.3f} | on {card}")
+              f"{ms / lib_ms:.3f}{extra} | on {card}")
         add_layer(rows.setdefault(kname, new_row(kname)), layer,
                   max_abs_err=err, ms=ms, host_ms=host_ms,
                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                   bound_by=bound_by, flop=flops, bytes=nbytes,
                   tiles=[list(t) for t in tiles], slab=list(slab.shape),
-                  slab_dtype=str(slab.dtype)[6:])
+                  slab_dtype=str(slab.dtype)[6:], **wino)
     return rows, flips
 
 
@@ -1657,8 +1681,9 @@ def phase_kernels_vgg(torch, np, cfg, params, params16):
     """3c: kernels 2-3 at VGG-16's layer geometries, batch 8, f32 and bf16:
     f32 within TOL_KERNEL of the plain version, bf16 under the bf16 rule
     and within one bf16 step of its plain version; each timed beside
-    ``F.conv2d`` + pool (f32 TF32 off; bf16 on cuDNN) and the bound; then
-    the device ms of whole feature passes of the model."""
+    ``F.conv2d`` + pool (f32 TF32 off; bf16 on cuDNN) and the bound, bf16
+    also armed and each launch by name (``wino_launches``); then the
+    device ms of whole feature passes of the model."""
     from repro_torch.kernels.conv import winograd
     from repro_torch.kernels.conv.ref import conv2d_ref
     from repro_torch.models import alexnet
@@ -1723,16 +1748,23 @@ def phase_kernels_vgg(torch, np, cfg, params, params16):
             bound, bound_by = conv_bound(kname, x, flops, nbytes)
             lib_name = ("F.conv2d TF32 off" if dtype == "float32"
                         else "bf16 F.conv2d, cuDNN")
+            wino, extra = {}, ""
+            if dtype == "bfloat16":
+                wino, extra = wino_launches(
+                    torch, kern, lambda: winograd.conv2d_winograd(
+                        x, w, b, armed, relu=True, pool=pool,
+                        checksum=True))
             print(f"kernel {kname} vgg {layer} ({dtype}): max_abs_err "
                   f"{err:.3e} (max|plain| {scale:.3e}) | kernel_ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} library_ms({lib_name} + pool) "
                   f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}) | "
-                  f"kernel_ms/library_ms {ms / lib_ms:.3f} | on {card}")
+                  f"kernel_ms/library_ms {ms / lib_ms:.3f}{extra} | on "
+                  f"{card}")
             add_layer(rows[dtype].setdefault(kname, new_row(kname)), layer,
                       max_abs_err=err, max_abs_plain=scale, ms=ms,
                       host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
                       bound_ms=bound, bound_by=bound_by, flop=flops,
-                      bytes=nbytes)
+                      bytes=nbytes, **wino)
         del x32, w32, b32, x, w, b, slab, armed
     passes = {}
     for dtype, p in (("float32", params), ("bfloat16", params16)):

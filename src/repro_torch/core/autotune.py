@@ -381,18 +381,21 @@ def autotune_alexnet(cfg, batch: int, *, device="cuda", warmup: int = 1,
     Returns per-layer rows (layer, key, winning plan and tile, default and
     tuned us, candidates, whether the default's timing was steady, the
     candidates' rows) and writes each winner into ``cache`` when one is
-    passed (the caller saves).  Layer inputs are drawn from ``seed``: a
-    launch's time depends on its geometry, not its values."""
+    passed (the caller saves).  Layer inputs are drawn from ``seed`` in
+    the config's dtype, as the reference draws them: a launch's time
+    depends on its geometry and dtype, not its values."""
+    from ..models.alexnet import DTYPES
     dev = torch.device(device)
+    dt = DTYPES[cfg.dtype]
     rng = np.random.default_rng(seed)
     results = []
     for name, spec, in_shape, w_shape in alexnet_layer_geometries(cfg, batch):
         x = torch.as_tensor(rng.standard_normal(in_shape, np.float32),
-                            device=dev)
+                            device=dev).to(dt)
         w = torch.as_tensor(rng.standard_normal(w_shape, np.float32)
                             * np.float32(np.prod(w_shape[:3]) ** -0.5),
-                            device=dev)
-        b = torch.zeros((w_shape[-1],), dtype=torch.float32, device=dev)
+                            device=dev).to(dt)
+        b = torch.zeros((w_shape[-1],), dtype=dt, device=dev)
         if log is not None:
             log(f"  {name}: in={in_shape} w={w_shape} "
                 f"kernel={resolve_kernel(spec, in_hw=in_shape[1])}")

@@ -495,6 +495,28 @@ def tuned_reduced(tmp_path_factory):
     return cfg, results, path
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autotune_alexnet_draws_inputs_in_the_config_dtype(dtype,
+                                                           monkeypatch):
+    """As the reference does (``jax.random.normal`` in ``cfg.dtype``), the
+    layer inputs are drawn in the config's dtype, so a bf16 config's plans
+    are timed on bf16 launches, under keys that carry its dtype."""
+    cfg = dataclasses.replace(get_config("alexnet").reduced(),
+                              use_pallas=True, dtype=dtype)
+    seen, real = [], at.autotune_layer
+
+    def spy(spec, x, w, b=None, **kw):
+        seen.append((x.dtype, w.dtype, b.dtype))
+        return real(spec, x, w, b, **kw)
+
+    monkeypatch.setattr(at, "autotune_layer", spy)
+    results = at.autotune_alexnet(cfg, 2, device="cpu", iters=1,
+                                  max_candidates=1)
+    want = getattr(torch, dtype)
+    assert len(seen) == 5 and all(d == (want,) * 3 for d in seen)
+    assert all(r["key"]["dtype"] == dtype for r in results)
+
+
 def test_autotune_alexnet_rows(tuned_reduced):
     cfg, results, _ = tuned_reduced
     assert [r["layer"] for r in results] == [f"conv{i}" for i in range(1, 6)]

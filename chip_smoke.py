@@ -53,13 +53,17 @@ Phases:
                and tuned ms, winning tile, candidates);
   3b. kernels-bf16 — kernels 1-3 at AlexNet's five layer shapes (batch 8)
                in bf16 (bf16 x and bias; the direct slab bf16, the
-               Winograd slab f32, as the reference packs them): each call
-               bit-equal to the same kernel on the widened inputs rounded
-               to bf16 at every block tile of its launcher, armed (verdict
-               0) and unarmed; within one bf16 step of the plain version;
-               the armed direct kernel's verdict equal to the plain count
-               for 32 seeded flips and one each in a checksum row, a sign
-               and an exponent bit of each bf16 slab (conv1, conv2); timed
+               Winograd slab f32, as the reference packs them): kernels
+               2-3 bit-equal to the same kernel on the widened inputs
+               rounded to bf16 at every block tile of their launcher,
+               armed (verdict 0) and unarmed; kernel 1 on its bf16 slab
+               (the tensor-core route) under rule (a)-(d) at every tile
+               of its list (``mma_rule``), timed beside the f32 kernel on
+               the widened inputs and each launch by name; each within
+               one bf16 step of the plain version; the armed direct
+               kernel's verdict equal to the plain count for 32 seeded
+               flips and one each in a checksum row, a sign and an
+               exponent bit of each bf16 slab (conv1, conv2); timed
                beside bf16 ``F.conv2d`` (cuDNN) and the bound;
   3c. kernels-vgg — kernels 2-3 at VGG-16's twelve layer geometries (224
                to 14 px, C_in 3 to 512, five with the 2x2/2 pool), batch
@@ -360,6 +364,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1544,6 +1549,70 @@ def bf16_rule(torch, entry, x, w, b, slab, armed, tiles, layer):
               f"a clean slab gave verdict {int(v)}")
 
 
+def steps_apart(torch, got, want):
+    """max over the outputs finite in both of |got - want| - (one bf16 step
+    at the larger magnitude + TOL_KERNEL * max|want|): <= 0 when no output
+    is more than one bf16 step from the other (the floor lets a ReLU output
+    near zero round from f32 noise)."""
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    g, w = got[fin].double(), want[fin].double()
+    mag = torch.maximum(g.abs(), w.abs())
+    _, e = torch.frexp(torch.where(mag > 0, mag, torch.ones_like(mag)))
+    step = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8),
+                       torch.zeros_like(mag))
+    return float((((g - w).abs() - step)
+                  - TOL_KERNEL * float(w.abs().max())).max())
+
+
+def mma_rule(torch, entry, x, w, b, slab, armed, tiles, layer, ref):
+    """Kernel 1's bf16-slab (tensor-core) route under rule (a)-(d) at every
+    tile of ``tiles``: (a) within one bf16 step of its plain version
+    ``ref``; (b) every tile, the armed call (verdict 0 on the clean slab)
+    and a second call of the default tile bit-equal to the default tile;
+    (c) no output more than one bf16 step from the f32 kernel on the
+    widened inputs rounded to bf16; (d) non-finite wherever that one is.
+    Returns (the share of outputs that differ from it, its worst margin
+    under (c))."""
+    base = entry(x, w, b, slab)
+    want = entry(x.float(), w.float(), b.float(),
+                 slab.float()).to(torch.bfloat16)
+    calls = [("again", entry(x, w, b, slab))]
+    for tile in tiles:
+        kw = dict(tile_rows=tile[0], tile_cols=tile[1])
+        calls.append((f"tile {tile}", entry(x, w, b, slab, **kw)))
+        y_arm, v = entry(x, w, b, armed, checksum=True, **kw)
+        calls.append((f"tile {tile} armed (verdict {int(v)})",
+                      y_arm if int(v) == 0 else None))
+    torch.cuda.synchronize()
+    for what, y in calls:
+        check(y is not None and y.dtype is torch.bfloat16
+              and torch.equal(y.view(torch.int16), base.view(torch.int16)),
+              f"{layer} bf16 slab: {what} is not the default tile's bits")
+    excess = bf16_excess(torch, base, ref)
+    check(excess <= 0, f"{layer} bf16 slab: more than one bf16 step off "
+          f"the plain version (excess {excess})")
+    apart = steps_apart(torch, base, want)
+    check(apart <= 0, f"{layer} bf16 slab: an output more than one bf16 "
+          f"step from the f32 kernel on the widened inputs ({apart})")
+    check(bool((~torch.isfinite(base) >= ~torch.isfinite(want)).all()),
+          f"{layer} bf16 slab: finite where the f32 kernel is not")
+    return float((base.float() != want.float()).float().mean()), apart
+
+
+# kernel 1's launches by kernel name, in launch order: the bf16-slab
+# (tensor-core) conv stage, the FFMA conv stage, the LRN/pool epilogue
+DIRECT_STAGES = ("conv_direct_mma", "conv_direct_gemm",
+                 "conv_direct_epilogue")
+
+
+def launch_split(st):
+    """``stage_ms``'s launches as text."""
+    return ("not measured (no device events)" if st is None else
+            ", ".join(f"{k.removeprefix('conv_direct_')} {v:.4f}"
+                      for k, v in st.items() if v is not None))
+
+
 def new_row(name):
     return {"name": name, "layers": [], "max_abs_err": 0.0, "ms": 0.0,
             "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flop": 0,
@@ -1614,9 +1683,12 @@ def phase_kernels_bf16(torch, np, cfg, params):
               f"packs {want_slab}")
         armed = pack_conv_weights(spec, tuple(x.shape), w, abft=True,
                                   bfp_pack=cfg.conv_bfp).data
-        tiles = [t for t in mod.TILES
-                 if t in mod.ANY_SLAB_TILES or plan.Kb % 4 == 0]
-        bf16_rule(torch, entry, x, w, b, slab, armed, tiles, layer)
+        mma = kname == "conv_direct" and direct.mma_route(slab.dtype)
+        tiles = (list(direct.MMA_TILES) if mma else
+                 [t for t in mod.TILES
+                  if t in mod.ANY_SLAB_TILES or plan.Kb % 4 == 0])
+        if not mma:
+            bf16_rule(torch, entry, x, w, b, slab, armed, tiles, layer)
         if kname == "conv_direct" and not cfg.conv_bfp:
             armed_plan = dataclasses.replace(plan, checksum=True)
             flips.append(sdc_layer(torch, np, kname, layer, spec, x, w, b,
@@ -1641,18 +1713,44 @@ def phase_kernels_bf16(torch, np, cfg, params):
         lib_err = float((got.float() - library().float()).abs().max())
         check(excess <= 0, f"{layer} bf16: kernel more than one bf16 step "
               f"off its plain version (excess {excess})")
+        rule = "bf16 rule bit-equal"
+        if mma:
+            share, apart = mma_rule(torch, entry, x, w, b, slab, armed,
+                                    tiles, layer, ref)
+            rule = (f"rule (a)-(d) ({share:.3e} of outputs one bf16 step "
+                    f"off the f32 kernel on the widened inputs, margin "
+                    f"{apart:.3e}) bit-equal")
         (ms, host_ms), (plain_ms, _), (lib_ms, _) = (
             time_ms(torch, kern), time_ms(torch, plain),
             time_ms(torch, library))
         flops, nbytes = flops_bytes(kname, x, got, plan, slab)
         bound, bound_by = conv_bound(kname, x, flops, nbytes)
         kind = "conv_bfp slab" if cfg.conv_bfp else "slab"
-        wino, extra = {}, ""
+        nums, extra = {}, ""
         if kname != "conv_direct" and not cfg.conv_bfp:
-            wino, extra = wino_launches(torch, kern, lambda: entry(
+            nums, extra = wino_launches(torch, kern, lambda: entry(
                 x, w, b, armed, checksum=True))
+        if mma:
+            x32, w32, b32, s32 = x.float(), w.float(), b.float(), \
+                slab.float()
+
+            def widened():
+                return entry(x32, w32, b32, s32)
+
+            nums = {"armed_ms": time_ms(torch, lambda: entry(
+                        x, w, b, armed, checksum=True))[0],
+                    "widened_ms": time_ms(torch, widened)[0],
+                    "stages_ms": stage_ms(torch, kern, DIRECT_STAGES),
+                    "widened_stages_ms": stage_ms(torch, widened,
+                                                  DIRECT_STAGES),
+                    "differ_share": share}
+            extra = (f" | armed kernel_ms {nums['armed_ms']:.4f} | launches "
+                     f"{launch_split(nums['stages_ms'])} | f32 kernel on "
+                     f"the widened inputs {nums['widened_ms']:.4f} ms "
+                     f"(launches {launch_split(nums['widened_stages_ms'])})"
+                     f", kernel_ms/widened {ms / nums['widened_ms']:.3f}")
         print(f"kernel {kname} {layer} (bf16 x, {str(slab.dtype)[6:]} "
-              f"{kind}): bf16 rule bit-equal at tiles {tiles}, armed and "
+              f"{kind}): {rule} at tiles {tiles}, armed and "
               f"unarmed | max_abs_err {err:.3e} vs plain (within one bf16 "
               f"step; vs bf16 F.conv2d {lib_err:.3e}) | kernel_ms {ms:.4f} "
               f"plain_ms {plain_ms:.4f} library_ms(bf16 F.conv2d, cuDNN) "
@@ -1664,7 +1762,7 @@ def phase_kernels_bf16(torch, np, cfg, params):
                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                   bound_by=bound_by, flop=flops, bytes=nbytes,
                   tiles=[list(t) for t in tiles], slab=list(slab.shape),
-                  slab_dtype=str(slab.dtype)[6:], **wino)
+                  slab_dtype=str(slab.dtype)[6:], **nums)
     return rows, flips
 
 
@@ -5477,8 +5575,9 @@ def dump_bits(torch, np, path) -> int:
     Run from another tree (a copy of this script beside its ``src``), it
     holds that tree's kernels to this one's with ``--compare-bits``.
     Cases: AlexNet conv1-conv5 at batch 8 (``layer_cases``) in f32 and
-    bf16 at every block tile, armed and unarmed; fc6-fc8 (f32 x); kernel
-    5 (without its lse) at every phase-5 decode geometry in f32 and bf16;
+    bf16 at every block tile of the route their slab takes, armed and
+    unarmed; fc6-fc8 (f32 x); kernel 5 (without its lse) at every
+    phase-5 decode geometry in f32 and bf16;
     kernel 7's forward, dx and wgrad at mamba2-2.7b's (1,200,5120) and
     (1,2048,5120) bf16 and (1,512,5120) f32."""
     from repro_torch.configs import get_config
@@ -5498,8 +5597,10 @@ def dump_bits(torch, np, path) -> int:
             entry = conv_entry(kname, spec)
             armed = pack_conv_weights(spec, tuple(x.shape), w,
                                       abft=True).data
-            for tile in mod.TILES:
-                if tile not in mod.ANY_SLAB_TILES and plan.Kb % 4:
+            mma = mod is direct and direct.mma_route(slab.dtype)
+            for tile in direct.MMA_TILES if mma else mod.TILES:
+                if not mma and tile not in mod.ANY_SLAB_TILES \
+                        and plan.Kb % 4:
                     continue
                 kw = dict(tile_rows=tile[0], tile_cols=tile[1])
                 key = f"{layer} {dtype} {tile[0]}x{tile[1]}"
@@ -6094,6 +6195,26 @@ def phase_cnn_train(torch, card):
     return out
 
 
+def sass_hmma(obj, name):
+    """{function: HMMA instructions in its SASS} for each function of the
+    object file ``obj`` whose name holds ``name`` (``cuobjdump -sass``);
+    None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", obj], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if name in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke run of the "
                                  "PyTorch/CUDA port.")
@@ -6144,6 +6265,17 @@ def main(argv=None) -> int:
                 or "spill" in line:
             print("ptxas:", line.strip())
             ptxas.append(line.strip())
+    hmma = sass_hmma(os.path.join(os.path.dirname(lib.path),
+                                  "conv_direct_bf16.o"), "conv_direct_mma")
+    if hmma is None:
+        print("sass: cuobjdump not found; the bf16 conv stage's products "
+              "are mma.sync in csrc/conv_direct_bf16.cu")
+    else:
+        print(f"sass: kernel 1's bf16 conv stage (conv_direct_mma): "
+              f"{len(hmma)} instantiations, HMMA in each: "
+              f"{all(hmma.values())} (HMMA counts {sorted(set(hmma.values()))})")
+        check(hmma and all(hmma.values()), "kernel 1's bf16 conv stage "
+              "issues no HMMA")
 
     cfg = dataclasses.replace(get_config("alexnet"), use_pallas=True)
     cfg_bfp = dataclasses.replace(cfg, fc_bfp=True, conv_bfp=True)

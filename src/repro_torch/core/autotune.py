@@ -192,36 +192,41 @@ def default_cache_path(name: str = "alexnet") -> str:
 # ---------------------------------------------------------------------------
 # candidate enumeration
 # ---------------------------------------------------------------------------
-def kernel_tiles(kernel: str) -> tuple:
+def kernel_tiles(kernel: str, dtype=torch.float32) -> tuple:
     """The (rows, columns) block tiles the kernel's launcher is built for
-    (none off the CUDA kernels)."""
+    at the layer's dtype (none off the CUDA kernels).  The tuner packs the
+    slab in the filters' dtype, so a bfloat16 direct layer runs the
+    tensor-core route and draws from its tiles, a float32 one from the
+    FFMA route's."""
     if kernel == "cuda-winograd":
         return _winograd_k.TILES
     if kernel == "cuda-direct":
-        return _direct_k.TILES
+        return _direct_k.route_tiles(dtype)
     return ()
 
 
 def _effective_signature(spec: ConvSpec, kernel: str, in_shape, w_shape,
-                         plan: ConvPlan):
+                         plan: ConvPlan, dtype=torch.float32):
     """What the launch actually runs: the resolved kernel plan plus the
-    tile that launches.  Two plans with the same signature are the same
-    launch; raises ValueError for a tile the kernel cannot launch."""
+    tile that launches on a slab of ``dtype``.  Two plans with the same
+    signature are the same launch; raises ValueError for a tile the
+    kernel cannot launch."""
     lrn_p, pool = _spec_fusion(spec)
     knobs = plan_knobs(plan)
     p = _kernel_weight_plan(spec, kernel, tuple(in_shape), tuple(w_shape),
                             lrn=lrn_p, pool=pool, knobs=knobs)
-    return kernel, p, kernel_tile(kernel, p, knobs)
+    return kernel, p, kernel_tile(kernel, p, knobs, dtype)
 
 
 def enumerate_plans(spec: ConvSpec, in_shape, w_shape, *,
-                    max_candidates: int | None = None) -> list[ConvPlan]:
-    """All distinct candidate launch plans for one layer, default first:
-    the kernel's tile grid crossed with ``weight_prefetch`` and
-    ``row_parallel``, deduplicated by :func:`_effective_signature`, tiles
-    the launcher cannot run on this slab left out, capped at
-    ``max_candidates``.  Off the CUDA kernels the default plan is the only
-    candidate."""
+                    max_candidates: int | None = None,
+                    dtype=torch.float32) -> list[ConvPlan]:
+    """All distinct candidate launch plans for one layer in ``dtype``,
+    default first: the kernel's tile grid at that dtype crossed with
+    ``weight_prefetch`` and ``row_parallel``, deduplicated by
+    :func:`_effective_signature`, tiles the launcher cannot run on this
+    slab left out, capped at ``max_candidates``.  Off the CUDA kernels the
+    default plan is the only candidate."""
     kernel = resolve_kernel(spec, in_hw=(in_shape[1], in_shape[2]))
     if not kernel.startswith("cuda"):
         return [DEFAULT_PLAN]
@@ -229,7 +234,8 @@ def enumerate_plans(spec: ConvSpec, in_shape, w_shape, *,
 
     def admit(plan: ConvPlan):
         try:
-            sig = _effective_signature(spec, kernel, in_shape, w_shape, plan)
+            sig = _effective_signature(spec, kernel, in_shape, w_shape, plan,
+                                       dtype)
         except ValueError:
             return                  # not built for this tile on this slab
         if sig not in seen:
@@ -237,7 +243,7 @@ def enumerate_plans(spec: ConvSpec, in_shape, w_shape, *,
             out.append(plan)
 
     admit(DEFAULT_PLAN)             # tuned can never regress the default
-    for rows, cols in kernel_tiles(kernel):
+    for rows, cols in kernel_tiles(kernel, dtype):
         for pref in (True, False):
             for rp in (False, True):
                 admit(ConvPlan(weight_prefetch=pref, row_parallel=rp,
@@ -298,7 +304,7 @@ def autotune_layer(spec: ConvSpec, x, w, b=None, *, warmup: int = 1,
     AssertionError if one is not."""
     kernel = resolve_kernel(spec, in_hw=(x.shape[1], x.shape[2]))
     plans = enumerate_plans(spec, x.shape, w.shape,
-                            max_candidates=max_candidates)
+                            max_candidates=max_candidates, dtype=w.dtype)
     y_ref = (dispatch_conv(spec, x, w, b, plan=DEFAULT_PLAN)
              if check_equal else None)
     rows, measured = [], {}
@@ -306,7 +312,8 @@ def autotune_layer(spec: ConvSpec, x, w, b=None, *, warmup: int = 1,
     def signature(plan):
         if not kernel.startswith("cuda"):
             return ("plain",), None
-        sig = _effective_signature(spec, kernel, x.shape, w.shape, plan)
+        sig = _effective_signature(spec, kernel, x.shape, w.shape, plan,
+                                   w.dtype)
         return sig, sig[2]
 
     def run(plan: ConvPlan) -> float:
@@ -336,7 +343,7 @@ def autotune_layer(spec: ConvSpec, x, w, b=None, *, warmup: int = 1,
         if us < best_us:
             best, best_us = plan, us
 
-    tiles = kernel_tiles(kernel)
+    tiles = kernel_tiles(kernel, w.dtype)
     if hill_climb and tiles:
         improved = True
         while improved:

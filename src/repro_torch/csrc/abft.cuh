@@ -19,6 +19,8 @@
 // lanes, groups b, b + nblocks, ...; its 8 warps each sum every 8th row
 // of the group (a warp's loads of one row are 32 neighbouring words), the
 // partial sums meet in shared memory, and warp 0 compares and counts.
+// (The bf16 tensor-core conv stage of conv_direct_bf16.cu calls it from
+// blocks of 4 or 8 warps, kWarps.)
 // It runs as the block's prologue while its cp.async ring fills.  The
 // block adds its count to the verdict with one integer atomicAdd, or none
 // when it is 0, so the verdict is deterministic.
@@ -33,10 +35,10 @@ constexpr int kAbftSmemInts = kAbftWarps * 32;
 
 // Count this block's share of mismatched lanes of the armed slab (S
 // spatial positions a tile; Word: the unsigned integer of the slab's
-// element width) and add it to *a.verdict.  Every thread of the
-// 256-thread block calls it; red: kAbftSmemInts ints of shared memory no
-// other thread touches meanwhile.
-template <typename Word>
+// element width) and add it to *a.verdict.  Every thread of the block of
+// kWarps warps calls it; red: 32 kWarps ints of shared memory no other
+// thread touches meanwhile.
+template <typename Word, int kWarps = kAbftWarps>
 __device__ __forceinline__ void abft_check_slab(const ConvArgs& a, int S,
                                                 const void* slab,
                                                 unsigned* red) {
@@ -57,7 +59,7 @@ __device__ __forceinline__ void abft_check_slab(const ConvArgs& a, int S,
     unsigned s = 0;
     if (valid) {
 #pragma unroll 4
-      for (int j = warp; j < a.Cb; j += kAbftWarps)
+      for (int j = warp; j < a.Cb; j += kWarps)
         s += __ldg(words + base + (size_t)j * a.Kb);
     }
     red[threadIdx.x] = s;
@@ -65,7 +67,7 @@ __device__ __forceinline__ void abft_check_slab(const ConvArgs& a, int S,
     if (warp == 0) {
       unsigned total = 0;
 #pragma unroll
-      for (int w = 0; w < kAbftWarps; ++w) total += red[w * 32 + lane];
+      for (int w = 0; w < kWarps; ++w) total += red[w * 32 + lane];
       const bool bad =
           valid && (Word)total != __ldg(words + base + (size_t)a.Cb * a.Kb);
       count += __popc(__ballot_sync(0xffffffffu, bad));

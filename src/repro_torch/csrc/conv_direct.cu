@@ -50,29 +50,33 @@
 // the verdict.  The GEMM reads the same Cb rows either way, so armed and
 // unarmed outputs are bit-equal.
 // bf16 (ConvArgs.xdt = sdt = kBf16, the reference's bf16 model: bf16
-// activations, slab and bias): the conv stage's own instantiation loads x
-// and the slab with plain 2-byte loads, widened to f32 as they are stored
-// into the same f32 rings (no cp.async: it cannot widen), so the GEMM,
-// the bias, ReLU, LRN and pool run on exactly the f32 values of the
-// widened inputs; y stays f32, and only the final store rounds to bf16.
-// So the bf16 kernel is bit-equal to the f32 kernel on the widened inputs
-// with its output rounded to bf16, at every block tile.  A bf16 model
-// under conv_bfp reads bf16 x and bias with an f32 slab (ConvArgs.sdt =
-// kF32: the reference dequantizes a BFP slab to f32 whatever it packed):
-// its own instantiation widens x as above and loads the f32 slab with
-// plain 4-byte loads into the same rings, so it too is bit-equal to the
-// f32 kernel on the widened x and bias, rounded.
-// Numerics: each output is one thread's fmaf chain from +0 over (di, dj,
-// c) in ascending order; zero-filled taps (padding, the ragged reduction
-// tail) are FMA'd, not skipped, so a NaN weight poisons as in the plain
-// version.  No TF32, no atomics, no split-K: the result is deterministic
-// and does not depend on the tiling or the slab's blocking, so the block
-// tile is a knob that cannot change the bits.  The LRN takes the same
-// values and calls the same lrn_at in either stage.
-// Files: the conv stage's kernel template and launcher are in
+// activations, slab and bias): the conv stage runs on the tensor cores
+// (conv_direct_bf16.cu, whose head comment gives the design): bf16
+// mma.sync over the same implicit GEMM, a cp.async ring that copies bf16
+// as it is, f32 accumulators.  Its products are the reference's exactly
+// (a bf16 x bf16 product is exact in f32), but it sums them in k-steps of
+// 16 on the tensor cores, so it is no longer bit-equal to this kernel on
+// the widened inputs: it is within one bf16 step of the plain version and
+// at most one bf16 step from this kernel's rounded output, and every tile
+// and the armed variant give its default tile's bits.  A bf16 model under
+// conv_bfp reads bf16 x and bias with an f32 slab (ConvArgs.sdt = kF32:
+// the reference dequantizes a BFP slab to f32 whatever it packed): its own
+// instantiation of this FFMA kernel loads x with plain 2-byte loads and
+// the slab with plain 4-byte loads, widened into the f32 rings, so it is
+// bit-equal to the f32 kernel on the widened x and bias, rounded.  The
+// dispatch is fixed by the dtype pair; neither route falls back to the
+// other.
+// Numerics (the FFMA route): each output is one thread's fmaf chain from
+// +0 over (di, dj, c) in ascending order; zero-filled taps (padding, the
+// ragged reduction tail) are FMA'd, not skipped, so a NaN weight poisons
+// as in the plain version.  No TF32, no atomics, no split-K: the result
+// is deterministic and does not depend on the tiling or the slab's
+// blocking, so the block tile is a knob that cannot change the bits.  The
+// LRN takes the same values and calls the same lrn_at in either stage.
+// Files: the FFMA conv stage's kernel template and launcher are in
 // conv_direct.cuh; this file instantiates the f32 ones and the epilogue,
-// conv_direct_bf16.cu the bf16 ones, so that nvcc builds the two sets
-// side by side (this file alone took 110 s of a 117 s build).
+// conv_direct_bf16.cu the bf16 ones (the tensor-core route and bf16 x on
+// an f32 slab), so that nvcc builds the two sets side by side.
 #include "conv_direct.cuh"
 
 namespace conv_direct_impl {
@@ -86,8 +90,8 @@ conv_direct_epilogue(ConvArgs a, const float* __restrict__ y,
 
 // The f32 conv stage.  ANY_SLAB: built for 4-byte slab copies too (the
 // default tiles); the other tiles take 16-byte ones only and refuse a
-// slab without them.  A bf16 launch has its own instantiations (widening
-// loads) at every tile, in conv_direct_bf16.cu.
+// slab without them.  A bf16 launch has its own instantiations in
+// conv_direct_bf16.cu.
 template <int TM, int TN, bool ARMED, bool ANY_SLAB>
 cudaError_t launch_tile(const ConvArgs& a, size_t smem, bool va, bool vb,
                         cudaStream_t stream, const GemmPtrs& p) {
@@ -143,29 +147,39 @@ using namespace conv_direct_impl;
 
 // x, bias and out in args->xdt's element type, the slab in args->sdt's
 // (the same: f32 or bf16; or bf16 x with an f32 slab); y: (B, out_h,
-// out_w, g*K) f32 scratch for the epilogue stage (unused, and may equal out, when there is no pool and no
-// LRN left to apply); tm, tn: rows and columns per thread of the conv
-// stage's 16 tm x 16 tn block tile (the default tiles are 4 x 4 and 4 x
-// 6).  Armed (args->verdict set, args->Cs = Cb + 1), the conv stage also
-// adds the slab's mismatched checksum lanes to *args->verdict.
+// out_w, g*K) f32 scratch for the epilogue stage (unused, and may equal
+// out, when there is no pool and no LRN left to apply); tm, tn: the conv
+// stage's 16 tm x 16 tn block tile (the FFMA route's rows and columns per
+// thread; its default tiles are 4 x 4 and 4 x 6; the bf16-slab
+// tensor-core route's tiles are mma_built_for's).  Armed (args->verdict
+// set, args->Cs = Cb + 1), the conv stage also adds the slab's mismatched
+// checksum lanes to *args->verdict.
 extern "C" int repro_conv_direct(const ConvArgs* args, const void* x,
                                  const void* slab, const void* bias,
                                  float* y, void* out, int tm, int tn,
                                  cudaStream_t stream) {
   const ConvArgs a = *args;
   const int R = a.r * a.r * a.C;
-  const size_t smem = gemm_smem_bytes(tm, tn, R, a.verdict != nullptr);
+  const bool armed = a.verdict != nullptr;
   const size_t slab_elems =
       (size_t)a.g * a.nkb * a.ncb * a.r * a.r * a.Cs * a.Kb;
   const bool bf16 = a.xdt == kBf16;
-  const bool va = !bf16 && a.C % 4 == 0 && (uintptr_t)x % 16 == 0;
-  // a bf16 launch has every tile the f32 one has for its slab's Kb
-  const bool vb = a.Kb % 4 == 0 && (bf16 || (uintptr_t)slab % 16 == 0);
+  // the route is fixed by the dtypes: a bf16 slab (bf16 x) runs on the
+  // tensor cores, an f32 one on the FFMA kernel
+  const bool mma = bf16 && a.sdt == kBf16;
+  const size_t smem = mma ? mma_smem_bytes(16 * tm, 16 * tn, R, armed)
+                          : gemm_smem_bytes(tm, tn, R, armed);
+  const bool va = mma ? a.C % 8 == 0 && (uintptr_t)x % 16 == 0
+                      : !bf16 && a.C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  // a bf16-x FFMA launch has every tile the f32 one has for its slab's Kb
+  const bool vb = mma ? a.Kb % 8 == 0 && (uintptr_t)slab % 16 == 0
+                      : a.Kb % 4 == 0 && (bf16 || (uintptr_t)slab % 16 == 0);
   if ((a.xdt != kF32 && a.xdt != kBf16)
       || (a.sdt != a.xdt && !(a.xdt == kBf16 && a.sdt == kF32))
-      || !built_for(tm, tn, vb) || a.r > 127 || a.C > 0xffff
-      || slab_elems >= (1u << 31) || smem > 227 * 1024 || a.PT < 1
-      || a.Cs != a.Cb + (a.verdict ? 1 : 0))
+      || !(mma ? mma_built_for(16 * tm, 16 * tn) : built_for(tm, tn, vb))
+      || a.r > 127 || a.C > 0xffff || slab_elems >= (1u << 31)
+      || smem > 227 * 1024 || a.PT < 1
+      || a.Cs != a.Cb + (armed ? 1 : 0))
     return (int)cudaErrorInvalidValue;
   // the epilogue stage: the pool, and the LRN where the conv stage cannot
   // apply it (it then pools the LRN'd map)
@@ -175,8 +189,10 @@ extern "C" int repro_conv_direct(const ConvArgs* args, const void* x,
   const GemmPtrs p{x, slab, bias, epilogue ? (void*)y : out,
                    bf16 && !epilogue};
   const cudaError_t err =
-      bf16 ? launch_conv_stage_bf16(tm, tn, a, smem, stream, p)
-           : launch_conv_stage(tm, tn, a, smem, va, vb, stream, p);
+      mma    ? launch_conv_stage_mma(16 * tm, 16 * tn, a, smem, va, vb,
+                                     stream, p)
+      : bf16 ? launch_conv_stage_bf16(tm, tn, a, smem, stream, p)
+             : launch_conv_stage(tm, tn, a, smem, va, vb, stream, p);
   if (err != cudaSuccess || !epilogue) return (int)err;
   const int nph = (a.ph_out + a.PT - 1) / a.PT;
   const int npw = (a.pw_out + a.PT - 1) / a.PT;

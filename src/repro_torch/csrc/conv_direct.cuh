@@ -1,8 +1,10 @@
 // The conv stage of the direct conv layer (conv_direct.cu, whose head
-// comment describes the design): its kernel template, launch geometry and
-// launcher, shared by the f32 instantiations in conv_direct.cu and the
-// bf16 ones in conv_direct_bf16.cu.  Two translation units, so that nvcc
-// builds the two sets side by side.
+// comment describes the design): the FFMA kernel template, its launch
+// geometry and launcher, shared by the f32 instantiations in
+// conv_direct.cu and the bf16-x / f32-slab ones in conv_direct_bf16.cu;
+// and the geometry and launcher of the bf16 tensor-core route
+// (conv_direct_bf16.cu), which conv_direct.cu's C entry point dispatches
+// to.  Two translation units, so that nvcc builds them side by side.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,11 +50,14 @@ __host__ __device__ __forceinline__ bool lrn_in_gemm(const ConvArgs& a,
 
 // Grid (ceil(M / BM), ceil(K / BN), g), BM = 16 TM, BN = 16 TN.  VA / VB:
 // 16-byte copies of A / B; ARMED: check the slab's checksum rows
-// (abft.cuh); T: the element type of x and the bias, S the slab's (T or
-// f32; T = bf16: plain widening loads of both, VA = VB = false).  y is the f32 conv map, or, with
-// narrow set (bf16, no epilogue launch after), the bf16 output.  The
-// default tiles are held to 80 registers, so three blocks share an SM and
-// a grid of up to 396 blocks fills one wave.
+// (abft.cuh); T: the element type of x and the bias, S the slab's: f32
+// and f32, or bf16 x with an f32 (conv_bfp) slab, whose x this kernel
+// loads with plain 2-byte loads widened to f32 (VA = false; cp.async
+// cannot widen).  A bf16 slab takes the tensor-core route of
+// conv_direct_bf16.cu instead, never this kernel.  y is the f32 conv
+// map, or, with narrow set (bf16 x, no epilogue launch after), the bf16
+// output.  The default tiles are held to 80 registers, so three blocks
+// share an SM and a grid of up to 396 blocks fills one wave.
 template <int TM, int TN, bool VA, bool VB, bool ARMED, typename T,
           typename S>
 __global__ void __launch_bounds__(kThreads, min_blocks(TM, TN))
@@ -61,8 +66,8 @@ conv_direct_gemm(ConvArgs a, const T* __restrict__ x,
                  void* __restrict__ y, int narrow) {
   constexpr bool kF32In = std::is_same<T, float>::value;
   static_assert(kF32In || (!VA && !VB), "cp.async copies f32 only");
-  static_assert(std::is_same<S, T>::value || std::is_same<S, float>::value,
-                "the slab is x's type or f32");
+  static_assert(std::is_same<S, float>::value,
+                "an f32 slab (a bf16 one takes the tensor-core route)");
   using Word = typename std::conditional<sizeof(S) == 4, unsigned,
                                          unsigned short>::type;
   const bool nar = !kF32In && narrow;
@@ -296,11 +301,51 @@ cudaError_t launch_gemm(const ConvArgs& a, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// The conv stage with bf16 x and bias (conv_direct_bf16.cu): a bf16 slab
-// or an f32 one (args.sdt), armed or not (args.verdict), at tile tm x tn
-// of conv_direct.cu's built_for.
+// The FFMA conv stage with bf16 x and bias on an f32 (conv_bfp) slab
+// (conv_direct_bf16.cu), armed or not (args.verdict), at tile tm x tn of
+// conv_direct.cu's built_for.
 cudaError_t launch_conv_stage_bf16(int tm, int tn, const ConvArgs& a,
                                    size_t smem, cudaStream_t stream,
                                    const GemmPtrs& p);
+
+// The bf16 tensor-core conv stage (conv_direct_bf16.cu: bf16 x, bias and
+// slab).  A block of BM / 32 x 2 warps owns a BM x BN tile; its ring holds
+// kMmaStages k-steps of 16 reduction indices, A rows padded to 24 bf16
+// and B rows to BN + 8, so that ldmatrix reads them without bank
+// conflicts.
+constexpr int kMmaStages = 4;
+constexpr int kMmaApad = kBK + 8;
+constexpr int kMmaBpad = 8;
+
+__host__ __device__ constexpr int mma_threads(int bm) { return 2 * bm; }
+
+// Shared memory of one tensor-core block: the bf16 rings, or the f32 BM x
+// BN conv tile of an LRN in this stage where that is larger (it takes
+// the rings' place after the loop), then the per-reduction-index tables
+// (two ints a reduction index, one a column) and, armed, the ABFT
+// partial sums (one int a thread).
+inline size_t mma_smem_bytes(int bm, int bn, int R, bool armed) {
+  const size_t ring = (size_t)kMmaStages
+                      * (bm * kMmaApad + kBK * (bn + kMmaBpad)) * 2;
+  const size_t tile = (size_t)bm * bn * sizeof(float);
+  return (ring > tile ? ring : tile)
+         + (2 * (size_t)R + bn + (armed ? mma_threads(bm) : 0))
+               * sizeof(int);
+}
+
+// The tensor-core route's block tiles (kernels/conv/direct.py's
+// MMA_TILES), each built for 16-byte copies and for 2-byte loads of x and
+// of the slab, so any slab and any x.
+inline bool mma_built_for(int bm, int bn) {
+  return (bm == 64 && (bn == 64 || bn == 96 || bn == 128))
+         || (bm == 128 && bn == 128);
+}
+
+// VA: 16-byte cp.async copies of x (C % 8 == 0, x 16-byte aligned), else
+// 2-byte loads staged through registers; VB the same for the slab (Kb % 8
+// == 0, the slab 16-byte aligned).
+cudaError_t launch_conv_stage_mma(int bm, int bn, const ConvArgs& a,
+                                  size_t smem, bool va, bool vb,
+                                  cudaStream_t stream, const GemmPtrs& p);
 
 }  // namespace conv_direct_impl

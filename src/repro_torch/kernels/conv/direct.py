@@ -11,17 +11,25 @@ kernel's exact arguments (input, packed slab, bias, plan, flags).
 The launch geometry is pure Python here (:func:`conv_tile`,
 :func:`tile_cols`, :func:`conv_grid`, :func:`smem_bytes`,
 :func:`scratch_shape`, :func:`block_tile`), mirrored by the launcher, so
-the CPU tests check it.  The conv stage's block tile is a knob: the
-launcher is built for the :data:`TILES`, and every tile gives the same
-bits (each output is one thread's ordered FMA chain), so the measured
-autotuner (``core/autotune.py``) picks one per layer on speed alone.
+the CPU tests check it; each answers by the slab's dtype, which fixes the
+route.  The conv stage's block tile is a knob: the f32 route is built
+for the :data:`TILES`, the bf16 route for the :data:`MMA_TILES`, and
+every tile of a route gives the same bits, so the measured autotuner
+(``core/autotune.py``) picks one per layer on speed alone.
 
-Element types (the reference's bf16 model): x and the bias are float32 or
-bfloat16, the slab is x's type, or float32 under a bfloat16 x (a
-``conv_bfp`` slab, which the reference dequantizes to f32;
-:func:`check_cuda_inputs`); the kernel widens them to f32 as it loads
-them, computes and keeps the conv map in f32 and rounds only its output
-to x's type, as the plain version does.
+Element types and routes (the reference's bf16 model): x and the bias are
+float32 or bfloat16, the slab is x's type, or float32 under a bfloat16 x
+(a ``conv_bfp`` slab, which the reference dequantizes to f32;
+:func:`check_cuda_inputs`).  An f32 slab runs on the FFMA route: the
+kernel widens its inputs to f32 as it loads them, so bf16 x on an f32
+slab is bit-equal to the f32 kernel on the widened inputs, rounded.  A
+bf16 slab (bf16 x) runs on the tensor cores: bf16 ``mma.sync`` products,
+which are the reference's exactly, summed in f32 in k-steps of 16
+reduction indices.  Its sums differ from the FFMA route's by f32 noise,
+so its output is within one bf16 step of the plain version and of the
+FFMA route's on the widened inputs, not bit-equal to the latter.
+Either route keeps the conv map in f32 and rounds only its output to x's
+type, as the plain version does.
 
 ABFT (``checksum=True``, the reference's armed variant): the slab carries
 a checksum row in every tile, the kernel checks the whole slab once a
@@ -55,9 +63,18 @@ TILE_COLS = (64, 96)        # output channels (columns) of a default tile
 # tiles for any slab, the others for 16-byte slab copies (Kb % 4 == 0)
 TILES = ((64, 64), (64, 96), (64, 128), (128, 64), (128, 96))
 ANY_SLAB_TILES = ((64, 64), (64, 96))
-BK = 16                     # reduction chunk
+BK = 16                     # reduction chunk (the bf16 route's k-step)
 STAGES = 3                  # cp.async ring depth
 ABFT_SMEM_INTS = 256        # an armed block's partial sums (csrc/abft.cuh)
+# the bf16-slab route's tensor-core tiling (csrc/conv_direct_bf16.cu): its
+# own block tiles (2 * rows threads), each built for any slab and any x;
+# its default columns; its ring depth in k-steps and the bf16 padding of
+# its A and B rows in shared memory
+MMA_TILES = ((64, 64), (64, 96), (64, 128), (128, 128))
+MMA_TILE_COLS = (64, 96, 128)
+MMA_STAGES = 4
+MMA_APAD = 8
+MMA_BPAD = 8
 # pooled outputs x channels one epilogue-stage block aims for
 EPILOGUE_OUTPUTS = 2048
 
@@ -191,19 +208,41 @@ def conv2d_direct_plain(x, w_tiles, bias, p: DirectPlan, *, relu: bool,
     return (y, dma.checksum_mismatches(w_tiles)) if p.checksum else y
 
 
+def mma_route(slab_dtype) -> bool:
+    """Whether a slab of this dtype runs on the bf16 tensor-core route (a
+    bf16 slab, under a bf16 x) rather than the FFMA one."""
+    return slab_dtype == torch.bfloat16
+
+
+def route_tiles(slab_dtype=torch.float32) -> tuple:
+    """The block tiles the route of a slab of ``slab_dtype`` is built
+    for."""
+    return MMA_TILES if mma_route(slab_dtype) else TILES
+
+
 def conv_tile(p: DirectPlan, rows: int | None = None,
-              cols: int | None = None) -> tuple[int, int]:
-    """The conv stage's (rows, columns) block tile.  A None side takes
-    the default: BM rows, and 64 or 96 columns, whichever pads K less (64
-    on a tie).  A tile the launcher is not built for for this slab raises;
-    it never falls back to another tile."""
-    tile = (BM if rows is None else rows,
-            min(TILE_COLS, key=lambda bn: (-(-p.K // bn) * bn, bn))
-            if cols is None else cols)
-    if tile not in TILES:
-        raise ValueError(f"conv_direct is not built for a {tile} block "
-                         f"tile (rows, columns); it is built for {TILES}")
-    if tile not in ANY_SLAB_TILES and p.Kb % 4:
+              cols: int | None = None, *,
+              slab_dtype=torch.float32) -> tuple[int, int]:
+    """The conv stage's (rows, columns) block tile on the route of a slab
+    of ``slab_dtype``.  A None side takes the default: BM rows, and of
+    the route's default column counts (the FFMA route: 64 or 96; the
+    tensor-core route: 64, 96 or 128) the one that pads K least, the
+    narrowest on a tie (more blocks in flight: conv2's 64 x 64 beat its
+    64 x 128 on the card, PERF.md §6).  A tile the launcher is not
+    built for for this slab raises; it never falls back to another
+    tile."""
+    mma = mma_route(slab_dtype)
+    if cols is None:
+        cols = min(MMA_TILE_COLS if mma else TILE_COLS,
+                   key=lambda bn: (-(-p.K // bn) * bn, bn))
+    tile = (BM if rows is None else rows, cols)
+    tiles = route_tiles(slab_dtype)
+    if tile not in tiles:
+        route = "bf16 tensor-core" if mma else "f32"
+        raise ValueError(f"conv_direct's {route} route is not built for a "
+                         f"{tile} block tile (rows, columns); it is built "
+                         f"for {tiles}")
+    if not mma and tile not in ANY_SLAB_TILES and p.Kb % 4:
         raise ValueError(f"conv_direct's {tile} block tile takes 16-byte "
                          f"slab copies, and this slab's Kb = {p.Kb} is not "
                          f"a multiple of 4; tiles for any slab: "
@@ -211,44 +250,67 @@ def conv_tile(p: DirectPlan, rows: int | None = None,
     return tile
 
 
-def tile_cols(p: DirectPlan, tile=None) -> int:
+def _tile(p, tile, slab_dtype):
+    return conv_tile(p, *(tile or (None, None)), slab_dtype=slab_dtype)
+
+
+def tile_cols(p: DirectPlan, tile=None, *, slab_dtype=torch.float32) -> int:
     """Output channels (GEMM columns) of one conv-stage block tile
     (``tile``: (rows, columns), None sides default; see :func:`conv_tile`)."""
-    return conv_tile(p, *(tile or (None, None)))[1]
+    return _tile(p, tile, slab_dtype)[1]
 
 
-def conv_grid(p: DirectPlan, B: int, tile=None) -> tuple[int, int, int]:
+def conv_grid(p: DirectPlan, B: int, tile=None, *,
+              slab_dtype=torch.float32) -> tuple[int, int, int]:
     """The conv stage's grid: (M tiles, N tiles, groups), M = B * out_h *
     out_w conv pixels in tiles of the block tile's rows."""
-    rows, cols = conv_tile(p, *(tile or (None, None)))
+    rows, cols = _tile(p, tile, slab_dtype)
     return -(-(B * p.out_h * p.out_w) // rows), -(-p.K // cols), p.g
 
 
-def smem_bytes(p: DirectPlan, tile=None) -> int:
+def block_threads(tile, slab_dtype=torch.float32) -> int:
+    """Threads of one conv-stage block: 256 on the FFMA route, two a tile
+    row (rows / 32 x 2 warps) on the tensor-core route."""
+    return 2 * tile[0] if mma_route(slab_dtype) else 256
+
+
+def smem_bytes(p: DirectPlan, tile=None, *, slab_dtype=torch.float32) -> int:
     """Dynamic shared memory of one conv-stage block (as
-    ``repro_conv_direct`` sizes it): the A ring (rows x (BK + 4) floats a
-    stage), the B ring (BK x columns), two ints per reduction index and,
-    armed, the ABFT partial sums."""
-    rows, cols = conv_tile(p, *(tile or (None, None)))
+    ``repro_conv_direct`` sizes it).  The FFMA route: the A ring (rows x
+    (BK + 4) floats a stage), the B ring (BK x columns), two ints per
+    reduction index and, armed, the ABFT partial sums.  The tensor-core
+    route: its bf16 rings (rows x (BK + 8) and BK x (columns + 8) a
+    stage) or the f32 rows x columns conv tile of an LRN in the stage,
+    whichever is larger, two ints per reduction index and one a column,
+    and, armed, one int a thread."""
+    rows, cols = _tile(p, tile, slab_dtype)
     R = p.r * p.r * p.C
+    if mma_route(slab_dtype):
+        ring = 2 * MMA_STAGES * (rows * (BK + MMA_APAD)
+                                 + BK * (cols + MMA_BPAD))
+        armed = block_threads((rows, cols), slab_dtype) if p.checksum else 0
+        return max(ring, 4 * rows * cols) + 4 * (2 * R + cols + armed)
     return (STAGES * (rows * (BK + 4) + BK * cols) + 2 * R
             + (ABFT_SMEM_INTS if p.checksum else 0)) * 4
 
 
-def lrn_in_conv_stage(p: DirectPlan, lrn, tile=None) -> bool:
+def lrn_in_conv_stage(p: DirectPlan, lrn, tile=None, *,
+                      slab_dtype=torch.float32) -> bool:
     """Whether the conv stage applies the LRN itself: one block tile holds
     all of a pixel's channels (one group, K <= the tile's columns)."""
-    return lrn is not None and p.g == 1 and p.K <= tile_cols(p, tile)
+    return lrn is not None and p.g == 1 and p.K <= tile_cols(
+        p, tile, slab_dtype=slab_dtype)
 
 
-def scratch_shape(p: DirectPlan, B: int, lrn, pool,
-                  tile=None) -> tuple | None:
+def scratch_shape(p: DirectPlan, B: int, lrn, pool, tile=None, *,
+                  slab_dtype=torch.float32) -> tuple | None:
     """The conv map y (LRN'd where the conv stage applies the LRN) that the
     conv stage writes for the second launch to pool, or to LRN and pool,
     (B, out_h, out_w, g*K) f32 whatever x's type; None when there is no
     pool and no LRN left, and the conv stage writes the output itself."""
     pooled = pool is not None and tuple(pool) != (1, 1)
-    if not pooled and (lrn is None or lrn_in_conv_stage(p, lrn, tile)):
+    if not pooled and (lrn is None or lrn_in_conv_stage(
+            p, lrn, tile, slab_dtype=slab_dtype)):
         return None
     return (B, p.out_h, p.out_w, p.Kfull)
 
@@ -344,11 +406,11 @@ def _conv2d_direct_cuda(x, w_tiles, bias, p: DirectPlan, *, relu, lrn,
     # the reference does) under a bf16 x
     check_cuda_inputs("conv_direct", x, w_tiles, bias, p.Kfull, verdict,
                       slab_dtype=(x.dtype, torch.float32))
-    tile = conv_tile(p, *(tile or (None, None)))
+    tile = _tile(p, tile, w_tiles.dtype)
     B = x.shape[0]
     out = torch.empty((B, p.ph_out, p.pw_out, p.Kfull), device=x.device,
                       dtype=x.dtype)
-    shape = scratch_shape(p, B, lrn, pool, tile)
+    shape = scratch_shape(p, B, lrn, pool, tile, slab_dtype=w_tiles.dtype)
     y = out if shape is None else torch.empty(shape, device=x.device,
                                               dtype=torch.float32)
     args = conv_args(x, p, relu=relu, lrn=lrn, pool=pool,
@@ -381,8 +443,9 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
     ``batch_block``) shape only the slab plan; both ``weight_prefetch``
     values launch the same kernel, whose cp.async ring always stages the
     weights ahead of their use.  ``tile_rows``/``tile_cols`` pick the conv
-    stage's block tile (:func:`conv_tile`; None: the default); the plain
-    version checks the tile and computes the same function.
+    stage's block tile on the slab's route (:func:`conv_tile`; None: the
+    default); the plain version checks the tile and computes the same
+    function.
 
     ``checksum=True`` (ABFT) returns ``(y, verdict)``: the slab's
     mismatched checksum lanes added to ``verdict`` (an int32 0-dim tensor;
@@ -392,9 +455,9 @@ def conv2d_direct(x, w, b=None, w_packed=None, *, stride: int = 1,
              pool=pool, groups=groups, row_block=row_block,
              pool_row_block=pool_row_block, c_block=c_block,
              k_block=k_block, batch_block=batch_block, checksum=checksum)
-    tile = conv_tile(p, tile_rows, tile_cols)
     w_tiles = dma.resolve_slab(w, w_packed, p.weights,
                                lambda w: pack_weights(w, p))
+    tile = conv_tile(p, tile_rows, tile_cols, slab_dtype=w_tiles.dtype)
     bias = (torch.zeros((p.Kfull,), device=x.device, dtype=x.dtype)
             if b is None else b)
     verdict = new_verdict(x, verdict) if checksum else None

@@ -246,13 +246,15 @@ def _spec_fusion(spec: ConvSpec):
     return lrn_p, pool
 
 
-def kernel_tile(kernel: str, p, knobs: ConvPlan) -> tuple[int, int]:
+def kernel_tile(kernel: str, p, knobs: ConvPlan,
+                slab_dtype=torch.float32) -> tuple[int, int]:
     """The (rows, columns) GEMM block tile the resolved CUDA kernel
-    launches for the plan ``p`` under ``knobs``; raises for a tile it is
-    not built for."""
+    launches for the plan ``p`` under ``knobs`` on a slab of
+    ``slab_dtype`` (the direct kernel's route follows it); raises for a
+    tile it is not built for."""
     tile = (p, knobs.tile_rows, knobs.tile_cols)
     return (_winograd_k.gemm_tile(*tile) if kernel == "cuda-winograd"
-            else _direct_k.conv_tile(*tile))
+            else _direct_k.conv_tile(*tile, slab_dtype=slab_dtype))
 
 
 def _kernel_weight_plan(spec: ConvSpec, kernel: str, in_shape, w_shape, *,
@@ -350,8 +352,8 @@ def pack_conv_weights(spec: ConvSpec, in_shape, w, *, bfp_pack: bool = False,
         p = _kernel_weight_plan(spec, kernel, tuple(in_shape),
                                 tuple(w.shape), lrn=lrn_p, pool=pool,
                                 knobs=knobs, abft=abft)
-        kernel_tile(kernel, p, knobs)
         data = _pack_for_plan(kernel, w, p, bfp_pack)
+        kernel_tile(kernel, p, knobs, data.dtype)
     else:
         data = _quantize_filters(w) if bfp_pack else None
     ctx = pack_context(spec, kernel, bfp_pack=bfp_pack, abft=abft,

@@ -277,6 +277,36 @@ def test_enumeration_leaves_out_tiles_the_slab_cannot_take():
     assert len(plans) == len(direct.ANY_SLAB_TILES)
 
 
+@pytest.mark.parametrize("name,kw,H,c_in,c_out", ALEXNET_LAYERS[:2]
+                         + FULL_LAYERS[:2])
+def test_direct_candidates_follow_the_dtype(name, kw, H, c_in, c_out):
+    """The autotuner's tiles by dtype: bf16 candidates for cuda-direct come
+    from the tensor-core route's list (a bf16 slab takes every one of
+    them), f32 ones from the FFMA route's TILES; kernels 2-3 draw from
+    their one list at either dtype."""
+    assert at.kernel_tiles("cuda-direct", torch.bfloat16) == direct.MMA_TILES
+    assert at.kernel_tiles("cuda-direct", torch.float32) == direct.TILES
+    assert at.kernel_tiles("cuda-winograd", torch.bfloat16) == \
+        at.kernel_tiles("cuda-winograd") == winograd.TILES
+    spec = t_conv.ConvSpec(route="pallas", **kw)
+    shape = (8, H, H, c_in)
+    w_shape = (kw["kernel"], kw["kernel"], c_in // kw.get("groups", 1),
+               c_out)
+    assert t_conv.resolve_kernel(spec, in_hw=H) == "cuda-direct"
+    for dtype, tiles in ((torch.bfloat16, direct.MMA_TILES),
+                         (torch.float32, direct.TILES)):
+        plans = at.enumerate_plans(spec, shape, w_shape, dtype=dtype)
+        got = [at._effective_signature(spec, "cuda-direct", shape, w_shape,
+                                       p, dtype)[2] for p in plans]
+        assert plans[0] == t_conv.DEFAULT_PLAN
+        assert sorted(got) == sorted(tiles), dtype
+    # Kb = 10: every tensor-core tile, only the any-slab FFMA tiles
+    dspec = t_conv.ConvSpec(kernel=5, groups=2, relu=True, route="pallas")
+    assert len(at.enumerate_plans(dspec, (2, 9, 9, 6), (5, 5, 3, 20),
+                                  dtype=torch.bfloat16)) == len(
+        direct.MMA_TILES)
+
+
 def test_hill_climb_neighbors_stay_on_the_built_grid():
     nbs = at._neighbors(t_conv.DEFAULT_PLAN, (64, 96), direct.TILES)
     assert sorted((p.tile_rows, p.tile_cols) for p in nbs) == [
@@ -415,6 +445,49 @@ def test_every_tile_grid_covers_the_gemm_within_shared_memory(
                                           + mod.BK * cols) + extra
                             + (256 if checksum else 0))
         assert smem <= SMEM_LIMIT, (name, tile, smem)
+
+
+@pytest.mark.parametrize("checksum", [False, True], ids=["unarmed", "armed"])
+@pytest.mark.parametrize("name,kw,H,c_in,c_out,B", [
+    *(layer + (8,) for layer in FULL_LAYERS[:2]),
+    *(layer + (3,) for layer in ALEXNET_LAYERS[:2])])
+def test_mma_tile_grid_covers_the_gemm_within_shared_memory(
+        name, kw, H, c_in, c_out, B, checksum):
+    """The bf16-slab (tensor-core) route at every tile of its list: the
+    grid covers every conv pixel and channel once, the last block holds
+    at least one of each, two threads a tile row, and its shared memory
+    (the bf16 rings or an LRN's f32 tile, the tables, one ABFT int a
+    thread) fits an H100 block; the default tile is 64 x 96 at conv1 and
+    64 x 64 at conv2 (grids 379 x 1 x 1 and 92 x 2 x 2 at batch 8)."""
+    kernel, p, lrn = _kernel_plan(kw, B, H, c_in, c_out, checksum)
+    bf16 = torch.bfloat16
+    assert kernel == "cuda-direct"
+    for tile in direct.MMA_TILES:
+        rows, cols = tile
+        M = B * p.out_h * p.out_w
+        nm, nn, g = direct.conv_grid(p, B, tile, slab_dtype=bf16)
+        assert g == p.g
+        assert (nm - 1) * rows < M <= nm * rows
+        assert (nn - 1) * cols < p.K <= nn * cols
+        assert direct.block_threads(tile, bf16) == 2 * rows
+        ring = 2 * direct.MMA_STAGES * (rows * (direct.BK + 8)
+                                        + direct.BK * (cols + 8))
+        smem = direct.smem_bytes(p, tile, slab_dtype=bf16)
+        assert smem == max(ring, 4 * rows * cols) + 4 * (
+            2 * p.r * p.r * p.C + cols + (2 * rows if checksum else 0))
+        assert smem <= SMEM_LIMIT, (name, tile, smem)
+        assert direct.lrn_in_conv_stage(p, lrn, tile, slab_dtype=bf16) == (
+            lrn is not None and p.g == 1 and p.K <= cols)
+    if B == 8:
+        want = {"conv1": ((64, 96), (379, 1, 1)),
+                "conv2": ((64, 64), (92, 2, 2))}[name]
+        assert direct.conv_tile(p, slab_dtype=bf16) == want[0]
+        assert direct.conv_grid(p, B, slab_dtype=bf16) == want[1]
+        assert direct.scratch_shape(p, B, lrn, (3, 2), slab_dtype=bf16) \
+            == (B, p.out_h, p.out_w, p.Kfull)
+    for tile in ((128, 64), (128, 96), (32, 64)):
+        with pytest.raises(ValueError, match="tensor-core"):
+            direct.conv_tile(p, *tile, slab_dtype=bf16)
 
 
 def test_conv1_lrn_moves_stage_with_the_tile():

@@ -146,8 +146,9 @@ def test_packed_slab_dtypes_equal_the_references(name, kind, kw, r, B, H,
 
 
 def test_bf16_kernel_rule_holds_for_the_plain_versions():
-    """The rule the card holds kernels 1-3 to, on their plain versions: a
-    bf16 call equals the f32 call on the widened inputs, rounded once."""
+    """The rule the card holds kernels 2-3 and kernel 1 on an f32 slab to,
+    on kernels 1-3's plain versions: a bf16 call equals the f32 call on
+    the widened inputs, rounded once."""
     for name, kind, kw, r, B, H, c_in, c_out in LAYERS:
         x, w, b = (_bf16(a) for a in _inputs(
             3, B, H, c_in, c_out, r, kw.get("groups", 1)))
